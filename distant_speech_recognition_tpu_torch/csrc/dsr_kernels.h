@@ -1,0 +1,40 @@
+// Plain C interface of the port's CUDA kernels, loaded with ctypes by
+// distant_speech_recognition_tpu_torch/kernels/_build.py.
+//
+// Every pointer is a device pointer to contiguous float32 data and every
+// entry point enqueues on the given stream without synchronising.  Each
+// returns 0 on success, a cudaError_t from cudaGetLastError() after the
+// launch, or DSR_ERR_ARGS when the shapes are outside what the kernel takes.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#define DSR_ERR_ARGS 100000
+
+#ifdef __cplusplus
+extern "C" {
+#endif
+
+const char* dsr_error_string(int code);
+
+int dsr_analysis_tm(const float* x, const float* hr, const float* A, float* out,
+                    int BC, int T, int Tf, int M, int m, int D, int shift,
+                    cudaStream_t stream);
+
+int dsr_synthesis_tm(const float* Yp, const float* S, const float* gf, float* out,
+                     int T_in, int B, int M, int m, int R, int D, int pd, int T_out,
+                     cudaStream_t stream);
+
+int dsr_gsc_rls_zelinski(const float* Yp, const float* wq, const float* bm,
+                         const float* ta, float* out, int Tf, int B, int C, int Bc,
+                         int M, float beta, float one_minus_beta, float gamma,
+                         float mu, float delta, float inv_delta, float reg_param,
+                         float sil_thresh, int constraint_option, float alpha2,
+                         float max_wa_l2norm, int min_frames, float pf_alpha,
+                         float one_minus_pf_alpha, float pf_gain,
+                         float spectral_floor, int real_mode, int pf_min_frames,
+                         cudaStream_t stream);
+
+#ifdef __cplusplus
+}
+#endif
