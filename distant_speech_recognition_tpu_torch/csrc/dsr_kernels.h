@@ -35,6 +35,20 @@ int dsr_gsc_rls_zelinski(const float* Yp, const float* wq, const float* bm,
                          float spectral_floor, int real_mode, int pf_min_frames,
                          cudaStream_t stream);
 
+// kalman = 0: NLMS with p1 = delta, p2 = epsilon; kalman = 1: p1 = beta, p2 = sigma2
+int dsr_aec_scan(const float* A, const float* V, float* E, int Tf, int B, int C, int M,
+                 int kalman, float p1, float p2, float thr, cudaStream_t stream);
+
+// G, R, r: interleaved complex64
+int dsr_wpe_stats(const float* Yp, const float* G, float* R, float* r, int Tf, int B, int C,
+                  int M, int P, int lowerN, int has_g, cudaStream_t stream);
+
+int dsr_wpe_resid(const float* Yp, const float* G, float* out, int Tf, int B, int C, int M,
+                  int P, int lowerN, cudaStream_t stream);
+
+// R, r, x: interleaved complex64
+int dsr_gj_solve(const float* R, const float* r, float* x, int N, int n, cudaStream_t stream);
+
 #ifdef __cplusplus
 }
 #endif

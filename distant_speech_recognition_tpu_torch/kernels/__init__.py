@@ -2,7 +2,9 @@
 
 Each kernel wrapper (`ops.filterbank_kernels.analysis_tm_fused`,
 `ops.filterbank_kernels.synthesis_tm_fused`,
-`models.fused_scan.gsc_rls_zelinski`) keeps a plain integer attribute
+`models.fused_scan.gsc_rls_zelinski`, `ops.aec_kernels.aec_scan`,
+`ops.wpe_kernels.wpe_stats`, `ops.wpe_kernels.wpe_resid`,
+`ops.wpe_kernels.gj_solve`) keeps a plain integer attribute
 ``launches`` that it increments exactly where it launches its kernel, so a
 run can show that the main path went through the kernels.
 """
@@ -16,12 +18,18 @@ __all__ = ["launch_counts", "reset_launch_counts", "check_cuda_tensor", "stream_
 
 def _wrappers():
     from ..models.fused_scan import gsc_rls_zelinski
+    from ..ops.aec_kernels import aec_scan
     from ..ops.filterbank_kernels import analysis_tm_fused, synthesis_tm_fused
+    from ..ops.wpe_kernels import gj_solve, wpe_resid, wpe_stats
 
     return {
         "analysis_tm": analysis_tm_fused,
         "gsc_rls_zelinski": gsc_rls_zelinski,
         "synthesis_tm": synthesis_tm_fused,
+        "aec_scan": aec_scan,
+        "wpe_stats": wpe_stats,
+        "wpe_resid": wpe_resid,
+        "gj_solve": gj_solve,
     }
 
 

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled at first use with ``nvcc`` for Hopper (``sm_90a``)
-into one shared library with a plain C interface (``csrc/dsr_kernels.h``),
-which is loaded with ctypes.  The library lands in the package's ``build/``
+The sources are compiled at first use with ``nvcc`` for Hopper (``sm_90a``),
+one ``nvcc`` process per source, all started together, and linked into one
+shared library with a plain C interface (``csrc/dsr_kernels.h``), which is
+loaded with ctypes.  The library lands in the package's ``build/``
 directory under a name that carries a hash of the sources and flags, so an
 edited source is rebuilt and an unchanged one is reused.  Nothing here runs
 when the module is imported.
@@ -24,11 +25,14 @@ __all__ = ["CSRC_DIR", "BUILD_DIR", "SOURCES", "nvcc_path", "build", "library", 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("analysis_tm.cu", "gsc_rls_zelinski.cu", "synthesis_tm.cu")
+SOURCES = (
+    "analysis_tm.cu", "gsc_rls_zelinski.cu", "synthesis_tm.cu",
+    "aec_scan.cu", "wpe_stats.cu", "wpe_resid.cu", "gj_solve.cu",
+)
 HEADERS = ("dsr_kernels.h",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _lock = threading.Lock()
@@ -45,6 +49,10 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
         _F, _F, _F, _F, _F, _F, _F, _F, _I, _F, _F, _I, _F, _F, _F, _F, _I, _I, _P,
     ],
+    "dsr_aec_scan": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P],
+    "dsr_wpe_stats": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "dsr_wpe_resid": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "dsr_gj_solve": [_P, _P, _P, _I, _I, _P],
 }
 
 
@@ -76,19 +84,27 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", tmp,
-               *(str(CSRC_DIR / s) for s in SOURCES)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        build_log = res.stdout + res.stderr
+    nvcc = nvcc_path()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, s + ".o") for s in SOURCES]
+        procs = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", "-o", obj, str(CSRC_DIR / s)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for s, obj in zip(SOURCES, objs)
+        ]
+        logs = [p.communicate()[0] for p in procs]
+        build_log = "".join(logs)
+        failed = [s for s, p in zip(SOURCES, procs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
+        lib = os.path.join(tmp, "lib.so")
+        res = subprocess.run([nvcc, "-shared", "-o", lib, *objs], capture_output=True, text=True)
+        build_log += res.stdout + res.stderr
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{build_log}")
+        os.replace(lib, out)
     return out
 
 

@@ -18,6 +18,7 @@ import dataclasses
 
 import torch
 
+from ..ops.filterbank import pack_half, unpack_half
 from .beamforming import array_manifold, blocking_matrix, frame_energy_half
 from .postfilter import SPECTRAL_FLOOR, PostFilterType
 
@@ -206,13 +207,10 @@ def gsc_postfilter_fused(
     phi_pair = zc
     phi_diag = torch.zeros(batch + (F,), dtype=X.dtype, device=dev)
     ta_conj = torch.conj(wq_manifold)
-    zero = torch.zeros(batch + (C, 1), dtype=X.dtype, device=dev)
 
     outs = []
     for t in range(X.shape[0]):
-        Xr = X[t]
-        im = torch.cat([zero, Xr[..., F:], zero], dim=-1)
-        Xt = torch.complex(Xr[..., :F], im).movedim(-2, -1)  # [..., F, C]
+        Xt = unpack_half(X[t]).movedim(-2, -1)  # [..., F, C]
         energy_t = frame_energy_half(Xt[..., 0], M)
         state, Y = rls_step(state, Xt, energy_t, t)
 
@@ -233,5 +231,5 @@ def gsc_postfilter_fused(
                             torch.zeros_like(num))
         W = torch.clamp(ratio * (2.0 / (C - 1.0)), SPECTRAL_FLOOR, 1.0)
         out = Y * W if t > pf_min_frames else Y
-        outs.append(torch.cat([torch.real(out), torch.imag(out)[..., 1 : F - 1]], dim=-1))
+        outs.append(pack_half(out))
     return torch.stack(outs, dim=0)

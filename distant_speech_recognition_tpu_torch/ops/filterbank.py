@@ -35,7 +35,25 @@ __all__ = [
     "num_analysis_frames",
     "analysis_half_real_tm",
     "synthesis_half_real_tm",
+    "unpack_half",
+    "pack_half",
 ]
+
+
+def unpack_half(Yp: torch.Tensor) -> torch.Tensor:
+    """Packed real lanes ``[..., M]`` (``[Re(0..M/2) | Im(1..M/2-1)]``) ->
+    complex half band ``[..., M/2+1]``; the DC and Nyquist bins have no Im
+    lane and come out real."""
+    F = Yp.shape[-1] // 2 + 1
+    zero = Yp.new_zeros(Yp.shape[:-1] + (1,))
+    return torch.complex(Yp[..., :F], torch.cat([zero, Yp[..., F:], zero], dim=-1))
+
+
+def pack_half(X: torch.Tensor) -> torch.Tensor:
+    """Inverse of `unpack_half`: complex ``[..., F]`` -> packed ``[..., 2(F-1)]``
+    (the Im parts of the DC and Nyquist bins are dropped)."""
+    F = X.shape[-1]
+    return torch.cat([X.real, X.imag[..., 1 : F - 1]], dim=-1)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -92,7 +92,9 @@ def test_kernel_wrappers_on_cpu_run_the_plain_versions(protos):
     torch.testing.assert_close(Yr, t_fb.analysis_half_real_tm(x, h, tp, packed=True), rtol=0, atol=0)
     y = synthesis_tm_fused(Yr[:, :, 0], g, tp)
     torch.testing.assert_close(y, t_fb.synthesis_half_real_tm(Yr[:, :, 0], g, tp), rtol=0, atol=0)
-    assert kernels.launch_counts() == {"analysis_tm": 0, "gsc_rls_zelinski": 0, "synthesis_tm": 0}
+    counts = kernels.launch_counts()
+    assert {"analysis_tm", "synthesis_tm"} <= set(counts)
+    assert set(counts.values()) == {0}
 
 
 def test_round_trip_reconstructs(protos):

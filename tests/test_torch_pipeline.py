@@ -88,11 +88,14 @@ def test_from_jax_params_matches_jax(case):
 
 
 def test_cpu_run_launches_no_kernel(case):
-    enh = t_pipe.build_pipeline(_port_cfg(), case["mpos"], case["delays"], case["h"], case["g"])
+    enh = t_pipe.build_pipeline(_port_cfg(), case["mpos"], case["delays"], case["h"], case["g"],
+                                device="cpu")
     kernels.reset_launch_counts()
     with torch.no_grad():
         enh(torch.from_numpy(case["x"][:1, :, :2000]))
-    assert kernels.launch_counts() == {"analysis_tm": 0, "gsc_rls_zelinski": 0, "synthesis_tm": 0}
+    counts = kernels.launch_counts()
+    assert {"analysis_tm", "gsc_rls_zelinski", "synthesis_tm"} <= set(counts)
+    assert set(counts.values()) == {0}
 
 
 def test_cuda_device_raises_without_a_card(case):
@@ -107,7 +110,8 @@ def test_cuda_device_raises_without_a_card(case):
                                 dict(postfilter="mccowan"), dict(postfilter="none")])
 def test_unported_configurations_raise(case, kw):
     with pytest.raises(NotImplementedError):
-        t_pipe.build_pipeline(_port_cfg(**kw), case["mpos"], case["delays"], case["h"], case["g"])
+        t_pipe.build_pipeline(_port_cfg(**kw), case["mpos"], case["delays"], case["h"], case["g"],
+                              device="cpu")
 
 
 def test_more_than_one_constraint_raises(case):
@@ -121,7 +125,8 @@ def test_more_than_one_constraint_raises(case):
 
 
 def test_input_on_another_device_or_shape_raises(case):
-    enh = t_pipe.build_pipeline(_port_cfg(), case["mpos"], case["delays"], case["h"], case["g"])
+    enh = t_pipe.build_pipeline(_port_cfg(), case["mpos"], case["delays"], case["h"], case["g"],
+                                device="cpu")
     with pytest.raises(ValueError):
         enh(torch.zeros(C, T))
     with pytest.raises(ValueError):
