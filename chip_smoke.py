@@ -32,11 +32,37 @@ Phases (each raises on failure; the script then exits non-zero):
      its plain version, its least time on the card and, where one exists, one
      PyTorch call computing the same function) and of the whole path;
   7. torch.profiler over three config-4 forwards: device time per kernel and
-     the device's idle share (reported, not checked).
+     the device's idle share (reported, not checked);
+  8. the fixed-weight path (BASELINE configs 1-2, D&S and SD-MVDR +
+     Zelinski): build_pipeline() with the default device on B=256 x 4 ch x
+     10 s, launch counts around one forward (exactly one fixed-weight
+     one-kernel chain, no other kernel), the output and the fixed-weight
+     Zelinski kernel against their plain versions at that shape, CUDA-event
+     times of the path, the one-kernel chain, the Zelinski kernel alone and
+     the chain of split kernels, and a profile of three D&S forwards; then
+     the split form of the path, where the one-kernel chain's frame tiles
+     cannot hold the synthesis halo (8 channels, r=2, B=32): exactly one
+     launch each of the analysis, fixed-weight Zelinski and synthesis
+     kernels, held against the plain chain;
+  9. the config-5 path (SRP-PHAT DOA -> per-utterance steered GSC-RLS +
+     Zelinski): build_steered_pipeline() with the default device on B=64 x
+     4 ch x 10 s from a circular array, one source per utterance placed at a
+     direction of the 72-point grid, launch counts around one forward
+     (analysis, steered scan, synthesis once each, no other kernel), the
+     DOA equal to the plain chain's, the output and the steered scan against
+     their plain versions, CUDA-event times of the path, the steered scan and
+     the SRP stage, and a profile of three forwards.
+Phase 3 also holds, at B=8: the fixed-weight Zelinski kernel against its
+plain version and the one-kernel fixed-weight chain against the chain of
+split kernels and against the plain chain (D&S, SD-MVDR and LCMV weights,
+both Zelinski modes, pf_min_frames 0 and 2), and the steered scan against
+its plain version with eight different steerings and, given one steering for
+all, against the flagship scan bit for bit.
 The line before the last two is a JSON object with one entry per kernel
-("launches" counts both paths' runs, "launches_by_path" each path's);
-the line before the last is the card's name and power limit; the last line
-is {"ok": true, "device": {...}}.  Imports nothing of JAX.
+("launches" counts the runs of all five paths, "launches_by_path" each
+path's, one forward each); the line before the last is the card's name and
+power limit; the last line is {"ok": true, "device": {...}}.  Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -104,6 +130,7 @@ def main() -> None:
         gsc_postfilter_fused,
     )
     from distant_speech_recognition_tpu_torch.models.aec import kalman_aec, nlms_aec
+    from distant_speech_recognition_tpu_torch.models.beamforming import array_manifold
     # the packed WPE path's loading (with its default constants) and
     # apply-time tap truncation, between the kernels held below
     from distant_speech_recognition_tpu_torch.models.dereverberation import _load as wpe_load
@@ -111,13 +138,24 @@ def main() -> None:
         _truncate_taps as wpe_truncate_taps,
     )
     from distant_speech_recognition_tpu_torch.models.dereverberation import wpe_multichannel
+    from distant_speech_recognition_tpu_torch.models.fixed_weight import (
+        analysis_fw_synthesis,
+        zelinski_apply,
+        zelinski_apply_plain,
+    )
     from distant_speech_recognition_tpu_torch.models.fused_scan import (
         analysis_gsc_synthesis,
         gsc_rls_zelinski,
+        gsc_rls_zelinski_steered,
     )
     from distant_speech_recognition_tpu_torch.models.pipeline import (
+        FIXED_WEIGHT,
         PipelineConfig,
         build_pipeline,
+    )
+    from distant_speech_recognition_tpu_torch.models.steered import (
+        build_steered_pipeline,
+        steering_weights,
     )
     from distant_speech_recognition_tpu_torch.ops.aec_kernels import aec_scan
     from distant_speech_recognition_tpu_torch.ops.filterbank import (
@@ -198,6 +236,7 @@ def main() -> None:
 
     def plain_chain(x):
         return plain_synthesis(plain_scan(plain_analysis(x)))
+
 
     def kernel_chain(x):
         return analysis_gsc_synthesis(x, enh.h, enh.g, fb, *scan_args, A=enh.A, S=enh.S)
@@ -343,7 +382,49 @@ def main() -> None:
     G2 = wpe_truncate_taps(gj_solve_plain(wpe_load(R1), r1), C, lower)
     compare("wpe_resid", wpe_resid(Ya, G2, lower),
             pack_half(resid_plain(Xa, G2, lower).permute(2, 0, 1, 3)), 1e-5, "wpe_resid")
-    del xs, Yr_ref, Yp_ref, Yns, play_s, Vs, Ya, Xa, G0, R0, r0, Rk, rk, R1, r1, G1, G2
+    del Yp_ref, Yns, play_s, Vs, Ya, Xa, G0, R0, r0, Rk, rk, R1, r1, G1, G2
+
+    # fixed weights (configs 1-2; LCMV with one jammer at 2 pi/3): K7 against
+    # its plain version, K8 against the chain of split kernels K1 -> K7 -> K3
+    # (2e-4, the JAX package's mono-vs-split budget) and the plain chain (3e-4)
+    noise_delays = [geometry.calc_la_delays(mpos[:, :1], azimuth=2 * np.pi / 3)]
+    fixed = {bf: build_pipeline(dataclasses.replace(cfg, beamformer=bf), mpos, delays, h, g,
+                                noise_delays=noise_delays) for bf in FIXED_WEIGHT}
+    Yr_k1 = analysis_tm_fused(xs, enh.h, fb, A=enh.A)
+    for bf, enh_f in fixed.items():
+        w = (enh_f.wqH, enh_f.wq_manifold)
+        for pf_type, pf_min in ((1, 0), (1, 2), (2, 0), (2, 2)):
+            a = (cfg.pf_alpha, pf_type, pf_min)
+            tag = f"{bf}, pf_type {pf_type}, pf_min_frames {pf_min}"
+            Yz_ref = zelinski_apply_plain(Yr_ref, *w, *a)
+            compare(f"zelinski_apply {tag}", zelinski_apply(Yr_ref, *w, *a), Yz_ref, 3e-5,
+                    "zelinski_apply")
+            y8 = analysis_fw_synthesis(xs, enh.h, enh.g, fb, *w, *a, A=enh.A, S=enh.S)
+            compare(f"fw_mono vs K1->K7->K3 {tag}", y8,
+                    synthesis_tm_fused(zelinski_apply(Yr_k1, *w, *a), enh.g, fb, S=enh.S), 2e-4)
+            compare(f"fw_mono vs plain chain {tag}", y8, plain_synthesis(Yz_ref), 3e-4, "fw_mono")
+    del Yr_k1, Yz_ref, y8
+
+    # one steering per utterance (eight directions of a circular 100 mm
+    # array): K6 against its plain version; one steering for all: K6 is K2
+    ang = 2 * np.pi * np.arange(C) / C
+    mpos5 = np.c_[100.0 * np.cos(ang), 100.0 * np.sin(ang), np.zeros(C)]
+    d8 = np.stack([geometry.calc_ca_delays(mpos5, az, np.pi / 2)
+                   for az in np.deg2rad(10.0 + 45.0 * np.arange(8))])
+    vs8 = array_manifold(M, float(FS), torch.tensor(d8, dtype=torch.float32, device=dev))
+    steer8 = steering_weights(vs8)
+    scan_tail = scan_args[3:]
+    compare("gsc_rls_zelinski_steered, 8 steerings", gsc_rls_zelinski_steered(
+        Yr_ref, *steer8, *scan_tail), plain_scan(Yr_ref, steer8 + scan_tail), 2e-4,
+        "gsc_rls_zelinski_steered")
+    rows = [t.expand((8,) + t.shape) for t in scan_args[:3]]
+    same = torch.equal(gsc_rls_zelinski_steered(Yr_ref, *rows, *scan_tail),
+                       gsc_rls_zelinski(Yr_ref, *scan_args))
+    log(f"  gsc_rls_zelinski_steered, one steering for all, vs gsc_rls_zelinski: "
+        f"{'bit-identical' if same else 'DIFFERS'}")
+    if not same:
+        raise AssertionError("the steered scan with identical rows differs from the flagship scan")
+    del xs, Yr_ref, vs8, steer8, rows
 
     # -- 4. flagship path at real size ----------------------------------------
     B, secs = 256, 10
@@ -372,24 +453,6 @@ def main() -> None:
     if counts != want:
         raise AssertionError(f"flagship launches {counts}, the path needs {want}")
 
-    log(f"== 4b. kernels vs plain torch at the flagship shape (B={B}, {C} ch, {secs} s)")
-    with torch.no_grad():
-        Yr_ref = plain_analysis(x)
-        compare("analysis_tm", analysis_tm_fused(x, enh.h, fb, A=enh.A), Yr_ref, 2e-5,
-                "analysis_tm")
-        Yp_ref = plain_scan(Yr_ref)
-        compare("gsc_rls_zelinski", gsc_rls_zelinski(Yr_ref, *scan_args), Yp_ref, 2e-4,
-                "gsc_rls_zelinski")
-        del Yr_ref
-        y_ref = plain_synthesis(Yp_ref)  # = plain_chain(x)
-        compare("synthesis_tm", synthesis_tm_fused(Yp_ref, enh.g, fb, S=enh.S), y_ref, 2e-5,
-                "synthesis_tm")
-        compare("flagship path (build_pipeline) vs plain chain", y, y_ref, 3e-4)
-        del Yp_ref, y_ref, y
-
-    # -- 5. times ----------------------------------------------------------------
-    log("== 5. CUDA-event times at the flagship shape")
-
     def time_ms(fn, reps, warmup=1):
         for _ in range(warmup):
             fn()
@@ -403,6 +466,36 @@ def main() -> None:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
 
+    def timed(fn):
+        """``fn()`` once, with its CUDA-event time in ms."""
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end)
+
+    log(f"== 4b. kernels vs plain torch at the flagship shape (B={B}, {C} ch, {secs} s)")
+    with torch.no_grad():
+        Yr_ref = plain_analysis(x)
+        compare("analysis_tm", analysis_tm_fused(x, enh.h, fb, A=enh.A), Yr_ref, 2e-5,
+                "analysis_tm")
+        # the plain scan runs for seconds: timed here, once, not again in phase 5
+        Yp_ref, plain_k2_ms = timed(lambda: plain_scan(Yr_ref))
+        compare("gsc_rls_zelinski", gsc_rls_zelinski(Yr_ref, *scan_args), Yp_ref, 2e-4,
+                "gsc_rls_zelinski")
+        del Yr_ref
+        y_ref = plain_synthesis(Yp_ref)  # = plain_chain(x)
+        compare("synthesis_tm", synthesis_tm_fused(Yp_ref, enh.g, fb, S=enh.S), y_ref, 2e-5,
+                "synthesis_tm")
+        compare("flagship path (build_pipeline) vs plain chain", y, y_ref, 3e-4)
+        del Yp_ref, y_ref, y
+
+    # -- 5. times ----------------------------------------------------------------
+    log("== 5. CUDA-event times at the flagship shape")
+
     times, library = {}, {}
     with torch.no_grad():
         Yr = analysis_tm_fused(x, enh.h, fb, A=enh.A)
@@ -410,7 +503,7 @@ def main() -> None:
         times["analysis_tm"] = (time_ms(lambda: analysis_tm_fused(x, enh.h, fb, A=enh.A), 5),
                                 time_ms(lambda: plain_analysis(x), 5))
         times["gsc_rls_zelinski"] = (time_ms(lambda: gsc_rls_zelinski(Yr, *scan_args), 5),
-                                     time_ms(lambda: plain_scan(Yr), 1))
+                                     plain_k2_ms)
         times["synthesis_tm"] = (time_ms(lambda: synthesis_tm_fused(Yp, enh.g, fb, S=enh.S), 5),
                                  time_ms(lambda: plain_synthesis(Yp), 5))
         # one PyTorch call for the GEMM part of each filterbank kernel
@@ -420,7 +513,9 @@ def main() -> None:
         library["gsc_rls_zelinski"] = None
         del Yr, Yp, W
         path_ms = time_ms(lambda: enh(x), 3)
-        plain_path_ms = time_ms(lambda: plain_chain(x), 1)
+    # the plain chain's time: its three stages as timed above
+    plain_path_ms = sum(times[name][1] for name in ("analysis_tm", "gsc_rls_zelinski",
+                                                    "synthesis_tm"))
     audio_s = B * secs
     for name in ("analysis_tm", "gsc_rls_zelinski", "synthesis_tm"):
         k_ms, p_ms = times[name]
@@ -451,9 +546,10 @@ def main() -> None:
         raise AssertionError(f"config-4 output {tuple(y4.shape)} != {(B, T_out)}")
     if not torch.isfinite(y4).all():
         raise AssertionError("config-4 output has non-finite values")
-    want = {"analysis_tm": 2, "aec_scan": 1, "wpe_stats": cfg4.wpe_iterations,
-            "gj_solve": cfg4.wpe_iterations, "wpe_resid": 1, "gsc_rls_zelinski": 1,
-            "synthesis_tm": 1}
+    want = dict.fromkeys(counts4, 0) | {
+        "analysis_tm": 2, "aec_scan": 1, "wpe_stats": cfg4.wpe_iterations,
+        "gj_solve": cfg4.wpe_iterations, "wpe_resid": 1, "gsc_rls_zelinski": 1,
+        "synthesis_tm": 1}
     if counts4 != want:
         raise AssertionError(f"config-4 launches {counts4}, the path needs {want}")
 
@@ -486,7 +582,7 @@ def main() -> None:
         compare("wpe_resid", wpe_resid(Ya_ref, G2, lower),
                 pack_half(resid_plain(Xa, G2, lower).permute(2, 0, 1, 3)), 1e-5, "wpe_resid")
         del Xa
-        y4_ref = plain_chain4(x, play)
+        y4_ref, plain_path4_ms = timed(lambda: plain_chain4(x, play))
         compare("config-4 path (build_pipeline) vs plain chain", y4, y4_ref, 3e-4)
         del y4, y4_ref
 
@@ -509,7 +605,11 @@ def main() -> None:
         Lw = L[:, None] * torch.rand((16, C, F, 1, Tf), device=dev)  # [16, C, F, CP, Tf]
         LH = L.conj().transpose(-1, -2)[:, None].resolve_conj()  # [16, 1, F, Tf, CP]
         library["wpe_stats"] = time_ms(lambda: torch.matmul(Lw, LH), 3) * B / 16
-        del Xc, L, Lw, LH
+        # K11's prediction conj(G) . lags as one batched matmul of the filters
+        # with the same lag matrix, scaled likewise
+        G16 = G2[:16].conj()[:, :, :, None, :].resolve_conj()  # [16, C, F, 1, CP]
+        library["wpe_resid"] = time_ms(lambda: torch.matmul(G16, L[:, None]), 3) * B / 16
+        del Xc, L, Lw, LH, G16
         R, r = wpe_stats(Ya, G1, lower, P, True)
         R = wpe_load(R)
         times["gj_solve"] = (time_ms(lambda: gj_solve(R, r), 5),
@@ -519,10 +619,8 @@ def main() -> None:
         del R, r
         times["wpe_resid"] = (time_ms(lambda: wpe_resid(Ya, G2, lower), 5),
                               time_ms(lambda: resid_plain(frames(Ya), G2, lower), 1))
-        library["wpe_resid"] = None
         del Ya, Ya_ref, Vp, G0, G1, G2
         path4_ms = time_ms(lambda: enh4(x, play), 3)
-        plain_path4_ms = time_ms(lambda: plain_chain4(x, play), 1)
     for name in ("aec_scan", "wpe_stats", "gj_solve", "wpe_resid"):
         k_ms, p_ms = times[name]
         lib = library[name]
@@ -533,19 +631,21 @@ def main() -> None:
         f"({audio_s / (plain_path4_ms / 1e3):.1f} audio-s/s/GPU)")
     log(f"  peak device memory of phase 6 {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
-    log("== 7. torch.profiler over 3 back-to-back config-4 forwards")
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.no_grad():
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                enh4(x, play)
-            torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    if not spans:
-        log("  the profiler recorded no device time")
-    else:
+    def profile_path(fn, n=3):
+        """Device busy time and idle share over ``n`` back-to-back calls of
+        ``fn``, and device time per kernel (reported, not checked)."""
+        with torch.no_grad():
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        if not spans:
+            log("  the profiler recorded no device time")
+            return
         busy, (lo, hi) = 0.0, spans[0]
         for s0, s1 in spans[1:]:  # union of the device intervals
             if s0 > hi:
@@ -559,10 +659,192 @@ def main() -> None:
                 name = e.name.replace("(anonymous namespace)::", "").removeprefix("void ")
                 name = re.split(r"[<(]", name)[0].split("::")[-1][:40]
                 per_kernel[name] = per_kernel.get(name, 0.0) + e.time_range.elapsed_us()
-        log(f"  device busy {busy / 3e3:.3f} ms per forward of a {span / 3e3:.3f} ms span: "
-            f"idle {100 * (1 - busy / span):.2f}%")
+        log(f"  device busy {busy / (1e3 * n):.3f} ms per forward of a {span / (1e3 * n):.3f} ms "
+            f"span: idle {100 * (1 - busy / span):.2f}%")
         for name, us in sorted(per_kernel.items(), key=lambda kv: -kv[1]):
-            log(f"  {name:40s} {us / 3e3:9.3f} ms per forward  {100 * us / busy:5.1f}%")
+            log(f"  {name:40s} {us / (1e3 * n):9.3f} ms per forward  {100 * us / busy:5.1f}%")
+
+    log("== 7. torch.profiler over 3 back-to-back config-4 forwards")
+    profile_path(lambda: enh4(x, play))
+    del enh4, play
+
+    # -- 8. fixed-weight path at real size ----------------------------------------
+    log(f"== 8. fixed-weight path (D&S and SD-MVDR + Zelinski): build_pipeline() on the card, "
+        f"B={B} x {C} ch x {secs} s")
+    path_fw = {}
+    counts_fw = None
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        Yr, plain_a_ms = timed(lambda: plain_analysis(x))
+        for bf in ("ds", "sd_mvdr"):
+            enh_f = fixed[bf]
+            w = (enh_f.wqH, enh_f.wq_manifold, cfg.pf_alpha, cfg.pf_type, cfg.pf_min_frames)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            y = enh_f(x)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            c_fw = kernels.launch_counts()
+            log(f"  {bf} forward wall {wall * 1e3:.1f} ms (first call), launches {c_fw}")
+            if tuple(y.shape) != (B, T_out) or not torch.isfinite(y).all():
+                raise AssertionError(f"{bf} output {tuple(y.shape)} is not finite {(B, T_out)}")
+            if c_fw != dict.fromkeys(c_fw, 0) | {"fw_mono": 1}:
+                raise AssertionError(f"{bf} launches {c_fw}, the path needs one fw_mono")
+            counts_fw = counts_fw or c_fw
+            Yz_ref, plain_k7_ms = timed(lambda: zelinski_apply_plain(Yr, *w))
+            compare(f"zelinski_apply {bf}", zelinski_apply(Yr, *w), Yz_ref, 3e-5, "zelinski_apply")
+            y_ref, plain_s_ms = timed(lambda: plain_synthesis(Yz_ref))
+            compare(f"fixed-weight path {bf} (build_pipeline) vs plain chain", y, y_ref, 3e-4,
+                    "fw_mono")
+            del y, Yz_ref, y_ref
+            # the plain chain's time: its three stages as timed above
+            path_fw[bf] = (time_ms(lambda: enh_f(x), 3), plain_a_ms + plain_k7_ms + plain_s_ms)
+            if bf == "ds":
+                Yk = analysis_tm_fused(x, enh.h, fb, A=enh.A)
+                times["zelinski_apply"] = (time_ms(lambda: zelinski_apply(Yk, *w), 5), plain_k7_ms)
+                chain_fw_ms = time_ms(lambda: synthesis_tm_fused(
+                    zelinski_apply(analysis_tm_fused(x, enh.h, fb, A=enh.A), *w), enh.g, fb,
+                    S=enh.S), 3)
+                times["fw_mono"] = (time_ms(lambda: analysis_fw_synthesis(
+                    x, enh.h, enh.g, fb, *w, A=enh.A, S=enh.S), 3), path_fw[bf][1])
+                del Yk
+        del Yr
+    library["zelinski_apply"] = None
+    # the GEMM part: the analysis and the synthesis DFT products, one torch.matmul
+    # each, at the same shapes as phase 5's
+    library["fw_mono"] = library["analysis_tm"] + library["synthesis_tm"]
+    log(f"  fw_mono: kernel {times['fw_mono'][0]:.3f} ms   K1->K7->K3 chain {chain_fw_ms:.3f} ms   "
+        f"plain chain {times['fw_mono'][1]:.3f} ms   library {library['fw_mono']:.3f} ms "
+        f"(GEMM part only, two torch.matmul calls)")
+    log(f"  zelinski_apply: kernel {times['zelinski_apply'][0]:.3f} ms   "
+        f"plain {times['zelinski_apply'][1]:.3f} ms   library -")
+    for bf, (k_ms, p_ms) in path_fw.items():
+        log(f"  fixed-weight path {bf}: kernels {k_ms:.3f} ms "
+            f"({audio_s / (k_ms / 1e3):.1f} audio-s/s/GPU)   plain {p_ms:.3f} ms "
+            f"({audio_s / (p_ms / 1e3):.1f} audio-s/s/GPU)")
+    log(f"  peak device memory of phase 8 {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    log("  torch.profiler over 3 back-to-back D&S forwards")
+    profile_path(lambda: fixed["ds"](x))
+    del x, fixed
+
+    # the split form: an 8-channel array with a 4x oversampled bank (r=2)
+    # has a 15-frame synthesis halo, more than the 8-frame tiles the
+    # one-kernel chain holds at C=8, so the pipeline runs K1 -> K7 -> K3
+    B8, C8 = 32, 8
+    fb8 = FilterbankParams(M=256, m=4, r=2, delay_compensation_type=2)
+    mpos8 = np.c_[np.arange(C8) * 50.0, np.zeros((C8, 2))]
+    enh8 = build_pipeline(dataclasses.replace(cfg, fb=fb8, beamformer="ds"), mpos8,
+                          geometry.calc_la_delays(mpos8[:, :1], azimuth=np.pi / 3),
+                          *load_pair(fb8.M, fb8.m, fb8.r))
+    log(f"== 8b. fixed-weight split path (D&S, {C8} ch, m={fb8.m}, r={fb8.r}): build_pipeline() "
+        f"on the card, B={B8} x {C8} ch x {secs} s")
+    x8 = torch.from_numpy(signal(rng, (B8, C8, T))).to(dev)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        y8 = enh8(x8)
+    torch.cuda.synchronize()
+    counts_split = kernels.launch_counts()
+    log(f"  launches {counts_split}")
+    want = dict.fromkeys(counts_split, 0) | {"analysis_tm": 1, "zelinski_apply": 1,
+                                             "synthesis_tm": 1}
+    if counts_split != want:
+        raise AssertionError(f"split fixed-weight launches {counts_split}, the path needs {want}")
+    with torch.no_grad():
+        w8 = (enh8.wqH, enh8.wq_manifold, cfg.pf_alpha, cfg.pf_type, cfg.pf_min_frames)
+        Yr8 = analysis_half_real_tm(x8, enh8.h, fb8, packed=True, A=enh8.A)
+        compare("zelinski_apply, 8 channels", zelinski_apply(Yr8, *w8),
+                zelinski_apply_plain(Yr8, *w8), 3e-5, "zelinski_apply")
+        compare("fixed-weight split path (build_pipeline) vs plain chain", y8,
+                synthesis_half_real_tm(zelinski_apply_plain(Yr8, *w8), enh8.g, fb8, S=enh8.S),
+                3e-4)
+        split_ms = time_ms(lambda: enh8(x8), 3)
+    log(f"  fixed-weight split path: kernels {split_ms:.3f} ms "
+        f"({B8 * secs / (split_ms / 1e3):.1f} audio-s/s/GPU)")
+    del enh8, x8, y8, Yr8
+
+    # -- 9. config-5 path at real size ---------------------------------------------
+    B5 = 64
+    phis5 = np.deg2rad(np.arange(0.0, 360.0, 5.0))
+    log(f"== 9. config-5 path (SRP-PHAT DOA -> steered GSC-RLS + Zelinski): "
+        f"build_steered_pipeline() on the card, B={B5} x {C} ch x {secs} s, circular array "
+        f"r=100 mm, {len(phis5)}-point azimuth grid")
+    enh5 = build_steered_pipeline(cfg, mpos5, h, g, [np.pi / 2], phis5)
+    if enh5.h.device.type != "cuda":
+        raise AssertionError(f"build_steered_pipeline's default device is {enh5.h.device}")
+    # one source per utterance at a grid direction (channel c hears it
+    # round(delay_c * fs) samples late) plus independent sensor noise 20 dB
+    # down: without it the four channels are exact copies, the blocking
+    # matrix cancels the source to rounding level and the adaptive filter
+    # amplifies that rounding (two float32 evaluations of the plain chain
+    # then differ by 0.4-0.8 x max|y|, float32 against float64 likewise)
+    placed = (7 * np.arange(B5)) % len(phis5)
+    src = signal(rng, (B5, T + 64))
+    x5 = 0.1 * signal(rng, (B5, C, T))
+    for b, gi in enumerate(placed):
+        d = geometry.calc_ca_delays(mpos5, phis5[gi], np.pi / 2)
+        for c in range(C):
+            off = 8 - int(round(float(d[c]) * FS))
+            x5[b, c] += src[b, off:off + T]
+    x5 = torch.from_numpy(x5).to(dev)
+    del src
+
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        y5, doa5 = enh5(x5)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts5 = kernels.launch_counts()
+    log(f"  forward wall {wall * 1e3:.1f} ms (first call), launches {counts5}")
+    if tuple(y5.shape) != (B5, T_out) or not torch.isfinite(y5).all():
+        raise AssertionError(f"config-5 output {tuple(y5.shape)} is not finite {(B5, T_out)}")
+    want = dict.fromkeys(counts5, 0) | {"analysis_tm": 1, "gsc_rls_zelinski_steered": 1,
+                                        "synthesis_tm": 1}
+    if counts5 != want:
+        raise AssertionError(f"config-5 launches {counts5}, the path needs {want}")
+    with torch.no_grad():
+        # the plain chain, stage by stage
+        Yp5, plain_a_ms = timed(lambda: plain_analysis(x5))
+        # the SRP stage (plain torch on either path): DOA grid index and
+        # steering per utterance
+        (gidx5, steer5), plain_srp_ms = timed(lambda: enh5.steer(Yp5))
+        Yb_ref, plain_k6_ms = timed(lambda: plain_scan(Yp5, steer5 + scan_tail))
+        y5_ref, plain_s_ms = timed(lambda: plain_synthesis(Yb_ref))
+        plain_path5_ms = plain_a_ms + plain_srp_ms + plain_k6_ms + plain_s_ms
+        doa5_ref = enh5.grid[gidx5]
+        same_doa = torch.equal(doa5, doa5_ref)
+        n_placed = (doa5[:, 1].cpu() == torch.tensor(phis5[placed], dtype=torch.float32)).sum()
+        log(f"  DOA equal to the plain chain's: {same_doa}; at the placed direction: "
+            f"{n_placed.item()} of {B5} utterances")
+        if not same_doa:
+            raise AssertionError("config-5 DOA differs from the plain chain's")
+        compare("config-5 path (build_steered_pipeline) vs plain chain", y5, y5_ref, 3e-4)
+        del y5, y5_ref
+        compare("gsc_rls_zelinski_steered at the config-5 shape",
+                gsc_rls_zelinski_steered(Yp5, *steer5, *scan_tail), Yb_ref, 2e-4,
+                "gsc_rls_zelinski_steered")
+        del Yb_ref
+        times["gsc_rls_zelinski_steered"] = (
+            time_ms(lambda: gsc_rls_zelinski_steered(Yp5, *steer5, *scan_tail), 3), plain_k6_ms)
+        library["gsc_rls_zelinski_steered"] = None
+        srp_ms = time_ms(lambda: enh5.steer(Yp5), 3)
+        path5_ms = time_ms(lambda: enh5(x5), 3)
+        del Yp5, steer5
+    audio5_s = B5 * secs
+    log(f"  gsc_rls_zelinski_steered: kernel {times['gsc_rls_zelinski_steered'][0]:.3f} ms   "
+        f"plain {plain_k6_ms:.3f} ms   library -")
+    log(f"  SRP stage (unpack, SRP-PHAT over {len(phis5)} points, argmax, manifolds, blocking "
+        f"matrices): {srp_ms:.3f} ms")
+    log(f"  config-5 path: kernels {path5_ms:.3f} ms ({audio5_s / (path5_ms / 1e3):.1f} "
+        f"audio-s/s/GPU)   plain {plain_path5_ms:.3f} ms "
+        f"({audio5_s / (plain_path5_ms / 1e3):.1f} audio-s/s/GPU)")
+    log(f"  peak device memory of phase 9 {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    log("  torch.profiler over 3 back-to-back config-5 forwards")
+    profile_path(lambda: enh5(x5))
 
     # least time on the card for the work of each timed call, from its shapes
     CP = C * P
@@ -571,13 +853,25 @@ def main() -> None:
     scan_macs = (Bc * C + C + 3 * Bc * Bc + 8 * Bc + Bc * (Bc - 1) // 2 + 2 * C
                  + C * (C - 1) // 2)  # complex multiply-adds per (frame, utterance, bin)
     rows = Tf * B * C
+    # the least work of one row's M-point real DFT is an FFT's, ~2.5 M log2 M
+    # flops (half of a complex FFT's 5 N log2 N); the filterbank kernels do
+    # it as a dense product, 2 M^2, whose time `dense_dft` gives beside
+    fft_flops = 2.5 * M * np.log2(M)
+    fir_in, fir_out = 2 * fb.m * M * rows, 2 * fb.m * M * (T_out // fb.D) * B
+    zel_flops = 8 * (3 * C + C * (C - 1) // 2)  # K7's per (frame, utterance, bin)
+    dense_dft = {
+        "analysis_tm": bound(0, rows * 2 * M * M + fir_in)[0],
+        "synthesis_tm": bound(0, Tf * B * 2 * M * M + fir_out)[0],
+        "fw_mono": bound(0, (rows + Tf * B) * 2 * M * M + fir_in + fir_out
+                         + zel_flops * Tf * B * F)[0],
+    }
     bounds = {
         "analysis_tm": bound(4 * (B * C * T + rows * M + M * M + fb.N),
-                             rows * (2 * M * M + 2 * fb.m * M)),
+                             rows * fft_flops + fir_in),
         "gsc_rls_zelinski": bound(4 * (rows * M + Tf * B * M) + 8 * F * C * (2 + Bc),
                                   8 * scan_macs * Tf * B * F),
         "synthesis_tm": bound(4 * (Tf * B * M + B * T_out + M * M + fb.N),
-                              2 * M * M * Tf * B + 2 * fb.m * M * (T_out // fb.D) * B),
+                              Tf * B * fft_flops + fir_out),
         "aec_scan": bound(4 * (2 * rows * M + Tf * B * M), 30 * rows * F),
         # the timed call has filters: its weight residual runs in FP64
         "wpe_stats": bound(4 * rows * M + 8 * B * C * F * (CP * CP + 2 * CP),
@@ -585,6 +879,18 @@ def main() -> None:
                            B * C * F * valid * 8 * CP),
         "gj_solve": bound(8 * n_sys * (CP * CP + 2 * CP), n_sys * 8 * CP * CP * (CP + 1)),
         "wpe_resid": bound(8 * rows * M + 8 * B * C * F * CP, 8 * CP * B * C * F * valid),
+    }
+    rows5 = Tf * B5 * C
+    bounds |= {
+        "gsc_rls_zelinski_steered": bound(4 * (rows5 * M + Tf * B5 * M) + 8 * B5 * F * C * (2 + Bc),
+                                          8 * scan_macs * Tf * B5 * F),
+        # K7's complex multiply-adds per (frame, utterance, bin): wqH X,
+        # conj(ta) X, the pair sum and the trace
+        "zelinski_apply": bound(4 * (rows * M + Tf * B * M) + 16 * F * C, zel_flops * Tf * B * F),
+        # samples in and out; the spectra never leave the chip
+        "fw_mono": bound(4 * (B * C * T + B * T_out + 2 * M * M + 2 * fb.N) + 16 * F * C,
+                         (rows + Tf * B) * fft_flops + fir_in + fir_out
+                         + zel_flops * Tf * B * F),
     }
     sources = {
         "analysis_tm": ("analysis_tm.cu",
@@ -597,17 +903,26 @@ def main() -> None:
         "wpe_stats": ("wpe_stats.cu", "distant_speech_recognition_tpu/ops/pallas_wpe.py:333"),
         "gj_solve": ("gj_solve.cu", "distant_speech_recognition_tpu/ops/pallas_wpe.py:400"),
         "wpe_resid": ("wpe_resid.cu", "distant_speech_recognition_tpu/ops/pallas_wpe.py:348"),
+        "gsc_rls_zelinski_steered": (
+            "gsc_rls_zelinski.cu", "distant_speech_recognition_tpu/models/pallas_fused_scan.py:1318"),
+        "zelinski_apply": ("zelinski_apply.cu",
+                           "distant_speech_recognition_tpu/models/pallas_fused_scan.py:1571"),
+        "fw_mono": ("fw_mono.cu", "distant_speech_recognition_tpu/models/pallas_fused_scan.py:1661"),
     }
+    by_path = {"flagship": counts, "config4": counts4, "fixed_weight": counts_fw,
+               "fixed_weight_split": counts_split, "config5": counts5}
     rows_json = []
     for name, (src, rep) in sources.items():
         b_ms, b_by = bounds[name]
+        dense = (f"; its DFTs as dense products: {dense_dft[name]:.3f} ms, kernel at "
+                 f"{100 * dense_dft[name] / times[name][0]:.1f}%" if name in dense_dft else "")
         log(f"  {name}: bound {b_ms:.3f} ms ({b_by}), kernel at "
-            f"{100 * b_ms / times[name][0]:.1f}% of it")
+            f"{100 * b_ms / times[name][0]:.1f}% of it{dense}")
         rows_json.append({
             "name": name, "route": "cuda",
             "source": f"distant_speech_recognition_tpu_torch/csrc/{src}", "replaces": rep,
-            "launches": counts[name] + counts4[name],
-            "launches_by_path": {"flagship": counts[name], "config4": counts4[name]},
+            "launches": sum(c[name] for c in by_path.values()),
+            "launches_by_path": {path: c[name] for path, c in by_path.items()},
             "max_abs_err": results[name],
             "ms": times[name][0], "plain_ms": times[name][1],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library[name],

@@ -12,14 +12,18 @@
 // the filterbank come from that mask, so no padded copy of the signal exists.
 // (shift = laN - (m*R - 1); hr = the prototype reshaped [m, M], columns reversed.)
 //
-// What bounds it on an H100: the DFT product, 2*M*M flops per output row
-// (168 GFLOP at B=256 x 4 ch x 10 s), against 4*M bytes written per row; so
-// it is bound by FP32 FMA throughput.  Design: a classic tiled SGEMM whose
+// What bounds the function on an H100: its bytes, 2.0 GB of samples in and
+// spectra out at B=256 x 4 ch x 10 s (0.59 ms at 3.35 TB/s); done by FFT,
+// each 256-point row needs ~5k flops plus the FIR's 2*m*M, 9 GFLOP in all.
+// What bounds this kernel: it does the DFT as a dense product, 2*M*M flops
+// per output row, 168 GFLOP, 2.5 ms at the FP32 peak.  Design: a classic
+// tiled SGEMM whose
 // left operand is never stored: each 128-frame x 8-column tile of w is formed
 // in shared memory from x (m FMAs per element, x reads are contiguous along
 // the column) and immediately consumed; a block owns 128 frames of one
 // (utterance, channel) row and 128 output columns, 256 threads each hold an
 // 8x8 register tile.  Plain IEEE FP32 FMA, no TF32, no tensor cores.
+#include "dsr_device.h"
 #include "dsr_kernels.h"
 
 #include <cstdint>
@@ -61,18 +65,7 @@ analysis_tm_kernel(const float* __restrict__ x, const float* __restrict__ hr,
       const int r = idx / BK;
       const int t = t0 + r;
       const int k = k0 + kk;
-      float w = 0.f;
-      if (t < Tf) {
-        const int j = k / D;
-        const int i = k - j * D;
-        const long long base = (long long)(t + shift + j) * D + i;
-        for (int tap = 0; tap < m; ++tap) {
-          const long long s = base + (long long)(m - 1 - tap) * M;
-          const float xv = (s >= 0 && s < T) ? __ldg(xr + s) : 0.f;
-          w = fmaf(__ldg(hr + tap * M + k), xv, w);
-        }
-      }
-      Ws[kk][r] = w;
+      Ws[kk][r] = t < Tf ? dsr::analysis_fir(xr, hr, T, M, m, D, shift, t, k) : 0.f;
     }
     // DFT matrix tile A[k0 .. k0+BK, n0 .. n0+BN).
     {

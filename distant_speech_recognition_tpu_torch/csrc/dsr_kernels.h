@@ -35,6 +35,32 @@ int dsr_gsc_rls_zelinski(const float* Yp, const float* wq, const float* bm,
                          float spectral_floor, int real_mode, int pf_min_frames,
                          cudaStream_t stream);
 
+// K6: gsc_rls_zelinski with one set of weights per utterance
+// (wq, ta [B, F, C], bm [B, F, Bc, C] instead of [F, ...])
+int dsr_gsc_rls_zelinski_steered(const float* Yp, const float* wq, const float* bm,
+                                 const float* ta, float* out, int Tf, int B, int C, int Bc,
+                                 int M, float beta, float one_minus_beta, float gamma,
+                                 float mu, float delta, float inv_delta, float reg_param,
+                                 float sil_thresh, int constraint_option, float alpha2,
+                                 float max_wa_l2norm, int min_frames, float pf_alpha,
+                                 float one_minus_pf_alpha, float pf_gain,
+                                 float spectral_floor, int real_mode, int pf_min_frames,
+                                 cudaStream_t stream);
+
+// wq, ta: interleaved complex64 [F, C]
+int dsr_zelinski_apply(const float* Yp, const float* wq, const float* ta, float* out, int Tf,
+                       int B, int C, int M, float pf_alpha, float one_minus_pf_alpha,
+                       float pf_gain, float spectral_floor, int real_mode, int pf_min_frames,
+                       cudaStream_t stream);
+
+// wq, ta: interleaved complex64 [F, C]; out [B, T_out * D]; rows: the
+// caller's analysis rows per frame tile, refused unless the kernel's own
+int dsr_fw_mono(const float* x, const float* hr, const float* A, const float* S, const float* gf,
+                const float* wq, const float* ta, float* out, int B, int C, int T, int Tf, int M,
+                int m, int R, int D, int shift, int pd, int T_out, int rows, float pf_alpha,
+                float one_minus_pf_alpha, float pf_gain, float spectral_floor, int real_mode,
+                int pf_min_frames, cudaStream_t stream);
+
 // kalman = 0: NLMS with p1 = delta, p2 = epsilon; kalman = 1: p1 = beta, p2 = sigma2
 int dsr_aec_scan(const float* A, const float* V, float* E, int Tf, int B, int C, int M,
                  int kalman, float p1, float p2, float thr, cudaStream_t stream);

@@ -1,8 +1,17 @@
 // Adaptive GSC-RLS beamformer + Zelinski postfilter, one recursion over frames.
 //
-// Replaces the Pallas TPU kernel models/pallas_fused_scan.py
-// gsc_rls_zelinski_pallas (_call / _make_kernel) of
-// distant_speech_recognition_tpu, and computes what
+// Two entry points share one kernel:
+//   dsr_gsc_rls_zelinski (K2) replaces the Pallas TPU kernel
+//     models/pallas_fused_scan.py gsc_rls_zelinski_pallas (_call /
+//     _make_kernel) of distant_speech_recognition_tpu: one set of weights
+//     [F, ...] for every utterance;
+//   dsr_gsc_rls_zelinski_steered (K6) replaces
+//     gsc_rls_zelinski_steered_pallas (_call with per-utterance weight
+//     planes): weights [B, F, ...], one steering per utterance, as the
+//     SRP-PHAT-steered pipeline computes them.
+// The only difference is the weights' batch stride (0 for K2, one F-bin
+// table per utterance for K6), so K2's arithmetic is untouched by K6.
+// Both compute what
 // models/adaptive_gsc.gsc_postfilter_fused(kind="rls", real_packed=True,
 // energy=None) computes, operation for operation:
 //   blocking output Z = BmH X, quiescent output Yc = wqH X; RLS gain with the
@@ -25,41 +34,27 @@
 // slots alternate by frame parity so no second barrier is needed).
 // Speculative values never meet a blend: the norm cap's sqrt(max/||wa||^2)
 // is computed only inside the branch that uses it.  IEEE division and sqrtf.
+#include "dsr_device.h"
 #include "dsr_kernels.h"
 
 #include <cstdint>
 
 namespace {
 
-struct cf {
-  float r, i;
-};
+using namespace dsr;
 
-__device__ __forceinline__ cf cadd(cf a, cf b) { return {a.r + b.r, a.i + b.i}; }
-__device__ __forceinline__ cf csub(cf a, cf b) { return {a.r - b.r, a.i - b.i}; }
-__device__ __forceinline__ cf cconj(cf a) { return {a.r, -a.i}; }
-__device__ __forceinline__ cf cscale(cf a, float s) { return {a.r * s, a.i * s}; }
-__device__ __forceinline__ cf cmul(cf a, cf b) {
-  return {a.r * b.r - a.i * b.i, a.r * b.i + a.i * b.r};
-}
-// a * conj(b)
-__device__ __forceinline__ cf cmulc(cf a, cf b) {
-  return {a.r * b.r + a.i * b.i, a.i * b.r - a.r * b.i};
-}
 __device__ __forceinline__ cf cdiv(cf a, cf b) {
   float s = b.r * b.r + b.i * b.i;
   s = s > 0.f ? s : 1.f;
   return {(a.r * b.r + a.i * b.i) / s, (a.i * b.r - a.r * b.i) / s};
 }
-__device__ __forceinline__ float cabs2(cf a) { return a.r * a.r + a.i * a.i; }
 
 struct Params {
   float beta, one_minus_beta, gamma, mu, delta, inv_delta, reg_param, sil_thresh;
   int constraint_option;
   float alpha2, max_wa_l2norm;
   int min_frames;
-  float pf_alpha, one_minus_pf_alpha, pf_gain, spectral_floor;
-  int real_mode, pf_min_frames;
+  ZelinskiParams pf;
 };
 
 // index of the pair (i, j), i < j, in the row-major upper triangle
@@ -86,7 +81,8 @@ __device__ __forceinline__ void pz_matvec(const float (&d)[BC], const cf* off, c
 template <int C, int BC>
 __global__ void gsc_rls_zelinski_kernel(const float* __restrict__ Yp, const float* __restrict__ wq,
                                         const float* __restrict__ bm, const float* __restrict__ ta,
-                                        float* __restrict__ out, int Tf, int B, int M, Params p) {
+                                        float* __restrict__ out, int Tf, int B, int M,
+                                        bool per_utt, Params p) {
   constexpr int NP = BC * (BC - 1) / 2 > 0 ? BC * (BC - 1) / 2 : 1;
   __shared__ float red[2][32];
 
@@ -97,6 +93,7 @@ __global__ void gsc_rls_zelinski_kernel(const float* __restrict__ Yp, const floa
   const int fc = active ? f : F - 1;  // idle lanes shadow the last bin and never write
   const bool has_im = fc >= 1 && fc <= F - 2;
   const float ew = (fc == 0 || fc == F - 1) ? 1.f : 2.f;
+  const size_t wf = (per_utt ? (size_t)b * F : 0) + fc;  // this utterance's row of bin fc
   const int lane = f & 31;
   const int warp = f >> 5;
   const int nwarps = blockDim.x >> 5;
@@ -104,14 +101,14 @@ __global__ void gsc_rls_zelinski_kernel(const float* __restrict__ Yp, const floa
   cf wqc[C], tac[C], bmc[BC][C];
 #pragma unroll
   for (int c = 0; c < C; ++c) {
-    wqc[c] = {wq[(fc * C + c) * 2], wq[(fc * C + c) * 2 + 1]};
-    tac[c] = {ta[(fc * C + c) * 2], -ta[(fc * C + c) * 2 + 1]};  // conj(ta)
+    wqc[c] = {wq[(wf * C + c) * 2], wq[(wf * C + c) * 2 + 1]};
+    tac[c] = {ta[(wf * C + c) * 2], -ta[(wf * C + c) * 2 + 1]};  // conj(ta)
   }
 #pragma unroll
   for (int i = 0; i < BC; ++i)
 #pragma unroll
     for (int c = 0; c < C; ++c)
-      bmc[i][c] = {bm[((fc * BC + i) * C + c) * 2], bm[((fc * BC + i) * C + c) * 2 + 1]};
+      bmc[i][c] = {bm[((wf * BC + i) * C + c) * 2], bm[((wf * BC + i) * C + c) * 2 + 1]};
 
   cf waH[BC], off[NP];
   float d[BC];
@@ -130,19 +127,13 @@ __global__ void gsc_rls_zelinski_kernel(const float* __restrict__ Yp, const floa
   const float* src = Yp + (size_t)b * C * M;
   cf X[C], Xn[C];
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
-    X[c].r = src[c * M + fc];
-    X[c].i = has_im ? src[c * M + F + fc - 1] : 0.f;
-  }
+  for (int c = 0; c < C; ++c) X[c] = packed_bin(src + c * M, F, fc);
 
   for (int t = 0; t < Tf; ++t) {
     if (t + 1 < Tf) {
       const float* nx = src + (size_t)(t + 1) * frame_stride;
 #pragma unroll
-      for (int c = 0; c < C; ++c) {
-        Xn[c].r = nx[c * M + fc];
-        Xn[c].i = has_im ? nx[c * M + F + fc - 1] : 0.f;
-      }
+      for (int c = 0; c < C; ++c) Xn[c] = packed_bin(nx + c * M, F, fc);
     }
 
     // reference-channel frame energy of this utterance (all bins)
@@ -269,28 +260,8 @@ __global__ void gsc_rls_zelinski_kernel(const float* __restrict__ Yp, const floa
     energy = energy * p.beta + p.one_minus_beta * energy_t;
 
     // Zelinski postfilter on the time-aligned snapshot
-    cf al[C];
-#pragma unroll
-    for (int c = 0; c < C; ++c) al[c] = cmul(tac[c], X[c]);
-    cf ps = {0.f, 0.f};
-    float ds = 0.f;
-#pragma unroll
-    for (int i = 0; i < C; ++i) {
-      ds += cabs2(al[i]);
-#pragma unroll
-      for (int j = i + 1; j < C; ++j) ps = cadd(ps, cmulc(al[i], al[j]));
-    }
-    if (t > 1) {
-      phi_pair = cadd(cscale(phi_pair, p.pf_alpha), cscale(ps, p.one_minus_pf_alpha));
-      phi_diag = p.pf_alpha * phi_diag + p.one_minus_pf_alpha * ds;
-    } else {
-      phi_pair = ps;
-      phi_diag = ds;
-    }
-    const float num = p.real_mode ? fmaxf(phi_pair.r, 0.f) : sqrtf(cabs2(phi_pair));
-    const float ratio = phi_diag > 0.f ? num / phi_diag : 0.f;
-    const float W = fminf(fmaxf(ratio * p.pf_gain, p.spectral_floor), 1.f);
-    if (t > p.pf_min_frames) Y = cscale(Y, W);
+    const float W = zelinski_gain<C>(phi_pair, phi_diag, tac, X, t, p.pf);
+    if (t > p.pf.min_frames) Y = cscale(Y, W);
 
     if (active) {
       float* o = out + ((size_t)t * B + b) * M;
@@ -304,11 +275,29 @@ __global__ void gsc_rls_zelinski_kernel(const float* __restrict__ Yp, const floa
 
 template <int C>
 int launch(const float* Yp, const float* wq, const float* bm, const float* ta, float* out,
-           int Tf, int B, int M, const Params& p, cudaStream_t stream) {
+           int Tf, int B, int M, bool per_utt, const Params& p, cudaStream_t stream) {
   const int F = M / 2 + 1;
   const int threads = (F + 31) / 32 * 32;
-  gsc_rls_zelinski_kernel<C, C - 1><<<B, threads, 0, stream>>>(Yp, wq, bm, ta, out, Tf, B, M, p);
+  gsc_rls_zelinski_kernel<C, C - 1><<<B, threads, 0, stream>>>(Yp, wq, bm, ta, out, Tf, B, M,
+                                                               per_utt, p);
   return static_cast<int>(cudaGetLastError());
+}
+
+int scan(const float* Yp, const float* wq, const float* bm, const float* ta, float* out, int Tf,
+         int B, int C, int Bc, int M, bool per_utt, const Params& p, cudaStream_t stream) {
+  // one thread per bin, at most 256 bins (M <= 510) per block
+  if (Tf <= 0 || B <= 0 || M < 4 || M % 2 != 0 || M / 2 + 1 > 256 || Bc != C - 1)
+    return DSR_ERR_ARGS;
+  switch (C) {
+    case 2: return launch<2>(Yp, wq, bm, ta, out, Tf, B, M, per_utt, p, stream);
+    case 3: return launch<3>(Yp, wq, bm, ta, out, Tf, B, M, per_utt, p, stream);
+    case 4: return launch<4>(Yp, wq, bm, ta, out, Tf, B, M, per_utt, p, stream);
+    case 5: return launch<5>(Yp, wq, bm, ta, out, Tf, B, M, per_utt, p, stream);
+    case 6: return launch<6>(Yp, wq, bm, ta, out, Tf, B, M, per_utt, p, stream);
+    case 7: return launch<7>(Yp, wq, bm, ta, out, Tf, B, M, per_utt, p, stream);
+    case 8: return launch<8>(Yp, wq, bm, ta, out, Tf, B, M, per_utt, p, stream);
+    default: return DSR_ERR_ARGS;
+  }
 }
 
 }  // namespace
@@ -322,20 +311,26 @@ extern "C" int dsr_gsc_rls_zelinski(const float* Yp, const float* wq, const floa
                                     float one_minus_pf_alpha, float pf_gain,
                                     float spectral_floor, int real_mode, int pf_min_frames,
                                     cudaStream_t stream) {
-  // one thread per bin, at most 256 bins (M <= 510) per block
-  if (Tf <= 0 || B <= 0 || M < 4 || M % 2 != 0 || M / 2 + 1 > 256 || Bc != C - 1)
-    return DSR_ERR_ARGS;
   const Params p = {beta, one_minus_beta, gamma, mu, delta, inv_delta, reg_param, sil_thresh,
-                    constraint_option, alpha2, max_wa_l2norm, min_frames, pf_alpha,
-                    one_minus_pf_alpha, pf_gain, spectral_floor, real_mode, pf_min_frames};
-  switch (C) {
-    case 2: return launch<2>(Yp, wq, bm, ta, out, Tf, B, M, p, stream);
-    case 3: return launch<3>(Yp, wq, bm, ta, out, Tf, B, M, p, stream);
-    case 4: return launch<4>(Yp, wq, bm, ta, out, Tf, B, M, p, stream);
-    case 5: return launch<5>(Yp, wq, bm, ta, out, Tf, B, M, p, stream);
-    case 6: return launch<6>(Yp, wq, bm, ta, out, Tf, B, M, p, stream);
-    case 7: return launch<7>(Yp, wq, bm, ta, out, Tf, B, M, p, stream);
-    case 8: return launch<8>(Yp, wq, bm, ta, out, Tf, B, M, p, stream);
-    default: return DSR_ERR_ARGS;
-  }
+                    constraint_option, alpha2, max_wa_l2norm, min_frames,
+                    {pf_alpha, one_minus_pf_alpha, pf_gain, spectral_floor, real_mode,
+                     pf_min_frames}};
+  return scan(Yp, wq, bm, ta, out, Tf, B, C, Bc, M, false, p, stream);
+}
+
+extern "C" int dsr_gsc_rls_zelinski_steered(const float* Yp, const float* wq, const float* bm,
+                                            const float* ta, float* out, int Tf, int B, int C,
+                                            int Bc, int M, float beta, float one_minus_beta,
+                                            float gamma, float mu, float delta, float inv_delta,
+                                            float reg_param, float sil_thresh,
+                                            int constraint_option, float alpha2,
+                                            float max_wa_l2norm, int min_frames, float pf_alpha,
+                                            float one_minus_pf_alpha, float pf_gain,
+                                            float spectral_floor, int real_mode,
+                                            int pf_min_frames, cudaStream_t stream) {
+  const Params p = {beta, one_minus_beta, gamma, mu, delta, inv_delta, reg_param, sil_thresh,
+                    constraint_option, alpha2, max_wa_l2norm, min_frames,
+                    {pf_alpha, one_minus_pf_alpha, pf_gain, spectral_floor, real_mode,
+                     pf_min_frames}};
+  return scan(Yp, wq, bm, ta, out, Tf, B, C, Bc, M, true, p, stream);
 }

@@ -12,15 +12,18 @@
 // for u = 0 .. T_out-1, T_out = T_in - pd (pd = synthesis_delay frames prime
 // the bank and are dropped).
 //
-// What bounds it on an H100: the DFT product, 2*M*M flops per spectrum row
-// (about 43 GFLOP at B=256 x 10 s, with the halo), against M*4 bytes read and
-// D*4 bytes written per row: bound by FP32 FMA throughput.  Design: a block
+// What bounds the function on an H100: its bytes, M*4 read and D*4 written
+// per spectrum row, 0.49 GB at B=256 x 10 s (0.15 ms at 3.35 TB/s); done by
+// FFT, each row needs ~5k flops plus the FIR's.  What bounds this kernel: it
+// does the DFT as a dense product, 2*M*M flops per spectrum row, about 43
+// GFLOP with the halo, 0.64 ms at the FP32 peak.  Design: a block
 // owns one utterance and Tt = ROWS - (m*R - 1) output frames; it computes the
 // c rows of its frames plus the m*R-1 halo rows they reach back to (the halo
 // is recomputed by the neighbouring block, as the TPU kernel does) into
 // shared memory with a tiled SGEMM (256 threads, 9x8 register tiles), then
 // runs the FIR and overlap-add from shared memory and writes D contiguous
 // samples per frame.  Plain IEEE FP32 FMA, no TF32, no tensor cores.
+#include "dsr_device.h"
 #include "dsr_kernels.h"
 
 #include <cstdint>
@@ -110,18 +113,7 @@ synthesis_tm_kernel(const float* __restrict__ Yp, const float* __restrict__ S,
     const int i = idx - ul * D;
     const int u = u0 + ul;
     if (u >= T_out) break;
-    float o = 0.f;
-    for (int j = 0; j < R; ++j) {
-      if (u - j < 0) continue;
-      const int col = (R - 1 - j) * D + i;
-      float s = 0.f;
-      for (int k = 0; k < m; ++k) {
-        const int l = ul - j + (m - 1 - k) * R + (R - 1);
-        s = fmaf(__ldg(gf + k * M_ + col), cs[l * M_ + col], s);
-      }
-      o += s;
-    }
-    ob[(size_t)u * D + i] = o;
+    ob[(size_t)u * D + i] = dsr::synthesis_sample(gf, cs, M_, m, R, D, ul, u, i);
   }
 }
 

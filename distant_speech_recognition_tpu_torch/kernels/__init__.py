@@ -1,23 +1,33 @@
 """The port's hand-written CUDA kernels: build, binding and launch counts.
 
-Each kernel wrapper (`ops.filterbank_kernels.analysis_tm_fused`,
-`ops.filterbank_kernels.synthesis_tm_fused`,
-`models.fused_scan.gsc_rls_zelinski`, `ops.aec_kernels.aec_scan`,
-`ops.wpe_kernels.wpe_stats`, `ops.wpe_kernels.wpe_resid`,
-`ops.wpe_kernels.gj_solve`) keeps a plain integer attribute
-``launches`` that it increments exactly where it launches its kernel, so a
-run can show that the main path went through the kernels.
+Each kernel wrapper keeps a plain integer attribute ``launches`` that it
+increments exactly where it launches its kernel, so a run can show that a
+path went through the kernels:
+
+- K1 `ops.filterbank_kernels.analysis_tm_fused` (``csrc/analysis_tm.cu``);
+- K2 `models.fused_scan.gsc_rls_zelinski` and K6
+  `models.fused_scan.gsc_rls_zelinski_steered` (``csrc/gsc_rls_zelinski.cu``);
+- K3 `ops.filterbank_kernels.synthesis_tm_fused` (``csrc/synthesis_tm.cu``);
+- K7 `models.fixed_weight.zelinski_apply` (``csrc/zelinski_apply.cu``);
+- K8 `models.fixed_weight.analysis_fw_synthesis` (``csrc/fw_mono.cu``);
+- K9 `ops.aec_kernels.aec_scan` (``csrc/aec_scan.cu``);
+- K10 `ops.wpe_kernels.wpe_stats`, K11 `ops.wpe_kernels.wpe_resid`, K12
+  `ops.wpe_kernels.gj_solve` (``csrc/wpe_stats.cu``, ``wpe_resid.cu``,
+  ``gj_solve.cu``).
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["launch_counts", "reset_launch_counts", "check_cuda_tensor", "stream_handle"]
+__all__ = [
+    "launch_counts", "reset_launch_counts", "check_cuda_tensor", "complex_view", "stream_handle",
+]
 
 
 def _wrappers():
-    from ..models.fused_scan import gsc_rls_zelinski
+    from ..models.fixed_weight import analysis_fw_synthesis, zelinski_apply
+    from ..models.fused_scan import gsc_rls_zelinski, gsc_rls_zelinski_steered
     from ..ops.aec_kernels import aec_scan
     from ..ops.filterbank_kernels import analysis_tm_fused, synthesis_tm_fused
     from ..ops.wpe_kernels import gj_solve, wpe_resid, wpe_stats
@@ -30,6 +40,9 @@ def _wrappers():
         "wpe_stats": wpe_stats,
         "wpe_resid": wpe_resid,
         "gj_solve": gj_solve,
+        "gsc_rls_zelinski_steered": gsc_rls_zelinski_steered,
+        "zelinski_apply": zelinski_apply,
+        "fw_mono": analysis_fw_synthesis,
     }
 
 
@@ -55,6 +68,18 @@ def check_cuda_tensor(name: str, t: torch.Tensor, shape: tuple | None = None) ->
         raise ValueError(f"{name} must be 16-byte aligned")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
+
+
+def complex_view(name: str, t: torch.Tensor, shape: tuple | None = None) -> torch.Tensor:
+    """Validated float32 view ``[..., 2]`` (interleaved re, im) of a
+    complex64 CUDA tensor of the given ``shape``, made contiguous."""
+    if t.dtype != torch.complex64:
+        raise ValueError(f"{name} must be complex64, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
+    v = torch.view_as_real(t.resolve_conj().contiguous())
+    check_cuda_tensor(name, v)
+    return v
 
 
 def stream_handle(device: torch.device) -> int:

@@ -20,7 +20,7 @@ import torch
 
 from ..ops.filterbank import pack_half, unpack_half
 from .beamforming import array_manifold, blocking_matrix, frame_energy_half
-from .postfilter import SPECTRAL_FLOOR, PostFilterType
+from .postfilter import PostFilterType, zelinski_step
 
 __all__ = ["GSCRLSConfig", "gsc_weights", "gsc_postfilter_fused"]
 
@@ -66,7 +66,7 @@ def _rls_step_factory(c: GSCRLSConfig, wqH: torch.Tensor, BmH: torch.Tensor):
     reset to I/delta), so only its real diagonal ``d`` and upper triangle
     ``off`` are carried; the lower triangle is ``conj(upper)``.
     """
-    Bc, C = BmH.shape[1], BmH.shape[2]
+    Bc, C = BmH.shape[-2], BmH.shape[-1]
     pairs = _pz_pairs(Bc)
     pidx = {p: n for n, p in enumerate(pairs)}
 
@@ -83,8 +83,8 @@ def _rls_step_factory(c: GSCRLSConfig, wqH: torch.Tensor, BmH: torch.Tensor):
         waH_l, d, off, energy = state
         gate = energy_t > energy / c.sil_thresh  # [...]
 
-        Zl = [sum(BmH[:, i, ch] * Xt[..., ch] for ch in range(C)) for i in range(Bc)]
-        Yc = sum(wqH[:, ch] * Xt[..., ch] for ch in range(C))
+        Zl = [sum(BmH[..., i, ch] * Xt[..., ch] for ch in range(C)) for i in range(Bc)]
+        Yc = sum(wqH[..., ch] * Xt[..., ch] for ch in range(C))
 
         # Gain vector & precision update; Z^H Pz (pybeamformer.py:838) is
         # conj(Pz Z) by hermitianity.
@@ -175,8 +175,11 @@ def gsc_postfilter_fused(
     energy is computed from it (``energy`` must be None).  ``wqH [F, C]``
     and ``BmH [F, C-Nc, C]`` come from `gsc_weights`; ``wq_manifold
     [F, C]`` is the postfilter alignment manifold, conjugated per channel
-    (postfilter.cc:30-43).  Returns the postfiltered output in the same
-    packed layout, ``[T, ..., M]`` float32.
+    (postfilter.cc:30-43).  The weights may instead carry the batch axes
+    ``...`` in front (``[..., F, C]``, ``[..., F, C-Nc, C]``): one steering
+    per utterance, as the steered pipeline has; weights broadcast from
+    ``[F, ...]`` give the shared-weight result bit for bit.  Returns the
+    postfiltered output in the same packed layout, ``[T, ..., M]`` float32.
 
     Only ``kind="rls"`` on the packed layout with in-loop energy is ported.
     """
@@ -185,16 +188,14 @@ def gsc_postfilter_fused(
     if not real_packed or energy is not None:
         raise NotImplementedError("only the packed layout with in-loop frame energy is ported")
     c = config
-    F, Bc = BmH.shape[0], BmH.shape[1]
+    F, Bc = BmH.shape[-3], BmH.shape[-2]
     M = 2 * (F - 1)
     if X.shape[-1] != M:
         raise ValueError(f"packed lane dim must be M={M}, got {X.shape[-1]}")
-    C = X.shape[-2]
     batch = X.shape[1:-2]
     dev = X.device
     cdtype = torch.complex64 if X.dtype == torch.float32 else torch.complex128
     real_mode = bool(pf_type & PostFilterType.ZELINSKI1_REAL)
-    pairs = [(i, j) for i in range(C) for j in range(C) if i < j]
     rls_step = _rls_step_factory(c, wqH, BmH)
 
     zc = torch.zeros(batch + (F,), dtype=cdtype, device=dev)
@@ -204,8 +205,7 @@ def gsc_postfilter_fused(
         [zc] * (Bc * (Bc - 1) // 2),
         torch.full(batch, c.init_diagonal_load, dtype=X.dtype, device=dev),
     )
-    phi_pair = zc
-    phi_diag = torch.zeros(batch + (F,), dtype=X.dtype, device=dev)
+    phi_pair = phi_diag = None
     ta_conj = torch.conj(wq_manifold)
 
     outs = []
@@ -213,23 +213,8 @@ def gsc_postfilter_fused(
         Xt = unpack_half(X[t]).movedim(-2, -1)  # [..., F, C]
         energy_t = frame_energy_half(Xt[..., 0], M)
         state, Y = rls_step(state, Xt, energy_t, t)
-
-        aligned = ta_conj * Xt
-        pair_sum = sum(aligned[..., i] * torch.conj(aligned[..., j]) for i, j in pairs)
-        diag_sum = torch.sum(torch.abs(aligned) ** 2, dim=-1)
-        # the reference smooths from its THIRD call and applies from
-        # min_frames+1 (pre-increment frame_no_ checks, postfilter.cc:424-473)
-        if t > 1:
-            phi_pair = pf_alpha * phi_pair + (1.0 - pf_alpha) * pair_sum
-            phi_diag = pf_alpha * phi_diag + (1.0 - pf_alpha) * diag_sum
-        else:
-            phi_pair, phi_diag = pair_sum, diag_sum
-
-        num = torch.clamp(torch.real(phi_pair), min=0.0) if real_mode else torch.abs(phi_pair)
-        pos = phi_diag > 0
-        ratio = torch.where(pos, num / torch.where(pos, phi_diag, torch.ones_like(phi_diag)),
-                            torch.zeros_like(num))
-        W = torch.clamp(ratio * (2.0 / (C - 1.0)), SPECTRAL_FLOOR, 1.0)
+        phi_pair, phi_diag, W = zelinski_step(phi_pair, phi_diag, ta_conj * Xt, t, pf_alpha,
+                                              real_mode)
         out = Y * W if t > pf_min_frames else Y
         outs.append(pack_half(out))
     return torch.stack(outs, dim=0)

@@ -1,4 +1,9 @@
-"""Subband beamforming weights (the parts the GSC pipeline reads).
+"""Subband beamforming weights and the fixed-weight beamformer output.
+
+The weights are computed once at build time on the host (complex64 CPU
+tensors), as the reference's out-of-loop ``wrapper_weights_calculator``
+does; only `array_manifold` and `blocking_matrix` also run in the steered
+pipeline's forward pass, batched over utterances, on the input's device.
 
 Weight/output conventions follow the reference:
   - manifold  vs[f, c]   = exp(-j 2 pi f_k tau_c) / C      (pybeamformer.py:284-307)
@@ -14,7 +19,17 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["frame_energy_half", "array_manifold", "blocking_matrix"]
+__all__ = [
+    "frame_energy_half",
+    "array_manifold",
+    "blocking_matrix",
+    "apply_weights",
+    "delay_and_sum_weights",
+    "lcmv_weights",
+    "diffuse_noise_coherence",
+    "mvdr_weights",
+    "superdirective_weights",
+]
 
 
 def frame_energy_half(subbands_half_ch0: torch.Tensor, M: int) -> torch.Tensor:
@@ -28,16 +43,20 @@ def frame_energy_half(subbands_half_ch0: torch.Tensor, M: int) -> torch.Tensor:
 
 
 def array_manifold(fftlen: int, samplerate: float, delays) -> torch.Tensor:
-    """Array manifold vectors for bins ``0..M/2``: complex64 CPU tensor
-    ``vs [F, C]``, ``vs[f] = exp(-j 2 pi f Delta_f tau) / C``
-    (calc_array_manifold_f, pybeamformer.py:284-307).  The phase is computed
-    in float32."""
-    delays = torch.as_tensor(np.asarray(delays), dtype=torch.float32)
+    """Array manifold vectors for bins ``0..M/2``: complex64 ``vs [..., F, C]``
+    from delays ``[..., C]`` (seconds), ``vs[f] = exp(-j 2 pi f Delta_f tau)
+    / C`` (calc_array_manifold_f, pybeamformer.py:284-307).  ``delays`` is a
+    numpy array (the result is a CPU tensor) or a tensor, whose device the
+    result keeps.  The phase is computed in float32."""
+    if isinstance(delays, torch.Tensor):
+        delays = delays.to(torch.float32)
+    else:
+        delays = torch.as_tensor(np.asarray(delays), dtype=torch.float32)
     C = delays.shape[-1]
     F = fftlen // 2 + 1
     delta_f = samplerate / float(fftlen)
-    k = torch.arange(F, dtype=torch.float32)
-    phase = -2.0 * math.pi * k[:, None] * delta_f * delays[None, :]
+    k = torch.arange(F, dtype=torch.float32, device=delays.device)
+    phase = -2.0 * math.pi * k[:, None] * delta_f * delays[..., None, :]
     return torch.exp(1j * phase) / C
 
 
@@ -62,3 +81,80 @@ def blocking_matrix(vs: torch.Tensor, Nc: int = 1) -> torch.Tensor:
         cols.append(vec / torch.where(nrm > 0, nrm, torch.ones_like(nrm)))
     B = torch.stack(cols, dim=-1)
     return torch.where(torch.abs(norm_vs) > 0, B, torch.zeros_like(B))
+
+
+def apply_weights(wqH: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """Fixed-weight beamformer output ``Y[..., t, f] = sum_c wqH[f, c]
+    X[..., t, f, c]``, summed over channels in order (the order of the CUDA
+    kernels).  ``wqH`` is ``[F, C]`` or carries the batch axes that follow
+    the frame axis of ``X``."""
+    return sum(wqH[..., c] * X[..., c] for c in range(X.shape[-1]))
+
+
+def delay_and_sum_weights(fftlen: int, samplerate: float, delays) -> torch.Tensor:
+    """D&S conjugate weights ``wqH [F, C]`` (SubbandDS, beamformer.cc:1095-1157)."""
+    return torch.conj(array_manifold(fftlen, samplerate, delays)).resolve_conj()
+
+
+def _pinv_hermitian(R: torch.Tensor, threshold: float) -> torch.Tensor:
+    """Batched pseudo-inverse of Hermitian matrices, zeroing eigenvalues with
+    magnitude below the absolute ``threshold`` (the reference's LINPACK
+    csvdc pinv, beamformer.cc:232-289)."""
+    w, v = torch.linalg.eigh(R)
+    inv_w = torch.where(torch.abs(w) > threshold, 1.0 / w, torch.zeros_like(w))
+    vw = v * inv_w.to(v.dtype)[..., None, :]
+    return vw @ torch.conj(v).transpose(-1, -2)
+
+
+def lcmv_weights(constraints: torch.Tensor, gains) -> torch.Tensor:
+    """LCMV quiescent weights ``wq = C (C^H C)^+ g`` per bin
+    (calc_null_beamformer_, beamformer.cc:299-363): ``constraints [..., Nc,
+    C]`` are manifold rows (target first, then jammers), ``gains [Nc]`` (1
+    for targets, 0 for nulls).  The Gram is inverted through the eigenvalue
+    pseudo-inverse with an absolute threshold of 1e-8, since it is singular
+    where the manifolds coincide (bin 0).  Returns ``wqH [..., C]``."""
+    g = torch.as_tensor(np.asarray(gains), dtype=constraints.dtype)
+    Cm = constraints.transpose(-1, -2)  # [..., C, Nc]
+    gram = torch.conj(constraints) @ Cm  # [..., Nc, Nc]
+    inv = _pinv_hermitian(gram, 1.0e-8)
+    v = inv @ g[:, None].expand(gram.shape[:-1] + (1,))
+    return torch.conj((Cm @ v)[..., 0]).resolve_conj()
+
+
+def diffuse_noise_coherence(mpos, fftlen: int, samplerate: float,
+                            sspeed: float = 343740.0) -> torch.Tensor:
+    """Spherically isotropic (diffuse) noise coherence ``Gamma [F, C, C]``,
+    ``sinc(2 f d_mn / c)`` with the normalized sinc, computed in float64 and
+    stored as complex64 (SubbandMVDR::set_diffuse_noise_model,
+    beamformer.cc:2442-2509)."""
+    mpos = np.asarray(mpos, dtype=np.float64)[:, :3]
+    d = np.sqrt(((mpos[:, None, :] - mpos[None, :, :]) ** 2).sum(-1))  # [C, C]
+    F = fftlen // 2 + 1
+    freqs = np.arange(F) * samplerate / float(fftlen)
+    gamma = np.sinc(2.0 * freqs[:, None, None] * d[None] / sspeed)
+    return torch.from_numpy(gamma.astype(np.float32)).to(torch.complex64)
+
+
+def mvdr_weights(R: torch.Tensor, vs: torch.Tensor, dthreshold: float = 1.0e-8) -> torch.Tensor:
+    """MVDR conjugate weights ``wqH [F, C]`` from the noise covariance ``R
+    [F, C, C]`` and the manifold ``vs [F, C]`` (SubbandMVDR::calc_mvdr_weights,
+    beamformer.cc:2350-2402): ``w = R^+ d / (C d^H R^+ d)`` for bins >= 1,
+    all ones at bin 0."""
+    C = vs.shape[-1]
+    invR = _pinv_hermitian(R, dthreshold)
+    tmp = torch.einsum("...ji,...j->...i", torch.conj(invR), vs)  # R^+H d
+    lam = torch.sum(torch.conj(tmp) * vs, dim=-1, keepdim=True)  # d^H R^+ d
+    w = tmp / (lam * C)
+    w[..., 0, :] = 1.0
+    return torch.conj(w).resolve_conj()
+
+
+def superdirective_weights(mpos, delays, fftlen: int, samplerate: float,
+                           sspeed: float = 343740.0, mu: float = 0.01) -> torch.Tensor:
+    """Super-directive MVDR against the diffuse-noise coherence with absolute
+    diagonal loading ``mu`` (calc_sd_beamformer_weights, pybeamformer.py:561-586;
+    loading per beamformer.cc:2511-2530).  Returns ``wqH [F, C]``."""
+    vs = array_manifold(fftlen, samplerate, delays)
+    R = diffuse_noise_coherence(mpos, fftlen, samplerate, sspeed)
+    R = R + mu * torch.eye(R.shape[-1], dtype=R.dtype)
+    return mvdr_weights(R, vs)

@@ -1,0 +1,174 @@
+"""Fixed-weight beamformer + Zelinski postfilter as hand-written CUDA kernels.
+
+Counterpart of the fixed-weight half of the JAX package's
+``models/pallas_fused_scan.py`` (BASELINE configs 1-2: D&S, SD-MVDR or LCMV
+weights, then the Zelinski postfilter):
+
+- `zelinski_apply` (K7) replaces ``zelinski_apply_pallas``: ``Y = wqH X``
+  and the Zelinski recursion over the packed time-major spectrum.
+- `analysis_fw_synthesis` (K8) replaces ``analysis_fw_synthesis_pallas``:
+  analysis bank, K7's per-bin step and synthesis bank in one launch, raw
+  samples in, samples out, for the shapes `fw_mono_supported` accepts; the
+  pipeline runs the split kernels K1 -> K7 -> K3 for the others, as the JAX
+  package runs ``zelinski_apply_pallas`` where its one-kernel chain does not
+  fit.
+
+For a CUDA tensor each wrapper launches its kernel (``csrc/zelinski_apply.cu``,
+``csrc/fw_mono.cu``) or raises; for a CPU tensor it runs its plain version
+(`zelinski_apply_plain`; for K8 the plain analysis, `zelinski_apply_plain`
+and the plain synthesis), the specification the kernel is held to.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops.filterbank import (
+    FilterbankParams,
+    analysis_half_real_tm,
+    analysis_matrix_tensor,
+    analysis_taps,
+    num_analysis_frames,
+    pack_half,
+    synthesis_half_real_tm,
+    synthesis_matrix_tensor,
+    synthesis_taps,
+    unpack_half,
+)
+from .beamforming import apply_weights
+from .postfilter import PostFilterType, zelinski_args, zelinski_postfilter
+
+__all__ = ["zelinski_apply_plain", "zelinski_apply", "fw_mono_supported", "analysis_fw_synthesis"]
+
+# analysis rows per tile of the one-kernel chain: a tile holds 64 // C
+# frames, and the synthesis halo of m*R - 1 frames must fit.  Every launch
+# passes it to csrc/fw_mono.cu, which refuses it unless it equals its ROWS,
+# so the two tile rules cannot drift apart
+FW_MONO_ROWS = 64
+
+
+def zelinski_apply_plain(
+    Yp: torch.Tensor,
+    wqH: torch.Tensor,
+    wq_manifold: torch.Tensor,
+    pf_alpha: float = 0.6,
+    pf_type: int = PostFilterType.ZELINSKI1_REAL,
+    pf_min_frames: int = 0,
+) -> torch.Tensor:
+    """The plain version of K7: complex snapshots from the packed lanes,
+    `beamforming.apply_weights`, `postfilter.zelinski_postfilter`, packed
+    again (the DC and Nyquist bins lose their Im part, as synthesis does)."""
+    X = unpack_half(Yp).movedim(-2, -1)  # [Tf, B, F, C]
+    Y = zelinski_postfilter(X, apply_weights(wqH, X), wq_manifold, pf_alpha, pf_type,
+                            pf_min_frames)
+    return pack_half(Y)
+
+
+def zelinski_apply(
+    Yp: torch.Tensor,
+    wqH: torch.Tensor,
+    wq_manifold: torch.Tensor,
+    pf_alpha: float = 0.6,
+    pf_type: int = PostFilterType.ZELINSKI1_REAL,
+    pf_min_frames: int = 0,
+) -> torch.Tensor:
+    """Fixed-weight beamformer + Zelinski postfilter over the packed
+    time-major spectrum ``Yp [Tf, B, C, M]`` -> packed ``[Tf, B, M]``.
+    ``wqH [F, C]`` are the conjugate apply weights, ``wq_manifold [F, C]``
+    the alignment manifold (the C++ ``ta_``), complex64 on ``Yp``'s device."""
+    if Yp.device.type == "cpu":
+        return zelinski_apply_plain(Yp, wqH, wq_manifold, pf_alpha, pf_type, pf_min_frames)
+    if Yp.device.type != "cuda":
+        raise ValueError(f"zelinski_apply runs on cpu or cuda tensors, got {Yp.device}")
+    from ..kernels import _build, check_cuda_tensor, complex_view, stream_handle
+
+    if Yp.dim() != 4:
+        raise ValueError(f"Yp must be [Tf, B, C, M], got {tuple(Yp.shape)}")
+    Tf, B, C, M = Yp.shape
+    wq = complex_view("wqH", wqH, (M // 2 + 1, C))
+    ta = complex_view("wq_manifold", wq_manifold, (M // 2 + 1, C))
+    Yp = Yp.contiguous()
+    check_cuda_tensor("Yp", Yp)
+    out = torch.empty((Tf, B, M), dtype=torch.float32, device=Yp.device)
+    code = _build.library().dsr_zelinski_apply(
+        Yp.data_ptr(), wq.data_ptr(), ta.data_ptr(), out.data_ptr(), Tf, B, C, M,
+        *zelinski_args(C, pf_alpha, pf_type, pf_min_frames), stream_handle(Yp.device),
+    )
+    _build.check(code, "zelinski_apply")
+    zelinski_apply.launches += 1
+    return out
+
+
+zelinski_apply.launches = 0
+
+
+def fw_mono_supported(fb: FilterbankParams, C: int) -> bool:
+    """Whether K8 takes this filterbank and channel count: M = 256, 2 <= C
+    <= 8 and a synthesis halo of m*R - 1 frames within one frame tile."""
+    return fb.M == 256 and 2 <= C <= 8 and fb.m * fb.R - 1 <= FW_MONO_ROWS // C
+
+
+def analysis_fw_synthesis(
+    x: torch.Tensor,
+    h,
+    g,
+    fb: FilterbankParams,
+    wqH: torch.Tensor,
+    wq_manifold: torch.Tensor,
+    pf_alpha: float = 0.6,
+    pf_type: int = PostFilterType.ZELINSKI1_REAL,
+    pf_min_frames: int = 0,
+    A: torch.Tensor | None = None,
+    S: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Raw samples ``x [B, C, T]`` -> enhanced samples ``[B, T_out]``: the
+    analysis bank, fixed weights + Zelinski, the synthesis bank, in one
+    kernel launch on a CUDA tensor.  ``A``/``S`` may hold the packed DFT
+    matrices (`filterbank.analysis_matrix_tensor(M, True, ...)`,
+    `filterbank.synthesis_matrix_tensor`) already on ``x``'s device."""
+    if x.device.type == "cpu":
+        Yr = analysis_half_real_tm(x, h, fb, packed=True, A=A)
+        Yp = zelinski_apply_plain(Yr, wqH, wq_manifold, pf_alpha, pf_type, pf_min_frames)
+        return synthesis_half_real_tm(Yp, g, fb, S=S)
+    if x.device.type != "cuda":
+        raise ValueError(f"analysis_fw_synthesis runs on cpu or cuda tensors, got {x.device}")
+    from ..kernels import _build, check_cuda_tensor, complex_view, stream_handle
+
+    if x.dim() != 3:
+        raise ValueError(f"x must be [B, C, T], got {tuple(x.shape)}")
+    B, C, T = x.shape
+    M, m, R, D = fb.M, fb.m, fb.R, fb.D
+    pd = fb.synthesis_delay
+    Tf = num_analysis_frames(fb, T)
+    T_out = Tf - pd
+    if T_out <= 0:
+        raise ValueError(f"need more than {pd} subband frames, got {Tf}")
+    h = torch.as_tensor(h, dtype=torch.float32, device=x.device)
+    g = torch.as_tensor(g, dtype=torch.float32, device=x.device)
+    if h.shape != (fb.N,) or g.shape != (fb.N,):
+        raise ValueError(f"prototypes must have length N=M*m={fb.N}")
+    hr = analysis_taps(h, fb).contiguous()
+    gf = synthesis_taps(g, fb).contiguous()
+    if A is None:
+        A = analysis_matrix_tensor(M, True, x.device)
+    if S is None:
+        S = synthesis_matrix_tensor(M, R, x.device)
+    wq = complex_view("wqH", wqH, (M // 2 + 1, C))
+    ta = complex_view("wq_manifold", wq_manifold, (M // 2 + 1, C))
+    x = x.contiguous()
+    check_cuda_tensor("x", x)
+    check_cuda_tensor("A", A, (M, M))
+    check_cuda_tensor("S", S, (M, M))
+    out = torch.empty((B, T_out * D), dtype=torch.float32, device=x.device)
+    code = _build.library().dsr_fw_mono(
+        x.data_ptr(), hr.data_ptr(), A.data_ptr(), S.data_ptr(), gf.data_ptr(), wq.data_ptr(),
+        ta.data_ptr(), out.data_ptr(), B, C, T, Tf, M, m, R, D, fb.laN - (m * R - 1), pd, T_out,
+        FW_MONO_ROWS,
+        *zelinski_args(C, pf_alpha, pf_type, pf_min_frames), stream_handle(x.device),
+    )
+    _build.check(code, "fw_mono")
+    analysis_fw_synthesis.launches += 1
+    return out
+
+
+analysis_fw_synthesis.launches = 0

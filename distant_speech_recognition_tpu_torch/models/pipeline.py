@@ -1,5 +1,5 @@
-"""End-to-end enhancement pipeline: analysis -> [AEC] -> [WPE] -> GSC-RLS +
-Zelinski -> synthesis.
+"""End-to-end enhancement pipelines: analysis -> [AEC] -> [WPE] -> GSC-RLS +
+Zelinski -> synthesis, and analysis -> fixed weights + Zelinski -> synthesis.
 
 The flagship chain of the reference's canonical pull graph
 (unit_test/test_online_beamforming.py:82-159: SampleFeature ->
@@ -14,9 +14,13 @@ channel, aec.cc:41-81 -> dereverberation.cc:214-275).
 out-of-loop ``wrapper_weights_calculator`` does, and returns an `Enhancer`
 module whose buffers live on the requested device, the card unless the
 caller asks for the CPU.  On a CUDA device its forward pass runs the CUDA
-kernels; on the CPU, their plain versions.  Only ``beamformer="gsc_rls"``
-with ``postfilter="zelinski"`` is ported, with ``aec`` in none | nlms |
-kalman and WPE on or off.
+kernels; on the CPU, their plain versions.  Ported, all with
+``postfilter="zelinski"``: ``beamformer="gsc_rls"`` with ``aec`` in none |
+nlms | kalman and WPE on or off, and the fixed-weight beamformers ``ds``,
+``sd_mvdr`` and ``lcmv`` (BASELINE configs 1-2) without AEC or WPE, whose
+forward pass is one kernel (`fixed_weight.analysis_fw_synthesis`) where its
+frame tiles take the shape (`fixed_weight.fw_mono_supported`), else the
+analysis, fixed-weight Zelinski and synthesis kernels in a row.
 """
 
 from __future__ import annotations
@@ -31,13 +35,17 @@ from ..ops.aec_kernels import AEC_KINDS, aec_scan
 from ..ops.filterbank import FilterbankParams, analysis_matrix_tensor, synthesis_matrix_tensor
 from ..ops.filterbank_kernels import analysis_tm_fused, synthesis_tm_fused
 from ..ops.wpe_kernels import WPE_MAX_CHANNELS, WPE_MAX_CP, WPE_MAX_LOWER, wpe_supported
+from . import beamforming as bf
 from .adaptive_gsc import GSCRLSConfig, gsc_weights
-from .beamforming import array_manifold
 from .dereverberation import wpe_multichannel_packed_tm
+from .fixed_weight import analysis_fw_synthesis, fw_mono_supported, zelinski_apply
 from .fused_scan import gsc_rls_zelinski
 from .postfilter import PostFilterType
 
-__all__ = ["PipelineConfig", "Enhancer", "build_pipeline", "from_jax_params"]
+__all__ = ["PipelineConfig", "Enhancer", "build_pipeline", "from_jax_params", "FIXED_WEIGHT"]
+
+# beamformers whose weights are fixed at build time (BASELINE configs 1-2)
+FIXED_WEIGHT = ("ds", "sd_mvdr", "lcmv")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,11 +62,12 @@ class PipelineConfig:
 
     fb: FilterbankParams = FilterbankParams()
     samplerate: float = 16000.0
-    beamformer: str = "ds"  # only "gsc_rls" is ported
+    beamformer: str = "ds"  # ds | sd_mvdr | lcmv | gsc_rls
     postfilter: str = "none"  # only "zelinski" is ported
     pf_alpha: float = 0.6
     pf_type: int = PostFilterType.ZELINSKI1_REAL
     pf_min_frames: int = 0
+    sd_mu: float = 0.01  # sd_mvdr's absolute diagonal loading
     rls: GSCRLSConfig = GSCRLSConfig()
     # full-chain extensions (BASELINE config 4: AEC -> WPE -> GSC -> postfilter)
     aec: str = "none"  # none | nlms | kalman
@@ -76,10 +85,15 @@ def _check_supported(cfg: PipelineConfig, n_chan: int | None = None) -> None:
     """Raise `NotImplementedError` for what the port does not run, on every
     device; ``n_chan``, where known, is checked against the WPE kernels'
     limits."""
-    if cfg.beamformer != "gsc_rls" or cfg.postfilter != "zelinski":
+    if cfg.beamformer not in FIXED_WEIGHT + ("gsc_rls",) or cfg.postfilter != "zelinski":
         raise NotImplementedError(
             f"beamformer={cfg.beamformer!r} postfilter={cfg.postfilter!r} is not ported; "
-            "only beamformer='gsc_rls' with postfilter='zelinski'"
+            f"only beamformer in {FIXED_WEIGHT + ('gsc_rls',)} with postfilter='zelinski'"
+        )
+    if cfg.beamformer in FIXED_WEIGHT and (cfg.aec != "none" or cfg.wpe):
+        raise NotImplementedError(
+            f"beamformer={cfg.beamformer!r} with aec={cfg.aec!r} wpe={cfg.wpe} is not ported; "
+            "the fixed-weight beamformers run without AEC and WPE"
         )
     if cfg.aec != "none" and cfg.aec not in AEC_KINDS:
         raise NotImplementedError(f"aec={cfg.aec!r} is not ported; only none | nlms | kalman")
@@ -111,8 +125,9 @@ class Enhancer(nn.Module):
 
     Buffers: prototypes ``h``, ``g``; packed DFT matrices ``A`` (analysis)
     and ``S`` (synthesis, segment reversal baked in); complex64 weights
-    ``wqH [F, C]``, ``BmH [F, C-1, C]`` and the postfilter alignment
-    manifold ``wq_manifold [F, C]``.
+    ``wqH [F, C]``, for GSC-RLS ``BmH [F, C-1, C]`` (None for the
+    fixed-weight beamformers, which have no blocking matrix), and the
+    postfilter alignment manifold ``wq_manifold [F, C]``.
     """
 
     def __init__(self, cfg: PipelineConfig, h, g, wqH, BmH, wq_manifold, device="cuda"):
@@ -135,12 +150,21 @@ class Enhancer(nn.Module):
         self.register_buffer("A", analysis_matrix_tensor(fb.M, True, dev))
         self.register_buffer("S", synthesis_matrix_tensor(fb.M, fb.R, dev))
         self.register_buffer("wqH", cplx(wqH))
-        self.register_buffer("BmH", cplx(BmH))
         self.register_buffer("wq_manifold", cplx(wq_manifold))
         if self.h.shape != (fb.N,) or self.g.shape != (fb.N,):
             raise ValueError(f"prototypes must have length N=M*m={fb.N}")
         F, C = self.wqH.shape
-        if self.BmH.shape != (F, C - 1, C):
+        if self.wq_manifold.shape != (F, C):
+            raise ValueError(f"wq_manifold must be {(F, C)}, got {tuple(self.wq_manifold.shape)}")
+        if cfg.beamformer in FIXED_WEIGHT:
+            if BmH is not None:
+                raise ValueError(f"beamformer={cfg.beamformer!r} takes no blocking matrix")
+            self.register_buffer("BmH", None)
+        elif BmH is None:
+            raise ValueError("beamformer='gsc_rls' needs the blocking matrix BmH")
+        else:
+            self.register_buffer("BmH", cplx(BmH))
+        if self.BmH is not None and self.BmH.shape != (F, C - 1, C):
             raise NotImplementedError(
                 f"BmH {tuple(self.BmH.shape)}: only one constraint (Nc=1, BmH [F, C-1, C]) is ported"
             )
@@ -160,7 +184,16 @@ class Enhancer(nn.Module):
         if play is not None and (tuple(play.shape) != (B, T) or play.device != x.device):
             raise ValueError(f"play must be [B, T] = {(B, T)} on {x.device}, got "
                              f"{tuple(play.shape)} on {play.device}")
-        Yr = analysis_tm_fused(x.to(torch.float32), self.h, c.fb, A=self.A)  # [Tf, B, C, M]
+        x = x.to(torch.float32)
+        if c.beamformer in FIXED_WEIGHT:
+            pf = (c.pf_alpha, c.pf_type, c.pf_min_frames)
+            if fw_mono_supported(c.fb, x.shape[1]):
+                return analysis_fw_synthesis(x, self.h, self.g, c.fb, self.wqH, self.wq_manifold,
+                                             *pf, A=self.A, S=self.S)
+            Yr = analysis_tm_fused(x, self.h, c.fb, A=self.A)
+            return synthesis_tm_fused(zelinski_apply(Yr, self.wqH, self.wq_manifold, *pf), self.g,
+                                      c.fb, S=self.S)
+        Yr = analysis_tm_fused(x, self.h, c.fb, A=self.A)  # [Tf, B, C, M]
         if play is not None:
             Vp = analysis_tm_fused(play.to(torch.float32)[:, None, :], self.h, c.fb, A=self.A)
             Yr = aec_scan(Yr, Vp, c.aec, c.aec_delta, c.aec_epsilon, c.aec_threshold)
@@ -174,29 +207,48 @@ class Enhancer(nn.Module):
         return synthesis_tm_fused(Yp, self.g, c.fb, S=self.S)
 
 
-def build_pipeline(cfg: PipelineConfig, mpos, delays, h, g, device="cuda") -> Enhancer:
+def build_pipeline(cfg: PipelineConfig, mpos, delays, h, g, noise_delays=None,
+                   device="cuda") -> Enhancer:
     """Build the enhancer for an array steered by ``delays`` (seconds, one
-    per channel).  ``mpos`` (mic positions) is accepted for signature parity
-    with the JAX package; the GSC + Zelinski chain reads only ``delays``.
-    ``device`` is where the buffers live and the forward pass runs; without
-    a card the default raises `RuntimeError`, so CPU callers pass ``"cpu"``."""
+    per channel), with the weights computed once on the host as JAX
+    `build_pipeline` computes them: GSC-RLS's quiescent weights and blocking
+    matrix; D&S ``conj(vs)``; super-directive MVDR against the diffuse
+    noise field of the mic positions ``mpos`` (mm) with loading
+    ``cfg.sd_mu``; LCMV with the target's manifold and one null per entry of
+    ``noise_delays`` (a list of per-channel delays).  The postfilter's
+    alignment manifold is ``vs`` itself, not the conjugated apply weights
+    (the C++ ``ta_``, beamformer.cc:960-965).  ``device`` is where the
+    buffers live and the forward pass runs; without a card the default
+    raises `RuntimeError`, so CPU callers pass ``"cpu"``."""
     delays = np.asarray(delays)
     _check_supported(cfg, delays.shape[0])
     dev = _device(device)
     M, fs = cfg.fb.M, cfg.samplerate
-    wqH, BmH = gsc_weights(M, fs, delays)
-    # Postfilter alignment = the C++ ta_ (e^{-j2 pi f tau}/C, beamformer.cc:960-965)
-    wq_manifold = array_manifold(M, fs, delays)
-    return Enhancer(cfg, h, g, wqH, BmH, wq_manifold, device=dev)
+    vs = bf.array_manifold(M, fs, delays)
+    BmH = None
+    if cfg.beamformer == "gsc_rls":
+        wqH, BmH = gsc_weights(M, fs, delays)
+    elif cfg.beamformer == "ds":
+        wqH = bf.delay_and_sum_weights(M, fs, delays)
+    elif cfg.beamformer == "sd_mvdr":
+        wqH = bf.superdirective_weights(mpos, delays, M, fs, mu=cfg.sd_mu)
+    else:  # lcmv: target + jammer manifolds as constraints, gain 1 then 0s
+        njs = [bf.array_manifold(M, fs, np.asarray(d)) for d in (noise_delays or [])]
+        gains = np.zeros(1 + len(njs))
+        gains[0] = 1.0
+        wqH = bf.lcmv_weights(torch.stack([vs] + njs, dim=1), gains)
+    return Enhancer(cfg, h, g, wqH, BmH, vs, device=dev)
 
 
 def from_jax_params(params: dict, cfg: PipelineConfig, device="cuda") -> Enhancer:
     """The same `Enhancer` from parameters computed by the JAX package, given
-    as numpy arrays: ``h``, ``g``, ``wqH``, ``BmH``, ``wq_manifold``."""
-    missing = {"h", "g", "wqH", "BmH", "wq_manifold"} - set(params)
+    as numpy arrays: ``h``, ``g``, ``wqH``, ``wq_manifold`` and, for
+    GSC-RLS, ``BmH``."""
+    need = {"h", "g", "wqH", "wq_manifold"} | ({"BmH"} if cfg.beamformer == "gsc_rls" else set())
+    missing = need - set(params)
     if missing:
         raise KeyError(f"missing parameters: {sorted(missing)}")
     return Enhancer(
-        cfg, params["h"], params["g"], params["wqH"], params["BmH"], params["wq_manifold"],
+        cfg, params["h"], params["g"], params["wqH"], params.get("BmH"), params["wq_manifold"],
         device=device,
     )

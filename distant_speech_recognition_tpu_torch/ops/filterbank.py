@@ -136,7 +136,7 @@ def analysis_half_real_tm(
         raise ValueError(f"analysis prototype must have length N=M*m={p.N}, got {tuple(h.shape)}")
     if A is None:
         A = analysis_matrix_tensor(M, packed, x.device)
-    h_rev = torch.flip(h.reshape(m, M), dims=[1])
+    h_rev = analysis_taps(h, p)
 
     T = x.shape[-1]
     n_blocks = -(-T // D)
@@ -170,6 +170,12 @@ def synthesis_matrix_tensor(M: int, R: int, device) -> torch.Tensor:
     (`dft.segment_reversal_perm`) baked into its columns, on ``device``."""
     perm = list(dft.segment_reversal_perm(M, R))
     return torch.tensor(dft.synthesis_half_matrix_packed(M)[:, perm], device=device).contiguous()
+
+
+def analysis_taps(h: torch.Tensor, params: FilterbankParams) -> torch.Tensor:
+    """Analysis prototype as ``h_rev [m, M]``: ``h_rev[k, i] = h[k*M + M-1-i]``,
+    the FIR taps of the polyphase form in the module docstring."""
+    return torch.flip(h.reshape(params.m, params.M), dims=[1])
 
 
 def synthesis_taps(g: torch.Tensor, params: FilterbankParams) -> torch.Tensor:

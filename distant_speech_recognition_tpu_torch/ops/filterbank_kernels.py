@@ -18,6 +18,7 @@ from .filterbank import (
     FilterbankParams,
     analysis_half_real_tm,
     analysis_matrix_tensor,
+    analysis_taps,
     num_analysis_frames,
     synthesis_half_real_tm,
     synthesis_matrix_tensor,
@@ -49,7 +50,7 @@ def analysis_tm_fused(
     if A is None:
         A = analysis_matrix_tensor(M, True, x.device)
     x = x.contiguous()
-    hr = torch.flip(h.reshape(m, M), dims=[1]).contiguous()
+    hr = analysis_taps(h, p).contiguous()
     lead = x.shape[:-1]
     T = x.shape[-1]
     BC = math.prod(lead)

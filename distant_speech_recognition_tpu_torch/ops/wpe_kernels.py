@@ -158,17 +158,6 @@ def _check_G(G: torch.Tensor, B: int, C: int, F: int, P: int | None = None) -> i
     return G.shape[3] // C
 
 
-def _complex_view(name: str, t: torch.Tensor) -> torch.Tensor:
-    """Validated float32 view of a contiguous complex64 CUDA tensor."""
-    from ..kernels import check_cuda_tensor
-
-    if t.dtype != torch.complex64:
-        raise ValueError(f"{name} must be complex64, got {t.dtype}")
-    v = torch.view_as_real(t.resolve_conj().contiguous())
-    check_cuda_tensor(name, v)
-    return v
-
-
 def wpe_stats(Yp: torch.Tensor, G: torch.Tensor, lowerN: int, P: int, has_g: bool = True):
     """Normal-equation stats of one WPE EM iteration from the packed frames
     ``Yp [Tf, B, C, M]`` (float32) and the current filters ``G [B, C, F,
@@ -183,11 +172,11 @@ def wpe_stats(Yp: torch.Tensor, G: torch.Tensor, lowerN: int, P: int, has_g: boo
         return stats_plain(_frames(Yp), G, lowerN, P, has_g)
     if Yp.device.type != "cuda":
         raise ValueError(f"wpe_stats runs on cpu or cuda tensors, got {Yp.device}")
-    from ..kernels import _build, check_cuda_tensor, stream_handle
+    from ..kernels import _build, check_cuda_tensor, complex_view, stream_handle
 
     Yp = Yp.contiguous()
     check_cuda_tensor("Yp", Yp)
-    Gv = _complex_view("G", G)
+    Gv = complex_view("G", G)
     CP = C * P
     R = torch.empty((B, C, F, CP, CP), dtype=torch.complex64, device=Yp.device)
     r = torch.empty((B, C, F, CP), dtype=torch.complex64, device=Yp.device)
@@ -215,11 +204,11 @@ def wpe_resid(Yp: torch.Tensor, G: torch.Tensor, lowerN: int) -> torch.Tensor:
         return pack_half(resid_plain(_frames(Yp), G, lowerN).permute(2, 0, 1, 3))
     if Yp.device.type != "cuda":
         raise ValueError(f"wpe_resid runs on cpu or cuda tensors, got {Yp.device}")
-    from ..kernels import _build, check_cuda_tensor, stream_handle
+    from ..kernels import _build, check_cuda_tensor, complex_view, stream_handle
 
     Yp = Yp.contiguous()
     check_cuda_tensor("Yp", Yp)
-    Gv = _complex_view("G", G)
+    Gv = complex_view("G", G)
     out = torch.empty_like(Yp)
     code = _build.library().dsr_wpe_resid(
         Yp.data_ptr(), Gv.data_ptr(), out.data_ptr(), Tf, B, C, M, P, lowerN,
@@ -244,10 +233,10 @@ def gj_solve(R: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
         return gj_solve_plain(R, r)
     if R.device.type != "cuda":
         raise ValueError(f"gj_solve runs on cpu or cuda tensors, got {R.device}")
-    from ..kernels import _build, stream_handle
+    from ..kernels import _build, complex_view, stream_handle
 
-    Rv = _complex_view("R", R)
-    rv = _complex_view("r", r)
+    Rv = complex_view("R", R)
+    rv = complex_view("r", r)
     x = torch.empty(r.shape, dtype=torch.complex64, device=R.device)
     N = r.numel() // n
     code = _build.library().dsr_gj_solve(Rv.data_ptr(), rv.data_ptr(), x.data_ptr(), N, n,

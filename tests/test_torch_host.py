@@ -146,10 +146,11 @@ def test_port_imports_without_jax():
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
-        "want = {'models.aec', 'models.dereverberation', 'ops.aec_kernels', 'ops.wpe_kernels'}\n"
+        "want = {'models.aec', 'models.dereverberation', 'ops.aec_kernels', 'ops.wpe_kernels',\n"
+        "        'models.fixed_weight', 'models.localization', 'models.steered'}\n"
         "missing = {pkg.__name__ + '.' + w for w in want} - set(names)\n"
         "assert not missing, missing\n"
-        "assert len(names) >= 19, names\n"
+        "assert len(names) >= 22, names\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('distant_speech_recognition_tpu.'))\n"
         "assert not bad, bad\n"
@@ -159,4 +160,4 @@ def test_port_imports_without_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 19
+    assert int(res.stdout.strip()) >= 22

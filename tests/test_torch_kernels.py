@@ -11,11 +11,17 @@ on CPU tensors, in IEEE float32, from the same numpy inputs.  Budgets are
 those of ``chip_smoke.py``: 2e-5 x max|ref| for the filterbank kernels,
 2e-4 for the scan, 3e-4 for the whole chain; for the config-4 kernels 1e-4
 for the echo canceller, 2e-4 for the WPE stats, 1e-5 for the WPE residual,
-1e-4 for the Gauss-Jordan solve and 3e-4 for the chain.  The shapes reach
+1e-4 for the Gauss-Jordan solve and 3e-4 for the chain; 3e-5 for the
+fixed-weight Zelinski kernel (K7), 2e-4 for the one-kernel fixed-weight
+chain (K8) against the chain of split kernels K1 -> K7 -> K3 and 3e-4
+against the plain chain, 2e-4 for the steered scan (K6), which given one
+steering for every utterance equals K2 bit for bit.  The shapes reach
 past the flagship's and config 4's: partial last blocks, other delay modes,
 decimations and channel counts, every constraint option, gates that close,
 far-end bins that are zero, other WPE delays, tap counts and band limits,
-batches that fill no block and M=128.
+batches that fill no block and M=128; for K6-K8 C = 2..8, both Zelinski
+modes, pf_min_frames 0 and 2, digitally silent utterances and frame counts
+that are no multiple of the kernels' frame groups and tiles.
 """
 
 import numpy as np
@@ -23,24 +29,38 @@ import pytest
 import torch
 
 from distant_speech_recognition_tpu_torch import kernels
+from distant_speech_recognition_tpu_torch.models import fixed_weight
 from distant_speech_recognition_tpu_torch.models.adaptive_gsc import (
     GSCRLSConfig,
     gsc_postfilter_fused,
     gsc_weights,
 )
-from distant_speech_recognition_tpu_torch.models.beamforming import array_manifold
+from distant_speech_recognition_tpu_torch.models.beamforming import (
+    array_manifold,
+    superdirective_weights,
+)
+from distant_speech_recognition_tpu_torch.models.fixed_weight import (
+    analysis_fw_synthesis,
+    zelinski_apply,
+)
 from distant_speech_recognition_tpu_torch.models.fused_scan import (
     analysis_gsc_synthesis,
     gsc_rls_zelinski,
+    gsc_rls_zelinski_steered,
 )
 from distant_speech_recognition_tpu_torch.models.dereverberation import (
     wpe_multichannel_packed_tm,
 )
 from distant_speech_recognition_tpu_torch.models.pipeline import PipelineConfig, build_pipeline
+from distant_speech_recognition_tpu_torch.models.steered import (
+    build_steered_pipeline,
+    steering_weights,
+)
 from distant_speech_recognition_tpu_torch.ops.aec_kernels import aec_scan
 from distant_speech_recognition_tpu_torch.ops.filterbank import (
     FilterbankParams,
     analysis_half_real_tm,
+    num_analysis_frames,
     synthesis_half_real_tm,
 )
 from distant_speech_recognition_tpu_torch.ops.filterbank_kernels import (
@@ -49,6 +69,7 @@ from distant_speech_recognition_tpu_torch.ops.filterbank_kernels import (
 )
 from distant_speech_recognition_tpu_torch.ops.wpe_kernels import gj_solve, wpe_resid, wpe_stats
 from distant_speech_recognition_tpu_torch.utils import geometry
+from distant_speech_recognition_tpu_torch.utils.prototypes import load_pair
 
 pytestmark = pytest.mark.cuda
 
@@ -81,6 +102,11 @@ def _close_per_system(got: torch.Tensor, ref: torch.Tensor, budget: float, lead:
     d = (got - ref).abs().flatten(lead).amax(-1)
     m = ref.abs().flatten(lead).amax(-1)
     assert (d <= budget * m).all(), (d / m).max().item()
+
+
+def _only(**launches):
+    """Every kernel's launch count: the given ones, 0 for the others."""
+    return dict.fromkeys(kernels.launch_counts(), 0) | launches
 
 
 def _delays(C, azimuth=np.pi / 3):
@@ -199,9 +225,8 @@ def test_chain_and_pipeline_match_plain(dev):
         ref = cpu(x)
         kernels.reset_launch_counts()
         got = gpu(x.to(dev))
-        assert kernels.launch_counts() == {"analysis_tm": 1, "gsc_rls_zelinski": 1,
-                                           "synthesis_tm": 1, "aec_scan": 0, "wpe_stats": 0,
-                                           "wpe_resid": 0, "gj_solve": 0}
+        assert kernels.launch_counts() == _only(analysis_tm=1, gsc_rls_zelinski=1,
+                                                synthesis_tm=1)
         _close(got, ref, 3e-4)
         args = (gpu.wqH, gpu.BmH, gpu.wq_manifold, cfg.rls, cfg.pf_alpha, cfg.pf_type,
                 cfg.pf_min_frames)
@@ -330,9 +355,8 @@ def test_config4_pipeline_matches_plain(dev, aec):
         ref = cpu(x, play)
         kernels.reset_launch_counts()
         got = gpu(x.to(dev), play.to(dev))
-    assert kernels.launch_counts() == {"analysis_tm": 2, "gsc_rls_zelinski": 1,
-                                       "synthesis_tm": 1, "aec_scan": 1, "wpe_stats": 2,
-                                       "wpe_resid": 1, "gj_solve": 2}
+    assert kernels.launch_counts() == _only(analysis_tm=2, gsc_rls_zelinski=1, synthesis_tm=1,
+                                            aec_scan=1, wpe_stats=2, wpe_resid=1, gj_solve=2)
     _close(got, ref, 3e-4)
 
 
@@ -369,4 +393,213 @@ def test_wrappers_raise_on_bad_cuda_input(dev):
     R = torch.zeros((5, 32, 32), dtype=torch.complex64, device=dev)
     with pytest.raises(RuntimeError, match="shape outside"):
         gj_solve(R, torch.zeros((5, 32), dtype=torch.complex64, device=dev))
+    assert set(kernels.launch_counts().values()) == {0}
+
+
+def _fixed_weights(C):
+    """SD-MVDR weights and the alignment manifold of a linear 50 mm array."""
+    mpos = np.c_[np.arange(C) * 50.0, np.zeros((C, 2))]
+    return (superdirective_weights(mpos, _delays(C), 256, FS),
+            array_manifold(256, FS, _delays(C)))
+
+
+@pytest.mark.parametrize("C,pf_type,pf_min_frames", [
+    (2, 1, 0), (2, 2, 2), (4, 1, 2), (4, 2, 0), (8, 1, 0), (8, 2, 2),
+])
+def test_zelinski_apply_kernel_matches_plain(dev, C, pf_type, pf_min_frames):
+    """Tf = 43 frames (the kernel loads frames in groups of 4), utterance 1
+    digitally silent (trace 0: the floor, no NaN)."""
+    rng = np.random.default_rng(10 * C + pf_type)
+    Yp = _packed(rng, 43, 3, C, 256)
+    Yp[:, 1] = 0.0
+    wqH, vs = _fixed_weights(C)
+    ref = zelinski_apply(Yp, wqH, vs, 0.6, pf_type, pf_min_frames)
+    before = zelinski_apply.launches
+    got = zelinski_apply(Yp.to(dev), wqH.to(dev), vs.to(dev), 0.6, pf_type, pf_min_frames)
+    assert zelinski_apply.launches == before + 1
+    _close(got, ref, 3e-5)
+    assert not got[:, 1].any()
+
+
+@pytest.mark.parametrize("C,pf_type,pf_min_frames,T,fb_kw", [
+    (2, 1, 2, 5000, {}),
+    (3, 2, 0, 4100, {}),
+    (4, 1, 2, 5000, {}),
+    (4, 2, 0, 7000, {}),
+    (8, 1, 0, 4700, {}),
+    (8, 2, 2, 3000, {}),
+    (4, 1, 2, 5000, dict(delay_compensation_type=0)),
+    (4, 2, 2, 6000, dict(m=2, r=2)),
+])
+def test_fw_mono_kernel_matches_chain_and_plain(dev, C, pf_type, pf_min_frames, T, fb_kw):
+    """K8 against K1 -> K7 -> K3 on the card and against the plain chain on
+    the CPU; every frame count here leaves a partial last tile of K = 64 / C
+    frames, and utterance 1 is digitally silent."""
+    fb = FilterbankParams(**{"M": 256, "m": 4, "r": 1, "delay_compensation_type": 2, **fb_kw})
+    assert num_analysis_frames(fb, T) % (64 // C) != 0
+    rng = np.random.default_rng(T + C)
+    h = rng.standard_normal(fb.N).astype(np.float32) / 32
+    g = rng.standard_normal(fb.N).astype(np.float32) / 32
+    x = torch.from_numpy((rng.standard_normal((3, C, T)) * 1500).astype(np.float32))
+    x[1] = 0.0
+    wqH, vs = _fixed_weights(C)
+    args = (0.6, pf_type, pf_min_frames)
+    ref = analysis_fw_synthesis(x, h, g, fb, wqH, vs, *args)
+    xd, hd, gd, wd, vd = (t.to(dev) for t in (x, torch.from_numpy(h), torch.from_numpy(g), wqH,
+                                               vs))
+    kernels.reset_launch_counts()
+    got = analysis_fw_synthesis(xd, hd, gd, fb, wd, vd, *args)
+    assert kernels.launch_counts() == _only(fw_mono=1)
+    chain = synthesis_tm_fused(zelinski_apply(analysis_tm_fused(xd, hd, fb), wd, vd, *args), gd,
+                               fb)
+    _close(got, chain.cpu(), 2e-4)
+    _close(got, ref, 3e-4)
+    assert not got[1].any()
+
+
+def test_fw_mono_refuses_another_tile(dev, monkeypatch):
+    """The Python shape rule's tile (`fixed_weight.FW_MONO_ROWS`) must be
+    the kernel's own: a launch that assumes another is refused."""
+    fb = FilterbankParams(M=256, m=4, r=1, delay_compensation_type=2)
+    h, g = (torch.ones(fb.N, device=dev) for _ in range(2))
+    wqH, vs = (w.to(dev) for w in _fixed_weights(4))
+    monkeypatch.setattr(fixed_weight, "FW_MONO_ROWS", 32)
+    with pytest.raises(RuntimeError, match="fw_mono"):
+        analysis_fw_synthesis(torch.zeros((1, 4, 4000), device=dev), h, g, fb, wqH, vs)
+
+
+def _steerings(C, B):
+    """Per-utterance manifolds of a circular 100 mm array steered at B
+    different azimuths, with their conjugates and blocking matrices."""
+    ang = 2 * np.pi * np.arange(C) / C
+    mpos = np.c_[100.0 * np.cos(ang), 100.0 * np.sin(ang), np.zeros(C)]
+    delays = np.stack([geometry.calc_ca_delays(mpos, az, np.pi / 2)
+                       for az in np.linspace(0.3, 5.9, B)]).astype(np.float32)
+    return steering_weights(array_manifold(256, FS, torch.from_numpy(delays)))
+
+
+@pytest.mark.parametrize("C", [2, 4, 8])
+def test_steered_scan_kernel_matches_plain(dev, C):
+    """K6 with one steering per utterance against its plain version (the
+    case has a gate that closes and near-silent bins), and with one
+    steering for all, against K2 bit for bit."""
+    Yp, wqH, BmH, vs = _scan_case(C, 256, seed=20 + C)
+    cfg = GSCRLSConfig(min_frames=8)
+    per_utt = _steerings(C, Yp.shape[1])
+    ref = gsc_rls_zelinski_steered(Yp, *per_utt, cfg, 0.6, 1, 2)
+    Yd = Yp.to(dev)
+    before = gsc_rls_zelinski_steered.launches
+    got = gsc_rls_zelinski_steered(Yd, *(w.to(dev) for w in per_utt), cfg, 0.6, 1, 2)
+    assert gsc_rls_zelinski_steered.launches == before + 1
+    _close(got, ref, 2e-4)
+    shared = [w.to(dev) for w in (wqH, BmH, vs)]
+    k2 = gsc_rls_zelinski(Yd, *shared, cfg, 0.6, 2, 0)
+    rows = [w.expand((Yp.shape[1],) + w.shape) for w in shared]
+    assert torch.equal(gsc_rls_zelinski_steered(Yd, *rows, cfg, 0.6, 2, 0), k2)
+
+
+@pytest.mark.parametrize("bf", ["ds", "sd_mvdr", "lcmv"])
+def test_fixed_weight_pipeline_matches_plain(dev, bf):
+    """The fixed-weight `Enhancer` on the card launches K8 once and nothing
+    else, and equals the same module on the CPU."""
+    fb = FilterbankParams(M=256, m=4, r=1, delay_compensation_type=2)
+    cfg = PipelineConfig(fb=fb, samplerate=FS, beamformer=bf, postfilter="zelinski",
+                         pf_min_frames=2)
+    rng = np.random.default_rng(5)
+    h = rng.standard_normal(fb.N).astype(np.float32) / 32
+    g = rng.standard_normal(fb.N).astype(np.float32) / 32
+    mpos = np.c_[np.arange(4) * 50.0, np.zeros((4, 2))]
+    x = torch.from_numpy((rng.standard_normal((3, 4, 9000)) * 1500).astype(np.float32))
+    noise = [_delays(4, 2 * np.pi / 3)]
+    cpu = build_pipeline(cfg, mpos, _delays(4), h, g, noise_delays=noise, device="cpu")
+    gpu = build_pipeline(cfg, mpos, _delays(4), h, g, noise_delays=noise)
+    with torch.no_grad():
+        ref = cpu(x)
+        kernels.reset_launch_counts()
+        got = gpu(x.to(dev))
+    assert kernels.launch_counts() == _only(fw_mono=1)
+    _close(got, ref, 3e-4)
+
+
+def test_fixed_weight_split_pipeline_matches_plain(dev):
+    """Where K8's frame tiles cannot hold the synthesis halo (8 channels,
+    r=2: 15 halo frames, 8-frame tiles) the fixed-weight `Enhancer` runs
+    K1 -> K7 -> K3, once each, and equals the same module on the CPU."""
+    fb = FilterbankParams(M=256, m=4, r=2, delay_compensation_type=2)
+    cfg = PipelineConfig(fb=fb, samplerate=FS, beamformer="sd_mvdr", postfilter="zelinski",
+                         pf_min_frames=2)
+    rng = np.random.default_rng(8)
+    h = rng.standard_normal(fb.N).astype(np.float32) / 32
+    g = rng.standard_normal(fb.N).astype(np.float32) / 32
+    mpos = np.c_[np.arange(8) * 50.0, np.zeros((8, 2))]
+    x = torch.from_numpy((rng.standard_normal((3, 8, 7000)) * 1500).astype(np.float32))
+    cpu = build_pipeline(cfg, mpos, _delays(8), h, g, device="cpu")
+    gpu = build_pipeline(cfg, mpos, _delays(8), h, g)
+    with torch.no_grad():
+        ref = cpu(x)
+        kernels.reset_launch_counts()
+        got = gpu(x.to(dev))
+    assert kernels.launch_counts() == _only(analysis_tm=1, zelinski_apply=1, synthesis_tm=1)
+    _close(got, ref, 3e-4)
+
+
+def test_steered_pipeline_matches_plain(dev):
+    """The config-5 `SteeredEnhancer` on the card (K1, K6, K3 once each)
+    against the same module on the CPU: sources placed at grid directions,
+    so both find the placed direction."""
+    fb = FilterbankParams(M=256, m=4, r=1, delay_compensation_type=2)
+    cfg = PipelineConfig(fb=fb, samplerate=FS, beamformer="gsc_rls", postfilter="zelinski",
+                         pf_min_frames=2, rls=GSCRLSConfig(min_frames=4))
+    rng = np.random.default_rng(6)
+    h, g = load_pair(256, 4, 1)  # the SRP needs a real filterbank to find the sources
+    ang = 2 * np.pi * np.arange(4) / 4
+    mpos = np.c_[100.0 * np.cos(ang), 100.0 * np.sin(ang), np.zeros(4)]
+    phis = np.deg2rad(np.arange(0.0, 360.0, 30.0))
+    placed = [1, 4, 7, 10]
+    T = 9000
+    src = rng.standard_normal((4, T + 64)).astype(np.float32) * 1500
+    # sensor noise 20 dB down: exact copies would make the adaptive filter
+    # amplify rounding (tests/test_torch_steered.py)
+    x = rng.standard_normal((4, 4, T)).astype(np.float32) * 150
+    for b, gi in enumerate(placed):
+        d = geometry.calc_ca_delays(mpos, phis[gi], np.pi / 2)
+        for c in range(4):
+            off = 8 - int(round(float(d[c]) * FS))
+            x[b, c] += src[b, off:off + T]
+    x = torch.from_numpy(x)
+    cpu = build_steered_pipeline(cfg, mpos, h, g, [np.pi / 2], phis, device="cpu")
+    gpu = build_steered_pipeline(cfg, mpos, h, g, [np.pi / 2], phis)
+    with torch.no_grad():
+        ref, doa_ref = cpu(x)
+        kernels.reset_launch_counts()
+        got, doa = gpu(x.to(dev))
+    assert kernels.launch_counts() == _only(analysis_tm=1, gsc_rls_zelinski_steered=1,
+                                            synthesis_tm=1)
+    assert torch.equal(doa.cpu(), doa_ref)
+    assert torch.equal(doa_ref[:, 1], torch.tensor(phis[placed], dtype=torch.float32))
+    _close(got, ref, 3e-4)
+
+
+def test_new_wrappers_raise_on_bad_cuda_input(dev):
+    """K6, K7 and K8 on CUDA tensors launch or raise; they never fall back."""
+    fb = FilterbankParams()
+    wqH, vs = (w.to(dev) for w in _fixed_weights(4))
+    Yp = torch.zeros((8, 2, 4, 256), device=dev)
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="complex64"):
+        zelinski_apply(Yp, wqH.to(torch.complex128), vs)
+    with pytest.raises(ValueError, match="CUDA"):
+        zelinski_apply(Yp, wqH.cpu(), vs)
+    x = torch.zeros((2, 4, 4096), device=dev)
+    h = torch.zeros(fb.N, device=dev)
+    with pytest.raises(ValueError, match="CUDA"):
+        analysis_fw_synthesis(x, h, h, fb, wqH, vs.cpu())
+    fb128 = FilterbankParams(M=128, m=4, r=1)
+    w128 = torch.zeros((65, 4), dtype=torch.complex64, device=dev)
+    with pytest.raises(RuntimeError, match="shape outside"):
+        analysis_fw_synthesis(x, torch.zeros(fb128.N, device=dev), torch.zeros(fb128.N, device=dev),
+                              fb128, w128, w128)
+    _, BmH = gsc_weights(256, FS, _delays(4), 1)
+    with pytest.raises(ValueError, match="shape"):
+        gsc_rls_zelinski_steered(Yp, wqH, BmH.to(dev), vs, GSCRLSConfig())
     assert set(kernels.launch_counts().values()) == {0}

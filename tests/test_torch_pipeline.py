@@ -106,7 +106,7 @@ def test_cuda_device_raises_without_a_card(case):
                               device="cuda")
 
 
-@pytest.mark.parametrize("kw", [dict(beamformer="ds"), dict(beamformer="gsc_lms"),
+@pytest.mark.parametrize("kw", [dict(beamformer="ds", aec="nlms"), dict(beamformer="gsc_lms"),
                                 dict(postfilter="mccowan"), dict(postfilter="none")])
 def test_unported_configurations_raise(case, kw):
     with pytest.raises(NotImplementedError):
