@@ -19,9 +19,13 @@ Phases (each raises on failure; the script then exits non-zero):
      zero in the systems of small scale) must fail that check;
   4. the flagship path: build_pipeline() with the default device on B=256
      utterances x 4 channels x 10 s, with every kernel's launch count read
-     around the call (exactly one each of K1, K2, K3, no other); then each kernel against its plain version at that
-     shape, and the path's output against the plain chain;
-  5. CUDA-event times of the flagship kernels and path, beside the plain
+     around the call (exactly one launch of the one-kernel chain K4, no
+     other kernel); then K1, K2 and K3 (config 4 runs them) against their
+     plain versions at that shape, the path's output against the plain chain
+     and the split kernels K1 -> K2 -> K3, and K5 against the plain loop and
+     K1 -> K2;
+  5. CUDA-event times of K1, K2, K3, K4 (the flagship path), the chain
+     K1 -> K2 -> K3 on the same input, K5 and K5 -> K3, beside the plain
      versions and one PyTorch call for the GEMM part of each filterbank;
   6. the config-4 path (NLMS AEC -> multichannel WPE -> GSC-RLS + Zelinski):
      build_pipeline() with the default device on the same B=256 x 4 ch x
@@ -31,8 +35,8 @@ Phases (each raises on failure; the script then exits non-zero):
      output against the plain chain; CUDA-event times of each kernel (beside
      its plain version, its least time on the card and, where one exists, one
      PyTorch call computing the same function) and of the whole path;
-  7. torch.profiler over three config-4 forwards: device time per kernel and
-     the device's idle share (reported, not checked);
+  7. torch.profiler over three flagship and three config-4 forwards: device
+     time per kernel and the device's idle share (reported, not checked);
   8. the fixed-weight path (BASELINE configs 1-2, D&S and SD-MVDR +
      Zelinski): build_pipeline() with the default device on B=256 x 4 ch x
      10 s, launch counts around one forward (exactly one fixed-weight
@@ -51,16 +55,27 @@ Phases (each raises on failure; the script then exits non-zero):
      (analysis, steered scan, synthesis once each, no other kernel), the
      DOA equal to the plain chain's, the output and the steered scan against
      their plain versions, CUDA-event times of the path, the steered scan and
-     the SRP stage, and a profile of three forwards.
-Phase 3 also holds, at B=8: the fixed-weight Zelinski kernel against its
-plain version and the one-kernel fixed-weight chain against the chain of
+     the SRP stage, and a profile of three forwards;
+ 10. the full-band filterbank: analysis_polyphase -> synthesis_polyphase on
+     B=256 x 4 ch x 10 s (the strided FIR K13 twice, no other kernel), the
+     reconstruction SNR (>= 50 dB), both banks against their plain versions,
+     CUDA-event times of the round trip and of K13 alone beside its plain
+     version and one grouped conv1d.
+Phase 3 also holds, at B=8: K4 against K1 -> K2 -> K3 and the plain chain
+and K5 against K1 -> K2 and the plain loop (C = 2, 4, 8, delay compensation
+0/1/2, both Zelinski modes, pf_min_frames 0 and 2, near-silent top bins);
+K13 against its plain version at M in {8, 128, 256}, m in {2, 4}, R in
+{1, 2, 4}, and the full-band banks against their plain versions; the
+fixed-weight Zelinski kernel against its plain version and the one-kernel
+fixed-weight chain against the chain of
 split kernels and against the plain chain (D&S, SD-MVDR and LCMV weights,
 both Zelinski modes, pf_min_frames 0 and 2), and the steered scan against
 its plain version with eight different steerings and, given one steering for
 all, against the flagship scan bit for bit.
 The line before the last two is a JSON object with one entry per kernel
-("launches" counts the runs of all five paths, "launches_by_path" each
-path's, one forward each); the line before the last is the card's name and
+("launches" counts the runs of all six paths, "launches_by_path" each
+path's, one forward each; K4 and K5 also carry their error against the
+split kernels); the line before the last is the card's name and
 power limit; the last line is {"ok": true, "device": {...}}.  Imports
 nothing of JAX.
 """
@@ -128,6 +143,7 @@ def main() -> None:
     from distant_speech_recognition_tpu_torch.models.adaptive_gsc import (
         GSCRLSConfig,
         gsc_postfilter_fused,
+        gsc_weights,
     )
     from distant_speech_recognition_tpu_torch.models.aec import kalman_aec, nlms_aec
     from distant_speech_recognition_tpu_torch.models.beamforming import array_manifold
@@ -144,6 +160,7 @@ def main() -> None:
         zelinski_apply_plain,
     )
     from distant_speech_recognition_tpu_torch.models.fused_scan import (
+        analysis_gsc_rls_zelinski,
         analysis_gsc_synthesis,
         gsc_rls_zelinski,
         gsc_rls_zelinski_steered,
@@ -160,14 +177,21 @@ def main() -> None:
     from distant_speech_recognition_tpu_torch.ops.aec_kernels import aec_scan
     from distant_speech_recognition_tpu_torch.ops.filterbank import (
         FilterbankParams,
+        _analysis_with,
+        analysis,
         analysis_half_real_tm,
         num_analysis_frames,
         pack_half,
+        polyphase_fir_plain,
+        synthesis,
         synthesis_half_real_tm,
         unpack_half,
     )
     from distant_speech_recognition_tpu_torch.ops.filterbank_kernels import (
+        analysis_polyphase,
         analysis_tm_fused,
+        polyphase_fir,
+        synthesis_polyphase,
         synthesis_tm_fused,
     )
     from distant_speech_recognition_tpu_torch.ops.wpe_kernels import (
@@ -239,7 +263,16 @@ def main() -> None:
 
 
     def kernel_chain(x):
-        return analysis_gsc_synthesis(x, enh.h, enh.g, fb, *scan_args, A=enh.A, S=enh.S)
+        """The split kernels K1 -> K2 -> K3 (K4 fuses them)."""
+        Yr = analysis_tm_fused(x, enh.h, fb, A=enh.A, hr=enh.hr)
+        return synthesis_tm_fused(gsc_rls_zelinski(Yr, *scan_args), enh.g, fb, S=enh.S, gf=enh.gf)
+
+    def k4(x):
+        return analysis_gsc_synthesis(x, enh.h, enh.g, fb, *scan_args, A=enh.A, S=enh.S,
+                                      hr=enh.hr, gf=enh.gf)
+
+    def k5(x):
+        return analysis_gsc_rls_zelinski(x, enh.h, fb, *scan_args, A=enh.A, hr=enh.hr)
 
     def plain_aec(Ap, Vp, kind="nlms", p1=cfg4.aec_delta, p2=cfg4.aec_epsilon,
                   thr=cfg4.aec_threshold):
@@ -424,7 +457,63 @@ def main() -> None:
         f"{'bit-identical' if same else 'DIFFERS'}")
     if not same:
         raise AssertionError("the steered scan with identical rows differs from the flagship scan")
-    del xs, Yr_ref, vs8, steer8, rows
+    del vs8, steer8, rows
+
+    # the one-kernel flagship chains: K4 against the split kernels K1 -> K2 ->
+    # K3 (3e-4; 0 expected, the same device code in the same order) and the
+    # plain chain (3e-4), K5 against K1 -> K2 and the plain loop (2e-4): both
+    # Zelinski modes, pf_min_frames 0 and 2, delay compensation 0/1/2, C = 2,
+    # 4 and 8 (frame counts that leave a partial last tile of 64 / C frames),
+    # the default RLS and one that adapts from frame 8, and a band-limited
+    # input whose top bins are near-silent (the norm cap's overflow)
+    n_s = xs.shape[-1]
+    band = torch.arange(n_s // 2 + 1, device=dev) < 3 * n_s // 8
+    xs_bl = torch.fft.irfft(torch.fft.rfft(xs) * band, n=n_s)
+    rls8 = GSCRLSConfig(min_frames=8)
+    mono_cases = [
+        ("C=4, delay comp 2, pf_type 1, pf_min_frames 2", 4, fb, (1, 2), cfg.rls, xs),
+        ("C=4, delay comp 0, pf_type 2, pf_min_frames 0", 4,
+         dataclasses.replace(fb, delay_compensation_type=0), (2, 0), rls8, xs),
+        ("C=4, delay comp 1, pf_type 1, pf_min_frames 0", 4,
+         dataclasses.replace(fb, delay_compensation_type=1), (1, 0), rls8, xs),
+        ("C=2, pf_type 2, pf_min_frames 2", 2, fb, (2, 2), rls8, xs[:, :2]),
+        ("C=8, pf_type 1, pf_min_frames 2", 8, fb, (1, 2), rls8,
+         torch.from_numpy(signal(rng, (8, 8, 2 * FS))).to(dev)),
+        ("C=4, band-limited input (near-silent top bins)", 4, fb, (1, 0),
+         GSCRLSConfig(min_frames=2), xs_bl),
+    ]
+    for tag, C_, fb_, pf, rls, x_ in mono_cases:
+        d_ = geometry.calc_la_delays(np.c_[np.arange(C_) * 50.0, np.zeros((C_, 2))][:, :1],
+                                     azimuth=np.pi / 3)
+        wq_, bm_ = gsc_weights(M, float(FS), d_, 1)
+        w_ = (wq_.to(dev), bm_.to(dev), array_manifold(M, float(FS), d_).to(dev), rls,
+              cfg.pf_alpha, *pf)
+        h_, g_ = enh.h, enh.g
+        Yp_k = gsc_rls_zelinski(analysis_tm_fused(x_, h_, fb_), *w_)
+        Yp_plain = plain_scan(analysis_half_real_tm(x_, h_, fb_, packed=True), w_)
+        y5 = analysis_gsc_rls_zelinski(x_, h_, fb_, *w_)
+        compare(f"gsc_analysis vs K1->K2, {tag}", y5, Yp_k, 2e-4, "gsc_analysis_vs_split")
+        compare(f"gsc_analysis vs plain loop, {tag}", y5, Yp_plain, 2e-4, "gsc_analysis")
+        y4 = analysis_gsc_synthesis(x_, h_, g_, fb_, *w_)
+        compare(f"gsc_mono vs K1->K2->K3, {tag}", y4, synthesis_tm_fused(Yp_k, g_, fb_), 3e-4,
+                "gsc_mono_vs_split")
+        compare(f"gsc_mono vs plain chain, {tag}", y4,
+                synthesis_half_real_tm(Yp_plain, g_, fb_), 3e-4, "gsc_mono")
+    del xs_bl, mono_cases, Yp_k, Yp_plain, y4, y5
+
+    # the strided FIR (K13) over its shapes, and the full-band banks it serves
+    for M_ in (8, 128, 256):
+        for m_ in (2, 4):
+            for R_ in (1, 2, 4):
+                S_ = torch.from_numpy(signal(rng, (8, 300 + (m_ - 1) * R_, M_))).to(dev)
+                h_ = torch.from_numpy(rng.standard_normal((m_, M_), dtype=np.float32)).to(dev)
+                compare(f"polyphase_fir M={M_} m={m_} R={R_}", polyphase_fir(S_, h_, m_, R_),
+                        polyphase_fir_plain(S_, h_, m_, R_), 2e-5, "polyphase_fir")
+    Ys = analysis_polyphase(xs, enh.h, fb)
+    compare("analysis_polyphase vs analysis", Ys, analysis(xs, enh.h, fb), 2e-5, "polyphase_fir")
+    compare("synthesis_polyphase vs synthesis", synthesis_polyphase(Ys, enh.g, fb),
+            synthesis(Ys, enh.g, fb), 2e-5, "polyphase_fir")
+    del xs, Yr_ref, Ys, S_, h_
 
     # -- 4. flagship path at real size ----------------------------------------
     B, secs = 256, 10
@@ -448,10 +537,10 @@ def main() -> None:
         raise AssertionError(f"flagship output {tuple(y.shape)} != {(B, T_out)}")
     if not torch.isfinite(y).all():
         raise AssertionError("flagship output has non-finite values")
-    want = dict.fromkeys(counts, 0) | {"analysis_tm": 1, "gsc_rls_zelinski": 1,
-                                       "synthesis_tm": 1}
+    want = dict.fromkeys(counts, 0) | {"gsc_mono": 1}
     if counts != want:
-        raise AssertionError(f"flagship launches {counts}, the path needs {want}")
+        raise AssertionError(f"flagship launches {counts}, the path needs one gsc_mono and "
+                             f"nothing else")
 
     def time_ms(fn, reps, warmup=1):
         for _ in range(warmup):
@@ -490,7 +579,14 @@ def main() -> None:
         y_ref = plain_synthesis(Yp_ref)  # = plain_chain(x)
         compare("synthesis_tm", synthesis_tm_fused(Yp_ref, enh.g, fb, S=enh.S), y_ref, 2e-5,
                 "synthesis_tm")
-        compare("flagship path (build_pipeline) vs plain chain", y, y_ref, 3e-4)
+        compare("flagship path (build_pipeline, gsc_mono) vs plain chain", y, y_ref, 3e-4,
+                "gsc_mono")
+        compare("flagship path (gsc_mono) vs K1->K2->K3", y, kernel_chain(x), 3e-4,
+                "gsc_mono_vs_split")
+        compare("gsc_analysis vs plain loop", k5(x), Yp_ref, 2e-4, "gsc_analysis")
+        compare("gsc_analysis vs K1->K2", k5(x),
+                gsc_rls_zelinski(analysis_tm_fused(x, enh.h, fb, A=enh.A), *scan_args), 2e-4,
+                "gsc_analysis_vs_split")
         del Yp_ref, y_ref, y
 
     # -- 5. times ----------------------------------------------------------------
@@ -506,6 +602,14 @@ def main() -> None:
                                      plain_k2_ms)
         times["synthesis_tm"] = (time_ms(lambda: synthesis_tm_fused(Yp, enh.g, fb, S=enh.S), 5),
                                  time_ms(lambda: plain_synthesis(Yp), 5))
+        # the one-kernel chains beside the split kernels on the same input;
+        # the plain versions: the plain stages timed here
+        plain_a_ms, plain_s_ms = times["analysis_tm"][1], times["synthesis_tm"][1]
+        times["gsc_mono"] = (time_ms(lambda: k4(x), 5), plain_a_ms + plain_k2_ms + plain_s_ms)
+        times["gsc_analysis"] = (time_ms(lambda: k5(x), 5), plain_a_ms + plain_k2_ms)
+        chain_ms = time_ms(lambda: kernel_chain(x), 5)
+        k5k3_ms = time_ms(lambda: synthesis_tm_fused(k5(x), enh.g, fb, S=enh.S, gf=enh.gf), 5)
+        library["gsc_mono"] = library["gsc_analysis"] = None
         # one PyTorch call for the GEMM part of each filterbank kernel
         W = torch.randn((Tf * B * C, M), device=dev)
         library["analysis_tm"] = time_ms(lambda: torch.matmul(W, enh.A), 5)
@@ -517,14 +621,16 @@ def main() -> None:
     plain_path_ms = sum(times[name][1] for name in ("analysis_tm", "gsc_rls_zelinski",
                                                     "synthesis_tm"))
     audio_s = B * secs
-    for name in ("analysis_tm", "gsc_rls_zelinski", "synthesis_tm"):
+    for name in ("analysis_tm", "gsc_rls_zelinski", "synthesis_tm", "gsc_analysis", "gsc_mono"):
         k_ms, p_ms = times[name]
         lib = library[name]
         log(f"  {name}: kernel {k_ms:.3f} ms   plain {p_ms:.3f} ms   "
             f"library {'-' if lib is None else f'{lib:.3f} ms (GEMM part only)'}")
-    log(f"  flagship path: kernels {path_ms:.3f} ms "
+    log(f"  flagship path (gsc_mono): {path_ms:.3f} ms "
         f"({audio_s / (path_ms / 1e3):.1f} audio-s/s/GPU)   plain {plain_path_ms:.3f} ms "
         f"({audio_s / (plain_path_ms / 1e3):.1f} audio-s/s/GPU)")
+    log(f"  same input: K1->K2->K3 {chain_ms:.3f} ms ({audio_s / (chain_ms / 1e3):.1f} "
+        f"audio-s/s/GPU)   gsc_analysis->K3 {k5k3_ms:.3f} ms")
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
     # -- 6. config-4 path at real size -----------------------------------------
@@ -664,7 +770,9 @@ def main() -> None:
         for name, us in sorted(per_kernel.items(), key=lambda kv: -kv[1]):
             log(f"  {name:40s} {us / (1e3 * n):9.3f} ms per forward  {100 * us / busy:5.1f}%")
 
-    log("== 7. torch.profiler over 3 back-to-back config-4 forwards")
+    log("== 7. torch.profiler over 3 back-to-back flagship (gsc_mono) forwards")
+    profile_path(lambda: enh(x))
+    log("   torch.profiler over 3 back-to-back config-4 forwards")
     profile_path(lambda: enh4(x, play))
     del enh4, play
 
@@ -845,6 +953,66 @@ def main() -> None:
     log(f"  peak device memory of phase 9 {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     log("  torch.profiler over 3 back-to-back config-5 forwards")
     profile_path(lambda: enh5(x5))
+    del enh5, x5
+
+    # -- 10. full-band filterbank round trip at real size ---------------------------
+    log(f"== 10. full-band filterbank: analysis_polyphase -> synthesis_polyphase, B={B} x {C} ch "
+        f"x {secs} s, prototypes design_nyquist_pair({M}, {fb.m}, {fb.r}) (load_pair's design)")
+    torch.cuda.reset_peak_memory_stats()
+    x10 = torch.from_numpy(signal(rng, (B, C, T))).to(dev)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        Y10 = analysis_polyphase(x10, enh.h, fb)
+        y10 = synthesis_polyphase(Y10, enh.g, fb)
+    torch.cuda.synchronize()
+    counts_fb = kernels.launch_counts()
+    log(f"  complex spectrum {tuple(Y10.shape)} ({Y10.numel() * 8 / 1e9:.2f} GB), launches "
+        f"{counts_fb}")
+    if counts_fb != dict.fromkeys(counts_fb, 0) | {"polyphase_fir": 2}:
+        raise AssertionError(f"round-trip launches {counts_fb}, the path needs two polyphase_fir")
+    if tuple(y10.shape) != (B, C, T_out) or not torch.isfinite(y10).all():
+        raise AssertionError(f"round-trip output {tuple(y10.shape)} is not finite {(B, C, T_out)}")
+    # reconstruction SNR away from the edge transients (SKILL.md's criterion)
+    seg = slice(2048, T - 2048)
+    err = (y10[..., seg] - x10[..., seg]).double()
+    snr = 10 * np.log10((x10[..., seg].double() ** 2).mean().item() / (err ** 2).mean().item())
+    log(f"  reconstruction SNR {snr:.2f} dB (required >= 50)")
+    if not snr >= 50.0:
+        raise AssertionError(f"round-trip SNR {snr:.2f} dB < 50 dB")
+    del err
+    with torch.no_grad():
+        Y10_ref, plain_ana_ms = timed(lambda: analysis(x10, enh.h, fb))
+        compare("analysis_polyphase vs analysis at B=256", Y10, Y10_ref, 2e-5, "polyphase_fir")
+        del Y10_ref
+        y10_ref, plain_syn_ms = timed(lambda: synthesis(Y10, enh.g, fb))
+        compare("round trip vs plain round trip", y10, y10_ref, 2e-5, "polyphase_fir")
+        del Y10, y10, y10_ref
+        fb_ms = time_ms(lambda: synthesis_polyphase(analysis_polyphase(x10, enh.h, fb), enh.g, fb),
+                        3)
+        # K13 alone on the analysis FIR's input (the reversed windows)
+        S10 = _analysis_with(lambda S_, *_: S_, x10, enh.h, fb)
+        hf10 = enh.h.reshape(fb.m, M)
+        v10 = polyphase_fir(S10, hf10, fb.m, fb.R)
+        times["polyphase_fir"] = (time_ms(lambda: polyphase_fir(S10, hf10, fb.m, fb.R), 5),
+                                  time_ms(lambda: polyphase_fir_plain(S10, hf10, fb.m, fb.R), 5))
+        # one PyTorch call for the same function: a grouped, dilated conv1d
+        # (taps reversed: conv1d correlates) on the channel-major input
+        Sc = S10.reshape(-1, S10.shape[-2], M).transpose(1, 2).contiguous()
+        wc = hf10.flip(0).t().contiguous()[:, None, :]  # [M, 1, m]
+        conv = lambda: torch.nn.functional.conv1d(Sc, wc, groups=M, dilation=fb.R)
+        lib_err = (conv().transpose(1, 2).reshape(v10.shape) - v10).abs().max().item()
+        library["polyphase_fir"] = time_ms(conv, 5)
+        fir_shape = (tuple(S10.shape), tuple(v10.shape))
+        del S10, v10, Sc
+    log(f"  polyphase_fir {fir_shape[0]} -> {fir_shape[1]}: kernel "
+        f"{times['polyphase_fir'][0]:.3f} ms   plain {times['polyphase_fir'][1]:.3f} ms   "
+        f"library {library['polyphase_fir']:.3f} ms (conv1d, groups={M}, dilation={fb.R}; "
+        f"max |conv1d - kernel| {lib_err:.3g})")
+    log(f"  round trip: kernels {fb_ms:.3f} ms ({B * C * secs / (fb_ms / 1e3):.1f} "
+        f"channel-audio-s/s/GPU)   plain {plain_ana_ms + plain_syn_ms:.3f} ms")
+    log(f"  peak device memory of phase 10 {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del x10
 
     # least time on the card for the work of each timed call, from its shapes
     CP = C * P
@@ -859,7 +1027,11 @@ def main() -> None:
     fft_flops = 2.5 * M * np.log2(M)
     fir_in, fir_out = 2 * fb.m * M * rows, 2 * fb.m * M * (T_out // fb.D) * B
     zel_flops = 8 * (3 * C + C * (C - 1) // 2)  # K7's per (frame, utterance, bin)
+    rls_flops = 8 * scan_macs * Tf * B * F  # the scan's per (frame, utterance, bin) work
+    fir_rows = B * C * Tf  # the round trip's analysis FIR: rows out, and (m-1)*R more in
     dense_dft = {
+        "gsc_mono": bound(0, (rows + Tf * B) * 2 * M * M + fir_in + fir_out + rls_flops)[0],
+        "gsc_analysis": bound(0, rows * 2 * M * M + fir_in + rls_flops)[0],
         "analysis_tm": bound(0, rows * 2 * M * M + fir_in)[0],
         "synthesis_tm": bound(0, Tf * B * 2 * M * M + fir_out)[0],
         "fw_mono": bound(0, (rows + Tf * B) * 2 * M * M + fir_in + fir_out
@@ -891,6 +1063,14 @@ def main() -> None:
         "fw_mono": bound(4 * (B * C * T + B * T_out + 2 * M * M + 2 * fb.N) + 16 * F * C,
                          (rows + Tf * B) * fft_flops + fir_in + fir_out
                          + zel_flops * Tf * B * F),
+        # samples in, samples (K4) or the beamformed spectrum (K5) out
+        "gsc_mono": bound(4 * (B * C * T + B * T_out + 2 * M * M + 2 * fb.N) + 8 * F * C * (2 + Bc),
+                          (rows + Tf * B) * fft_flops + fir_in + fir_out + rls_flops),
+        "gsc_analysis": bound(4 * (B * C * T + Tf * B * M + M * M + fb.N) + 8 * F * C * (2 + Bc),
+                              rows * fft_flops + fir_in + rls_flops),
+        # the reversed windows in, the FIR rows out
+        "polyphase_fir": bound(4 * ((2 * fir_rows + B * C * (fb.m - 1) * fb.R) * M + fb.N),
+                               2 * fb.m * M * fir_rows),
     }
     sources = {
         "analysis_tm": ("analysis_tm.cu",
@@ -908,9 +1088,15 @@ def main() -> None:
         "zelinski_apply": ("zelinski_apply.cu",
                            "distant_speech_recognition_tpu/models/pallas_fused_scan.py:1571"),
         "fw_mono": ("fw_mono.cu", "distant_speech_recognition_tpu/models/pallas_fused_scan.py:1661"),
+        "gsc_mono": ("gsc_mono.cu",
+                     "distant_speech_recognition_tpu/models/pallas_fused_scan.py:999"),
+        "gsc_analysis": ("gsc_mono.cu",
+                         "distant_speech_recognition_tpu/models/pallas_fused_scan.py:876"),
+        "polyphase_fir": ("polyphase_fir.cu",
+                          "distant_speech_recognition_tpu/ops/pallas_kernels.py:674"),
     }
     by_path = {"flagship": counts, "config4": counts4, "fixed_weight": counts_fw,
-               "fixed_weight_split": counts_split, "config5": counts5}
+               "fixed_weight_split": counts_split, "config5": counts5, "filterbank": counts_fb}
     rows_json = []
     for name, (src, rep) in sources.items():
         b_ms, b_by = bounds[name]
@@ -918,7 +1104,7 @@ def main() -> None:
                  f"{100 * dense_dft[name] / times[name][0]:.1f}%" if name in dense_dft else "")
         log(f"  {name}: bound {b_ms:.3f} ms ({b_by}), kernel at "
             f"{100 * b_ms / times[name][0]:.1f}% of it{dense}")
-        rows_json.append({
+        row = {
             "name": name, "route": "cuda",
             "source": f"distant_speech_recognition_tpu_torch/csrc/{src}", "replaces": rep,
             "launches": sum(c[name] for c in by_path.values()),
@@ -926,7 +1112,10 @@ def main() -> None:
             "max_abs_err": results[name],
             "ms": times[name][0], "plain_ms": times[name][1],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library[name],
-        })
+        }
+        if name + "_vs_split" in results:  # the one-kernel chains against the split kernels
+            row["max_abs_err_vs_split"] = results[name + "_vs_split"]
+        rows_json.append(row)
     log(f"script time {time.perf_counter() - t_script:.1f} s")
     log(json.dumps({"kernels": rows_json}))
     log(smi_line())

@@ -61,6 +61,33 @@ int dsr_fw_mono(const float* x, const float* hr, const float* A, const float* S,
                 float one_minus_pf_alpha, float pf_gain, float spectral_floor, int real_mode,
                 int pf_min_frames, cudaStream_t stream);
 
+// K4 (samples out, [B, T_out * D]) and K5 (packed beamformed spectrum out,
+// [Tf, B, M]): the GSC-RLS + Zelinski chain from raw samples in one launch.
+// wq, ta: interleaved complex64 [F, C]; bm: [F, Bc, C]; rows: the caller's
+// analysis rows per frame tile, refused unless the kernel's own
+int dsr_gsc_mono(const float* x, const float* hr, const float* A, const float* S,
+                 const float* gf, const float* wq, const float* bm, const float* ta, float* out,
+                 int B, int C, int Bc, int T, int Tf, int M, int m, int R, int D, int shift,
+                 int pd, int T_out, int rows, float beta, float one_minus_beta, float gamma,
+                 float mu, float delta, float inv_delta, float reg_param, float sil_thresh,
+                 int constraint_option, float alpha2, float max_wa_l2norm, int min_frames,
+                 float pf_alpha, float one_minus_pf_alpha, float pf_gain, float spectral_floor,
+                 int real_mode, int pf_min_frames, cudaStream_t stream);
+
+int dsr_gsc_analysis(const float* x, const float* hr, const float* A, const float* wq,
+                     const float* bm, const float* ta, float* out, int B, int C, int Bc, int T,
+                     int Tf, int M, int m, int D, int shift, int rows, float beta,
+                     float one_minus_beta, float gamma, float mu, float delta, float inv_delta,
+                     float reg_param, float sil_thresh, int constraint_option, float alpha2,
+                     float max_wa_l2norm, int min_frames, float pf_alpha,
+                     float one_minus_pf_alpha, float pf_gain, float spectral_floor,
+                     int real_mode, int pf_min_frames, cudaStream_t stream);
+
+// K13: v[n, t, i] = sum_k h[k, i] * S[n, t + (m-1-k)*R, i]; S [N, T + (m-1)*R, M],
+// h [m, M], v [N, T, M]; m <= 8
+int dsr_polyphase_fir(const float* S, const float* h, float* v, int N, int T, int M, int m, int R,
+                      cudaStream_t stream);
+
 // kalman = 0: NLMS with p1 = delta, p2 = epsilon; kalman = 1: p1 = beta, p2 = sigma2
 int dsr_aec_scan(const float* A, const float* V, float* E, int Tf, int B, int C, int M,
                  int kalman, float p1, float p2, float thr, cudaStream_t stream);

@@ -8,12 +8,15 @@ path went through the kernels:
 - K2 `models.fused_scan.gsc_rls_zelinski` and K6
   `models.fused_scan.gsc_rls_zelinski_steered` (``csrc/gsc_rls_zelinski.cu``);
 - K3 `ops.filterbank_kernels.synthesis_tm_fused` (``csrc/synthesis_tm.cu``);
+- K4 `models.fused_scan.analysis_gsc_synthesis` and K5
+  `models.fused_scan.analysis_gsc_rls_zelinski` (``csrc/gsc_mono.cu``);
 - K7 `models.fixed_weight.zelinski_apply` (``csrc/zelinski_apply.cu``);
 - K8 `models.fixed_weight.analysis_fw_synthesis` (``csrc/fw_mono.cu``);
 - K9 `ops.aec_kernels.aec_scan` (``csrc/aec_scan.cu``);
 - K10 `ops.wpe_kernels.wpe_stats`, K11 `ops.wpe_kernels.wpe_resid`, K12
   `ops.wpe_kernels.gj_solve` (``csrc/wpe_stats.cu``, ``wpe_resid.cu``,
-  ``gj_solve.cu``).
+  ``gj_solve.cu``);
+- K13 `ops.filterbank_kernels.polyphase_fir` (``csrc/polyphase_fir.cu``).
 """
 
 from __future__ import annotations
@@ -27,9 +30,14 @@ __all__ = [
 
 def _wrappers():
     from ..models.fixed_weight import analysis_fw_synthesis, zelinski_apply
-    from ..models.fused_scan import gsc_rls_zelinski, gsc_rls_zelinski_steered
+    from ..models.fused_scan import (
+        analysis_gsc_rls_zelinski,
+        analysis_gsc_synthesis,
+        gsc_rls_zelinski,
+        gsc_rls_zelinski_steered,
+    )
     from ..ops.aec_kernels import aec_scan
-    from ..ops.filterbank_kernels import analysis_tm_fused, synthesis_tm_fused
+    from ..ops.filterbank_kernels import analysis_tm_fused, polyphase_fir, synthesis_tm_fused
     from ..ops.wpe_kernels import gj_solve, wpe_resid, wpe_stats
 
     return {
@@ -43,6 +51,9 @@ def _wrappers():
         "gsc_rls_zelinski_steered": gsc_rls_zelinski_steered,
         "zelinski_apply": zelinski_apply,
         "fw_mono": analysis_fw_synthesis,
+        "gsc_mono": analysis_gsc_synthesis,
+        "gsc_analysis": analysis_gsc_rls_zelinski,
+        "polyphase_fir": polyphase_fir,
     }
 
 

@@ -28,9 +28,9 @@ BUILD_DIR = _PKG / "build"
 SOURCES = (
     "analysis_tm.cu", "gsc_rls_zelinski.cu", "synthesis_tm.cu",
     "aec_scan.cu", "wpe_stats.cu", "wpe_resid.cu", "gj_solve.cu",
-    "zelinski_apply.cu", "fw_mono.cu",
+    "zelinski_apply.cu", "fw_mono.cu", "gsc_mono.cu", "polyphase_fir.cu",
 )
-HEADERS = ("dsr_kernels.h", "dsr_device.h")
+HEADERS = ("dsr_kernels.h", "dsr_device.h", "gsc_step.h")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -59,6 +59,15 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
         _F, _F, _F, _F, _I, _I, _P,
     ],
+    "dsr_gsc_mono": [
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+        _F, _F, _F, _F, _F, _F, _F, _F, _I, _F, _F, _I, _F, _F, _F, _F, _I, _I, _P,
+    ],
+    "dsr_gsc_analysis": [
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+        _F, _F, _F, _F, _F, _F, _F, _F, _I, _F, _F, _I, _F, _F, _F, _F, _I, _I, _P,
+    ],
+    "dsr_polyphase_fir": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "dsr_aec_scan": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P],
     "dsr_wpe_stats": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "dsr_wpe_resid": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],

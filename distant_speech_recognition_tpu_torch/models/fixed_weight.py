@@ -35,6 +35,7 @@ from ..ops.filterbank import (
     synthesis_taps,
     unpack_half,
 )
+from ..ops.filterbank_kernels import prototype_taps
 from .beamforming import apply_weights
 from .postfilter import PostFilterType, zelinski_args, zelinski_postfilter
 
@@ -120,12 +121,16 @@ def analysis_fw_synthesis(
     pf_min_frames: int = 0,
     A: torch.Tensor | None = None,
     S: torch.Tensor | None = None,
+    hr: torch.Tensor | None = None,
+    gf: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Raw samples ``x [B, C, T]`` -> enhanced samples ``[B, T_out]``: the
     analysis bank, fixed weights + Zelinski, the synthesis bank, in one
     kernel launch on a CUDA tensor.  ``A``/``S`` may hold the packed DFT
     matrices (`filterbank.analysis_matrix_tensor(M, True, ...)`,
-    `filterbank.synthesis_matrix_tensor`) already on ``x``'s device."""
+    `filterbank.synthesis_matrix_tensor`) and ``hr``/``gf`` the kernel's
+    prototype taps (`filterbank_kernels.prototype_taps`) already on ``x``'s
+    device."""
     if x.device.type == "cpu":
         Yr = analysis_half_real_tm(x, h, fb, packed=True, A=A)
         Yp = zelinski_apply_plain(Yr, wqH, wq_manifold, pf_alpha, pf_type, pf_min_frames)
@@ -143,12 +148,10 @@ def analysis_fw_synthesis(
     T_out = Tf - pd
     if T_out <= 0:
         raise ValueError(f"need more than {pd} subband frames, got {Tf}")
-    h = torch.as_tensor(h, dtype=torch.float32, device=x.device)
-    g = torch.as_tensor(g, dtype=torch.float32, device=x.device)
-    if h.shape != (fb.N,) or g.shape != (fb.N,):
-        raise ValueError(f"prototypes must have length N=M*m={fb.N}")
-    hr = analysis_taps(h, fb).contiguous()
-    gf = synthesis_taps(g, fb).contiguous()
+    if hr is None:
+        hr = prototype_taps(analysis_taps, h, fb, x.device)
+    if gf is None:
+        gf = prototype_taps(synthesis_taps, g, fb, x.device)
     if A is None:
         A = analysis_matrix_tensor(M, True, x.device)
     if S is None:
@@ -159,6 +162,8 @@ def analysis_fw_synthesis(
     check_cuda_tensor("x", x)
     check_cuda_tensor("A", A, (M, M))
     check_cuda_tensor("S", S, (M, M))
+    check_cuda_tensor("hr", hr, (m, M))
+    check_cuda_tensor("gf", gf, (m, M))
     out = torch.empty((B, T_out * D), dtype=torch.float32, device=x.device)
     code = _build.library().dsr_fw_mono(
         x.data_ptr(), hr.data_ptr(), A.data_ptr(), S.data_ptr(), gf.data_ptr(), wq.data_ptr(),

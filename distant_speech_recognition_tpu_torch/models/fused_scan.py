@@ -1,4 +1,4 @@
-"""GSC-RLS + Zelinski scans as hand-written CUDA kernels, and the K1->K2->K3 chain.
+"""GSC-RLS + Zelinski as hand-written CUDA kernels: the scans and the one-kernel chains.
 
 Counterpart of the JAX package's ``models/pallas_fused_scan.py``:
 
@@ -10,21 +10,54 @@ Counterpart of the JAX package's ``models/pallas_fused_scan.py``:
   for a CUDA tensor or raise; for a CPU tensor they run the plain loop
   `models.adaptive_gsc.gsc_postfilter_fused`, the specification the kernel
   is held to.
-- `analysis_gsc_synthesis` has the signature and output of
-  ``analysis_gsc_synthesis_pallas`` (raw samples in, samples out), served by
-  the three kernels in a row: analysis, scan, synthesis.
+- `analysis_gsc_synthesis` (K4) replaces ``analysis_gsc_synthesis_pallas``
+  (raw samples in, samples out) and `analysis_gsc_rls_zelinski` (K5)
+  replaces ``analysis_gsc_rls_zelinski_pallas`` (raw samples in, the packed
+  beamformed spectrum out), both ``csrc/gsc_mono.cu``, for the shapes
+  `gsc_mono_supported` accepts; for a CPU tensor they run the plain chain
+  (`filterbank.analysis_half_real_tm`, the plain loop,
+  `filterbank.synthesis_half_real_tm`).  The pipeline runs K1 -> K2 -> K3
+  for the shapes K4 refuses, as the JAX package runs its split kernels.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..ops.filterbank import FilterbankParams
-from ..ops.filterbank_kernels import analysis_tm_fused, synthesis_tm_fused
+from ..ops.filterbank import (
+    FilterbankParams,
+    analysis_half_real_tm,
+    analysis_matrix_tensor,
+    analysis_taps,
+    num_analysis_frames,
+    synthesis_half_real_tm,
+    synthesis_matrix_tensor,
+    synthesis_taps,
+)
+from ..ops.filterbank_kernels import prototype_taps
 from .adaptive_gsc import GSCRLSConfig, gsc_postfilter_fused
 from .postfilter import PostFilterType, zelinski_args
 
-__all__ = ["gsc_rls_zelinski", "gsc_rls_zelinski_steered", "analysis_gsc_synthesis"]
+__all__ = [
+    "gsc_rls_zelinski",
+    "gsc_rls_zelinski_steered",
+    "gsc_mono_supported",
+    "analysis_gsc_rls_zelinski",
+    "analysis_gsc_synthesis",
+]
+
+# analysis rows per tile of the one-kernel chains: a tile holds 64 // C
+# frames, and K4's synthesis halo of m*R - 1 frames must fit.  Every launch
+# passes it to csrc/gsc_mono.cu, which refuses it unless it equals its ROWS
+GSC_MONO_ROWS = 64
+
+
+def _rls_args(cfg: GSCRLSConfig) -> tuple:
+    """The RLS arguments the CUDA entry points take, in their order."""
+    c = cfg
+    return (c.beta, 1.0 - c.beta, c.gamma, c.mu, c.init_diagonal_load,
+            1.0 / c.init_diagonal_load, c.regularization_param, c.sil_thresh,
+            c.constraint_option, c.alpha2, c.max_wa_l2norm, c.min_frames)
 
 
 def _scan(wrapper, entry: str, Yp, wqH, BmH, wq_manifold, cfg: GSCRLSConfig, pf_alpha,
@@ -51,13 +84,9 @@ def _scan(wrapper, entry: str, Yp, wqH, BmH, wq_manifold, cfg: GSCRLSConfig, pf_
     Yp = Yp.contiguous()
     check_cuda_tensor("Yp", Yp)
     out = torch.empty((Tf, B, M), dtype=torch.float32, device=Yp.device)
-    c = cfg
     code = getattr(_build.library(), entry)(
         Yp.data_ptr(), wq.data_ptr(), bm.data_ptr(), ta.data_ptr(), out.data_ptr(),
-        Tf, B, C, Bc, M,
-        c.beta, 1.0 - c.beta, c.gamma, c.mu, c.init_diagonal_load,
-        1.0 / c.init_diagonal_load, c.regularization_param, c.sil_thresh,
-        c.constraint_option, c.alpha2, c.max_wa_l2norm, c.min_frames,
+        Tf, B, C, Bc, M, *_rls_args(cfg),
         *zelinski_args(C, pf_alpha, pf_type, pf_min_frames), stream_handle(Yp.device),
     )
     _build.check(code, wrapper.__name__)
@@ -106,6 +135,99 @@ def gsc_rls_zelinski_steered(
 gsc_rls_zelinski_steered.launches = 0
 
 
+def gsc_mono_supported(fb: FilterbankParams, C: int) -> bool:
+    """Whether K4 takes this filterbank and channel count: M = 256, 2 <= C
+    <= 8 and a synthesis halo of m*R - 1 frames within one frame tile (K5
+    takes M = 256 and 2 <= C <= 8 with any halo)."""
+    return fb.M == 256 and 2 <= C <= 8 and fb.m * fb.R - 1 <= GSC_MONO_ROWS // C
+
+
+def _mono(synth: bool, x, h, g, fb, wqH, BmH, wq_manifold, cfg, pf, A, S, hr, gf):
+    """Launch K4 (``synth``) or K5 on the CUDA tensor ``x [B, C, T]``."""
+    from ..kernels import _build, check_cuda_tensor, complex_view, stream_handle
+
+    name = "gsc_mono" if synth else "gsc_analysis"
+    if x.dim() != 3:
+        raise ValueError(f"x must be [B, C, T], got {tuple(x.shape)}")
+    B, C, T = x.shape
+    M, m, R, D = fb.M, fb.m, fb.R, fb.D
+    F = M // 2 + 1
+    Bc = BmH.shape[-2]
+    Tf = num_analysis_frames(fb, T)
+    if hr is None:
+        hr = prototype_taps(analysis_taps, h, fb, x.device)
+    if A is None:
+        A = analysis_matrix_tensor(M, True, x.device)
+    wq = complex_view("wqH", wqH, (F, C))
+    bm = complex_view("BmH", BmH, (F, Bc, C))
+    ta = complex_view("wq_manifold", wq_manifold, (F, C))
+    x = x.contiguous()
+    check_cuda_tensor("x", x)
+    check_cuda_tensor("A", A, (M, M))
+    check_cuda_tensor("hr", hr, (m, M))
+    shift = fb.laN - (m * R - 1)
+    lib = _build.library()
+    tail = (GSC_MONO_ROWS, *_rls_args(cfg), *zelinski_args(C, *pf), stream_handle(x.device))
+    if synth:
+        pd = fb.synthesis_delay
+        T_out = Tf - pd
+        if T_out <= 0:
+            raise ValueError(f"need more than {pd} subband frames, got {Tf}")
+        if gf is None:
+            gf = prototype_taps(synthesis_taps, g, fb, x.device)
+        if S is None:
+            S = synthesis_matrix_tensor(M, R, x.device)
+        check_cuda_tensor("S", S, (M, M))
+        check_cuda_tensor("gf", gf, (m, M))
+        out = torch.empty((B, T_out * D), dtype=torch.float32, device=x.device)
+        code = lib.dsr_gsc_mono(
+            x.data_ptr(), hr.data_ptr(), A.data_ptr(), S.data_ptr(), gf.data_ptr(),
+            wq.data_ptr(), bm.data_ptr(), ta.data_ptr(), out.data_ptr(),
+            B, C, Bc, T, Tf, M, m, R, D, shift, pd, T_out, *tail,
+        )
+    else:
+        out = torch.empty((Tf, B, M), dtype=torch.float32, device=x.device)
+        code = lib.dsr_gsc_analysis(
+            x.data_ptr(), hr.data_ptr(), A.data_ptr(), wq.data_ptr(), bm.data_ptr(),
+            ta.data_ptr(), out.data_ptr(), B, C, Bc, T, Tf, M, m, D, shift, *tail,
+        )
+    _build.check(code, name)
+    return out
+
+
+def analysis_gsc_rls_zelinski(
+    x: torch.Tensor,
+    h,
+    fb: FilterbankParams,
+    wqH: torch.Tensor,
+    BmH: torch.Tensor,
+    wq_manifold: torch.Tensor,
+    cfg: GSCRLSConfig,
+    pf_alpha: float = 0.6,
+    pf_type: int = PostFilterType.ZELINSKI1_REAL,
+    pf_min_frames: int = 0,
+    A: torch.Tensor | None = None,
+    hr: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Raw samples ``x [B, C, T]`` -> the packed beamformed spectrum ``[Tf,
+    B, M]``: analysis and GSC-RLS + Zelinski in one kernel launch (K5) on a
+    CUDA tensor.  ``A`` and ``hr`` may hold the packed analysis matrix and
+    the prototype taps (`filterbank_kernels.prototype_taps`) already on
+    ``x``'s device."""
+    pf = (pf_alpha, pf_type, pf_min_frames)
+    if x.device.type == "cpu":
+        Yr = analysis_half_real_tm(x, h, fb, packed=True, A=A)
+        return gsc_postfilter_fused(Yr, None, wqH, BmH, wq_manifold, "rls", cfg, *pf, True)
+    if x.device.type != "cuda":
+        raise ValueError(f"analysis_gsc_rls_zelinski runs on cpu or cuda tensors, got {x.device}")
+    out = _mono(False, x, h, None, fb, wqH, BmH, wq_manifold, cfg, pf, A, None, hr, None)
+    analysis_gsc_rls_zelinski.launches += 1
+    return out
+
+
+analysis_gsc_rls_zelinski.launches = 0
+
+
 def analysis_gsc_synthesis(
     x: torch.Tensor,
     h,
@@ -120,10 +242,24 @@ def analysis_gsc_synthesis(
     pf_min_frames: int = 0,
     A: torch.Tensor | None = None,
     S: torch.Tensor | None = None,
+    hr: torch.Tensor | None = None,
+    gf: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Raw samples ``x [B, C, T]`` -> enhanced samples ``[B, T_out]``:
-    analysis, GSC-RLS + Zelinski, synthesis (``A``/``S``: optional DFT
-    matrices already on ``x``'s device)."""
-    Yr = analysis_tm_fused(x, h, fb, A=A)  # [Tf, B, C, M]
-    Yp = gsc_rls_zelinski(Yr, wqH, BmH, wq_manifold, cfg, pf_alpha, pf_type, pf_min_frames)
-    return synthesis_tm_fused(Yp, g, fb, S=S)
+    analysis, GSC-RLS + Zelinski and synthesis in one kernel launch (K4) on
+    a CUDA tensor, for the shapes `gsc_mono_supported` accepts.  ``A``/``S``
+    may hold the packed DFT matrices and ``hr``/``gf`` the prototype taps
+    already on ``x``'s device."""
+    pf = (pf_alpha, pf_type, pf_min_frames)
+    if x.device.type == "cpu":
+        Yr = analysis_half_real_tm(x, h, fb, packed=True, A=A)
+        Yp = gsc_postfilter_fused(Yr, None, wqH, BmH, wq_manifold, "rls", cfg, *pf, True)
+        return synthesis_half_real_tm(Yp, g, fb, S=S)
+    if x.device.type != "cuda":
+        raise ValueError(f"analysis_gsc_synthesis runs on cpu or cuda tensors, got {x.device}")
+    out = _mono(True, x, h, g, fb, wqH, BmH, wq_manifold, cfg, pf, A, S, hr, gf)
+    analysis_gsc_synthesis.launches += 1
+    return out
+
+
+analysis_gsc_synthesis.launches = 0

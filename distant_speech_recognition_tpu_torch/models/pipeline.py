@@ -17,10 +17,12 @@ caller asks for the CPU.  On a CUDA device its forward pass runs the CUDA
 kernels; on the CPU, their plain versions.  Ported, all with
 ``postfilter="zelinski"``: ``beamformer="gsc_rls"`` with ``aec`` in none |
 nlms | kalman and WPE on or off, and the fixed-weight beamformers ``ds``,
-``sd_mvdr`` and ``lcmv`` (BASELINE configs 1-2) without AEC or WPE, whose
-forward pass is one kernel (`fixed_weight.analysis_fw_synthesis`) where its
-frame tiles take the shape (`fixed_weight.fw_mono_supported`), else the
-analysis, fixed-weight Zelinski and synthesis kernels in a row.
+``sd_mvdr`` and ``lcmv`` (BASELINE configs 1-2) without AEC or WPE.  The
+flagship chain (GSC-RLS without AEC and WPE) and the fixed-weight chains
+are each one kernel (`fused_scan.analysis_gsc_synthesis`,
+`fixed_weight.analysis_fw_synthesis`) where its frame tiles take the shape
+(`fused_scan.gsc_mono_supported`, `fixed_weight.fw_mono_supported`), else
+the analysis, beamformer + Zelinski and synthesis kernels in a row.
 """
 
 from __future__ import annotations
@@ -32,14 +34,20 @@ import torch
 from torch import nn
 
 from ..ops.aec_kernels import AEC_KINDS, aec_scan
-from ..ops.filterbank import FilterbankParams, analysis_matrix_tensor, synthesis_matrix_tensor
-from ..ops.filterbank_kernels import analysis_tm_fused, synthesis_tm_fused
+from ..ops.filterbank import (
+    FilterbankParams,
+    analysis_matrix_tensor,
+    analysis_taps,
+    synthesis_matrix_tensor,
+    synthesis_taps,
+)
+from ..ops.filterbank_kernels import analysis_tm_fused, prototype_taps, synthesis_tm_fused
 from ..ops.wpe_kernels import WPE_MAX_CHANNELS, WPE_MAX_CP, WPE_MAX_LOWER, wpe_supported
 from . import beamforming as bf
 from .adaptive_gsc import GSCRLSConfig, gsc_weights
 from .dereverberation import wpe_multichannel_packed_tm
 from .fixed_weight import analysis_fw_synthesis, fw_mono_supported, zelinski_apply
-from .fused_scan import gsc_rls_zelinski
+from .fused_scan import analysis_gsc_synthesis, gsc_mono_supported, gsc_rls_zelinski
 from .postfilter import PostFilterType
 
 __all__ = ["PipelineConfig", "Enhancer", "build_pipeline", "from_jax_params", "FIXED_WEIGHT"]
@@ -123,8 +131,10 @@ class Enhancer(nn.Module):
     array and steering; ``play``, the far-end playback, is required exactly
     when ``cfg.aec`` is not ``"none"``.
 
-    Buffers: prototypes ``h``, ``g``; packed DFT matrices ``A`` (analysis)
-    and ``S`` (synthesis, segment reversal baked in); complex64 weights
+    Buffers: prototypes ``h``, ``g`` and the filterbank kernels' taps made
+    from them, ``hr``, ``gf`` (`filterbank_kernels.prototype_taps`); packed
+    DFT matrices ``A`` (analysis) and ``S`` (synthesis, segment reversal
+    baked in); complex64 weights
     ``wqH [F, C]``, for GSC-RLS ``BmH [F, C-1, C]`` (None for the
     fixed-weight beamformers, which have no blocking matrix), and the
     postfilter alignment manifold ``wq_manifold [F, C]``.
@@ -153,6 +163,9 @@ class Enhancer(nn.Module):
         self.register_buffer("wq_manifold", cplx(wq_manifold))
         if self.h.shape != (fb.N,) or self.g.shape != (fb.N,):
             raise ValueError(f"prototypes must have length N=M*m={fb.N}")
+        # the filterbank kernels' taps, computed once
+        self.register_buffer("hr", prototype_taps(analysis_taps, self.h, fb, dev))
+        self.register_buffer("gf", prototype_taps(synthesis_taps, self.g, fb, dev))
         F, C = self.wqH.shape
         if self.wq_manifold.shape != (F, C):
             raise ValueError(f"wq_manifold must be {(F, C)}, got {tuple(self.wq_manifold.shape)}")
@@ -185,26 +198,31 @@ class Enhancer(nn.Module):
             raise ValueError(f"play must be [B, T] = {(B, T)} on {x.device}, got "
                              f"{tuple(play.shape)} on {play.device}")
         x = x.to(torch.float32)
+        C = x.shape[1]
+        taps = dict(A=self.A, hr=self.hr)
+        synth = dict(S=self.S, gf=self.gf)
+        pf = (c.pf_alpha, c.pf_type, c.pf_min_frames)
         if c.beamformer in FIXED_WEIGHT:
-            pf = (c.pf_alpha, c.pf_type, c.pf_min_frames)
-            if fw_mono_supported(c.fb, x.shape[1]):
+            if fw_mono_supported(c.fb, C):
                 return analysis_fw_synthesis(x, self.h, self.g, c.fb, self.wqH, self.wq_manifold,
-                                             *pf, A=self.A, S=self.S)
-            Yr = analysis_tm_fused(x, self.h, c.fb, A=self.A)
+                                             *pf, **taps, **synth)
+            Yr = analysis_tm_fused(x, self.h, c.fb, **taps)
             return synthesis_tm_fused(zelinski_apply(Yr, self.wqH, self.wq_manifold, *pf), self.g,
-                                      c.fb, S=self.S)
-        Yr = analysis_tm_fused(x, self.h, c.fb, A=self.A)  # [Tf, B, C, M]
+                                      c.fb, **synth)
+        gsc = (self.wqH, self.BmH, self.wq_manifold, c.rls, *pf)
+        if play is None and not c.wpe and gsc_mono_supported(c.fb, C):
+            # the flagship chain in one kernel, as the JAX package runs it
+            return analysis_gsc_synthesis(x, self.h, self.g, c.fb, *gsc, **taps, **synth)
+        Yr = analysis_tm_fused(x, self.h, c.fb, **taps)  # [Tf, B, C, M]
         if play is not None:
-            Vp = analysis_tm_fused(play.to(torch.float32)[:, None, :], self.h, c.fb, A=self.A)
+            Vp = analysis_tm_fused(play.to(torch.float32)[:, None, :], self.h, c.fb, **taps)
             Yr = aec_scan(Yr, Vp, c.aec, c.aec_delta, c.aec_epsilon, c.aec_threshold)
         if c.wpe:
             Yr = wpe_multichannel_packed_tm(
                 Yr, c.wpe_lower, c.wpe_upper, c.wpe_iterations,
                 band_width=c.wpe_band_width, samplerate=c.samplerate,
             )
-        Yp = gsc_rls_zelinski(Yr, self.wqH, self.BmH, self.wq_manifold, c.rls, c.pf_alpha,
-                              c.pf_type, c.pf_min_frames)
-        return synthesis_tm_fused(Yp, self.g, c.fb, S=self.S)
+        return synthesis_tm_fused(gsc_rls_zelinski(Yr, *gsc), self.g, c.fb, **synth)
 
 
 def build_pipeline(cfg: PipelineConfig, mpos, delays, h, g, noise_delays=None,

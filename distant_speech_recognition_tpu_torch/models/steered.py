@@ -21,8 +21,14 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.filterbank import analysis_matrix_tensor, synthesis_matrix_tensor, unpack_half
-from ..ops.filterbank_kernels import analysis_tm_fused, synthesis_tm_fused
+from ..ops.filterbank import (
+    analysis_matrix_tensor,
+    analysis_taps,
+    synthesis_matrix_tensor,
+    synthesis_taps,
+    unpack_half,
+)
+from ..ops.filterbank_kernels import analysis_tm_fused, prototype_taps, synthesis_tm_fused
 from ..utils.geometry import SSPEED_MM_S, calc_ca_delays
 from . import beamforming as bf
 from .fused_scan import gsc_rls_zelinski_steered
@@ -54,7 +60,8 @@ class SteeredEnhancer(nn.Module):
     steered at its own SRP-PHAT estimate, ``doa`` its (theta, phi) grid
     point.
 
-    Buffers: prototypes ``h``, ``g``; packed DFT matrices ``A``, ``S``; the
+    Buffers: prototypes ``h``, ``g`` and the filterbank kernels' taps
+    ``hr``, ``gf``; packed DFT matrices ``A``, ``S``; the
     SRP steering table ``steering [G, F, C]`` (complex64), its grid ``grid
     [G, 2]`` and each grid point's steering delays ``delay_table [G, C]``
     (float32 seconds).
@@ -81,6 +88,9 @@ class SteeredEnhancer(nn.Module):
         self.register_buffer("delay_table", table(delay_table, torch.float32))
         if self.h.shape != (fb.N,) or self.g.shape != (fb.N,):
             raise ValueError(f"prototypes must have length N=M*m={fb.N}")
+        # the filterbank kernels' taps, computed once
+        self.register_buffer("hr", prototype_taps(analysis_taps, self.h, fb, dev))
+        self.register_buffer("gf", prototype_taps(synthesis_taps, self.g, fb, dev))
         G, F, C = self.steering.shape
         if F != fb.M // 2 + 1 or self.grid.shape != (G, 2) or self.delay_table.shape != (G, C):
             raise ValueError(
@@ -98,10 +108,10 @@ class SteeredEnhancer(nn.Module):
             raise ValueError(f"x has {x.shape[1]} channels, the steering table "
                              f"{self.steering.shape[2]}")
         c = self.cfg
-        Yp = analysis_tm_fused(x.to(torch.float32), self.h, c.fb, A=self.A)  # [Tf, B, C, M]
+        Yp = analysis_tm_fused(x.to(torch.float32), self.h, c.fb, A=self.A, hr=self.hr)
         gidx, weights = self.steer(Yp)
         Yb = gsc_rls_zelinski_steered(Yp, *weights, c.rls, c.pf_alpha, c.pf_type, c.pf_min_frames)
-        return synthesis_tm_fused(Yb, self.g, c.fb, S=self.S), self.grid[gidx]
+        return synthesis_tm_fused(Yb, self.g, c.fb, S=self.S, gf=self.gf), self.grid[gidx]
 
     def steer(self, Yp: torch.Tensor):
         """The per-utterance steering decision from the packed spectrum ``Yp

@@ -17,6 +17,10 @@ Synthesis (``OverSampledDFTSynthesisBank::next``, modulated.cc:551-612):
 pushed frames with stride R, then the R-segment overlap-add; the first
 ``synthesis_delay`` frames prime the bank and are dropped.
 
+The full-band banks (`analysis`, `synthesis` and their half-band forms)
+follow the reference literally: reversed sample windows, the m-tap
+polyphase FIR over them (`polyphase_fir_plain`) and ``torch.fft``.
+
 These functions are the plain versions of the CUDA kernels in
 `ops.filterbank_kernels`, and the specification they are held to.
 """
@@ -37,6 +41,12 @@ __all__ = [
     "synthesis_half_real_tm",
     "unpack_half",
     "pack_half",
+    "polyphase_fir_plain",
+    "analysis",
+    "analysis_half",
+    "synthesis",
+    "synthesis_half",
+    "hermitian_mirror",
 ]
 
 
@@ -225,3 +235,110 @@ def synthesis_half_real_tm(
         out = term if out is None else out + term  # [T_out, ..., D]
     out = out.movedim(0, -2)  # [..., T_out, D]
     return out.reshape(out.shape[:-2] + (T_out * D,))
+
+
+def polyphase_fir_plain(S: torch.Tensor, h_folded: torch.Tensor, m: int, R: int) -> torch.Tensor:
+    """Strided m-tap FIR over rows, batched over leading dims:
+    ``v[..., t, i] = sum_k h_folded[k, i] * S[..., t + (m-1-k) R, i]`` for
+    ``S [..., T + (m-1) R, M]`` -> ``v [..., T, M]``, as m shifted slices
+    summed from tap 0 on (the plain version of
+    `filterbank_kernels.polyphase_fir`)."""
+    T = S.shape[-2] - (m - 1) * R
+    if T <= 0:
+        raise ValueError(f"S needs more than (m-1)*R = {(m - 1) * R} rows, got {S.shape[-2]}")
+    h_folded = torch.as_tensor(h_folded, dtype=S.dtype, device=S.device)
+    v = None
+    for k in range(m):
+        a = (m - 1 - k) * R
+        term = h_folded[k] * S[..., a : a + T, :]
+        v = term if v is None else v + term
+    return v
+
+
+def _analysis_with(fir, x: torch.Tensor, h, params: FilterbankParams) -> torch.Tensor:
+    """FIR output ``v [..., n_frames, M]`` of the full-band analysis bank,
+    the m-tap FIR done by ``fir`` (`polyphase_fir_plain` or its kernel)
+    over the reversed windows of the zero-history stream ``xx``: row ``t``
+    of the FIR's input is ``S[t, i] = xx[(t + laN) D + M - 1 - i]``
+    (modulated.cc:375-391)."""
+    p = params
+    D, M, m, R = p.D, p.M, p.m, p.R
+    h = torch.as_tensor(h, dtype=torch.float32, device=x.device)
+    if h.shape != (p.N,):
+        raise ValueError(f"analysis prototype must have length N=M*m={p.N}, got {tuple(h.shape)}")
+    T = x.shape[-1]
+    n_frames = num_analysis_frames(p, T)
+    hist = (m - 1) * R
+    front = (m * R - 1) * D
+    # the last window read ends at sample (laN + n_frames + hist - 1) D + M
+    end = (p.laN + n_frames + hist - 1) * D + M
+    xx = F.pad(x.to(torch.float32), (front, end - front - T))
+    S = xx.unfold(-1, M, D)[..., p.laN : p.laN + n_frames + hist, :].flip(-1)
+    return fir(S, h.reshape(m, M), m, R)
+
+
+def _synthesis_with(fir, c: torch.Tensor, g, params: FilterbankParams) -> torch.Tensor:
+    """The full-band synthesis bank from the real pre-image ``c [..., T_in,
+    M]`` (``Re(fft(Y))``): the m-tap FIR done by ``fir`` over pushed frames
+    with stride R (modulated.cc:594-598), then the overlap-add of R
+    sample-reversed segments (modulated.cc:603-606); the first
+    ``synthesis_delay`` frames prime the bank."""
+    p = params
+    M, m, R, D = p.M, p.m, p.R, p.D
+    pd = p.synthesis_delay
+    T_in = c.shape[-2]
+    T_out = T_in - pd
+    if T_out <= 0:
+        raise ValueError(f"need more than {pd} subband frames, got {T_in}")
+    g = torch.as_tensor(g, dtype=c.dtype, device=c.device)
+    if g.shape != (p.N,):
+        raise ValueError(f"synthesis prototype must have length N=M*m={p.N}, got {tuple(g.shape)}")
+    hist = (m - 1) * R
+    # zero history of (m-1)*R pushed frames; output t reads pushes t + pd - k R
+    cp = F.pad(c, (0, 0, hist, 0))
+    s = fir(cp[..., pd : pd + T_out + hist, :], g.reshape(m, M).flip(1), m, R)
+    sp = F.pad(s, (0, 0, R - 1, 0))
+    seg = sp.reshape(sp.shape[:-1] + (R, D)).flip(-1)
+    out = None
+    for j in range(R):
+        term = seg[..., R - 1 - j : R - 1 - j + T_out, R - 1 - j, :]
+        out = term if out is None else out + term  # [..., T_out, D]
+    return out.reshape(out.shape[:-2] + (T_out * D,))
+
+
+def analysis(x: torch.Tensor, h, params: FilterbankParams) -> torch.Tensor:
+    """Full-band analysis bank: float ``x [..., T]`` -> complex64 subband
+    frames ``[..., n_frames, M]``, the reference's unnormalized backward DFT
+    ``M * ifft(v)`` of the polyphase FIR output ``v`` (modulated.cc:384-397)."""
+    return torch.fft.ifft(_analysis_with(polyphase_fir_plain, x, h, params), dim=-1) * params.M
+
+
+def analysis_half(x: torch.Tensor, h, params: FilterbankParams) -> torch.Tensor:
+    """`analysis` restricted to bins ``0..M/2`` (``[..., n_frames, M//2+1]``):
+    ``M * ifft(v)`` of a real ``v`` is ``conj(rfft(v))``."""
+    return torch.conj_physical(torch.fft.rfft(_analysis_with(polyphase_fir_plain, x, h, params),
+                                              dim=-1))
+
+
+def synthesis(Y: torch.Tensor, g, params: FilterbankParams) -> torch.Tensor:
+    """Full-band synthesis bank: complex ``Y [..., T_in, M]`` -> float
+    samples ``[..., (T_in - synthesis_delay) * D]``, from ``Re(fft(Y))``
+    (modulated.cc:556-563)."""
+    return _synthesis_with(polyphase_fir_plain, torch.fft.fft(Y, dim=-1).real, g, params)
+
+
+def synthesis_half(Y_half: torch.Tensor, g, params: FilterbankParams) -> torch.Tensor:
+    """`synthesis` fed with bins ``0..M/2`` only (``[..., T_in, M//2+1]``):
+    ``Re(fft(hermitian_mirror(Y_half)))`` is ``M * irfft(conj(Y_half))``
+    (which drops the imaginary parts of DC and Nyquist, as ``Re`` does)."""
+    M = params.M
+    c = torch.fft.irfft(torch.conj_physical(Y_half), n=M, dim=-1) * M
+    return _synthesis_with(polyphase_fir_plain, c, g, params)
+
+
+def hermitian_mirror(half: torch.Tensor, M: int) -> torch.Tensor:
+    """Bins ``0..M/2`` ``[..., M//2+1]`` -> all ``M`` bins by conjugate
+    symmetry, as the reference mirrors its beamformer outputs
+    (beamformer.cc:1142-1152)."""
+    mirror = torch.conj_physical(half[..., 1 : M // 2]).flip(-1)
+    return torch.cat([half, mirror], dim=-1)

@@ -147,7 +147,8 @@ def test_port_imports_without_jax():
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "want = {'models.aec', 'models.dereverberation', 'ops.aec_kernels', 'ops.wpe_kernels',\n"
-        "        'models.fixed_weight', 'models.localization', 'models.steered'}\n"
+        "        'models.fixed_weight', 'models.localization', 'models.steered',\n"
+        "        'models.fused_scan', 'ops.filterbank', 'ops.filterbank_kernels'}\n"
         "missing = {pkg.__name__ + '.' + w for w in want} - set(names)\n"
         "assert not missing, missing\n"
         "assert len(names) >= 22, names\n"

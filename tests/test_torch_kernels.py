@@ -15,7 +15,13 @@ for the echo canceller, 2e-4 for the WPE stats, 1e-5 for the WPE residual,
 fixed-weight Zelinski kernel (K7), 2e-4 for the one-kernel fixed-weight
 chain (K8) against the chain of split kernels K1 -> K7 -> K3 and 3e-4
 against the plain chain, 2e-4 for the steered scan (K6), which given one
-steering for every utterance equals K2 bit for bit.  The shapes reach
+steering for every utterance equals K2 bit for bit; for the one-kernel
+flagship chains 3e-4 (K4) and 2e-4 (K5) against the split kernels K1 -> K2
+[-> K3], which they equal bit for bit, and against the plain chain; 2e-5
+for the strided FIR (K13), which rounds like its plain version.  K2 and K6
+are also held bit for bit to outputs their kernels gave on an H100 before
+their per-frame step moved into ``csrc/gsc_step.h``
+(``tests/data/gsc_scan_case.npz``).  The shapes reach
 past the flagship's and config 4's: partial last blocks, other delay modes,
 decimations and channel counts, every constraint option, gates that close,
 far-end bins that are zero, other WPE delays, tap counts and band limits,
@@ -29,7 +35,9 @@ import pytest
 import torch
 
 from distant_speech_recognition_tpu_torch import kernels
-from distant_speech_recognition_tpu_torch.models import fixed_weight
+from pathlib import Path
+
+from distant_speech_recognition_tpu_torch.models import fixed_weight, fused_scan
 from distant_speech_recognition_tpu_torch.models.adaptive_gsc import (
     GSCRLSConfig,
     gsc_postfilter_fused,
@@ -44,6 +52,7 @@ from distant_speech_recognition_tpu_torch.models.fixed_weight import (
     zelinski_apply,
 )
 from distant_speech_recognition_tpu_torch.models.fused_scan import (
+    analysis_gsc_rls_zelinski,
     analysis_gsc_synthesis,
     gsc_rls_zelinski,
     gsc_rls_zelinski_steered,
@@ -59,12 +68,18 @@ from distant_speech_recognition_tpu_torch.models.steered import (
 from distant_speech_recognition_tpu_torch.ops.aec_kernels import aec_scan
 from distant_speech_recognition_tpu_torch.ops.filterbank import (
     FilterbankParams,
+    analysis,
     analysis_half_real_tm,
     num_analysis_frames,
+    polyphase_fir_plain,
+    synthesis,
     synthesis_half_real_tm,
 )
 from distant_speech_recognition_tpu_torch.ops.filterbank_kernels import (
+    analysis_polyphase,
     analysis_tm_fused,
+    polyphase_fir,
+    synthesis_polyphase,
     synthesis_tm_fused,
 )
 from distant_speech_recognition_tpu_torch.ops.wpe_kernels import gj_solve, wpe_resid, wpe_stats
@@ -208,8 +223,8 @@ def test_scan_kernel_matches_plain_options(dev, cfg_kw, pf_type, pf_min_frames, 
 
 
 def test_chain_and_pipeline_match_plain(dev):
-    """K1 -> K2 -> K3 on the card against the same chain on the CPU, both
-    through `analysis_gsc_synthesis` and through the built `Enhancer`."""
+    """The flagship `Enhancer` on the card (one launch of K4, nothing else)
+    and `analysis_gsc_synthesis` against the same chain on the CPU."""
     fb = FilterbankParams(M=256, m=4, r=1, delay_compensation_type=2)
     cfg = PipelineConfig(fb=fb, samplerate=FS, beamformer="gsc_rls", postfilter="zelinski",
                          pf_min_frames=2, rls=GSCRLSConfig(min_frames=4))
@@ -225,8 +240,7 @@ def test_chain_and_pipeline_match_plain(dev):
         ref = cpu(x)
         kernels.reset_launch_counts()
         got = gpu(x.to(dev))
-        assert kernels.launch_counts() == _only(analysis_tm=1, gsc_rls_zelinski=1,
-                                                synthesis_tm=1)
+        assert kernels.launch_counts() == _only(gsc_mono=1)
         _close(got, ref, 3e-4)
         args = (gpu.wqH, gpu.BmH, gpu.wq_manifold, cfg.rls, cfg.pf_alpha, cfg.pf_type,
                 cfg.pf_min_frames)
@@ -602,4 +616,171 @@ def test_new_wrappers_raise_on_bad_cuda_input(dev):
     _, BmH = gsc_weights(256, FS, _delays(4), 1)
     with pytest.raises(ValueError, match="shape"):
         gsc_rls_zelinski_steered(Yp, wqH, BmH.to(dev), vs, GSCRLSConfig())
+    assert set(kernels.launch_counts().values()) == {0}
+
+
+def _hash_noise(shape, seed):
+    """Float32 noise in [-100, 100) from integer hashing: exact arithmetic,
+    so every machine makes the same bits (the stored scan cases' inputs)."""
+    n = np.arange(int(np.prod(shape)), dtype=np.uint64) + np.uint64(seed) * np.uint64(1 << 32)
+    h = (n * np.uint64(6364136223846793005) + np.uint64(1442695040888963407)) >> np.uint64(40)
+    v = (h.astype(np.float32) - np.float32(1 << 23)) * np.float32(100.0 / (1 << 23))
+    return v.reshape(shape)
+
+
+@pytest.mark.parametrize("tag,Tf,B,C,pf_type,pf_min_frames", [
+    ("a", 24, 2, 3, 1, 2),  # K2, a gate that closes and near-silent bins
+    ("b", 16, 2, 8, 2, 0),  # K2 at C = 8
+    ("s", 16, 3, 4, 1, 2),  # K6, one steering per utterance
+])
+def test_scan_kernels_equal_stored_outputs(dev, tag, Tf, B, C, pf_type, pf_min_frames):
+    """K2 and K6 give, bit for bit, the outputs stored from their kernels as
+    they were before the per-frame step became a shared device function."""
+    z = np.load(Path(__file__).parent / "data" / "gsc_scan_case.npz")
+    M = 32
+    Yp = _hash_noise((Tf, B, C, M), ord(tag))
+    if tag != "s":
+        Yp[8:12, 1] *= np.float32(1e-6)
+        lo, hi = 3 * M // 8, M // 2
+        Yp[:, -1, :, lo:hi + 1] *= np.float32(1.8e-8)
+        Yp[:, -1, :, lo + M // 2:] *= np.float32(1.8e-8)
+    w = [torch.from_numpy(z[f"{tag}_{k}"]).to(dev) for k in ("wqH", "BmH", "vs")]
+    fn = gsc_rls_zelinski_steered if tag == "s" else gsc_rls_zelinski
+    got = fn(torch.from_numpy(Yp).to(dev), *w, GSCRLSConfig(min_frames=4), 0.6, pf_type,
+             pf_min_frames)
+    assert torch.equal(got.cpu(), torch.from_numpy(z[f"{tag}_out"]))
+
+
+def _gsc_args(C, pf_type, pf_min_frames, min_frames=8):
+    wqH, BmH = gsc_weights(256, FS, _delays(C), 1)
+    vs = array_manifold(256, FS, _delays(C))
+    return wqH, BmH, vs, GSCRLSConfig(min_frames=min_frames), 0.6, pf_type, pf_min_frames
+
+
+@pytest.mark.parametrize("C,pf_type,pf_min_frames,T,fb_kw", [
+    (2, 1, 2, 5000, {}),
+    (3, 2, 0, 4100, {}),
+    (4, 1, 2, 5000, {}),
+    (5, 2, 2, 4700, {}),
+    (6, 1, 0, 4400, {}),
+    (7, 2, 0, 3900, {}),
+    (8, 1, 2, 4700, {}),
+    (4, 1, 2, 5000, dict(delay_compensation_type=0)),
+    (4, 2, 0, 5000, dict(delay_compensation_type=1)),
+    (4, 2, 2, 6000, dict(m=2, r=2)),
+])
+def test_gsc_mono_kernels_match_chain_and_plain(dev, C, pf_type, pf_min_frames, T, fb_kw):
+    """K4 against K1 -> K2 -> K3 and K5 against K1 -> K2 on the card (bit
+    for bit), both against the plain chain on the CPU; every frame count
+    leaves a partial last tile of 64 / C frames, utterance 1 is digitally
+    silent and utterance 2 has a silent stretch (the gate closes)."""
+    fb = FilterbankParams(**{"M": 256, "m": 4, "r": 1, "delay_compensation_type": 2, **fb_kw})
+    assert num_analysis_frames(fb, T) % (64 // C) != 0
+    rng = np.random.default_rng(T + C)
+    h = rng.standard_normal(fb.N).astype(np.float32) / 32
+    g = rng.standard_normal(fb.N).astype(np.float32) / 32
+    x = torch.from_numpy((rng.standard_normal((3, C, T)) * 1500).astype(np.float32))
+    x[1] = 0.0
+    x[2, :, 1000:2000] *= 1e-6
+    args = _gsc_args(C, pf_type, pf_min_frames)
+    ref5 = analysis_gsc_rls_zelinski(x, h, fb, *args)
+    ref4 = analysis_gsc_synthesis(x, h, g, fb, *args)
+    xd, hd, gd = (t.to(dev) for t in (x, torch.from_numpy(h), torch.from_numpy(g)))
+    ad = tuple(a.to(dev) if torch.is_tensor(a) else a for a in args)
+    kernels.reset_launch_counts()
+    got5 = analysis_gsc_rls_zelinski(xd, hd, fb, *ad)
+    got4 = analysis_gsc_synthesis(xd, hd, gd, fb, *ad)
+    assert kernels.launch_counts() == _only(gsc_analysis=1, gsc_mono=1)
+    Yk = gsc_rls_zelinski(analysis_tm_fused(xd, hd, fb), *ad)
+    assert torch.equal(got5, Yk)
+    assert torch.equal(got4, synthesis_tm_fused(Yk, gd, fb))
+    _close(got5, ref5, 2e-4)
+    _close(got4, ref4, 3e-4)
+    assert not got4[1].any()
+
+
+def test_gsc_mono_refuses_what_its_tiles_cannot_hold(dev, monkeypatch):
+    """K4 refuses a synthesis halo beyond its frame tile (C = 8 with r = 2:
+    15 halo frames, 8-frame tiles), where the flagship `Enhancer` runs K1 ->
+    K2 -> K3, and a launch whose caller assumes another tile."""
+    fb = FilterbankParams(M=256, m=4, r=2, delay_compensation_type=2)
+    cfg = PipelineConfig(fb=fb, samplerate=FS, beamformer="gsc_rls", postfilter="zelinski",
+                         pf_min_frames=2, rls=GSCRLSConfig(min_frames=4))
+    rng = np.random.default_rng(9)
+    h = rng.standard_normal(fb.N).astype(np.float32) / 32
+    g = rng.standard_normal(fb.N).astype(np.float32) / 32
+    mpos = np.c_[np.arange(8) * 50.0, np.zeros((8, 2))]
+    x = torch.from_numpy((rng.standard_normal((2, 8, 6000)) * 1500).astype(np.float32))
+    cpu = build_pipeline(cfg, mpos, _delays(8), h, g, device="cpu")
+    gpu = build_pipeline(cfg, mpos, _delays(8), h, g)
+    args = (gpu.wqH, gpu.BmH, gpu.wq_manifold, cfg.rls)
+    kernels.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="gsc_mono"):
+        analysis_gsc_synthesis(x.to(dev), gpu.h, gpu.g, fb, *args)
+    with torch.no_grad():
+        ref = cpu(x)
+        got = gpu(x.to(dev))
+    assert kernels.launch_counts() == _only(analysis_tm=1, gsc_rls_zelinski=1, synthesis_tm=1)
+    _close(got, ref, 3e-4)
+    fb4 = FilterbankParams(M=256, m=4, r=1, delay_compensation_type=2)
+    a4 = tuple(a.to(dev) if torch.is_tensor(a) else a for a in _gsc_args(4, 1, 2))
+    h4 = torch.ones(fb4.N, device=dev)
+    monkeypatch.setattr(fused_scan, "GSC_MONO_ROWS", 32)
+    with pytest.raises(RuntimeError, match="gsc_mono"):
+        analysis_gsc_synthesis(torch.zeros((1, 4, 4000), device=dev), h4, h4, fb4, *a4)
+    with pytest.raises(RuntimeError, match="gsc_analysis"):
+        analysis_gsc_rls_zelinski(torch.zeros((1, 4, 4000), device=dev), h4, fb4, *a4)
+
+
+@pytest.mark.parametrize("M", [8, 128, 256])
+@pytest.mark.parametrize("m,R", [(2, 1), (2, 4), (4, 2), (4, 4), (1, 1), (8, 2)])
+def test_polyphase_fir_kernel_matches_plain(dev, M, m, R):
+    """K13 rounds like its plain version (0 expected), batched over two
+    leading dims, with a row count that is no multiple of its runs."""
+    rng = np.random.default_rng(M + 10 * m + R)
+    S = torch.from_numpy(rng.standard_normal((2, 3, 203 + (m - 1) * R, M)).astype(np.float32))
+    h = torch.from_numpy(rng.standard_normal((m, M)).astype(np.float32))
+    before = polyphase_fir.launches
+    got = polyphase_fir(S.to(dev), h.to(dev), m, R)
+    assert polyphase_fir.launches == before + 1
+    _close(got, polyphase_fir_plain(S, h, m, R), 2e-5)
+
+
+@pytest.mark.parametrize("M,m,r,dct", [(256, 4, 1, 2), (128, 2, 2, 0), (64, 4, 0, 1)])
+def test_polyphase_banks_match_plain(dev, M, m, r, dct):
+    """`analysis_polyphase` / `synthesis_polyphase` (K13 once each) against
+    the plain full-band banks on the CPU."""
+    fb = FilterbankParams(M=M, m=m, r=r, delay_compensation_type=dct)
+    rng = np.random.default_rng(M + m)
+    h = rng.standard_normal(fb.N).astype(np.float32) / 16
+    x = torch.from_numpy((rng.standard_normal((2, 2, 3000)) * 1500).astype(np.float32))
+    kernels.reset_launch_counts()
+    Y = analysis_polyphase(x.to(dev), torch.from_numpy(h).to(dev), fb)
+    y = synthesis_polyphase(Y, torch.from_numpy(h).to(dev), fb)
+    assert kernels.launch_counts() == _only(polyphase_fir=2)
+    Y_ref = analysis(x, h, fb)
+    _close(Y, Y_ref, 2e-5)
+    _close(y, synthesis(Y_ref, h, fb), 2e-5)
+
+
+def test_port_kernels_raise_on_bad_cuda_input(dev):
+    """K4, K5 and K13 on CUDA tensors launch or raise; they never fall back."""
+    fb = FilterbankParams()
+    wqH, BmH, vs, cfg = (a.to(dev) if torch.is_tensor(a) else a for a in _gsc_args(4, 1, 2)[:4])
+    x = torch.zeros((2, 4, 4096), device=dev)
+    h = torch.zeros(fb.N, device=dev)
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="CUDA"):
+        analysis_gsc_synthesis(x, h, h, fb, wqH, BmH.cpu(), vs, cfg)
+    with pytest.raises(ValueError, match="float32"):
+        analysis_gsc_rls_zelinski(x.double(), h, fb, wqH, BmH, vs, cfg)
+    with pytest.raises(RuntimeError, match="shape outside"):
+        analysis_gsc_rls_zelinski(torch.zeros((2, 9, 4096), device=dev), h, fb,
+                                  *(torch.zeros((129,) + s, dtype=torch.complex64, device=dev)
+                                    for s in ((9,), (8, 9), (9,))), cfg)
+    with pytest.raises(RuntimeError, match="shape outside"):
+        polyphase_fir(torch.zeros((40, 8), device=dev), torch.zeros((9, 8), device=dev), 9, 1)
+    with pytest.raises(ValueError, match="float32"):
+        polyphase_fir(torch.zeros((40, 8), device=dev, dtype=torch.float64),
+                      torch.zeros((2, 8), device=dev), 2, 1)
     assert set(kernels.launch_counts().values()) == {0}
