@@ -26,7 +26,8 @@ Phases (each raises on failure; the script then exits non-zero):
      K1 -> K2;
   5. CUDA-event times of K1, K2, K3, K4 (the flagship path), the chain
      K1 -> K2 -> K3 on the same input, K5 and K5 -> K3, beside the plain
-     versions and one PyTorch call for the GEMM part of each filterbank;
+     versions, one PyTorch call for the GEMM part of each filterbank and one
+     torch.fft call over the same rows;
   6. the config-4 path (NLMS AEC -> multichannel WPE -> GSC-RLS + Zelinski):
      build_pipeline() with the default device on the same B=256 x 4 ch x
      10 s plus a far-end playback, launch counts around one forward (each
@@ -61,8 +62,10 @@ Phases (each raises on failure; the script then exits non-zero):
      reconstruction SNR (>= 50 dB), both banks against their plain versions,
      CUDA-event times of the round trip and of K13 alone beside its plain
      version and one grouped conv1d.
-Phase 3 also holds, at B=8: K4 against K1 -> K2 -> K3 and the plain chain
-and K5 against K1 -> K2 and the plain loop (C = 2, 4, 8, delay compensation
+Phase 3 also holds, at B=8: K3 and K8 (whose DFTs are FFTs) on pure tones
+at bins 0, 1, 64, 127 and 128 and on impulse trains, one case per bin; K4
+against K1 -> K2 -> K3 and the plain chain and K5 against K1 -> K2 (bit for
+bit) and the plain loop (C = 2, 4, 8, delay compensation
 0/1/2, both Zelinski modes, pf_min_frames 0 and 2, near-silent top bins);
 K13 against its plain version at M in {8, 128, 256}, m in {2, 4}, R in
 {1, 2, 4}, and the full-band banks against their plain versions; the
@@ -74,8 +77,9 @@ its plain version with eight different steerings and, given one steering for
 all, against the flagship scan bit for bit.
 The line before the last two is a JSON object with one entry per kernel
 ("launches" counts the runs of all six paths, "launches_by_path" each
-path's, one forward each; K4 and K5 also carry their error against the
-split kernels); the line before the last is the card's name and
+path's, one forward each; K4, K5 and K8 also carry their error against the
+split kernels, K1, K3 and K8 the time of torch.fft over the same rows as a
+second yardstick, "fft_ms"); the line before the last is the card's name and
 power limit; the last line is {"ok": true, "device": {...}}.  Imports
 nothing of JAX.
 """
@@ -434,9 +438,48 @@ def main() -> None:
                     "zelinski_apply")
             y8 = analysis_fw_synthesis(xs, enh.h, enh.g, fb, *w, *a, A=enh.A, S=enh.S)
             compare(f"fw_mono vs K1->K7->K3 {tag}", y8,
-                    synthesis_tm_fused(zelinski_apply(Yr_k1, *w, *a), enh.g, fb, S=enh.S), 2e-4)
+                    synthesis_tm_fused(zelinski_apply(Yr_k1, *w, *a), enh.g, fb, S=enh.S), 2e-4,
+                    "fw_mono_vs_split")
             compare(f"fw_mono vs plain chain {tag}", y8, plain_synthesis(Yz_ref), 3e-4, "fw_mono")
     del Yr_k1, Yz_ref, y8
+
+    # K3's and K8's FFTs one bin at a time: packed frames holding only bin f
+    # (its phase turning from frame to frame) or the spectra of single
+    # impulses for K3; a cosine at bin f's centre (each channel 2 samples
+    # later) or one impulse per 256-sample block for K8, so that a wrong
+    # twiddle, split, packing or segment-reversal index fails on a named bin
+    w_ds = (fixed["ds"].wqH, fixed["ds"].wq_manifold, cfg.pf_alpha, 1, 2)
+    t_in = np.arange(150)[:, None, None]
+    amp = 100.0 / (1.0 + np.arange(8))[None, :, None]
+    n_t = np.arange(2 * FS)
+    A_np = enh.A.double().cpu().numpy()
+    for case in ("bin0", "bin1", "bin64", "bin127", "bin128", "impulses"):
+        if case == "impulses":
+            Yt = A_np[(37 * t_in[:, 0, 0] + 5) % M][:, None, :] * amp
+            blocks = np.arange(0, 2 * FS, M)
+            xt = np.zeros((8, C, 2 * FS))
+            for c in range(C):
+                xt[:, c, blocks + (37 * (blocks // M) + 11 * c) % M] = 1500.0
+        else:
+            f = int(case[3:])
+            Yt = np.zeros((150, 8, M))
+            Yt[..., f:f + 1] = amp * np.cos(0.7 * t_in + 0.3)
+            if 0 < f < M // 2:
+                Yt[..., M // 2 + f:M // 2 + f + 1] = amp * np.sin(0.7 * t_in + 0.3)
+            xt = np.stack([1500.0 * np.cos(2 * np.pi * f * (n_t - 2 * c) / M + 0.4)
+                           for c in range(C)])[None].repeat(8, 0)
+        xt *= (1.0 / (1.0 + np.arange(8)))[:, None, None]
+        Yt = torch.from_numpy(Yt.astype(np.float32)).to(dev)
+        xt = torch.from_numpy(xt.astype(np.float32)).to(dev)
+        compare(f"synthesis_tm, {case}", synthesis_tm_fused(Yt, enh.g, fb, S=enh.S),
+                plain_synthesis(Yt), 2e-5, "synthesis_tm")
+        y8 = analysis_fw_synthesis(xt, enh.h, enh.g, fb, *w_ds, A=enh.A, S=enh.S)
+        compare(f"fw_mono vs K1->K7->K3, {case}", y8, synthesis_tm_fused(
+            zelinski_apply(analysis_tm_fused(xt, enh.h, fb, A=enh.A), *w_ds), enh.g, fb), 2e-4,
+            "fw_mono_vs_split")
+        compare(f"fw_mono vs plain chain, {case}", y8,
+                plain_synthesis(zelinski_apply_plain(plain_analysis(xt), *w_ds)), 3e-4, "fw_mono")
+    del A_np, Yt, xt, y8
 
     # one steering per utterance (eight directions of a circular 100 mm
     # array): K6 against its plain version; one steering for all: K6 is K2
@@ -460,8 +503,9 @@ def main() -> None:
     del vs8, steer8, rows
 
     # the one-kernel flagship chains: K4 against the split kernels K1 -> K2 ->
-    # K3 (3e-4; 0 expected, the same device code in the same order) and the
-    # plain chain (3e-4), K5 against K1 -> K2 and the plain loop (2e-4): both
+    # K3 (3e-4: K3 does its DFT as an FFT, K4 as a dense product) and the
+    # plain chain (3e-4), K5 against K1 -> K2 (bit for bit: the same device
+    # code in the same order) and the plain loop (2e-4): both
     # Zelinski modes, pf_min_frames 0 and 2, delay compensation 0/1/2, C = 2,
     # 4 and 8 (frame counts that leave a partial last tile of 64 / C frames),
     # the default RLS and one that adapts from frame 8, and a band-limited
@@ -493,6 +537,8 @@ def main() -> None:
         Yp_plain = plain_scan(analysis_half_real_tm(x_, h_, fb_, packed=True), w_)
         y5 = analysis_gsc_rls_zelinski(x_, h_, fb_, *w_)
         compare(f"gsc_analysis vs K1->K2, {tag}", y5, Yp_k, 2e-4, "gsc_analysis_vs_split")
+        if not torch.equal(y5, Yp_k):
+            raise AssertionError(f"gsc_analysis differs from K1->K2 ({tag}): not bit for bit")
         compare(f"gsc_analysis vs plain loop, {tag}", y5, Yp_plain, 2e-4, "gsc_analysis")
         y4 = analysis_gsc_synthesis(x_, h_, g_, fb_, *w_)
         compare(f"gsc_mono vs K1->K2->K3, {tag}", y4, synthesis_tm_fused(Yp_k, g_, fb_), 3e-4,
@@ -584,9 +630,11 @@ def main() -> None:
         compare("flagship path (gsc_mono) vs K1->K2->K3", y, kernel_chain(x), 3e-4,
                 "gsc_mono_vs_split")
         compare("gsc_analysis vs plain loop", k5(x), Yp_ref, 2e-4, "gsc_analysis")
-        compare("gsc_analysis vs K1->K2", k5(x),
-                gsc_rls_zelinski(analysis_tm_fused(x, enh.h, fb, A=enh.A), *scan_args), 2e-4,
-                "gsc_analysis_vs_split")
+        y5, Yk = k5(x), gsc_rls_zelinski(analysis_tm_fused(x, enh.h, fb, A=enh.A), *scan_args)
+        compare("gsc_analysis vs K1->K2", y5, Yk, 2e-4, "gsc_analysis_vs_split")
+        if not torch.equal(y5, Yk):
+            raise AssertionError("gsc_analysis differs from K1->K2: not bit for bit")
+        del y5, Yk
         del Yp_ref, y_ref, y
 
     # -- 5. times ----------------------------------------------------------------
@@ -615,7 +663,13 @@ def main() -> None:
         library["analysis_tm"] = time_ms(lambda: torch.matmul(W, enh.A), 5)
         library["synthesis_tm"] = time_ms(lambda: torch.matmul(Yp.reshape(-1, M), enh.S), 5)
         library["gsc_rls_zelinski"] = None
-        del Yr, Yp, W
+        # the second yardstick: one cuFFT call over the same rows (real in,
+        # half spectrum out; half spectrum in, real out)
+        Yc = unpack_half(Yp.reshape(-1, M))
+        fft_ms = {"analysis_tm": time_ms(lambda: torch.fft.rfft(W, dim=-1), 5),
+                  "synthesis_tm": time_ms(lambda: torch.fft.irfft(Yc, n=M, dim=-1), 5)}
+        fft_ms["fw_mono"] = fft_ms["analysis_tm"] + fft_ms["synthesis_tm"]
+        del Yr, Yp, W, Yc
         path_ms = time_ms(lambda: enh(x), 3)
     # the plain chain's time: its three stages as timed above
     plain_path_ms = sum(times[name][1] for name in ("analysis_tm", "gsc_rls_zelinski",
@@ -625,7 +679,8 @@ def main() -> None:
         k_ms, p_ms = times[name]
         lib = library[name]
         log(f"  {name}: kernel {k_ms:.3f} ms   plain {p_ms:.3f} ms   "
-            f"library {'-' if lib is None else f'{lib:.3f} ms (GEMM part only)'}")
+            f"library {'-' if lib is None else f'{lib:.3f} ms (GEMM part only)'}"
+            + (f"   torch.fft {fft_ms[name]:.3f} ms" if name in fft_ms else ""))
     log(f"  flagship path (gsc_mono): {path_ms:.3f} ms "
         f"({audio_s / (path_ms / 1e3):.1f} audio-s/s/GPU)   plain {plain_path_ms:.3f} ms "
         f"({audio_s / (plain_path_ms / 1e3):.1f} audio-s/s/GPU)")
@@ -824,7 +879,8 @@ def main() -> None:
     library["fw_mono"] = library["analysis_tm"] + library["synthesis_tm"]
     log(f"  fw_mono: kernel {times['fw_mono'][0]:.3f} ms   K1->K7->K3 chain {chain_fw_ms:.3f} ms   "
         f"plain chain {times['fw_mono'][1]:.3f} ms   library {library['fw_mono']:.3f} ms "
-        f"(GEMM part only, two torch.matmul calls)")
+        f"(GEMM part only, two torch.matmul calls)   torch.fft {fft_ms['fw_mono']:.3f} ms "
+        f"(rfft + irfft)")
     log(f"  zelinski_apply: kernel {times['zelinski_apply'][0]:.3f} ms   "
         f"plain {times['zelinski_apply'][1]:.3f} ms   library -")
     for bf, (k_ms, p_ms) in path_fw.items():
@@ -1022,8 +1078,9 @@ def main() -> None:
                  + C * (C - 1) // 2)  # complex multiply-adds per (frame, utterance, bin)
     rows = Tf * B * C
     # the least work of one row's M-point real DFT is an FFT's, ~2.5 M log2 M
-    # flops (half of a complex FFT's 5 N log2 N); the filterbank kernels do
-    # it as a dense product, 2 M^2, whose time `dense_dft` gives beside
+    # flops (half of a complex FFT's 5 N log2 N); K1, K4 and K5 do it as a
+    # dense product, 2 M^2, whose time `dense_dft` gives beside (K3 and K8 do
+    # FFTs)
     fft_flops = 2.5 * M * np.log2(M)
     fir_in, fir_out = 2 * fb.m * M * rows, 2 * fb.m * M * (T_out // fb.D) * B
     zel_flops = 8 * (3 * C + C * (C - 1) // 2)  # K7's per (frame, utterance, bin)
@@ -1033,9 +1090,6 @@ def main() -> None:
         "gsc_mono": bound(0, (rows + Tf * B) * 2 * M * M + fir_in + fir_out + rls_flops)[0],
         "gsc_analysis": bound(0, rows * 2 * M * M + fir_in + rls_flops)[0],
         "analysis_tm": bound(0, rows * 2 * M * M + fir_in)[0],
-        "synthesis_tm": bound(0, Tf * B * 2 * M * M + fir_out)[0],
-        "fw_mono": bound(0, (rows + Tf * B) * 2 * M * M + fir_in + fir_out
-                         + zel_flops * Tf * B * F)[0],
     }
     bounds = {
         "analysis_tm": bound(4 * (B * C * T + rows * M + M * M + fb.N),
@@ -1115,6 +1169,8 @@ def main() -> None:
         }
         if name + "_vs_split" in results:  # the one-kernel chains against the split kernels
             row["max_abs_err_vs_split"] = results[name + "_vs_split"]
+        if name in fft_ms:
+            row["fft_ms"] = fft_ms[name]
         rows_json.append(row)
     log(f"script time {time.perf_counter() - t_script:.1f} s")
     log(json.dumps({"kernels": rows_json}))

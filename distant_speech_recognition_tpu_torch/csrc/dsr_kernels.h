@@ -21,7 +21,8 @@ int dsr_analysis_tm(const float* x, const float* hr, const float* A, float* out,
                     int BC, int T, int Tf, int M, int m, int D, int shift,
                     cudaStream_t stream);
 
-int dsr_synthesis_tm(const float* Yp, const float* S, const float* gf, float* out,
+// tw: the FFT twiddle table [2, M] (cos, -sin of 2 pi e / M), ops/dft.fft_twiddles
+int dsr_synthesis_tm(const float* Yp, const float* tw, const float* gf, float* out,
                      int T_in, int B, int M, int m, int R, int D, int pd, int T_out,
                      cudaStream_t stream);
 
@@ -53,9 +54,10 @@ int dsr_zelinski_apply(const float* Yp, const float* wq, const float* ta, float*
                        float pf_gain, float spectral_floor, int real_mode, int pf_min_frames,
                        cudaStream_t stream);
 
-// wq, ta: interleaved complex64 [F, C]; out [B, T_out * D]; rows: the
-// caller's analysis rows per frame tile, refused unless the kernel's own
-int dsr_fw_mono(const float* x, const float* hr, const float* A, const float* S, const float* gf,
+// wq, ta: interleaved complex64 [F, C]; tw: as for dsr_synthesis_tm; out
+// [B, T_out * D]; rows: the caller's analysis rows per frame tile, refused
+// unless the kernel's own
+int dsr_fw_mono(const float* x, const float* hr, const float* tw, const float* gf,
                 const float* wq, const float* ta, float* out, int B, int C, int T, int Tf, int M,
                 int m, int R, int D, int shift, int pd, int T_out, int rows, float pf_alpha,
                 float one_minus_pf_alpha, float pf_gain, float spectral_floor, int real_mode,

@@ -1,4 +1,4 @@
-// Synthesis filterbank kernel: packed DFT + m-tap polyphase FIR + overlap-add.
+// Synthesis filterbank kernel: packed inverse DFT + m-tap polyphase FIR + overlap-add.
 //
 // Replaces the Pallas TPU kernel ops/pallas_kernels.py synthesis_tm_fused
 // (_synthesis_tm_fused_call / _synthesis_tm_nopad_call) of
@@ -10,116 +10,73 @@
 //   out[b, u]  = sum_j s[u - j][(R-1-j)*D : (R-j)*D]   (s at a negative index is zero)
 //
 // for u = 0 .. T_out-1, T_out = T_in - pd (pd = synthesis_delay frames prime
-// the bank and are dropped).
+// the bank and are dropped).  The product with S is done as an FFT
+// (csrc/dsr_fft.h): c = M irfft(conj(Yp[q])), the segment reversal an index
+// map where c is read.
 //
 // What bounds the function on an H100: its bytes, M*4 read and D*4 written
-// per spectrum row, 0.49 GB at B=256 x 10 s (0.15 ms at 3.35 TB/s); done by
-// FFT, each row needs ~5k flops plus the FIR's.  What bounds this kernel: it
-// does the DFT as a dense product, 2*M*M flops per spectrum row, about 43
-// GFLOP with the halo, 0.64 ms at the FP32 peak.  Design: a block
-// owns one utterance and Tt = ROWS - (m*R - 1) output frames; it computes the
-// c rows of its frames plus the m*R-1 halo rows they reach back to (the halo
+// per spectrum row, 0.49 GB at B=256 x 10 s (0.15 ms at 3.35 TB/s); the FFT
+// needs ~5k flops per row, the FIR 2*m*D.  Design: a block owns one
+// utterance and Tt = ROWS - (m*R - 1) output frames; it stages the packed
+// rows of its frames plus the m*R-1 halo rows they reach back to (the halo
 // is recomputed by the neighbouring block, as the TPU kernel does) into
-// shared memory with a tiled SGEMM (256 threads, 9x8 register tiles), then
-// runs the FIR and overlap-add from shared memory and writes D contiguous
-// samples per frame.  Plain IEEE FP32 FMA, no TF32, no tensor cores.
-#include "dsr_device.h"
+// shared memory with cp.async, all in flight at once, runs the inverse FFT
+// in place, two rows per complex FFT, then the FIR and overlap-add from
+// shared memory, and writes D contiguous samples per frame.  ~70 KB of
+// shared memory: three blocks of 256 threads per SM, so that one block's
+// copies are in flight while the others compute.  Plain IEEE FP32.
+#include "dsr_fft.h"
 #include "dsr_kernels.h"
 
 #include <cstdint>
 
 namespace {
 
-constexpr int M_ = 256;     // subbands (the kernel is built for M = 256)
-constexpr int ROWS = 72;    // c rows per block: output frames + halo
-constexpr int RPT = 9;      // c rows per thread (ROWS / 8)
-constexpr int BK = 16;      // reduction chunk
-constexpr int YS_LD = ROWS + 4;
-constexpr int THREADS = 256;
-constexpr size_t SMEM_BYTES = sizeof(float) * ((size_t)ROWS * M_ + BK * YS_LD + BK * M_);
+using dsr::fft::LD;
 
-__global__ void __launch_bounds__(THREADS)
-synthesis_tm_kernel(const float* __restrict__ Yp, const float* __restrict__ S,
+constexpr int M_ = dsr::fft::N;  // subbands (the kernel is built for M = 256)
+constexpr int ROWS = 64;         // c rows per block: output frames + halo (even: row pairs)
+constexpr int THREADS = 256;
+constexpr size_t SMEM_BYTES = sizeof(float) * (2 * M_ + (size_t)ROWS * LD);
+
+__global__ void __launch_bounds__(THREADS, 3)
+synthesis_tm_kernel(const float* __restrict__ Yp, const float* __restrict__ tw,
                     const float* __restrict__ gf, float* __restrict__ out,
                     int T_in, int B, int m, int R, int D, int pd, int T_out, int Tt) {
   extern __shared__ __align__(16) float smem[];
-  float* cs = smem;                    // [ROWS][M_]
-  float* Ys = cs + ROWS * M_;          // [BK][YS_LD]
-  float* Ss = Ys + BK * YS_LD;         // [BK][M_]
+  float* tc = smem;
+  float* ts = tc + M_;
+  float* cs = ts + M_;  // [ROWS][LD]
 
   const int tid = threadIdx.x;
   const int u0 = blockIdx.x * Tt;
   const int b = blockIdx.y;
-  const int halo = m * R - 1;
-  const int rows = Tt + halo;
   // global c index of local row 0
   const int cbase = u0 + pd - (m - 1) * R - (R - 1);
-  const int tx = tid % 32;  // columns q*128 + tx*4 + e
-  const int ty = tid / 32;  // rows ty*RPT .. ty*RPT + RPT
 
-  float acc[RPT][8];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < M_; k0 += BK) {
-    for (int idx = tid; idx < BK * ROWS; idx += THREADS) {
-      const int kk = idx % BK;
-      const int l = idx / BK;
-      const int q = cbase + l;
-      float v = 0.f;
-      if (l < rows && q >= 0 && q < T_in) v = __ldg(Yp + ((size_t)q * B + b) * M_ + k0 + kk);
-      Ys[kk * YS_LD + l] = v;
-    }
-#pragma unroll
-    for (int e = 0; e < (BK * M_) / (4 * THREADS); ++e) {
-      const int idx = e * THREADS + tid;
-      const int kk = idx / (M_ / 4);
-      const int c4 = (idx % (M_ / 4)) * 4;
-      *reinterpret_cast<float4*>(Ss + kk * M_ + c4) =
-          __ldg(reinterpret_cast<const float4*>(S + (size_t)(k0 + kk) * M_ + c4));
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 b0 = *reinterpret_cast<const float4*>(Ss + kk * M_ + tx * 4);
-      const float4 b1 = *reinterpret_cast<const float4*>(Ss + kk * M_ + 128 + tx * 4);
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        const float a = Ys[kk * YS_LD + ty * RPT + i];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a, bv[j], acc[i][j]);
-      }
-    }
-    __syncthreads();
+  // the block's packed rows, zero outside [0, T_in)
+  for (int idx = tid; idx < ROWS * (M_ / 4); idx += THREADS) {
+    const int l = idx / (M_ / 4);
+    const int c4 = (idx - l * (M_ / 4)) * 4;
+    const int q = cbase + l;
+    const bool in = q >= 0 && q < T_in;
+    dsr::fft::cp_async16(cs + l * LD + c4, in ? Yp + ((size_t)q * B + b) * M_ + c4 : Yp,
+                         in ? 16 : 0);
   }
+  dsr::fft::stage_twiddles(smem, tw);  // commits and waits for every copy above too
+  const dsr::fft::Consts kc = dsr::fft::consts(tw);
+  __syncthreads();
 
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    float* row = cs + (ty * RPT + i) * M_;
-    *reinterpret_cast<float4*>(row + tx * 4) =
-        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    *reinterpret_cast<float4*>(row + 128 + tx * 4) =
-        make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
-  }
+  dsr::fft::fft_rows<true>(cs, ROWS / 2, tc, ts, kc);
   __syncthreads();
 
   // polyphase FIR over pushed frames + R-segment overlap-add
-  float* ob = out + (size_t)b * T_out * D;
-  for (int idx = tid; idx < Tt * D; idx += THREADS) {
-    const int ul = idx / D;
-    const int i = idx - ul * D;
-    const int u = u0 + ul;
-    if (u >= T_out) break;
-    ob[(size_t)u * D + i] = dsr::synthesis_sample(gf, cs, M_, m, R, D, ul, u, i);
-  }
+  dsr::fft::synthesis_frames<8>(gf, cs, m, R, D, Tt, u0, T_out, out + (size_t)b * T_out * D);
 }
 
 }  // namespace
 
-extern "C" int dsr_synthesis_tm(const float* Yp, const float* S, const float* gf, float* out,
+extern "C" int dsr_synthesis_tm(const float* Yp, const float* tw, const float* gf, float* out,
                                 int T_in, int B, int M, int m, int R, int D, int pd, int T_out,
                                 cudaStream_t stream) {
   const int halo = m * R - 1;
@@ -132,7 +89,7 @@ extern "C" int dsr_synthesis_tm(const float* Yp, const float* S, const float* gf
                                          (int)SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((T_out + Tt - 1) / Tt, B);
-  synthesis_tm_kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(Yp, S, gf, out, T_in, B, m, R, D,
+  synthesis_tm_kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(Yp, tw, gf, out, T_in, B, m, R, D,
                                                              pd, T_out, Tt);
   return static_cast<int>(cudaGetLastError());
 }

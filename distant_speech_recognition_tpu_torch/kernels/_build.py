@@ -30,7 +30,7 @@ SOURCES = (
     "aec_scan.cu", "wpe_stats.cu", "wpe_resid.cu", "gj_solve.cu",
     "zelinski_apply.cu", "fw_mono.cu", "gsc_mono.cu", "polyphase_fir.cu",
 )
-HEADERS = ("dsr_kernels.h", "dsr_device.h", "gsc_step.h")
+HEADERS = ("dsr_kernels.h", "dsr_device.h", "dsr_fft.h", "gsc_step.h")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -56,7 +56,7 @@ _SIGNATURES = {
     ],
     "dsr_zelinski_apply": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I, _P],
     "dsr_fw_mono": [
-        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
         _F, _F, _F, _F, _I, _I, _P,
     ],
     "dsr_gsc_mono": [

@@ -26,16 +26,14 @@ import torch
 from ..ops.filterbank import (
     FilterbankParams,
     analysis_half_real_tm,
-    analysis_matrix_tensor,
     analysis_taps,
     num_analysis_frames,
     pack_half,
     synthesis_half_real_tm,
-    synthesis_matrix_tensor,
     synthesis_taps,
     unpack_half,
 )
-from ..ops.filterbank_kernels import prototype_taps
+from ..ops.filterbank_kernels import fft_twiddles_tensor, prototype_taps
 from .beamforming import apply_weights
 from .postfilter import PostFilterType, zelinski_args, zelinski_postfilter
 
@@ -126,11 +124,12 @@ def analysis_fw_synthesis(
 ) -> torch.Tensor:
     """Raw samples ``x [B, C, T]`` -> enhanced samples ``[B, T_out]``: the
     analysis bank, fixed weights + Zelinski, the synthesis bank, in one
-    kernel launch on a CUDA tensor.  ``A``/``S`` may hold the packed DFT
-    matrices (`filterbank.analysis_matrix_tensor(M, True, ...)`,
-    `filterbank.synthesis_matrix_tensor`) and ``hr``/``gf`` the kernel's
+    kernel launch on a CUDA tensor.  ``A``/``S`` may hold the plain
+    version's packed DFT matrices (`filterbank.analysis_matrix_tensor(M,
+    True, ...)`, `filterbank.synthesis_matrix_tensor`) and ``hr``/``gf`` the
     prototype taps (`filterbank_kernels.prototype_taps`) already on ``x``'s
-    device."""
+    device; the kernel does its DFTs as FFTs from
+    `filterbank_kernels.fft_twiddles_tensor` and never reads ``A``/``S``."""
     if x.device.type == "cpu":
         Yr = analysis_half_real_tm(x, h, fb, packed=True, A=A)
         Yp = zelinski_apply_plain(Yr, wqH, wq_manifold, pf_alpha, pf_type, pf_min_frames)
@@ -152,21 +151,16 @@ def analysis_fw_synthesis(
         hr = prototype_taps(analysis_taps, h, fb, x.device)
     if gf is None:
         gf = prototype_taps(synthesis_taps, g, fb, x.device)
-    if A is None:
-        A = analysis_matrix_tensor(M, True, x.device)
-    if S is None:
-        S = synthesis_matrix_tensor(M, R, x.device)
+    tw = fft_twiddles_tensor(M, x.device)
     wq = complex_view("wqH", wqH, (M // 2 + 1, C))
     ta = complex_view("wq_manifold", wq_manifold, (M // 2 + 1, C))
     x = x.contiguous()
     check_cuda_tensor("x", x)
-    check_cuda_tensor("A", A, (M, M))
-    check_cuda_tensor("S", S, (M, M))
     check_cuda_tensor("hr", hr, (m, M))
     check_cuda_tensor("gf", gf, (m, M))
     out = torch.empty((B, T_out * D), dtype=torch.float32, device=x.device)
     code = _build.library().dsr_fw_mono(
-        x.data_ptr(), hr.data_ptr(), A.data_ptr(), S.data_ptr(), gf.data_ptr(), wq.data_ptr(),
+        x.data_ptr(), hr.data_ptr(), tw.data_ptr(), gf.data_ptr(), wq.data_ptr(),
         ta.data_ptr(), out.data_ptr(), B, C, T, Tf, M, m, R, D, fb.laN - (m * R - 1), pd, T_out,
         FW_MONO_ROWS,
         *zelinski_args(C, pf_alpha, pf_type, pf_min_frames), stream_handle(x.device),

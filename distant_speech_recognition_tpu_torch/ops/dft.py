@@ -14,7 +14,9 @@ matrices, which also fold in the filterbank's modulation conventions:
 
 The packed layout ``[Re(0..M/2) | Im(1..M/2-1)]`` drops the two imaginary
 parts that are structurally zero (Im of DC and Nyquist), so both matrices
-are square ``[M, M]``.  Arrays returned here are cached and read-only.
+are square ``[M, M]``.  The CUDA filterbank kernels compute the same two
+functions as FFTs (``csrc/dsr_fft.h``) from the twiddle table
+`fft_twiddles`.  Arrays returned here are cached and read-only.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ __all__ = [
     "synthesis_half_matrix",
     "synthesis_half_matrix_packed",
     "segment_reversal_perm",
+    "fft_twiddles",
 ]
 
 
@@ -93,3 +96,12 @@ def segment_reversal_perm(M: int, R: int) -> tuple:
     D = M // R
     perm = np.arange(M).reshape(R, D)[:, ::-1].reshape(-1)
     return tuple(perm.tolist())
+
+
+@lru_cache(maxsize=None)
+def fft_twiddles(M: int) -> np.ndarray:
+    """[2, M] float32 table of the forward FFT's twiddles ``e^{-2 pi i e/M}``:
+    row 0 ``cos(2 pi e/M)``, row 1 ``-sin(2 pi e/M)``, computed in float64
+    and rounded once."""
+    ang = 2.0 * np.pi * np.arange(M) / M
+    return _frozen(np.stack([np.cos(ang), -np.sin(ang)]).astype(np.float32))

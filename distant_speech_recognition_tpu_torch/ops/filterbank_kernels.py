@@ -13,10 +13,12 @@ specification the kernel is held to.  Layouts are those of the JAX package.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
+from . import dft
 from .filterbank import (
     FilterbankParams,
     _analysis_with,
@@ -27,12 +29,12 @@ from .filterbank import (
     num_analysis_frames,
     polyphase_fir_plain,
     synthesis_half_real_tm,
-    synthesis_matrix_tensor,
     synthesis_taps,
 )
 
 __all__ = [
     "prototype_taps",
+    "fft_twiddles_tensor",
     "analysis_tm_fused",
     "synthesis_tm_fused",
     "polyphase_fir",
@@ -51,6 +53,13 @@ def prototype_taps(taps, proto, params: FilterbankParams, device) -> torch.Tenso
     if proto.shape != (params.N,):
         raise ValueError(f"prototypes must have length N=M*m={params.N}, got {tuple(proto.shape)}")
     return taps(proto, params).contiguous()
+
+
+@functools.lru_cache(maxsize=None)
+def fft_twiddles_tensor(M: int, device: torch.device) -> torch.Tensor:
+    """`dft.fft_twiddles` ``[2, M]`` on ``device``, made once per device: the
+    table the FFT kernels (K3, K8) read their twiddles from."""
+    return torch.tensor(dft.fft_twiddles(M), device=device).contiguous()
 
 
 def analysis_tm_fused(
@@ -109,10 +118,11 @@ def synthesis_tm_fused(
 ) -> torch.Tensor:
     """Synthesis bank on the packed time-major spectrum ``Yp [T_in, ..., M]``
     -> samples ``[..., (T_in - synthesis_delay) * D]``, equal to
-    `ops.filterbank.synthesis_half_real_tm`.  ``S`` may hold
-    `filterbank.synthesis_matrix_tensor` and ``gf`` the kernel's taps
-    `filterbank.synthesis_taps(g)` already on ``Yp``'s device (the plain
-    version computes both from ``g``)."""
+    `ops.filterbank.synthesis_half_real_tm`.  ``S`` may hold the plain
+    version's `filterbank.synthesis_matrix_tensor` and ``gf`` the taps
+    `filterbank.synthesis_taps(g)` already on ``Yp``'s device; the kernel
+    does the DFT as an FFT from `fft_twiddles_tensor` and never reads
+    ``S``."""
     if Yp.device.type == "cpu":
         return synthesis_half_real_tm(Yp, g, params, S=S)
     if Yp.device.type != "cuda":
@@ -126,20 +136,18 @@ def synthesis_tm_fused(
     T_out = T_in - pd
     if T_out <= 0:
         raise ValueError(f"need more than {pd} subband frames, got {T_in}")
-    if S is None:
-        S = synthesis_matrix_tensor(M, R, Yp.device)
     if gf is None:
         gf = prototype_taps(synthesis_taps, g, p, Yp.device)
+    tw = fft_twiddles_tensor(M, Yp.device)
     lead = Yp.shape[1:-1]
     B = math.prod(lead)
     Yp = Yp.contiguous()
     check_cuda_tensor("Yp", Yp)
-    check_cuda_tensor("S", S, (M, M))
     check_cuda_tensor("gf", gf, (m, M))
     out = torch.empty(tuple(lead) + (T_out * D,), dtype=torch.float32, device=Yp.device)
     lib = _build.library()
     code = lib.dsr_synthesis_tm(
-        Yp.data_ptr(), S.data_ptr(), gf.data_ptr(), out.data_ptr(),
+        Yp.data_ptr(), tw.data_ptr(), gf.data_ptr(), out.data_ptr(),
         T_in, B, M, m, R, D, pd, T_out, stream_handle(Yp.device),
     )
     _build.check(code, "synthesis_tm")
