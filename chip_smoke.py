@@ -27,7 +27,8 @@ Phases (each raises on failure; the script then exits non-zero):
   5. CUDA-event times of K1, K2, K3, K4 (the flagship path), the chain
      K1 -> K2 -> K3 on the same input, K5 and K5 -> K3, beside the plain
      versions, one PyTorch call for the GEMM part of each filterbank and one
-     torch.fft call over the same rows;
+     torch.fft call over the same rows, and K1's dense-product route at
+     M = 256 (what K1 ran before its FFT) as a yardstick;
   6. the config-4 path (NLMS AEC -> multichannel WPE -> GSC-RLS + Zelinski):
      build_pipeline() with the default device on the same B=256 x 4 ch x
      10 s plus a far-end playback, launch counts around one forward (each
@@ -62,8 +63,12 @@ Phases (each raises on failure; the script then exits non-zero):
      reconstruction SNR (>= 50 dB), both banks against their plain versions,
      CUDA-event times of the round trip and of K13 alone beside its plain
      version and one grouped conv1d.
-Phase 3 also holds, at B=8: K3 and K8 (whose DFTs are FFTs) on pure tones
-at bins 0, 1, 64, 127 and 128 and on impulse trains, one case per bin; K4
+Phase 2 also prints K4's and K5's blocks per SM and shared memory at
+C = 2..8 (the compiler's registers and spills are in its report above them).
+Phase 3 also holds, at B=8: K1 at M = 128 and 512 (its dense-product
+route); K1, K3, K4/K5 and K8 (whose DFTs are FFTs) on pure tones at bins 0,
+1, 64, 127 and 128 and on impulse trains, one case per bin (K4 against the
+plain chain with sensor noise 20 dB down added, as config 5's inputs); K4
 against K1 -> K2 -> K3 and the plain chain and K5 against K1 -> K2 (bit for
 bit) and the plain loop (C = 2, 4, 8, delay compensation
 0/1/2, both Zelinski modes, pf_min_frames 0 and 2, near-silent top bins);
@@ -79,13 +84,15 @@ The line before the last two is a JSON object with one entry per kernel
 ("launches" counts the runs of all six paths, "launches_by_path" each
 path's, one forward each; K4, K5 and K8 also carry their error against the
 split kernels, K1, K3 and K8 the time of torch.fft over the same rows as a
-second yardstick, "fft_ms"); the line before the last is the card's name and
+second yardstick, "fft_ms", K1 its dense-product route's time at M = 256,
+"dense_route_ms"); the line before the last is the card's name and
 power limit; the last line is {"ok": true, "device": {...}}.  Imports
 nothing of JAX.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import re
@@ -233,6 +240,14 @@ def main() -> None:
     for line in _build.build_log.splitlines():
         if "Compiling entry" in line or "Used" in line or "spill" in line:
             log("  ptxas:", line.strip())
+    # the one-kernel flagship chains' residency at the flagship's halo (m*R - 1 = 7)
+    for synth, name in ((1, "gsc_mono"), (0, "gsc_analysis")):
+        for C_ in range(2, 9):
+            blocks, smem = ctypes.c_int(), ctypes.c_int()
+            _build.check(_build.library().dsr_gsc_mono_occupancy(
+                C_, synth, 7, ctypes.addressof(blocks), ctypes.addressof(smem)), name)
+            log(f"  {name} C={C_}: {blocks.value} blocks per SM, {smem.value} bytes of dynamic "
+                f"shared memory per block")
 
     # the flagship configuration of bench.py, and config 4 on top of it
     fb = FilterbankParams(M=256, m=4, r=1, delay_compensation_type=2)
@@ -349,6 +364,13 @@ def main() -> None:
     Yr_ref = plain_analysis(xs)
     compare("analysis_tm", analysis_tm_fused(xs, enh.h, fb, A=enh.A), Yr_ref, 2e-5,
             "analysis_tm")
+    # K1 at the other M it takes, on its dense-product route
+    for M_, m_ in ((128, 3), (512, 4)):
+        fb_ = FilterbankParams(M=M_, m=m_, r=1, delay_compensation_type=2)
+        h_ = torch.from_numpy(rng.standard_normal(fb_.N, dtype=np.float32) / np.float32(16.0))
+        h_ = h_.to(dev)
+        compare(f"analysis_tm M={M_} (dense-product route)", analysis_tm_fused(xs, h_, fb_),
+                analysis_half_real_tm(xs, h_, fb_, packed=True), 2e-5, "analysis_tm")
     Yp_ref = plain_scan(Yr_ref)
     compare("gsc_rls_zelinski", gsc_rls_zelinski(Yr_ref, *scan_args), Yp_ref, 2e-4,
             "gsc_rls_zelinski")
@@ -443,11 +465,12 @@ def main() -> None:
             compare(f"fw_mono vs plain chain {tag}", y8, plain_synthesis(Yz_ref), 3e-4, "fw_mono")
     del Yr_k1, Yz_ref, y8
 
-    # K3's and K8's FFTs one bin at a time: packed frames holding only bin f
-    # (its phase turning from frame to frame) or the spectra of single
-    # impulses for K3; a cosine at bin f's centre (each channel 2 samples
-    # later) or one impulse per 256-sample block for K8, so that a wrong
-    # twiddle, split, packing or segment-reversal index fails on a named bin
+    # K3's, K1's, K8's and K4/K5's FFTs one bin at a time: packed frames
+    # holding only bin f (its phase turning from frame to frame) or the
+    # spectra of single impulses for K3; a cosine at bin f's centre (each
+    # channel 2 samples later) or one impulse per 256-sample block for the
+    # others, so that a wrong twiddle, split, pairing, packing or
+    # segment-reversal index fails on a named bin
     w_ds = (fixed["ds"].wqH, fixed["ds"].wq_manifold, cfg.pf_alpha, 1, 2)
     t_in = np.arange(150)[:, None, None]
     amp = 100.0 / (1.0 + np.arange(8))[None, :, None]
@@ -479,7 +502,24 @@ def main() -> None:
             "fw_mono_vs_split")
         compare(f"fw_mono vs plain chain, {case}", y8,
                 plain_synthesis(zelinski_apply_plain(plain_analysis(xt), *w_ds)), 3e-4, "fw_mono")
-    del A_np, Yt, xt, y8
+        Yr_t = analysis_tm_fused(xt, enh.h, fb)
+        compare(f"analysis_tm, {case}", Yr_t, plain_analysis(xt), 2e-5, "analysis_tm")
+        Yk = gsc_rls_zelinski(Yr_t, *scan_args)
+        if not torch.equal(k5(xt), Yk):
+            raise AssertionError(f"gsc_analysis differs from K1->K2 ({case}): not bit for bit")
+        compare(f"gsc_mono vs K1->K2->K3, {case}", k4(xt), synthesis_tm_fused(Yk, enh.g, fb),
+                3e-4, "gsc_mono_vs_split")
+        # against the plain chain with sensor noise 20 dB down on every
+        # channel: a tone that every channel hears as an exact delayed copy
+        # is noise-free coherent input, on which the GSC-RLS recursion
+        # amplifies float32 rounding once it adapts (ROADMAP section 3): on
+        # the bin-1 tone, adapting from frame 128, K4 and the plain chain
+        # part by 7.1e-4 x max|y| (NVIDIA H100 80GB HBM3)
+        xn = xt + 0.1 * xt.pow(2).mean(-1, keepdim=True).sqrt() * torch.from_numpy(
+            rng.standard_normal(tuple(xt.shape), dtype=np.float32)).to(dev)
+        compare(f"gsc_mono vs plain chain, {case} + sensor noise", k4(xn), plain_chain(xn), 3e-4,
+                "gsc_mono")
+    del A_np, Yt, xt, y8, Yr_t, Yk, xn
 
     # one steering per utterance (eight directions of a circular 100 mm
     # array): K6 against its plain version; one steering for all: K6 is K2
@@ -503,9 +543,9 @@ def main() -> None:
     del vs8, steer8, rows
 
     # the one-kernel flagship chains: K4 against the split kernels K1 -> K2 ->
-    # K3 (3e-4: K3 does its DFT as an FFT, K4 as a dense product) and the
-    # plain chain (3e-4), K5 against K1 -> K2 (bit for bit: the same device
-    # code in the same order) and the plain loop (2e-4): both
+    # K3 (3e-4: K3 pairs its synthesis rows in its FFT otherwise than K4) and
+    # the plain chain (3e-4), K5 against K1 -> K2 (bit for bit: the same
+    # device code in the same order) and the plain loop (2e-4): both
     # Zelinski modes, pf_min_frames 0 and 2, delay compensation 0/1/2, C = 2,
     # 4 and 8 (frame counts that leave a partial last tile of 64 / C frames),
     # the default RLS and one that adapts from frame 8, and a band-limited
@@ -669,7 +709,17 @@ def main() -> None:
         fft_ms = {"analysis_tm": time_ms(lambda: torch.fft.rfft(W, dim=-1), 5),
                   "synthesis_tm": time_ms(lambda: torch.fft.irfft(Yc, n=M, dim=-1), 5)}
         fft_ms["fw_mono"] = fft_ms["analysis_tm"] + fft_ms["synthesis_tm"]
-        del Yr, Yp, W, Yc
+        # K1's dense-product route at M = 256 (what it ran before its FFT): a
+        # yardstick, launched through its C entry, not a path's launch
+        Yd = torch.empty_like(Yr)
+        dense_args = (x.data_ptr(), enh.hr.data_ptr(), enh.A.data_ptr(), Yd.data_ptr(), B * C, T,
+                      Tf, M, fb.m, fb.D, fb.laN - (fb.m * fb.R - 1), kernels.stream_handle(dev))
+        lib_k = _build.library()
+        dense_route = lambda: _build.check(lib_k.dsr_analysis_tm_dense(*dense_args), "dense")
+        dense_route()
+        compare("analysis_tm dense-product route at M=256 vs K1", Yd, Yr, 2e-5)
+        dense_route_ms = time_ms(dense_route, 5)
+        del Yr, Yp, W, Yc, Yd
         path_ms = time_ms(lambda: enh(x), 3)
     # the plain chain's time: its three stages as timed above
     plain_path_ms = sum(times[name][1] for name in ("analysis_tm", "gsc_rls_zelinski",
@@ -680,7 +730,8 @@ def main() -> None:
         lib = library[name]
         log(f"  {name}: kernel {k_ms:.3f} ms   plain {p_ms:.3f} ms   "
             f"library {'-' if lib is None else f'{lib:.3f} ms (GEMM part only)'}"
-            + (f"   torch.fft {fft_ms[name]:.3f} ms" if name in fft_ms else ""))
+            + (f"   torch.fft {fft_ms[name]:.3f} ms" if name in fft_ms else "")
+            + (f"   dense-product route {dense_route_ms:.3f} ms" if name == "analysis_tm" else ""))
     log(f"  flagship path (gsc_mono): {path_ms:.3f} ms "
         f"({audio_s / (path_ms / 1e3):.1f} audio-s/s/GPU)   plain {plain_path_ms:.3f} ms "
         f"({audio_s / (plain_path_ms / 1e3):.1f} audio-s/s/GPU)")
@@ -1078,19 +1129,12 @@ def main() -> None:
                  + C * (C - 1) // 2)  # complex multiply-adds per (frame, utterance, bin)
     rows = Tf * B * C
     # the least work of one row's M-point real DFT is an FFT's, ~2.5 M log2 M
-    # flops (half of a complex FFT's 5 N log2 N); K1, K4 and K5 do it as a
-    # dense product, 2 M^2, whose time `dense_dft` gives beside (K3 and K8 do
-    # FFTs)
+    # flops (half of a complex FFT's 5 N log2 N); the kernels do FFTs
     fft_flops = 2.5 * M * np.log2(M)
     fir_in, fir_out = 2 * fb.m * M * rows, 2 * fb.m * M * (T_out // fb.D) * B
     zel_flops = 8 * (3 * C + C * (C - 1) // 2)  # K7's per (frame, utterance, bin)
     rls_flops = 8 * scan_macs * Tf * B * F  # the scan's per (frame, utterance, bin) work
     fir_rows = B * C * Tf  # the round trip's analysis FIR: rows out, and (m-1)*R more in
-    dense_dft = {
-        "gsc_mono": bound(0, (rows + Tf * B) * 2 * M * M + fir_in + fir_out + rls_flops)[0],
-        "gsc_analysis": bound(0, rows * 2 * M * M + fir_in + rls_flops)[0],
-        "analysis_tm": bound(0, rows * 2 * M * M + fir_in)[0],
-    }
     bounds = {
         "analysis_tm": bound(4 * (B * C * T + rows * M + M * M + fb.N),
                              rows * fft_flops + fir_in),
@@ -1154,10 +1198,8 @@ def main() -> None:
     rows_json = []
     for name, (src, rep) in sources.items():
         b_ms, b_by = bounds[name]
-        dense = (f"; its DFTs as dense products: {dense_dft[name]:.3f} ms, kernel at "
-                 f"{100 * dense_dft[name] / times[name][0]:.1f}%" if name in dense_dft else "")
         log(f"  {name}: bound {b_ms:.3f} ms ({b_by}), kernel at "
-            f"{100 * b_ms / times[name][0]:.1f}% of it{dense}")
+            f"{100 * b_ms / times[name][0]:.1f}% of it")
         row = {
             "name": name, "route": "cuda",
             "source": f"distant_speech_recognition_tpu_torch/csrc/{src}", "replaces": rep,
@@ -1171,6 +1213,8 @@ def main() -> None:
             row["max_abs_err_vs_split"] = results[name + "_vs_split"]
         if name in fft_ms:
             row["fft_ms"] = fft_ms[name]
+        if name == "analysis_tm":
+            row["dense_route_ms"] = dense_route_ms
         rows_json.append(row)
     log(f"script time {time.perf_counter() - t_script:.1f} s")
     log(json.dumps({"kernels": rows_json}))

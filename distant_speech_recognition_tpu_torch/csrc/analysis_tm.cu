@@ -15,25 +15,101 @@
 // What bounds the function on an H100: its bytes, 2.0 GB of samples in and
 // spectra out at B=256 x 4 ch x 10 s (0.59 ms at 3.35 TB/s); done by FFT,
 // each 256-point row needs ~5k flops plus the FIR's 2*m*M, 9 GFLOP in all.
-// What bounds this kernel: it does the DFT as a dense product, 2*M*M flops
-// per output row, 168 GFLOP, 2.5 ms at the FP32 peak.  Design: a classic
-// tiled SGEMM whose
-// left operand is never stored: each 128-frame x 8-column tile of w is formed
-// in shared memory from x (m FMAs per element, x reads are contiguous along
-// the column) and immediately consumed; a block owns 128 frames of one
-// (utterance, channel) row and 128 output columns, 256 threads each hold an
-// 8x8 register tile.  Plain IEEE FP32 FMA, no TF32, no tensor cores.
+//
+// M = 256 (every pipeline on the card): the product with A is an FFT in
+// shared memory (csrc/dsr_fft.h).  A block of 256 threads owns a tile of
+// 64 rows, K = 64 / Cg frames of Cg consecutive signals (the channels of one
+// utterance, Cg = the channel count), laid out and paired in the FFT exactly
+// as the one-kernel chains K4/K5 and K8 lay out theirs, so K1 -> K2 equals
+// K5 to the bit.  It
+//   1. forms the rows' FIR sums from x (dsr::fft::analysis_fir_tile; at the
+//      flagship's m = 4, R = 2 each sample of x is loaded once per chunk of
+//      8 frames and reused from registers by the taps) in the FFT's input
+//      layout with the (n+1) phase as an index shift;
+//   2. runs the FFT in place, two rows per complex FFT;
+//   3. splits each row's bins off its pair (dsr::fft::split_bin) and writes
+//      them as whole 1 KB packed rows [Re(0..M/2) | Im(1..M/2-1)] of out.
+// ~70 KB of shared memory and up to 128 registers: two blocks per SM, so
+// one block's loads of x and stores of out overlap the other's FFT (three
+// blocks at 80 registers spilled and were slower).  Plain IEEE FP32.
+//
+// Other M (M % 128 == 0; no pipeline takes it on the card, the tests do):
+// a tiled SGEMM against A whose left operand is never stored: each
+// 128-frame x 8-column tile of w is formed in shared memory from x
+// (dsr::analysis_fir) and consumed at once; a block owns 128 frames of one
+// signal and 128 output columns, 256 threads each hold an 8x8 register tile.
+// It does 2*M*M flops per row (168 GFLOP at the flagship's shape).
 #include "dsr_device.h"
+#include "dsr_fft.h"
 #include "dsr_kernels.h"
 
 #include <cstdint>
 
 namespace {
 
+using dsr::fft::LD;
+
+constexpr int THREADS = 256;
+
+// ---- M = 256: FIR rows + shared-memory FFT --------------------------------
+
+constexpr int M_FFT = dsr::fft::N;
+constexpr int ROWS = 64;  // rows per tile: K = ROWS / Cg frames x Cg signals
+constexpr size_t FFT_SMEM_BYTES = sizeof(float) * (2 * M_FFT + (size_t)ROWS * LD);
+
+template <int C>
+__global__ void __launch_bounds__(THREADS, 2)
+analysis_fft_kernel(const float* __restrict__ x, const float* __restrict__ hr,
+                    const float* __restrict__ tw, float* __restrict__ out, int BC, int T, int Tf,
+                    int m, int D, int shift) {
+  constexpr int K = ROWS / C;
+  extern __shared__ __align__(16) float smem[];
+  float* tc = smem;
+  float* ts = tc + M_FFT;
+  float* P = ts + M_FFT;
+
+  const int t0 = blockIdx.x * K;
+  const int g = blockIdx.y;  // signals g*C .. g*C + C-1
+  dsr::fft::stage_twiddles(smem, tw);
+  const dsr::fft::Consts kc = dsr::fft::consts(tw);
+  dsr::fft::analysis_fir_tile<ROWS, C, THREADS, 8>(P, x + (size_t)g * C * T, hr, t0, Tf, T, m,
+                                                    D, shift);
+  __syncthreads();
+  dsr::fft::fft_rows<false, THREADS>(P, ROWS / 2, tc, ts, kc, threadIdx.x);
+  __syncthreads();
+
+  // lane l of a packed row: Re(bin l) for l < F, Im(bin l - (F - 1)) after
+  constexpr int F = M_FFT / 2 + 1;
+  const int l = threadIdx.x;
+  const int f = l < F ? l : l - (F - 1);
+#pragma unroll 4
+  for (int r = 0; r < K * C; ++r) {
+    const int t = t0 + r / C;
+    if (t >= Tf) break;
+    const dsr::cf X = dsr::fft::split_bin(P, r, f);
+    out[((size_t)t * BC + (size_t)g * C + r % C) * M_FFT + l] = l < F ? X.r : X.i;
+  }
+}
+
+template <int C>
+int launch_fft(const float* x, const float* hr, const float* tw, float* out, int G, int T, int Tf,
+               int m, int D, int shift, cudaStream_t stream) {
+  constexpr int K = ROWS / C;
+  cudaError_t err = cudaFuncSetAttribute(analysis_fft_kernel<C>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)FFT_SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((Tf + K - 1) / K, G);
+  analysis_fft_kernel<C><<<grid, THREADS, FFT_SMEM_BYTES, stream>>>(x, hr, tw, out, G * C, T, Tf,
+                                                                    m, D, shift);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- other M: FIR tiles + dense DFT product ---------------------------------
+
 constexpr int BM = 128;  // frames per block
 constexpr int BN = 128;  // output columns per block
 constexpr int BK = 8;    // reduction chunk
-constexpr int THREADS = 256;
 
 __global__ void __launch_bounds__(THREADS)
 analysis_tm_kernel(const float* __restrict__ x, const float* __restrict__ hr,
@@ -110,13 +186,33 @@ extern "C" const char* dsr_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-extern "C" int dsr_analysis_tm(const float* x, const float* hr, const float* A, float* out,
-                               int BC, int T, int Tf, int M, int m, int D, int shift,
-                               cudaStream_t stream) {
-  if (BC <= 0 || BC > 65535 || T <= 0 || Tf <= 0 || m <= 0 || D <= 0 ||
-      M % BN != 0 || M % BK != 0 || M % D != 0)
+extern "C" int dsr_analysis_tm_dense(const float* x, const float* hr, const float* A, float* out,
+                                     int BC, int T, int Tf, int M, int m, int D, int shift,
+                                     cudaStream_t stream) {
+  if (BC <= 0 || BC > 65535 || T <= 0 || Tf <= 0 || m <= 0 || D <= 0 || M % BN != 0 ||
+      M % BK != 0 || M % D != 0)
     return DSR_ERR_ARGS;
   const dim3 grid(M / BN, (Tf + BM - 1) / BM, BC);
   analysis_tm_kernel<<<grid, THREADS, 0, stream>>>(x, hr, A, out, BC, T, Tf, M, m, D, shift);
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int dsr_analysis_tm(const float* x, const float* hr, const float* tw, const float* A,
+                               float* out, int G, int Cg, int T, int Tf, int M, int m, int D,
+                               int shift, cudaStream_t stream) {
+  if (M != M_FFT) {
+    const long long BC = (long long)G * Cg;
+    if (G <= 0 || Cg <= 0 || BC > 65535) return DSR_ERR_ARGS;
+    return dsr_analysis_tm_dense(x, hr, A, out, (int)BC, T, Tf, M, m, D, shift, stream);
+  }
+  if (G <= 0 || G > 65535 || T <= 0 || Tf <= 0 || m <= 0 || D <= 0 || M % D != 0)
+    return DSR_ERR_ARGS;
+  switch (Cg) {
+#define DSR_CASE(n) \
+    case n: return launch_fft<n>(x, hr, tw, out, G, T, Tf, m, D, shift, stream);
+    DSR_CASE(1) DSR_CASE(2) DSR_CASE(3) DSR_CASE(4) DSR_CASE(5) DSR_CASE(6) DSR_CASE(7)
+    DSR_CASE(8)
+#undef DSR_CASE
+    default: return DSR_ERR_ARGS;
+  }
 }

@@ -1,5 +1,8 @@
 // The 256-point DFTs of the filterbank kernels as FFTs in shared memory
-// (K3 synthesis_tm.cu, K8 fw_mono.cu).
+// (K1 analysis_tm.cu, K3 synthesis_tm.cu, K4/K5 gsc_mono.cu, K8
+// fw_mono.cu), and the analysis FIR rows that K1, K4/K5 and K8 transform
+// (`analysis_fir_tile`: one function, so all three form the same sums in the
+// same order and pair the same rows in their FFTs).
 //
 // What they compute (ops/dft.py):
 //   - analysis: the packed row Y[f] = e^{-2 pi i f/M} fft(w)[f], f = 0..M/2,
@@ -26,7 +29,8 @@
 // and rows are LD = 264 floats apart, so the half warps of a warp (two pairs,
 // rows 2 LD apart, 16 banks) and every pass, split and FIR store touch 32
 // distinct banks.  Twiddles come from the host's float64 table rounded to
-// float32 (dft.fft_twiddles), never from __sinf/__cosf; plain IEEE FP32.
+// float32 (dft.fft_twiddles), never from __sinf/__cosf; plain IEEE FP32,
+// with the complex products' FMAs written out (`twiddle`).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -66,11 +70,17 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// the twiddle table [2][N] (cos, -sin of 2 pi e / N) into shared memory;
-// the caller synchronises the block before the first pass
+// pass 1's twiddles W256^(g k1) from the table [2][N] (cos, -sin of
+// 2 pi e / N) into shared memory in the order [2][k1][g], so that the 16
+// threads of a pair read 16 consecutive floats (the table's own order puts
+// up to four of them in one bank); the caller synchronises the block before
+// the first pass
 __device__ __forceinline__ void stage_twiddles(float* sm, const float* __restrict__ tw) {
-  for (int i = threadIdx.x; i < 2 * N / 4; i += blockDim.x) cp_async16(sm + 4 * i, tw + 4 * i, 16);
-  cp_async_wait_all();
+  for (int i = threadIdx.x; i < N; i += blockDim.x) {
+    const int e = (i & 15) * (i >> 4);
+    sm[i] = __ldg(tw + e);
+    sm[N + i] = __ldg(tw + N + e);
+  }
 }
 
 // y[l] = sum_m x[m] (-i)^(m l), in place
@@ -90,9 +100,12 @@ __device__ __forceinline__ void dft4(float& r0, float& i0, float& r1, float& i1,
   i3 = bi + dr;
 }
 
+// x *= w, each part one product and one FMA written out, so that every
+// kernel that inlines the FFT rounds alike (left to the compiler, the
+// contraction of a*b - c*d into an FMA differs from kernel to kernel)
 __device__ __forceinline__ void twiddle(float& xr, float& xi, float wr, float wi) {
-  const float t = xr * wr - xi * wi;
-  xi = xr * wi + xi * wr;
+  const float t = fmaf(xr, wr, -(xi * wi));
+  xi = fmaf(xr, wi, xi * wr);
   xr = t;
 }
 
@@ -142,16 +155,130 @@ __device__ __forceinline__ void packed_pair_z(const float* a, const float* b, in
   }
 }
 
+// Element k (k = j*D + i, at `pos` = tpos((k + 1) mod N)) of the eight
+// analysis FIR rows r0..r0+7 of a frame tile: row r = tk*C + c of `P` (LD
+// apart) holds frame t0 + tk of signal c of `xb` (signals T apart), tk < K
+// = ROWS / C:
+//   w[t, k] = sum_tap hr[tap, k] * x[(t + shift + j)*D + i + (m-1-tap)*N],
+// with x zero outside [0, T) (`dsr::analysis_fir`'s sum, taps in order,
+// fmaf), rows past K*C and frames past Tf zero.  The taps are outer and
+// unrolled, so the thread keeps up to 32 loads of x in flight.
+template <int ROWS, int C>
+__device__ __forceinline__ void analysis_fir_rows8(float* P, int r0, const float* __restrict__ xb,
+                                                   const float* __restrict__ hr, int t0, int Tf,
+                                                   int T, int m, int D, int shift, int k,
+                                                   int pos) {
+  constexpr int K = ROWS / C;
+  const int fj = k / D;
+  const int fi = k - fj * D;
+  float acc[8];
+#pragma unroll
+  for (int rr = 0; rr < 8; ++rr) acc[rr] = 0.f;
+#pragma unroll 4
+  for (int tap = 0; tap < m; ++tap) {
+    const float hv = __ldg(hr + tap * N + k);
+#pragma unroll
+    for (int rr = 0; rr < 8; ++rr) {
+      const int r = r0 + rr;
+      const int tk = r / C;
+      const int t = t0 + tk;
+      const long long s = (long long)(t + shift + fj) * D + fi + (long long)(m - 1 - tap) * N;
+      const float xv = (r < K * C && t < Tf && s >= 0 && s < T)
+                           ? __ldg(xb + (size_t)(r - tk * C) * T + s)
+                           : 0.f;
+      acc[rr] = fmaf(hv, xv, acc[rr]);
+    }
+  }
+#pragma unroll
+  for (int rr = 0; rr < 8; ++rr) P[(r0 + rr) * LD + pos] = acc[rr];
+}
+
+// The analysis FIR rows of one frame tile at fixed m = MT and R = RT, by
+// every thread of a block of THREADS (element k to thread k mod THREADS):
+// `analysis_fir_rows8`'s sums, term for term, with each sample of x loaded
+// once per chunk of FR = min(CHUNK, K) frames of one signal instead of once
+// per (frame, tap).  Frame f of a chunk reads its tap `tap` at sample f +
+// (MT-1-tap)*RT of the chunk's FR + (MT-1)*RT consecutive frames, all held
+// in registers.
+template <int ROWS, int C, int THREADS, int CHUNK, int MT, int RT>
+__device__ __forceinline__ void analysis_fir_tile_fixed(float* P, const float* __restrict__ xb,
+                                                        const float* __restrict__ hr, int t0,
+                                                        int Tf, int T, int shift) {
+  constexpr int K = ROWS / C;
+  constexpr int D = N / RT;
+  constexpr int FR = K < CHUNK ? K : CHUNK;  // frames per chunk
+  constexpr int NV = FR + (MT - 1) * RT;     // samples a chunk reads per element
+  constexpr int PASSES = (N + THREADS - 1) / THREADS;
+#pragma unroll
+  for (int pass = 0; pass < PASSES; ++pass) {
+    const int k = threadIdx.x + pass * THREADS;
+    if (PASSES * THREADS > N && k >= N) break;
+    const int fj = k / D;
+    const int fi = k - fj * D;
+    const int pos = tpos((k + 1) & (N - 1));
+    float hv[MT];
+#pragma unroll
+    for (int tap = 0; tap < MT; ++tap) hv[tap] = __ldg(hr + tap * N + k);
+    for (int c = 0; c < C; ++c) {
+      const float* xr = xb + (size_t)c * T;
+      for (int f0 = 0; f0 < K; f0 += FR) {
+        const long long s0 = (long long)(t0 + f0 + shift + fj) * D + fi;
+        float xs[NV];
+#pragma unroll
+        for (int v = 0; v < NV; ++v) {
+          const long long s = s0 + (long long)v * D;
+          xs[v] = (s >= 0 && s < T) ? __ldg(xr + s) : 0.f;
+        }
+#pragma unroll
+        for (int f = 0; f < FR; ++f) {
+          const int tk = f0 + f;
+          if (K % FR != 0 && tk >= K) break;
+          float acc = 0.f;
+#pragma unroll
+          for (int tap = 0; tap < MT; ++tap)
+            acc = fmaf(hv[tap], xs[f + (MT - 1 - tap) * RT], acc);
+          P[(tk * C + c) * LD + pos] = t0 + tk < Tf ? acc : 0.f;
+        }
+      }
+    }
+    for (int r = K * C; r < ROWS; ++r) P[r * LD + pos] = 0.f;  // zero partners
+  }
+}
+
+// The analysis FIR rows of one frame tile (`analysis_fir_rows8` for every
+// eight rows), by every thread of a block of THREADS: element k goes to
+// thread k mod THREADS, in layout T with the (n+1) phase as an index shift.
+// The flagship's m = 4, R = 2 takes `analysis_fir_tile_fixed` (the same
+// sums, each sample of x loaded once per chunk of CHUNK frames).
+template <int ROWS, int C, int THREADS, int CHUNK>
+__device__ __forceinline__ void analysis_fir_tile(float* P, const float* __restrict__ xb,
+                                                  const float* __restrict__ hr, int t0, int Tf,
+                                                  int T, int m, int D, int shift) {
+  if (m == 4 && 2 * D == N) {
+    analysis_fir_tile_fixed<ROWS, C, THREADS, CHUNK, 4, 2>(P, xb, hr, t0, Tf, T, shift);
+    return;
+  }
+  constexpr int PASSES = (N + THREADS - 1) / THREADS;
+#pragma unroll
+  for (int pass = 0; pass < PASSES; ++pass) {
+    const int k = threadIdx.x + pass * THREADS;
+    if (PASSES * THREADS > N && k >= N) break;
+    const int pos = tpos((k + 1) & (N - 1));
+    for (int r0 = 0; r0 < ROWS; r0 += 8)
+      analysis_fir_rows8<ROWS, C>(P, r0, xb, hr, t0, Tf, T, m, D, shift, k, pos);
+  }
+}
+
 // In-place forward FFT of `pairs` row pairs, pair q = rows (2q, 2q+1) of
-// `rows` (re, im), by every thread of the block (16 per pair).  Input in
-// layout T, or, with FROM_PACKED, two packed half spectra per pair in raw
-// lanes (`packed_pair_z`); output in natural layout.
-template <bool FROM_PACKED>
+// `rows` (re, im), by the NT threads tid = 0..NT-1 of a warp-aligned set
+// (16 per pair).  Input in layout T, or, with FROM_PACKED, two packed half
+// spectra per pair in raw lanes (`packed_pair_z`); output in natural layout.
+template <bool FROM_PACKED, int NT>
 __device__ __forceinline__ void fft_rows(float* rows, int pairs, const float* tc, const float* ts,
-                                         const Consts& kc) {
-  const int g = threadIdx.x & 15;
-  for (int q0 = 0; q0 < pairs; q0 += blockDim.x / 16) {
-    const int q = q0 + (threadIdx.x >> 4);
+                                         const Consts& kc, int tid) {
+  const int g = tid & 15;
+  for (int q0 = 0; q0 < pairs; q0 += NT / 16) {
+    const int q = q0 + (tid >> 4);
     const bool on = q < pairs;
     float* re = rows + (size_t)(2 * q) * LD;
     float* im = re + LD;
@@ -174,9 +301,8 @@ __device__ __forceinline__ void fft_rows(float* rows, int pairs, const float* tc
       im[cell(g, 0)] = vi[0];
 #pragma unroll
       for (int k1 = 1; k1 < 16; ++k1) {
-        const int e = g * k1;
         float xr = vr[reg16(k1)], xi = vi[reg16(k1)];
-        twiddle(xr, xi, tc[e], ts[e]);
+        twiddle(xr, xi, tc[16 * k1 + g], ts[16 * k1 + g]);
         re[cell(g, k1)] = xr;
         im[cell(g, k1)] = xi;
       }
@@ -226,21 +352,25 @@ __device__ __forceinline__ void put_pair_bin(float* row, int f, cf A, cf B) {
   im[tpos(N - f)] = B.r - A.i;
 }
 
-// The synthesis FIR + overlap-add (`dsr::synthesis_sample`, summed in its
-// order) of local output frames ul = 0..nfr-1, frame u = u_first + ul
-// (those outside [0, T_out) skipped), from c rows in natural layout, LD
-// apart: local row l holds c[u - ul + pd - (m*R-1) + l]; column col =
-// (R-1-j) D + i of the reversed segments is c's element (R-1-j) D + D-1-i.
-// Thread t owns column i = t % D and frames t / D + n * (blockDim / D) (D
-// divides blockDim), S at a time: each tap is loaded once per S samples and
-// each sample costs one shared load and one FMA per tap.
+// The synthesis FIR + overlap-add of local output frames ul = 0..nfr-1,
+// frame u = u_first + ul (those outside [0, T_out) skipped), from c rows in
+// natural layout, LD apart: local row l holds c[u - ul + pd - (m*R-1) + l],
+// so frame u reads rows ul - j + (m-1-k)*R + (R-1):
+//   out[u][i] = sum_{j < R, u-j >= 0} sum_k gf[k, col] * c[u + pd - j - k*R][col],
+// col = (R-1-j) D + i, summed j outer, k inner (fmaf); column col of the
+// reversed segments is c's element (R-1-j) D + D-1-i.  Threads tid =
+// 0..nt-1 take (column i, group of S consecutive frames) items in turn:
+// each tap is loaded once per S samples and each sample costs one shared
+// load and one FMA per tap.
 template <int S>
 __device__ __forceinline__ void synthesis_frames(const float* __restrict__ gf, const float* cs,
                                                  int m, int R, int D, int nfr, int u_first,
-                                                 int T_out, float* __restrict__ ob) {
-  const int step = blockDim.x / D;
-  const int i = threadIdx.x % D;
-  for (int c0 = threadIdx.x / D; c0 < nfr; c0 += S * step) {
+                                                 int T_out, float* __restrict__ ob, int tid,
+                                                 int nt) {
+  const int items = (nfr + S - 1) / S * D;
+  for (int idx = tid; idx < items; idx += nt) {
+    const int i = idx % D;
+    const int c0 = idx / D * S;
     float o[S];
 #pragma unroll
     for (int s = 0; s < S; ++s) o[s] = 0.f;
@@ -254,16 +384,15 @@ __device__ __forceinline__ void synthesis_frames(const float* __restrict__ gf, c
         const float gv = __ldg(gf + k * N + col);
         const float* row = cs + (c0 - j + (m - 1 - k) * R + (R - 1)) * LD + p;
 #pragma unroll
-        for (int s = 0; s < S; ++s)
-          sj[s] = fmaf(gv, c0 + s * step < nfr ? row[s * step * LD] : 0.f, sj[s]);
+        for (int s = 0; s < S; ++s) sj[s] = fmaf(gv, c0 + s < nfr ? row[s * LD] : 0.f, sj[s]);
       }
 #pragma unroll
       for (int s = 0; s < S; ++s)
-        if (u_first + c0 + s * step - j >= 0) o[s] += sj[s];
+        if (u_first + c0 + s - j >= 0) o[s] += sj[s];
     }
 #pragma unroll
     for (int s = 0; s < S; ++s) {
-      const int ul = c0 + s * step;
+      const int ul = c0 + s;
       const int u = u_first + ul;
       if (ul < nfr && u >= 0 && u < T_out) ob[(size_t)u * D + i] = o[s];
     }

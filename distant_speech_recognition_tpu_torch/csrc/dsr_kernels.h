@@ -17,11 +17,20 @@ extern "C" {
 
 const char* dsr_error_string(int code);
 
-int dsr_analysis_tm(const float* x, const float* hr, const float* A, float* out,
-                    int BC, int T, int Tf, int M, int m, int D, int shift,
+// x: G groups of Cg signals [G * Cg, T]; tw: the FFT twiddle table [2, M]
+// (cos, -sin of 2 pi e / M), ops/dft.fft_twiddles, read at M = 256 (the
+// FFT route, 1 <= Cg <= 8); A: the packed DFT matrix [M, M], read at other M
+// (M % 128 == 0, the dense-product route); the other pointer may be null
+int dsr_analysis_tm(const float* x, const float* hr, const float* tw, const float* A, float* out,
+                    int G, int Cg, int T, int Tf, int M, int m, int D, int shift,
                     cudaStream_t stream);
 
-// tw: the FFT twiddle table [2, M] (cos, -sin of 2 pi e / M), ops/dft.fft_twiddles
+// the dense-product route of dsr_analysis_tm at any M % 128 == 0, on BC
+// signals: what dsr_analysis_tm runs at M != 256, and a yardstick at M = 256
+int dsr_analysis_tm_dense(const float* x, const float* hr, const float* A, float* out, int BC,
+                          int T, int Tf, int M, int m, int D, int shift, cudaStream_t stream);
+
+// tw: as for dsr_analysis_tm
 int dsr_synthesis_tm(const float* Yp, const float* tw, const float* gf, float* out,
                      int T_in, int B, int M, int m, int R, int D, int pd, int T_out,
                      cudaStream_t stream);
@@ -54,7 +63,7 @@ int dsr_zelinski_apply(const float* Yp, const float* wq, const float* ta, float*
                        float pf_gain, float spectral_floor, int real_mode, int pf_min_frames,
                        cudaStream_t stream);
 
-// wq, ta: interleaved complex64 [F, C]; tw: as for dsr_synthesis_tm; out
+// wq, ta: interleaved complex64 [F, C]; tw: as for dsr_analysis_tm; out
 // [B, T_out * D]; rows: the caller's analysis rows per frame tile, refused
 // unless the kernel's own
 int dsr_fw_mono(const float* x, const float* hr, const float* tw, const float* gf,
@@ -65,18 +74,19 @@ int dsr_fw_mono(const float* x, const float* hr, const float* tw, const float* g
 
 // K4 (samples out, [B, T_out * D]) and K5 (packed beamformed spectrum out,
 // [Tf, B, M]): the GSC-RLS + Zelinski chain from raw samples in one launch.
-// wq, ta: interleaved complex64 [F, C]; bm: [F, Bc, C]; rows: the caller's
-// analysis rows per frame tile, refused unless the kernel's own
-int dsr_gsc_mono(const float* x, const float* hr, const float* A, const float* S,
-                 const float* gf, const float* wq, const float* bm, const float* ta, float* out,
-                 int B, int C, int Bc, int T, int Tf, int M, int m, int R, int D, int shift,
-                 int pd, int T_out, int rows, float beta, float one_minus_beta, float gamma,
-                 float mu, float delta, float inv_delta, float reg_param, float sil_thresh,
-                 int constraint_option, float alpha2, float max_wa_l2norm, int min_frames,
-                 float pf_alpha, float one_minus_pf_alpha, float pf_gain, float spectral_floor,
-                 int real_mode, int pf_min_frames, cudaStream_t stream);
+// tw: as for dsr_analysis_tm; wq, ta: interleaved complex64 [F, C]; bm:
+// [F, Bc, C]; rows: the caller's analysis rows per frame tile, refused
+// unless the kernel's own
+int dsr_gsc_mono(const float* x, const float* hr, const float* tw, const float* gf,
+                 const float* wq, const float* bm, const float* ta, float* out, int B, int C,
+                 int Bc, int T, int Tf, int M, int m, int R, int D, int shift, int pd, int T_out,
+                 int rows, float beta, float one_minus_beta, float gamma, float mu, float delta,
+                 float inv_delta, float reg_param, float sil_thresh, int constraint_option,
+                 float alpha2, float max_wa_l2norm, int min_frames, float pf_alpha,
+                 float one_minus_pf_alpha, float pf_gain, float spectral_floor, int real_mode,
+                 int pf_min_frames, cudaStream_t stream);
 
-int dsr_gsc_analysis(const float* x, const float* hr, const float* A, const float* wq,
+int dsr_gsc_analysis(const float* x, const float* hr, const float* tw, const float* wq,
                      const float* bm, const float* ta, float* out, int B, int C, int Bc, int T,
                      int Tf, int M, int m, int D, int shift, int rows, float beta,
                      float one_minus_beta, float gamma, float mu, float delta, float inv_delta,
@@ -84,6 +94,11 @@ int dsr_gsc_analysis(const float* x, const float* hr, const float* A, const floa
                      float max_wa_l2norm, int min_frames, float pf_alpha,
                      float one_minus_pf_alpha, float pf_gain, float spectral_floor,
                      int real_mode, int pf_min_frames, cudaStream_t stream);
+
+// K4 (synth = 1) or K5 (0) at C channels and synthesis halo m*R - 1: the
+// kernel's blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+// and dynamic shared bytes per block; returns 0 or an error code
+int dsr_gsc_mono_occupancy(int C, int synth, int halo, int* blocks_per_sm, int* smem_bytes);
 
 // K13: v[n, t, i] = sum_k h[k, i] * S[n, t + (m-1-k)*R, i]; S [N, T + (m-1)*R, M],
 // h [m, M], v [N, T, M]; m <= 8

@@ -6,7 +6,8 @@
 // filterbank stages) of distant_speech_recognition_tpu, and computes what
 // models/fixed_weight.analysis_fw_synthesis's plain chain computes (and the
 // port's split kernels analysis_tm (K1) -> zelinski_apply (K7) ->
-// synthesis_tm (K3), within rounding: K1 does its DFT as a dense product).
+// synthesis_tm (K3), within rounding: K3 pairs its rows in its FFT
+// otherwise).
 // Neither the input spectrum [Tf, B, C, M] nor the beamformed one [Tf, B, M]
 // touches device memory.
 //
@@ -15,10 +16,10 @@
 // 256-point row, 12 GFLOP in all, 0.18 ms at the FP32 peak.  Design: one
 // block per utterance walks the frames in tiles of K = 64 / C frames.  Per
 // tile it
-//   1. forms the K*C analysis FIR rows straight from x (dsr::analysis_fir's
-//      sums, as K1 forms them) into the tile's rows P [64][LD] in shared
-//      memory, in the FFT's input layout with the (n+1) phase as an index
-//      shift;
+//   1. forms the K*C analysis FIR rows straight from x into the tile's rows
+//      P [64][LD] in shared memory, in the FFT's input layout with the (n+1)
+//      phase as an index shift (dsr::fft::analysis_fir_tile, as K1 and K4
+//      form them);
 //   2. runs the analysis FFT in place, two rows per complex FFT
 //      (csrc/dsr_fft.h);
 //   3. runs the fixed weights and the Zelinski recursion, one thread per bin,
@@ -32,12 +33,11 @@
 //      window and writes D samples for each of its K output frames, which
 //      lag the spectrum frames by the synthesis delay pd.
 // Nothing is streamed from device memory but x and the taps (through L1)
-// and the 2 KB twiddle table (cp.async, once).  The grid is B blocks of 256
-// threads with 94 KB of shared memory at C = 4 (111 KB at C = 2, m*R = 8),
-// two blocks per SM, so one block's serial Zelinski frames overlap the
-// other's FFTs; what is left is the latency of the FIR's loads and of the
-// serial Zelinski frames (PERF.md).  Plain IEEE FP32, no TF32, no tensor
-// cores.
+// and the 2 KB twiddle table (once).  The grid is B blocks of 256 threads
+// with 94 KB of shared memory at C = 4 (111 KB at C = 2, m*R = 8), two
+// blocks per SM, so one block's serial Zelinski frames overlap the other's
+// FIR and FFTs; what is left is mostly the serial Zelinski frames (PERF.md).
+// Plain IEEE FP32, no TF32, no tensor cores.
 #include "dsr_device.h"
 #include "dsr_fft.h"
 #include "dsr_kernels.h"
@@ -96,44 +96,16 @@ fw_mono_kernel(const float* __restrict__ x, const float* __restrict__ hr,
   cf phi_pair = {0.f, 0.f};
   float phi_diag = 0.f;
 
-  // thread tid forms FIR element tid = fj*D + fi of every row, stored at fpos
-  const int fj = tid / D;
-  const int fi = tid - fj * D;
-  const int fpos = fft::tpos((tid + 1) & (M_ - 1));
-
   fft::stage_twiddles(smem, tw);
   const fft::Consts kc = fft::consts(tw);
   for (int idx = tid; idx < halo * LD; idx += THREADS) cw[idx] = 0.f;
 
   for (int t0 = 0; t0 < Tf; t0 += K) {
     // 1. analysis FIR rows: row tk*C + c, element n at (n + 1) mod M
-    //    (dsr::analysis_fir's sum, eight rows at a time with the taps outer
-    //    and unrolled, so each thread keeps up to 32 loads of x in flight)
-    for (int r0 = 0; r0 < ROWS; r0 += 8) {
-      float acc[8];
-#pragma unroll
-      for (int rr = 0; rr < 8; ++rr) acc[rr] = 0.f;
-#pragma unroll 4
-      for (int tap = 0; tap < m; ++tap) {
-        const float hv = __ldg(hr + tap * M_ + tid);
-#pragma unroll
-        for (int rr = 0; rr < 8; ++rr) {
-          const int r = r0 + rr;
-          const int tk = r / C;
-          const int t = t0 + tk;
-          const long long s = (long long)(t + shift + fj) * D + fi + (long long)(m - 1 - tap) * M_;
-          const float xv = (r < K * C && t < Tf && s >= 0 && s < T)
-                               ? __ldg(xb + (size_t)(r - tk * C) * T + s)
-                               : 0.f;
-          acc[rr] = fmaf(hv, xv, acc[rr]);
-        }
-      }
-#pragma unroll
-      for (int rr = 0; rr < 8; ++rr) P[(r0 + rr) * LD + fpos] = acc[rr];
-    }
+    fft::analysis_fir_tile<ROWS, C, THREADS, 16>(P, xb, hr, t0, Tf, T, m, D, shift);
     __syncthreads();
     // 2. analysis FFT, rows (2q, 2q+1) as one complex row
-    fft::fft_rows<false>(P, ROWS / 2, tc, ts, kc);
+    fft::fft_rows<false, THREADS>(P, ROWS / 2, tc, ts, kc, tid);
     __syncthreads();
 
     // 3. fixed weights + Zelinski, one thread per bin, frames in order;
@@ -163,12 +135,12 @@ fw_mono_kernel(const float* __restrict__ x, const float* __restrict__ hr,
     __syncthreads();
 
     // 4. synthesis FFT of the window's new rows
-    fft::fft_rows<false>(cw + halo * LD, KP, tc, ts, kc);
+    fft::fft_rows<false, THREADS>(cw + halo * LD, KP, tc, ts, kc, tid);
     __syncthreads();
 
     // 5. FIR + overlap-add: output frame u = t0 - pd + ul reads window rows
     //    ul - j + (m-1-k)*R + (R-1), i.e. c[u + pd - j - k*R]
-    fft::synthesis_frames<4>(gf, cw, m, R, D, K, t0 - pd, T_out, ob);
+    fft::synthesis_frames<4>(gf, cw, m, R, D, K, t0 - pd, T_out, ob, tid, THREADS);
     __syncthreads();
     // the next tile's halo: this window's last halo rows (K >= halo: no overlap)
     for (int idx = tid; idx < halo * LD; idx += THREADS) cw[idx] = cw[K * LD + idx];

@@ -63,12 +63,18 @@ __host__ __device__ constexpr int gsc_np(int BC) {
 // Sum of ``v`` over the block's threads: a shuffle reduction per warp, one
 // barrier, then every thread adds the warps' sums in warp order.  ``red``
 // holds 32 floats of shared memory; callers alternate two such slots by
-// frame parity, so no second barrier is needed before the next call.
+// frame parity, so no second barrier is needed before the next call.  With
+// BAR > 0 the threads are the first nwarps warps of the block only, and the
+// barrier is the named barrier BAR over them.
+template <int BAR = 0>
 __device__ __forceinline__ float block_sum(float v, float* red, int lane, int warp, int nwarps) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   if (lane == 0) red[warp] = v;
-  __syncthreads();
+  if (BAR == 0)
+    __syncthreads();
+  else
+    asm volatile("bar.sync %0, %1;" ::"r"(BAR), "r"(32 * nwarps) : "memory");
   float sum = 0.f;
   for (int w = 0; w < nwarps; ++w) sum += red[w];
   return sum;

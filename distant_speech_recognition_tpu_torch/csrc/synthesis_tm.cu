@@ -63,15 +63,17 @@ synthesis_tm_kernel(const float* __restrict__ Yp, const float* __restrict__ tw,
     dsr::fft::cp_async16(cs + l * LD + c4, in ? Yp + ((size_t)q * B + b) * M_ + c4 : Yp,
                          in ? 16 : 0);
   }
-  dsr::fft::stage_twiddles(smem, tw);  // commits and waits for every copy above too
+  dsr::fft::cp_async_wait_all();
+  dsr::fft::stage_twiddles(smem, tw);
   const dsr::fft::Consts kc = dsr::fft::consts(tw);
   __syncthreads();
 
-  dsr::fft::fft_rows<true>(cs, ROWS / 2, tc, ts, kc);
+  dsr::fft::fft_rows<true, THREADS>(cs, ROWS / 2, tc, ts, kc, threadIdx.x);
   __syncthreads();
 
   // polyphase FIR over pushed frames + R-segment overlap-add
-  dsr::fft::synthesis_frames<8>(gf, cs, m, R, D, Tt, u0, T_out, out + (size_t)b * T_out * D);
+  dsr::fft::synthesis_frames<8>(gf, cs, m, R, D, Tt, u0, T_out, out + (size_t)b * T_out * D,
+                                 threadIdx.x, THREADS);
 }
 
 }  // namespace

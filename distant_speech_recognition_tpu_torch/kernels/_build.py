@@ -44,7 +44,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "dsr_analysis_tm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "dsr_analysis_tm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "dsr_analysis_tm_dense": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "dsr_synthesis_tm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "dsr_gsc_rls_zelinski": [
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -60,13 +61,14 @@ _SIGNATURES = {
         _F, _F, _F, _F, _I, _I, _P,
     ],
     "dsr_gsc_mono": [
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
         _F, _F, _F, _F, _F, _F, _F, _F, _I, _F, _F, _I, _F, _F, _F, _F, _I, _I, _P,
     ],
     "dsr_gsc_analysis": [
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
         _F, _F, _F, _F, _F, _F, _F, _F, _I, _F, _F, _I, _F, _F, _F, _F, _I, _I, _P,
     ],
+    "dsr_gsc_mono_occupancy": [_I, _I, _I, _P, _P],
     "dsr_polyphase_fir": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "dsr_aec_scan": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P],
     "dsr_wpe_stats": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],

@@ -96,12 +96,30 @@ def delay_and_sum_weights(fftlen: int, samplerate: float, delays) -> torch.Tenso
     return torch.conj(array_manifold(fftlen, samplerate, delays)).resolve_conj()
 
 
+# Eigenvalues at or below PINV_EPS_FACTOR x eps x the largest eigenvalue of
+# their matrix are rounding, not signal: the pseudo-inverse drops them.
+# Measured on LCMV constraint Grams in float32 (tests/probe_lcmv_pinv.py):
+# where the manifolds coincide (the aliased bin 110 of a 50 mm linear array,
+# bins of a circular one with the jammer at the target's mirror image) the
+# smallest eigenvalue comes out of the manifolds' and the Gram's rounding at
+# up to 0.87 eps32 x lambda_max in the port and 0.63 eps32 in the JAX
+# package, and the smallest that is signal on the tested geometries is
+# 5.6e-5 x lambda_max (470 eps32); 8 sits 9x above the first and 59x below
+# the second.
+PINV_EPS_FACTOR = 8.0
+
+
 def _pinv_hermitian(R: torch.Tensor, threshold: float) -> torch.Tensor:
-    """Batched pseudo-inverse of Hermitian matrices, zeroing eigenvalues with
-    magnitude below the absolute ``threshold`` (the reference's LINPACK
-    csvdc pinv, beamformer.cc:232-289)."""
+    """Batched pseudo-inverse of Hermitian matrices (the reference's LINPACK
+    csvdc pinv, beamformer.cc:232-289): eigenvalues with magnitude at or
+    below ``max(threshold, PINV_EPS_FACTOR * eps * max|eigenvalue|)`` of
+    their matrix are zeroed.  The absolute ``threshold`` is the reference's;
+    the relative floor keeps the decision off float rounding, where an
+    eigenvalue that is zero in exact arithmetic comes out as a few ulps of
+    the largest one (ROADMAP section 3)."""
     w, v = torch.linalg.eigh(R)
-    inv_w = torch.where(torch.abs(w) > threshold, 1.0 / w, torch.zeros_like(w))
+    floor = PINV_EPS_FACTOR * torch.finfo(w.dtype).eps * w.abs().amax(-1, keepdim=True)
+    inv_w = torch.where(torch.abs(w) > floor.clamp(min=threshold), 1.0 / w, torch.zeros_like(w))
     vw = v * inv_w.to(v.dtype)[..., None, :]
     return vw @ torch.conj(v).transpose(-1, -2)
 
@@ -111,8 +129,10 @@ def lcmv_weights(constraints: torch.Tensor, gains) -> torch.Tensor:
     (calc_null_beamformer_, beamformer.cc:299-363): ``constraints [..., Nc,
     C]`` are manifold rows (target first, then jammers), ``gains [Nc]`` (1
     for targets, 0 for nulls).  The Gram is inverted through the eigenvalue
-    pseudo-inverse with an absolute threshold of 1e-8, since it is singular
-    where the manifolds coincide (bin 0).  Returns ``wqH [..., C]``."""
+    pseudo-inverse `_pinv_hermitian` with the reference's absolute threshold
+    of 1e-8 and its relative rounding floor, since it is singular where the
+    manifolds coincide (bin 0, and the bins where the array aliases).
+    Returns ``wqH [..., C]``."""
     g = torch.as_tensor(np.asarray(gains), dtype=constraints.dtype)
     Cm = constraints.transpose(-1, -2)  # [..., C, Nc]
     gram = torch.conj(constraints) @ Cm  # [..., Nc, Nc]

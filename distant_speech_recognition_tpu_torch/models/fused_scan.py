@@ -27,14 +27,12 @@ import torch
 from ..ops.filterbank import (
     FilterbankParams,
     analysis_half_real_tm,
-    analysis_matrix_tensor,
     analysis_taps,
     num_analysis_frames,
     synthesis_half_real_tm,
-    synthesis_matrix_tensor,
     synthesis_taps,
 )
-from ..ops.filterbank_kernels import prototype_taps
+from ..ops.filterbank_kernels import fft_twiddles_tensor, prototype_taps
 from .adaptive_gsc import GSCRLSConfig, gsc_postfilter_fused
 from .postfilter import PostFilterType, zelinski_args
 
@@ -142,8 +140,9 @@ def gsc_mono_supported(fb: FilterbankParams, C: int) -> bool:
     return fb.M == 256 and 2 <= C <= 8 and fb.m * fb.R - 1 <= GSC_MONO_ROWS // C
 
 
-def _mono(synth: bool, x, h, g, fb, wqH, BmH, wq_manifold, cfg, pf, A, S, hr, gf):
-    """Launch K4 (``synth``) or K5 on the CUDA tensor ``x [B, C, T]``."""
+def _mono(synth: bool, x, h, g, fb, wqH, BmH, wq_manifold, cfg, pf, hr, gf):
+    """Launch K4 (``synth``) or K5 on the CUDA tensor ``x [B, C, T]``; the
+    kernel does its DFTs as FFTs from `fft_twiddles_tensor`."""
     from ..kernels import _build, check_cuda_tensor, complex_view, stream_handle
 
     name = "gsc_mono" if synth else "gsc_analysis"
@@ -156,14 +155,12 @@ def _mono(synth: bool, x, h, g, fb, wqH, BmH, wq_manifold, cfg, pf, A, S, hr, gf
     Tf = num_analysis_frames(fb, T)
     if hr is None:
         hr = prototype_taps(analysis_taps, h, fb, x.device)
-    if A is None:
-        A = analysis_matrix_tensor(M, True, x.device)
+    tw = fft_twiddles_tensor(M, x.device)
     wq = complex_view("wqH", wqH, (F, C))
     bm = complex_view("BmH", BmH, (F, Bc, C))
     ta = complex_view("wq_manifold", wq_manifold, (F, C))
     x = x.contiguous()
     check_cuda_tensor("x", x)
-    check_cuda_tensor("A", A, (M, M))
     check_cuda_tensor("hr", hr, (m, M))
     shift = fb.laN - (m * R - 1)
     lib = _build.library()
@@ -175,20 +172,17 @@ def _mono(synth: bool, x, h, g, fb, wqH, BmH, wq_manifold, cfg, pf, A, S, hr, gf
             raise ValueError(f"need more than {pd} subband frames, got {Tf}")
         if gf is None:
             gf = prototype_taps(synthesis_taps, g, fb, x.device)
-        if S is None:
-            S = synthesis_matrix_tensor(M, R, x.device)
-        check_cuda_tensor("S", S, (M, M))
         check_cuda_tensor("gf", gf, (m, M))
         out = torch.empty((B, T_out * D), dtype=torch.float32, device=x.device)
         code = lib.dsr_gsc_mono(
-            x.data_ptr(), hr.data_ptr(), A.data_ptr(), S.data_ptr(), gf.data_ptr(),
+            x.data_ptr(), hr.data_ptr(), tw.data_ptr(), gf.data_ptr(),
             wq.data_ptr(), bm.data_ptr(), ta.data_ptr(), out.data_ptr(),
             B, C, Bc, T, Tf, M, m, R, D, shift, pd, T_out, *tail,
         )
     else:
         out = torch.empty((Tf, B, M), dtype=torch.float32, device=x.device)
         code = lib.dsr_gsc_analysis(
-            x.data_ptr(), hr.data_ptr(), A.data_ptr(), wq.data_ptr(), bm.data_ptr(),
+            x.data_ptr(), hr.data_ptr(), tw.data_ptr(), wq.data_ptr(), bm.data_ptr(),
             ta.data_ptr(), out.data_ptr(), B, C, Bc, T, Tf, M, m, D, shift, *tail,
         )
     _build.check(code, name)
@@ -211,16 +205,17 @@ def analysis_gsc_rls_zelinski(
 ) -> torch.Tensor:
     """Raw samples ``x [B, C, T]`` -> the packed beamformed spectrum ``[Tf,
     B, M]``: analysis and GSC-RLS + Zelinski in one kernel launch (K5) on a
-    CUDA tensor.  ``A`` and ``hr`` may hold the packed analysis matrix and
-    the prototype taps (`filterbank_kernels.prototype_taps`) already on
-    ``x``'s device."""
+    CUDA tensor.  ``A`` may hold the plain version's packed analysis matrix
+    and ``hr`` the prototype taps (`filterbank_kernels.prototype_taps`)
+    already on ``x``'s device; the kernel does its DFT as an FFT and never
+    reads ``A``."""
     pf = (pf_alpha, pf_type, pf_min_frames)
     if x.device.type == "cpu":
         Yr = analysis_half_real_tm(x, h, fb, packed=True, A=A)
         return gsc_postfilter_fused(Yr, None, wqH, BmH, wq_manifold, "rls", cfg, *pf, True)
     if x.device.type != "cuda":
         raise ValueError(f"analysis_gsc_rls_zelinski runs on cpu or cuda tensors, got {x.device}")
-    out = _mono(False, x, h, None, fb, wqH, BmH, wq_manifold, cfg, pf, A, None, hr, None)
+    out = _mono(False, x, h, None, fb, wqH, BmH, wq_manifold, cfg, pf, hr, None)
     analysis_gsc_rls_zelinski.launches += 1
     return out
 
@@ -248,8 +243,9 @@ def analysis_gsc_synthesis(
     """Raw samples ``x [B, C, T]`` -> enhanced samples ``[B, T_out]``:
     analysis, GSC-RLS + Zelinski and synthesis in one kernel launch (K4) on
     a CUDA tensor, for the shapes `gsc_mono_supported` accepts.  ``A``/``S``
-    may hold the packed DFT matrices and ``hr``/``gf`` the prototype taps
-    already on ``x``'s device."""
+    may hold the plain version's packed DFT matrices and ``hr``/``gf`` the
+    prototype taps already on ``x``'s device; the kernel does its DFTs as
+    FFTs and never reads ``A``/``S``."""
     pf = (pf_alpha, pf_type, pf_min_frames)
     if x.device.type == "cpu":
         Yr = analysis_half_real_tm(x, h, fb, packed=True, A=A)
@@ -257,7 +253,7 @@ def analysis_gsc_synthesis(
         return synthesis_half_real_tm(Yp, g, fb, S=S)
     if x.device.type != "cuda":
         raise ValueError(f"analysis_gsc_synthesis runs on cpu or cuda tensors, got {x.device}")
-    out = _mono(True, x, h, g, fb, wqH, BmH, wq_manifold, cfg, pf, A, S, hr, gf)
+    out = _mono(True, x, h, g, fb, wqH, BmH, wq_manifold, cfg, pf, hr, gf)
     analysis_gsc_synthesis.launches += 1
     return out
 

@@ -34,6 +34,7 @@ import torch
 from torch import nn
 
 from ..ops.aec_kernels import AEC_KINDS, aec_scan
+from ..ops.dft import FFT_M
 from ..ops.filterbank import (
     FilterbankParams,
     analysis_matrix_tensor,
@@ -50,7 +51,8 @@ from .fixed_weight import analysis_fw_synthesis, fw_mono_supported, zelinski_app
 from .fused_scan import analysis_gsc_synthesis, gsc_mono_supported, gsc_rls_zelinski
 from .postfilter import PostFilterType
 
-__all__ = ["PipelineConfig", "Enhancer", "build_pipeline", "from_jax_params", "FIXED_WEIGHT"]
+__all__ = ["PipelineConfig", "Enhancer", "build_pipeline", "from_jax_params", "FIXED_WEIGHT",
+           "check_card_shapes"]
 
 # beamformers whose weights are fixed at build time (BASELINE configs 1-2)
 FIXED_WEIGHT = ("ds", "sd_mvdr", "lcmv")
@@ -117,6 +119,30 @@ def _check_supported(cfg: PipelineConfig, n_chan: int | None = None) -> None:
         )
 
 
+# the shapes the card's kernels take: the filterbank kernels do their DFTs
+# with the shared-memory FFT of csrc/dsr_fft.h, built for M = 256; the
+# synthesis kernel (K3) holds the m*R - 1 halo rows in a 64-row tile; the
+# beamformer kernels are built for 2 <= C <= 8
+CARD_M = FFT_M
+CARD_SYNTHESIS_ROWS = 64
+CARD_CHANNELS = (2, 8)
+
+
+def check_card_shapes(fb: FilterbankParams, n_chan: int, device_type: str) -> None:
+    """Raise `NotImplementedError` when a pipeline built for ``device_type``
+    ``"cuda"`` has a filterbank or channel count its kernels cannot take;
+    on the CPU every shape runs (the plain versions).  A pure function of the
+    configuration, called by the constructors before any launch."""
+    if device_type != "cuda":
+        return
+    lo, hi = CARD_CHANNELS
+    if fb.M != CARD_M or fb.m * fb.R > CARD_SYNTHESIS_ROWS or not lo <= n_chan <= hi:
+        raise NotImplementedError(
+            f"M={fb.M}, m*R={fb.m * fb.R}, C={n_chan} is not ported to the card: its kernels take "
+            f"M={CARD_M}, m*R <= {CARD_SYNTHESIS_ROWS} and {lo} <= C <= {hi}; run on the CPU"
+        )
+
+
 def _device(device) -> torch.device:
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -143,6 +169,7 @@ class Enhancer(nn.Module):
     def __init__(self, cfg: PipelineConfig, h, g, wqH, BmH, wq_manifold, device="cuda"):
         super().__init__()
         _check_supported(cfg)
+        check_card_shapes(cfg.fb, wqH.shape[-1], torch.device(device).type)
         dev = _device(device)
         fb = cfg.fb
         self.cfg = cfg
@@ -237,9 +264,12 @@ def build_pipeline(cfg: PipelineConfig, mpos, delays, h, g, noise_delays=None,
     alignment manifold is ``vs`` itself, not the conjugated apply weights
     (the C++ ``ta_``, beamformer.cc:960-965).  ``device`` is where the
     buffers live and the forward pass runs; without a card the default
-    raises `RuntimeError`, so CPU callers pass ``"cpu"``."""
+    raises `RuntimeError`, so CPU callers pass ``"cpu"``; on the card a
+    shape its kernels cannot take raises `NotImplementedError`
+    (`check_card_shapes`)."""
     delays = np.asarray(delays)
     _check_supported(cfg, delays.shape[0])
+    check_card_shapes(cfg.fb, delays.shape[0], torch.device(device).type)
     dev = _device(device)
     M, fs = cfg.fb.M, cfg.samplerate
     vs = bf.array_manifold(M, fs, delays)

@@ -33,7 +33,7 @@ from ..utils.geometry import SSPEED_MM_S, calc_ca_delays
 from . import beamforming as bf
 from .fused_scan import gsc_rls_zelinski_steered
 from .localization import srp_phat, srp_phat_steering_table
-from .pipeline import PipelineConfig, _device
+from .pipeline import PipelineConfig, _device, check_card_shapes
 
 __all__ = ["SteeredEnhancer", "build_steered_pipeline", "steered_from_jax_params",
            "steering_weights"]
@@ -70,6 +70,7 @@ class SteeredEnhancer(nn.Module):
     def __init__(self, cfg: PipelineConfig, h, g, steering, grid, delay_table, device="cuda"):
         super().__init__()
         _check_steered(cfg)
+        check_card_shapes(cfg.fb, steering.shape[-1], torch.device(device).type)
         dev = _device(device)
         fb = cfg.fb
         self.cfg = cfg
@@ -142,6 +143,7 @@ def build_steered_pipeline(cfg: PipelineConfig, mpos, h, g, thetas, phis,
     ``device`` defaults to the card and raises without one."""
     _check_steered(cfg, min_bin, max_bin, doa_protocol)
     mpos = np.asarray(mpos, np.float64)
+    check_card_shapes(cfg.fb, mpos.shape[0], torch.device(device).type)
     steering, grid = srp_phat_steering_table(mpos, cfg.fb.M, cfg.samplerate, thetas, phis,
                                              sspeed)
     delay_table = np.stack([calc_ca_delays(mpos, p, t, sspeed) for t, p in grid.numpy()])

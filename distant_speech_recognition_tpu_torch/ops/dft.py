@@ -15,7 +15,7 @@ matrices, which also fold in the filterbank's modulation conventions:
 The packed layout ``[Re(0..M/2) | Im(1..M/2-1)]`` drops the two imaginary
 parts that are structurally zero (Im of DC and Nyquist), so both matrices
 are square ``[M, M]``.  The CUDA filterbank kernels compute the same two
-functions as FFTs (``csrc/dsr_fft.h``) from the twiddle table
+functions as FFTs (``csrc/dsr_fft.h``, M = `FFT_M`) from the twiddle table
 `fft_twiddles`.  Arrays returned here are cached and read-only.
 """
 
@@ -26,6 +26,7 @@ from functools import lru_cache
 import numpy as np
 
 __all__ = [
+    "FFT_M",
     "analysis_matrix",
     "analysis_matrix_packed",
     "synthesis_half_matrix",
@@ -33,6 +34,10 @@ __all__ = [
     "segment_reversal_perm",
     "fft_twiddles",
 ]
+
+
+# the transform size the CUDA kernels' FFT (csrc/dsr_fft.h) is built for
+FFT_M = 256
 
 
 def _frozen(a: np.ndarray) -> np.ndarray:

@@ -58,7 +58,7 @@ def prototype_taps(taps, proto, params: FilterbankParams, device) -> torch.Tenso
 @functools.lru_cache(maxsize=None)
 def fft_twiddles_tensor(M: int, device: torch.device) -> torch.Tensor:
     """`dft.fft_twiddles` ``[2, M]`` on ``device``, made once per device: the
-    table the FFT kernels (K3, K8) read their twiddles from."""
+    table the FFT kernels (K1, K3, K4/K5, K8) read their twiddles from."""
     return torch.tensor(dft.fft_twiddles(M), device=device).contiguous()
 
 
@@ -72,9 +72,13 @@ def analysis_tm_fused(
     """Packed time-major analysis bank: float32 ``x [..., T]`` ->
     ``Yr [n_frames, ..., M]`` (``[Re(0..M/2) | Im(1..M/2-1)]`` lanes), equal
     to `ops.filterbank.analysis_half_real_tm(packed=True)`.  ``A`` may hold
-    `filterbank.analysis_matrix_tensor(M, True, ...)` and ``hr`` the kernel's
-    taps `filterbank.analysis_taps(h)` already on ``x``'s device (the plain
-    version computes both from ``h``)."""
+    the plain version's `filterbank.analysis_matrix_tensor(M, True, ...)`
+    and ``hr`` the kernel's taps `filterbank.analysis_taps(h)` already on
+    ``x``'s device.  At M = 256 the kernel does its DFT as an FFT from
+    `fft_twiddles_tensor` and never reads ``A``; at other M (M % 128 == 0,
+    which no pipeline runs on the card) it multiplies by ``A``.  Its tiles
+    hold ``x.shape[-2]`` signals (the channels of an utterance) when that is
+    at most 8, as the one-kernel chains' tiles do, else one."""
     if x.device.type == "cpu":
         return analysis_half_real_tm(x, h, params, packed=True, A=A)
     if x.device.type != "cuda":
@@ -85,21 +89,27 @@ def analysis_tm_fused(
     M, m, D = p.M, p.m, p.D
     if hr is None:
         hr = prototype_taps(analysis_taps, h, p, x.device)
-    if A is None:
-        A = analysis_matrix_tensor(M, True, x.device)
     x = x.contiguous()
     lead = x.shape[:-1]
     T = x.shape[-1]
     BC = math.prod(lead)
+    Cg = x.shape[-2] if x.dim() >= 2 and 1 <= x.shape[-2] <= 8 else 1
     Tf = num_analysis_frames(p, T)
     check_cuda_tensor("x", x)
-    check_cuda_tensor("A", A, (M, M))
     check_cuda_tensor("hr", hr, (m, M))
+    if M == dft.FFT_M:
+        tw, A = fft_twiddles_tensor(M, x.device), None
+    else:
+        tw = None
+        if A is None:
+            A = analysis_matrix_tensor(M, True, x.device)
+        check_cuda_tensor("A", A, (M, M))
     out = torch.empty((Tf,) + tuple(lead) + (M,), dtype=torch.float32, device=x.device)
     lib = _build.library()
     code = lib.dsr_analysis_tm(
-        x.data_ptr(), hr.data_ptr(), A.data_ptr(), out.data_ptr(),
-        BC, T, Tf, M, m, D, p.laN - (m * p.R - 1), stream_handle(x.device),
+        x.data_ptr(), hr.data_ptr(), None if tw is None else tw.data_ptr(),
+        None if A is None else A.data_ptr(), out.data_ptr(),
+        BC // Cg, Cg, T, Tf, M, m, D, p.laN - (m * p.R - 1), stream_handle(x.device),
     )
     _build.check(code, "analysis_tm")
     analysis_tm_fused.launches += 1

@@ -48,28 +48,32 @@ STAGES = ("analysis FIR", "analysis FFT", "weights + Zelinski", "synthesis FFT",
 LOOP = "  for (int t0 = 0; t0 < Tf; t0 += K) {"
 
 
-def instrumented(src: str) -> str:
-    """``fw_mono.cu`` with a cycle count per stage of the tile loop, written
-    by thread 0 into the first samples of its utterance's output."""
+def instrumented(src: str, end: str, stages, store: str) -> str:
+    """A kernel source with a cycle count per stage of its frame-tile loop
+    (the text from `LOOP` to ``end``, one stage per block barrier): thread 0
+    sums stage i's ``clock64()`` cycles in ``ph[i]`` (16 slots; ``last``
+    holds the clock at the last mark) and, after the loop, runs ``store``
+    (a statement that writes the ``ph[i]`` it wants)."""
     start = src.index(LOOP)
-    end = src.index("template <int C>\nint launch(")
-    parts = src[start:end].split("__syncthreads();")
-    if len(parts) - 1 != len(STAGES):
-        raise RuntimeError(f"fw_mono.cu's tile loop has {len(parts) - 1} barriers, "
-                           f"the probe knows {len(STAGES)} stages")
-    body = parts[0].replace(LOOP, "  long long ph[8] = {};\n  long long last = clock64();\n" + LOOP)
+    stop = src.index(end)
+    parts = src[start:stop].split("__syncthreads();")
+    if len(parts) - 1 != len(stages):
+        raise RuntimeError(f"the tile loop has {len(parts) - 1} barriers, "
+                           f"the probe knows {len(stages)} stages")
+    body = parts[0].replace(LOOP, "  long long ph[16] = {};\n  long long last = clock64();\n" + LOOP)
     for i, part in enumerate(parts[1:]):
         body += ("__syncthreads(); { const long long now = clock64(); "
                  f"ph[{i}] += now - last; last = now; }}" + part)
     tail = body.rindex("  }\n}\n")
-    body = (body[:tail] + "  }\n  if (tid == 0) for (int i = 0; i < 8; ++i) ob[i] = (float)ph[i];\n}\n"
-            + body[tail + len("  }\n}\n"):])
-    return src[:start] + body + src[end:]
+    body = body[:tail] + f"  }}\n  {store}\n}}\n" + body[tail + len("  }\n}\n"):]
+    return src[:start] + body + src[stop:]
 
 
-def instrumented_library():
-    """Build the instrumented copy under the package's (ignored) build dir."""
-    root = _build.BUILD_DIR / "fw_mono_phases"
+def instrumented_library(name: str, transform):
+    """Build the kernels with ``csrc/<name>`` rewritten by ``transform``
+    (source text -> source text) under the package's (ignored) build dir
+    and load them."""
+    root = _build.BUILD_DIR / f"{name.split('.')[0]}_phases"
     pkg = root / "distant_speech_recognition_tpu_torch"
     if root.exists():
         shutil.rmtree(root)
@@ -77,12 +81,32 @@ def instrumented_library():
         shutil.copytree(_build.CSRC_DIR.parent / sub, pkg / sub,
                         ignore=shutil.ignore_patterns("__pycache__"))
     (pkg / "__init__.py").touch()
-    src = pkg / "csrc" / "fw_mono.cu"
-    src.write_text(instrumented(src.read_text()))
+    src = pkg / "csrc" / name
+    src.write_text(transform(src.read_text()))
     spec = importlib.util.spec_from_file_location("phases_build", pkg / "kernels" / "_build.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.library()
+
+
+def report(run, stages, batches) -> None:
+    """Run ``run(B)`` (returns samples [B, ...] whose first entries are the
+    stage counts) for each B after a warm-up and print each stage's
+    thousands of cycles per block beside the CUDA-event time (``sum``: of
+    all stages, which is one block's time where they run one after the
+    other)."""
+    for B in batches:
+        run(B)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        y = run(B)
+        end.record()
+        torch.cuda.synchronize()
+        kc = y[:, :len(stages)].double().mean(0).cpu().numpy() / 1e3
+        text = "  ".join(f"{n} {v:.0f}" for n, v in zip(stages, kc))
+        print(f"B={B}: {start.elapsed_time(end):.3f} ms; kcycles per block: {text}; "
+              f"sum {kc.sum():.0f}")
 
 
 def main() -> None:
@@ -91,7 +115,9 @@ def main() -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip())
     _build.library()
-    _build._lib = instrumented_library()
+    _build._lib = instrumented_library("fw_mono.cu", lambda src: instrumented(
+        src, "template <int C>\nint launch(", STAGES,
+        "if (tid == 0) for (int i = 0; i < 8; ++i) ob[i] = (float)ph[i];"))
     fb = FilterbankParams(M=256, m=4, r=1, delay_compensation_type=2)
     cfg = PipelineConfig(fb=fb, samplerate=16000.0, beamformer="ds", postfilter="zelinski",
                          pf_min_frames=2)
@@ -101,19 +127,8 @@ def main() -> None:
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.standard_normal((256, 4, 160000), dtype=np.float32) * 1500).cuda()
     w = (enh.wqH, enh.wq_manifold, cfg.pf_alpha, cfg.pf_type, cfg.pf_min_frames)
-    for B in (256, 132, 1):
-        run = lambda: analysis_fw_synthesis(x[:B], enh.h, enh.g, fb, *w, hr=enh.hr, gf=enh.gf)
-        run()
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        y = run()
-        end.record()
-        torch.cuda.synchronize()
-        kc = y[:, :len(STAGES)].double().mean(0).cpu().numpy() / 1e3
-        stages = "  ".join(f"{n} {v:.0f}" for n, v in zip(STAGES, kc))
-        print(f"B={B}: {start.elapsed_time(end):.3f} ms; kcycles per block: {stages}; "
-              f"sum {kc.sum():.0f}")
+    report(lambda B: analysis_fw_synthesis(x[:B], enh.h, enh.g, fb, *w, hr=enh.hr, gf=enh.gf),
+           STAGES, (256, 132, 1))
 
 
 if __name__ == "__main__":

@@ -107,6 +107,50 @@ def test_lcmv_weights_match_jax():
     np.testing.assert_allclose(np.einsum("fc,fc->f", got, np.asarray(nj))[ok], 0.0, atol=1e-4)
 
 
+def _lcmv_geometry(kind, n_chan):
+    """Target and jammer delays: the bench array (linear, 50 mm) with the
+    target at pi/3 and the jammer at 2 pi/3, or a circular array (r = 100
+    mm, in the plane) with the target at pi/3 and the jammer at 2.4 rad."""
+    if kind == "linear":
+        mpos = np.c_[np.arange(n_chan) * 50.0, np.zeros((n_chan, 2))]
+        return [j_geometry.calc_la_delays(mpos[:, :1], azimuth=a) for a in (np.pi / 3, 2 * np.pi / 3)]
+    ang = 2 * np.pi * np.arange(n_chan) / n_chan
+    mpos = np.c_[100.0 * np.cos(ang), 100.0 * np.sin(ang), np.zeros(n_chan)]
+    return [j_geometry.calc_ca_delays(mpos, a, np.pi / 2) for a in (np.pi / 3, 2.4)]
+
+
+@pytest.mark.parametrize("kind", ["linear", "circular"])
+@pytest.mark.parametrize("n_chan", [2, 3, 4, 5, 6, 7, 8])
+def test_lcmv_weights_match_jax_channel_counts(kind, n_chan):
+    """LCMV weights at C = 2..8 on two geometries, every bin against
+    3e-4 x max|ref|.  At C = 6 and 7 the linear array's bin 110 (where 50 mm
+    is one wavelength) has a constraint Gram whose smallest eigenvalue is
+    rounding in float32 (JAX returns 0, torch 1.5e-8 and 3.0e-8 where
+    lambda_max is 0.33 and 0.29); with the absolute 1e-8 threshold alone the
+    port inverted it and its weights reached 2.6e3 against JAX's 15.  The
+    pseudo-inverse's relative floor (`PINV_EPS_FACTOR`) drops it."""
+    tv = torch.stack([t_bf.array_manifold(M, FS, d) for d in _lcmv_geometry(kind, n_chan)], dim=1)
+    # both packages get the port's manifolds (held to JAX's at 1e-6 in
+    # test_batched_manifold_and_blocking_matrix_match_jax), so only the
+    # Gram's pseudo-inverse differs
+    want = np.asarray(j_bf.lcmv_weights(jnp.asarray(tv.numpy()), [1.0, 0.0]))
+    got = t_bf.lcmv_weights(tv, np.array([1.0, 0.0])).numpy()
+    assert got.shape == (M // 2 + 1, n_chan) and np.isfinite(got).all()
+    assert _rel(got, want) <= WEIGHT_BUDGET
+
+
+def test_pinv_drops_rounding_level_eigenvalues():
+    """An eigenvalue a few ulps of the largest is dropped even where it is
+    above the absolute threshold; one well above the floor is inverted."""
+    eps = np.finfo(np.float32).eps
+    q = np.linalg.qr(np.random.default_rng(5).standard_normal((3, 3)))[0]
+    for small, kept in ((2 * eps, False), (100 * eps, True)):
+        R = torch.from_numpy((q * np.array([1.0, 0.5, small])) @ q.T).to(torch.complex64)
+        inv = t_bf._pinv_hermitian(R, 1e-8)
+        w = torch.linalg.eigvalsh(inv.to(torch.complex128))
+        assert (w.abs().max().item() > 1e4) == kept, (small, w)
+
+
 def test_apply_weights_matches_jax(rng):
     X = (rng.standard_normal((3, 7, 5, C)) + 1j * rng.standard_normal((3, 7, 5, C))).astype(
         np.complex64)

@@ -1,15 +1,19 @@
 """The index plan of the FFT kernels' DFT stages (``csrc/dsr_fft.h``), on the CPU.
 
-The CUDA kernels K3 (``synthesis_tm.cu``) and K8 (``fw_mono.cu``) do their
-256-point DFTs as FFTs in shared memory; no CUDA runs here, so this file
-models their stage plan in torch, step for step: the swizzled 16 x 16 cell
+The CUDA kernels K1 (``analysis_tm.cu`` at M = 256), K3
+(``synthesis_tm.cu``), K4/K5 (``gsc_mono.cu``) and K8 (``fw_mono.cu``) do
+their 256-point DFTs as FFTs in shared memory; no CUDA runs here, so this
+file models their stage plan in torch, step for step: the swizzled 16 x 16 cell
 layouts, the (n+1) phase as an input index shift, the radix-4 x 4 16-point
 DFTs with their register order, the W256^(g k1) twiddles from
 `dft.fft_twiddles`, two real rows per complex FFT and the split back, the
 packed lanes and the synthesis segment reversal.  Each plan is held to the
 dense matrices the plain versions multiply by (`dft.analysis_matrix_packed`,
 `dft.synthesis_half_matrix_packed` with `dft.segment_reversal_perm`) at
-1e-6 x max|ref|, so a wrong twiddle, index or sign fails here.
+1e-6 x max|ref|, so a wrong twiddle, index or sign fails here.  K1's whole
+route (its tiles of 64 // C frames x C signals, the FIR rows of
+``analysis_fir_tile``, the plan, the split and the packed lanes) is held to
+`filterbank.analysis_half_real_tm(packed=True)` at 1e-6.
 """
 
 import numpy as np
@@ -17,7 +21,13 @@ import pytest
 import torch
 
 from distant_speech_recognition_tpu_torch.ops import dft
-from distant_speech_recognition_tpu_torch.ops.filterbank import unpack_half
+from distant_speech_recognition_tpu_torch.ops.filterbank import (
+    FilterbankParams,
+    analysis_half_real_tm,
+    analysis_taps,
+    num_analysis_frames,
+    unpack_half,
+)
 
 N = 256
 TW = torch.tensor(dft.fft_twiddles(N))
@@ -110,6 +120,47 @@ def analysis_plan(w):
     buf[:, [tpos((n + 1) & (N - 1)) for n in range(N)]] = w
     X = split_bins(fft_rows(buf))
     return torch.cat([X.real, X.imag[:, 1:N // 2]], dim=-1)
+
+
+def analysis_route(x, h, p, rows=64):
+    """K1 at M = 256 on ``x [B, C, T]``: a tile holds K = rows // C frames of
+    the C signals of one utterance, row tk*C + c (`analysis_fir_tile`, taps
+    in order); its rows are transformed in pairs (`analysis_plan`) and each
+    row's packed lanes go to ``out [Tf, B, C, M]``."""
+    B, C, T = x.shape
+    D, m = p.D, p.m
+    Tf = num_analysis_frames(p, T)
+    K = rows // C
+    shift = p.laN - (m * p.R - 1)
+    hr = analysis_taps(torch.from_numpy(h), p)  # [m, N]
+    k = torch.arange(N)
+    j, i = k // D, k % D
+    out = torch.empty((Tf, B, C, N))
+    for t0 in range(0, Tf, K):
+        P = torch.zeros((B, rows, N))
+        for tk in range(min(K, Tf - t0)):
+            for tap in range(m):
+                s_ = (t0 + tk + shift + j) * D + i + (m - 1 - tap) * N
+                ok = (s_ >= 0) & (s_ < T)
+                xv = torch.where(ok, x[:, :, s_.clamp(0, T - 1)], torch.zeros(()))
+                P[:, tk * C:(tk + 1) * C] += hr[tap] * xv
+        n = min(K, Tf - t0)
+        spec = analysis_plan(P.reshape(-1, N)).reshape(B, rows, N)[:, :n * C]
+        out[t0:t0 + n] = spec.reshape(B, n, C, N).transpose(0, 1)
+    return out
+
+
+@pytest.mark.parametrize("C,fb_kw", [(4, {}), (3, dict(r=2, delay_compensation_type=0)),
+                                     (1, dict(m=2))])
+def test_analysis_route_matches_plain_analysis(rng, C, fb_kw):
+    """K1's route against the plain analysis bank: tiles of 16 / 21 / 64
+    frames, a partial last tile, the (n+1) shift, delay modes and decimations."""
+    p = FilterbankParams(**{"M": N, "m": 4, "r": 1, "delay_compensation_type": 2, **fb_kw})
+    x = torch.from_numpy(rng.standard_normal((2, C, 3000)).astype(np.float32) * 1500)
+    h = rng.standard_normal(p.N).astype(np.float32) / 16
+    ref = analysis_half_real_tm(x, h, p, packed=True)
+    assert ref.shape[0] % (64 // C) != 0
+    _close(analysis_route(x, h, p), ref.double())
 
 
 def put_pair_bin(buf, row, f, A, B):

@@ -16,9 +16,10 @@ fixed-weight Zelinski kernel (K7), 2e-4 for the one-kernel fixed-weight
 chain (K8) against the chain of split kernels K1 -> K7 -> K3 and 3e-4
 against the plain chain, 2e-4 for the steered scan (K6), which given one
 steering for every utterance equals K2 bit for bit; for the one-kernel
-flagship chains 3e-4 (K4) against K1 -> K2 -> K3 (K3 does its DFT as an
-FFT, K4 as a dense product) and 2e-4 (K5) against K1 -> K2, which it equals
-bit for bit, and both against the plain chain; 2e-5
+flagship chains 3e-4 (K4) against K1 -> K2 -> K3 (K3 pairs its synthesis
+rows in its FFT otherwise than K4) and 2e-4 (K5) against K1 -> K2, which
+it equals bit for bit (the same FIR rows, FFT pairs and split), and both
+against the plain chain; 2e-5
 for the strided FIR (K13), which rounds like its plain version.  K2 and K6
 are also held bit for bit to outputs their kernels gave on an H100 before
 their per-frame step moved into ``csrc/gsc_step.h``
@@ -28,9 +29,11 @@ decimations and channel counts, every constraint option, gates that close,
 far-end bins that are zero, other WPE delays, tap counts and band limits,
 batches that fill no block and M=128; for K6-K8 C = 2..8, both Zelinski
 modes, pf_min_frames 0 and 2, digitally silent utterances and frame counts
-that are no multiple of the kernels' frame groups and tiles.  K3 and K8,
-whose DFTs are FFTs (``csrc/dsr_fft.h``), also take pure tones at bins 0,
-1, 64, 127 and 128 and impulse trains, one case per bin.
+that are no multiple of the kernels' frame groups and tiles.  K1 (at M =
+256), K3, K4/K5 and K8, whose DFTs are FFTs (``csrc/dsr_fft.h``), also take
+pure tones at bins 0, 1, 64, 127 and 128 and impulse trains, one case per
+bin; K1 also keeps its M = 128 and 512 cases on its dense-product route and
+takes tiles of 1 to 8 signals.
 """
 
 import numpy as np
@@ -136,20 +139,24 @@ def _delays(C, azimuth=np.pi / 3):
 
 
 @pytest.mark.parametrize(
-    "M,m,r,dct,T",
+    "M,m,r,dct,T,lead",
     [
-        (256, 4, 1, 2, 5000),  # flagship widths, partial last block
-        (256, 4, 1, 0, 4096),
-        (256, 4, 1, 1, 777),
-        (256, 2, 2, 2, 3001),
-        (512, 4, 1, 2, 6000),
-        (128, 3, 0, 2, 1000),
+        (256, 4, 1, 2, 5000, (2, 3)),  # flagship widths, partial last tile
+        (256, 4, 1, 0, 4096, (2, 3)),
+        (256, 4, 1, 1, 777, (2, 3)),
+        (256, 2, 2, 2, 3001, (2, 3)),
+        (512, 4, 1, 2, 6000, (2, 3)),  # other M: the dense-product route
+        (128, 3, 0, 2, 1000, (2, 3)),
+        (256, 4, 1, 2, 5000, (2, 8)),  # tiles of 8 frames x 8 channels
+        (256, 4, 1, 2, 3000, (3, 1)),  # one signal per tile (the far end)
+        (256, 4, 3, 2, 4000, (5,)),
+        (256, 4, 1, 2, 2000, (2, 12)),  # more signals than a tile groups
     ],
 )
-def test_analysis_kernel_matches_plain(dev, M, m, r, dct, T):
+def test_analysis_kernel_matches_plain(dev, M, m, r, dct, T, lead):
     p = FilterbankParams(M=M, m=m, r=r, delay_compensation_type=dct)
     rng = np.random.default_rng(T)
-    x = torch.from_numpy((rng.standard_normal((2, 3, T)) * 1500).astype(np.float32))
+    x = torch.from_numpy((rng.standard_normal(lead + (T,)) * 1500).astype(np.float32))
     h = rng.standard_normal(p.N).astype(np.float32) / np.sqrt(p.N)
     ref = analysis_half_real_tm(x, h, p, packed=True)
     before = analysis_tm_fused.launches
@@ -229,6 +236,17 @@ def _tone_signal(case, C, T, B=2):
             x[:, c] = 1500.0 * np.cos(2 * np.pi * int(case[3:]) * (n - 2 * c) / 256 + 0.4)
     x[1] *= 0.25
     return torch.from_numpy(x.astype(np.float32))
+
+
+@pytest.mark.parametrize("case", TONE_CASES)
+def test_analysis_kernel_tones_and_impulses(dev, case):
+    """K1's FFT route on one bin at a time (and impulse trains): a wrong
+    twiddle, split or packing index fails on a named bin."""
+    p = FilterbankParams(M=256, m=4, r=1, delay_compensation_type=2)
+    h, _ = load_pair(256, 4, 1)
+    x = _tone_signal(case, 4, 5000)
+    ref = analysis_half_real_tm(x, h, p, packed=True)
+    _close(analysis_tm_fused(x.to(dev), torch.as_tensor(h).to(dev), p), ref, 2e-5)
 
 
 def _scan_case(C, M, seed, Tf=40, B=3):
@@ -439,7 +457,10 @@ def test_wrappers_raise_on_bad_cuda_input(dev):
     with pytest.raises(ValueError, match="float32"):
         analysis_tm_fused(x.double(), h, p)
     with pytest.raises(ValueError, match="CUDA"):
-        analysis_tm_fused(x, h, p, A=torch.zeros((256, 256)))
+        analysis_tm_fused(x, h, p, hr=torch.zeros((4, 256)))
+    with pytest.raises(ValueError, match="CUDA"):  # the dense-product route reads A
+        analysis_tm_fused(x, torch.zeros(512, device=dev), FilterbankParams(M=128),
+                          A=torch.zeros((128, 128)))
     with pytest.raises(ValueError, match="float32"):
         synthesis_tm_fused(torch.zeros((10, 1, 256), device=dev, dtype=torch.float64), h, p)
     Yp, wqH, BmH, vs = _scan_case(4, 256, seed=0, Tf=4)
@@ -772,6 +793,43 @@ def test_gsc_mono_kernels_match_chain_and_plain(dev, C, pf_type, pf_min_frames, 
     _close(got5, ref5, 2e-4)
     _close(got4, ref4, 3e-4)
     assert not got4[1].any()
+
+
+@pytest.mark.parametrize("case", TONE_CASES)
+def test_gsc_mono_kernel_tones_and_impulses(dev, case):
+    """K4 on one bin at a time (and impulse trains) against K1 -> K2 -> K3
+    and the plain chain, and K5 against K1 -> K2 bit for bit: a wrong
+    twiddle, split, pairing or segment-reversal index of their FFTs fails on
+    a named bin."""
+    fb = FilterbankParams(M=256, m=4, r=1, delay_compensation_type=2)
+    h, g = load_pair(256, 4, 1)
+    x = _tone_signal(case, 4, 5000)
+    args = _gsc_args(4, 1, 2)
+    ref = analysis_gsc_synthesis(x, h, g, fb, *args)
+    xd, hd, gd = (torch.as_tensor(t).to(dev) for t in (x, h, g))
+    ad = tuple(a.to(dev) if torch.is_tensor(a) else a for a in args)
+    got = analysis_gsc_synthesis(xd, hd, gd, fb, *ad)
+    Yk = gsc_rls_zelinski(analysis_tm_fused(xd, hd, fb), *ad)
+    assert torch.equal(analysis_gsc_rls_zelinski(xd, hd, fb, *ad), Yk)
+    _close(got, synthesis_tm_fused(Yk, gd, fb).cpu(), 3e-4)
+    _close(got, ref, 3e-4)
+
+
+def test_gsc_mono_refuses_another_tile(dev, monkeypatch):
+    """The Python shape rule's tile (`fused_scan.GSC_MONO_ROWS`) must be
+    K4's and K5's own: a launch that assumes another is refused."""
+    fb = FilterbankParams(M=256, m=4, r=1, delay_compensation_type=2)
+    a4 = tuple(a.to(dev) if torch.is_tensor(a) else a for a in _gsc_args(4, 1, 2))
+    h4 = torch.ones(fb.N, device=dev)
+    x = torch.zeros((1, 4, 4000), device=dev)
+    for rows in (32, 128):
+        monkeypatch.setattr(fused_scan, "GSC_MONO_ROWS", rows)
+        kernels.reset_launch_counts()
+        with pytest.raises(RuntimeError, match="gsc_mono"):
+            analysis_gsc_synthesis(x, h4, h4, fb, *a4)
+        with pytest.raises(RuntimeError, match="gsc_analysis"):
+            analysis_gsc_rls_zelinski(x, h4, fb, *a4)
+        assert set(kernels.launch_counts().values()) == {0}
 
 
 def test_gsc_mono_refuses_what_its_tiles_cannot_hold(dev, monkeypatch):
