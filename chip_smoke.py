@@ -64,7 +64,10 @@ Phases (each raises on failure; the script then exits non-zero):
      CUDA-event times of the round trip and of K13 alone beside its plain
      version and one grouped conv1d.
 Phase 2 also prints K4's and K5's blocks per SM and shared memory at
-C = 2..8 (the compiler's registers and spills are in its report above them).
+C = 2..8, and K10's and K11's blocks per SM, threads and shared memory at the
+config-4 shape and at C*P = 24 with lowerN = 32 (the compiler's registers and
+spills are in its report above them).  Phase 6c times K10 in both of the
+path's calls (the first EM iteration has no filters and no FP64 residual).
 Phase 3 also holds, at B=8: K1 at M = 128 and 512 (its dense-product
 route); K1, K3, K4/K5 and K8 (whose DFTs are FFTs) on pure tones at bins 0,
 1, 64, 127 and 128 and on impulse trains, one case per bin (K4 against the
@@ -110,11 +113,12 @@ SEED = 0
 # exact solution; the loaded systems of the chain's frames have condition
 # numbers up to ~1000, and 1e-3 of a system's own max|x| leaves ~10x
 GJ_SYS_BUDGET = 1e-3
-# H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): HBM bytes/s and
-# FP32 and FP64 flop/s outside the tensor cores
+# H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): HBM bytes/s, FP32
+# flop/s outside the tensor cores, FP64 flop/s on the tensor cores (34e12 on
+# the CUDA cores), which K10's FP64 residual runs on
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
-FP64_FLOP_S = 34e12
+FP64_FLOP_S = 67e12
 
 
 def log(*args) -> None:
@@ -248,6 +252,17 @@ def main() -> None:
                 C_, synth, 7, ctypes.addressof(blocks), ctypes.addressof(smem)), name)
             log(f"  {name} C={C_}: {blocks.value} blocks per SM, {smem.value} bytes of dynamic "
                 f"shared memory per block")
+    # K10 and K11 at the config-4 shape (C = 4, P = 5, lowerN = 2, M = 256) and
+    # at C*P = 24 with the deepest delay
+    for C_, P_, low_ in ((4, 5, 2), (8, 3, 32)):
+        for name, fn, extra in (("wpe_stats", "dsr_wpe_stats_occupancy", ()),
+                                ("wpe_resid", "dsr_wpe_resid_occupancy", (256,))):
+            blocks, smem, nthr = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+            _build.check(getattr(_build.library(), fn)(
+                C_, P_, low_, *extra, ctypes.addressof(blocks), ctypes.addressof(smem),
+                ctypes.addressof(nthr)), name)
+            log(f"  {name} C={C_} P={P_} lowerN={low_}: {blocks.value} blocks per SM, "
+                f"{nthr.value} threads, {smem.value} bytes of dynamic shared memory per block")
 
     # the flagship configuration of bench.py, and config 4 on top of it
     fb = FilterbankParams(M=256, m=4, r=1, delay_compensation_type=2)
@@ -806,6 +821,9 @@ def main() -> None:
                                      cfg4.aec_threshold), 5),
             time_ms(lambda: plain_aec(Ya, Vp), 1))
         library["aec_scan"] = None
+        # both of the path's calls: the first EM iteration (no filters, no
+        # FP64 residual) and the later one
+        stats_first_ms = time_ms(lambda: wpe_stats(Ya, G0, lower, P, False), 3)
         times["wpe_stats"] = (time_ms(lambda: wpe_stats(Ya, G1, lower, P, True), 3),
                               time_ms(lambda: stats_plain(frames(Ya), G1, lower, P, True), 1))
         # one batched matmul of the weighted lag matrix with the lag matrix on a
@@ -838,6 +856,7 @@ def main() -> None:
         lib = library[name]
         log(f"  {name}: kernel {k_ms:.3f} ms   plain {p_ms:.3f} ms   "
             f"library {'-' if lib is None else f'{lib:.3f} ms'}")
+    log(f"  wpe_stats, first EM iteration (no filters): kernel {stats_first_ms:.3f} ms")
     log(f"  config-4 path: kernels {path4_ms:.3f} ms "
         f"({audio_s / (path4_ms / 1e3):.1f} audio-s/s/GPU)   plain {plain_path4_ms:.3f} ms "
         f"({audio_s / (plain_path4_ms / 1e3):.1f} audio-s/s/GPU)")
@@ -1215,6 +1234,8 @@ def main() -> None:
             row["fft_ms"] = fft_ms[name]
         if name == "analysis_tm":
             row["dense_route_ms"] = dense_route_ms
+        if name == "wpe_stats":  # "ms" is the later EM iteration's, with filters
+            row["first_iteration_ms"] = stats_first_ms
         rows_json.append(row)
     log(f"script time {time.perf_counter() - t_script:.1f} s")
     log(json.dumps({"kernels": rows_json}))

@@ -116,6 +116,14 @@ int dsr_wpe_stats(const float* Yp, const float* G, float* R, float* r, int Tf, i
 int dsr_wpe_resid(const float* Yp, const float* G, float* out, int Tf, int B, int C, int M,
                   int P, int lowerN, cudaStream_t stream);
 
+// K10 (with filters) at M = 256 / K11 at M: blocks per SM, dynamic shared
+// bytes and threads per block of the launch at C channels, P taps and delay
+// lowerN; returns 0 or an error code
+int dsr_wpe_stats_occupancy(int C, int P, int lowerN, int* blocks_per_sm, int* smem_bytes,
+                            int* threads);
+int dsr_wpe_resid_occupancy(int C, int P, int lowerN, int M, int* blocks_per_sm,
+                            int* smem_bytes, int* threads);
+
 // R, r, x: interleaved complex64
 int dsr_gj_solve(const float* R, const float* r, float* x, int N, int n, cudaStream_t stream);
 

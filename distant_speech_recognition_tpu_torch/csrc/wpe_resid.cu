@@ -12,121 +12,403 @@
 //
 // What bounds it on an H100: it reads and writes the packed spectrum once
 // (2.65 GB at B=256 x 4 ch x 10 s, 0.79 ms at 3.35 TB/s) for CP complex
-// multiply-adds per output (~0.1 ms of FP32 arithmetic): bound by memory.
-// Design: one block per (utterance, group of 32 bins), one warp per target
-// channel, a thread's conj(G) row in registers for the whole utterance; the
-// frames are walked in chunks of TC, staged with their lowerN + P - 1 frames
-// of history in shared memory, so each input value is read from device
-// memory about once (and the history once more per chunk) although C*P
-// outputs use it.  Reads and writes of 32 neighbouring bins are coalesced.
+// multiply-adds per output (~0.4 ms of FP32 arithmetic): bound by memory,
+// with the arithmetic at half that bound.
+//
+// Design.  The residual has no recurrence over time, so a block takes one
+// utterance and a chunk of TC frames (with the lowerN + P - 1 frames of
+// history before it): the grid is B x ceil(Tf / TC) blocks.  One frame of one
+// utterance is C*M contiguous floats of Yp (4 KB in config 4).
+//   - The block stages whole frames with 16-byte cp.async copies into a ring
+//     of frame slots in shared memory, DG steps of STEP frames ahead of the
+//     step it computes (4 frames and 2 steps up to 4 KB frames), and writes each output frame back as one row with one
+//     bulk (TMA) copy from a double buffer, so that loads, arithmetic and
+//     stores of different steps overlap and no warp waits on a store.
+//   - The first slots of the ring are repeated past its end, so that the lag
+//     frames of a step are consecutive slots: every lag offset is an
+//     immediate (C and M are template parameters), and each lag value read
+//     from shared memory feeds the STEP frames that use it.
+//   - Thread (c0, k) computes packed lanes k and M/2 + k (Re and Im of bin k,
+//     0 < k < M/2) of targets c0 and c0 + H, with both conj(G) rows in
+//     registers (PM >= P taps a channel, zeros past P); one more warp
+//     computes the real bins 0 and M/2 of every target, so that no warp runs
+//     two paths (the block waits for its slowest warp at every step).
+//   - Where the frames from t - lowerN - P + 1 to t do not fit in one ring
+//     beside the lead (deep lags, many channels), the current frames and the
+//     lag frames run in two rings, and each frame is copied twice.
+// M is 128 or 256.
+#include <algorithm>
+
 #include "dsr_kernels.h"
 
 namespace {
 
-constexpr int TC = 32;     // frames per chunk
-constexpr int FB = 32;     // bins per block (one warp)
-constexpr int MAX_CP = 24;
+constexpr int TC = 256;  // output frames per block
+constexpr size_t ONE_RING_MAX = 160 * 1024;  // shared memory of a block that keeps one ring
+
+// output frames of a step (one barrier a step) and steps of frames staged
+// ahead of the one computed: 4 and 2 up to 4 KB frames, 2 and 1 above, so
+// that the rings of 8 channels x 256 lanes fit in shared memory
+template <int C, int MH>
+__host__ __device__ constexpr int step_frames() {
+  return C * MH <= 512 ? 4 : 2;
+}
+template <int C, int MH>
+__host__ __device__ constexpr int lead_steps() {
+  return C * MH <= 512 ? 2 : 1;
+}
 
 struct cf {
   float r, i;
 };
 
-__global__ void __launch_bounds__(FB * 8)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+// bulk (TMA) copy of one row shared -> global, and its bookkeeping
+__device__ __forceinline__ void bulk_store(float* dst, const float* src, int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(src));
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(dst), "r"(s),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+// makes this thread's shared-memory writes visible to the bulk copies
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// targets a thread computes: two (each lag read from shared memory feeds
+// both), one at C = 1
+template <int C>
+__host__ __device__ constexpr int targets() {
+  return C == 1 ? 1 : 2;
+}
+// threads of a block: (target groups c0 < H) x (lanes k < MH), then one warp
+// for the real bins 0 and M/2
+template <int C, int MH>
+__host__ __device__ constexpr int block_threads() {
+  return MH * ((C + targets<C>() - 1) / targets<C>()) + 32;
+}
+
+// C channels, MH = M/2 lanes, PM >= P lag slots per channel held in
+// registers.  Frame r of the block (absolute t0 - S + r) sits in lag slot
+// r % NL, and again in slot NL + r % NL when r % NL < PM + STEP - 2, so that
+// the PM + STEP - 1 lag frames of a step's STEP outputs are consecutive
+// slots and lag offsets are immediates; an output's current frame sits in
+// slot CB + r % NC (one ring: CB = 0, NC = NL).
+template <int C, int MH, int PM>
+__global__ void __launch_bounds__(block_threads<C, MH>())
 wpe_resid_kernel(const float* __restrict__ Yp, const cf* __restrict__ G, float* __restrict__ out,
-                 int Tf, int B, int C, int M, int P, int lowerN) {
+                 int Tf, int B, int P, int lowerN, int NL, int CB, int NC) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int F = M / 2 + 1;
+  constexpr int STEP = step_frames<C, MH>();
+  constexpr int DG = lead_steps<C, MH>();
+  constexpr int TT = targets<C>();
+  constexpr int H = (C + TT - 1) / TT;  // a thread's targets are c0 (and c0 + H)
+  constexpr int M = 2 * MH;
+  constexpr int F = MH + 1;
+  constexpr int CM = C * M;       // one frame of the utterance
   const int CP = C * P;
-  const int S = lowerN + P - 1;
-  const int CF = C * FB;
-  cf* Ys = reinterpret_cast<cf*>(smem);  // [TC + S][C][FB]
+  const int S = lowerN + P - 1;   // deepest lag
+  const int NS = CB == 0 ? NL + PM + STEP - 2 : CB + NC;  // slots
+  float* ring = reinterpret_cast<float*>(smem);   // [NS][C][M]
+  float* outs = ring + (size_t)NS * CM;           // [2][STEP][C][M]
 
   const int tid = threadIdx.x;
-  const int nthr = blockDim.x;
-  const int f = tid % FB;
-  const int c = tid / FB;
+  constexpr int nthr = block_threads<C, MH>();
+  // complex bins: lanes k and MH + k (Re and Im of bin k, 1 <= k < MH)
+  const bool cplx = tid < MH * H && tid % MH > 0;
+  const int k = tid % MH;
+  const int c0 = tid / MH;
+  const int c1 = c0 + H;
+  const bool two = cplx && TT == 2 && c1 < C;
+  // real bins: lane rl of target rc, rl = 0 (bin 0) or MH (bin M/2)
+  const int rq = tid - MH * H;
+  const bool real = rq >= 0 && rq < 2 * C;
+  const int rc = real ? rq % C : 0;
+  const int rl = rq >= C ? MH : 0;
+  const int lane = cplx ? k : rl;  // the lane whose lags this thread reads
   const int b = blockIdx.y;
-  const int f0 = blockIdx.x * FB;
-  const int fg = f0 + f;
-  const bool active = fg < F;
-  const bool has_im = fg >= 1 && fg <= F - 2;
-  const size_t frame_stride = (size_t)B * C * M;
+  const int t0 = blockIdx.x * TC;
+  const int nt = min(TC, Tf - t0);
+  const size_t frame_stride = (size_t)B * CM;
+  const float* Yb = Yp + (size_t)b * CM;
+  float* Ob = out + (size_t)b * CM;
 
-  cf g[MAX_CP];
-  int off[MAX_CP];
+  // conj(G) of (c0, bin k) and (c1, bin k) at slot a*PM + dp; for a real
+  // bin, Re G of (rc, bin rl) in g0[].r (its lags are real)
+  cf g0[C * PM], g1[TT == 2 ? C * PM : 1];
 #pragma unroll
-  for (int j = 0; j < MAX_CP; ++j) {
-    g[j] = {0.f, 0.f};
-    off[j] = f;
-    if (j < CP) {
-      const int a = j / P, dp = j - (j / P) * P;
-      off[j] = ((S - lowerN - dp) * C + a) * FB + f;
-      if (active) {
-        g[j] = G[(((size_t)b * C + c) * F + fg) * CP + j];
-        g[j].i = -g[j].i;  // conj(G)
+  for (int a = 0; a < C; ++a)
+#pragma unroll
+    for (int dp = 0; dp < PM; ++dp) {
+      const int j = a * P + dp;
+      cf v0 = {0.f, 0.f}, v1 = {0.f, 0.f};
+      if (dp < P) {
+        if (cplx) {
+          v0 = G[(((size_t)b * C + c0) * F + k) * CP + j];
+          v0.i = -v0.i;
+          if (two) {
+            v1 = G[(((size_t)b * C + c1) * F + k) * CP + j];
+            v1.i = -v1.i;
+          }
+        } else if (real) {
+          v0 = {G[(((size_t)b * C + rc) * F + rl) * CP + j].r, 0.f};
+        }
+      }
+      g0[a * PM + dp] = v0;
+      if constexpr (TT == 2) g1[a * PM + dp] = v1;
+    }
+
+  auto copy = [&](int rr, int slot) {  // block frame rr into a slot, zero before t = 0
+    const int t = t0 - S + rr;
+    const float* src = Yb + (size_t)max(t, 0) * frame_stride;
+    float* dst = ring + (size_t)slot * CM;
+    for (int idx = 4 * tid; idx < CM; idx += 4 * nthr) cp_async16(dst + idx, src + idx, t >= 0);
+  };
+  auto copy_lag = [&](int rr) {
+    const int sl = rr % NL;
+    copy(rr, sl);
+    if (sl < PM + STEP - 2) copy(rr, NL + sl);
+  };
+  auto fetch = [&](int g) {  // the frames that outputs of step g are the first to need
+    for (int i = g * STEP; i < min(g * STEP + STEP, nt); ++i) {
+      if (CB == 0) {  // one ring
+        if (i == 0) {
+          for (int rr = 0; rr <= S; ++rr) copy_lag(rr);
+        } else {
+          copy_lag(S + i);
+        }
+      } else {
+        if (i == 0) {
+          for (int rr = 0; rr <= S - lowerN; ++rr) copy_lag(rr);
+        } else {
+          copy_lag(S + i - lowerN);
+        }
+        copy(S + i, CB + (S + i) % NC);
       }
     }
-  }
-  const int offy = (S * C + c) * FB + f;
-  float* orow = out + ((size_t)b * C + c) * M;
-
-  for (int t0 = 0; t0 < Tf; t0 += TC) {
-    const int nt = min(TC, Tf - t0);
-    __syncthreads();
-    // unrolled so that four loads are in flight before their stores
-#pragma unroll 4
-    for (int idx = tid; idx < (nt + S) * CF; idx += nthr) {
-      const int ff = idx % FB, a = (idx / FB) % C, tt = idx / CF;
-      const int t = t0 - S + tt, gf = f0 + ff;
-      cf y = {0.f, 0.f};
-      if (t >= 0 && gf < F) {
-        const float* row = Yp + t * frame_stride + ((size_t)b * C + a) * M;
-        y.r = row[gf];
-        if (gf >= 1 && gf <= F - 2) y.i = row[F - 1 + gf];
-      }
-      Ys[idx] = y;
+    cp_commit();
+  };
+  auto flush = [&](int g) {  // outputs of step g, one bulk copy a row (thread 0)
+    if (tid == 0) {
+      for (int s = 0; s < STEP && g * STEP + s < nt; ++s)
+        bulk_store(Ob + (size_t)(t0 + g * STEP + s) * frame_stride,
+                   outs + ((g & 1) * STEP + s) * CM, CM * (int)sizeof(float));
+      bulk_commit();
     }
-    __syncthreads();
-    if (!active) continue;
-    for (int tt = 0; tt < nt; ++tt) {
-      const int t = t0 + tt;
-      const int base = tt * CF;
-      cf e = Ys[base + offy];
-      if (t >= lowerN) {
-        float pr = 0.f, pi = 0.f;
+  };
+  // output frames i0 .. i0 + STEP - 1 into output rows o + fr * CM.  Their
+  // lag frames are the PM + STEP - 1 consecutive slots top - m: lag dp of
+  // frame i0 + fr is m = dp + STEP - 1 - fr, so each lag value is read once
+  // for all STEP frames; slots past the P taps (g = 0) hold earlier frames or
+  // zeros.  sl: the slot of lag 0 of frame i0, sc: its current slot, less CB
+  auto predict_step = [&](int i0, int sl, int sc, float* o) {
+    const float* L = ring + (size_t)((sl < PM - 1 ? sl + NL : sl) + STEP - 1) * CM + lane;
+    if (cplx) {
+      // [frame]: Re and Im of targets c0 (a) and c1 (b)
+      float a0[STEP] = {}, a1[STEP] = {}, b0[STEP] = {}, b1[STEP] = {};
 #pragma unroll
-        for (int j = 0; j < MAX_CP; ++j) {
-          if (j < CP) {
-            const cf l = Ys[base + off[j]];
-            pr += g[j].r * l.r - g[j].i * l.i;
-            pi += g[j].r * l.i + g[j].i * l.r;
+      for (int m = 0; m < PM + STEP - 1; ++m) {
+#pragma unroll
+        for (int a = 0; a < C; ++a) {
+          const float x0 = L[a * M - m * CM], x1 = L[a * M + MH - m * CM];
+#pragma unroll
+          for (int fr = 0; fr < STEP; ++fr) {
+            const int dp = m - (STEP - 1 - fr);
+            if (dp >= 0 && dp < PM) {
+              const cf ga = g0[a * PM + dp];
+              a0[fr] = fmaf(ga.r, x0, a0[fr]);
+              a0[fr] = fmaf(-ga.i, x1, a0[fr]);
+              a1[fr] = fmaf(ga.r, x1, a1[fr]);
+              a1[fr] = fmaf(ga.i, x0, a1[fr]);
+              if constexpr (TT == 2) {
+                const cf gb = g1[a * PM + dp];
+                b0[fr] = fmaf(gb.r, x0, b0[fr]);
+                b0[fr] = fmaf(-gb.i, x1, b0[fr]);
+                b1[fr] = fmaf(gb.r, x1, b1[fr]);
+                b1[fr] = fmaf(gb.i, x0, b1[fr]);
+              }
+            }
           }
         }
-        e.r -= pr;
-        e.i -= pi;
       }
-      float* o = orow + t * frame_stride;
-      o[fg] = e.r;
-      if (has_im) o[F - 1 + fg] = e.i;
+#pragma unroll
+      for (int fr = 0; fr < STEP; ++fr) {
+        const int scf = sc + fr >= NC ? sc + fr - NC : sc + fr;
+        const float* cur = ring + (size_t)(CB + scf) * CM;
+        const bool pr = t0 + i0 + fr >= lowerN;
+        float* of = o + fr * CM;
+        of[c0 * M + k] = cur[c0 * M + k] - (pr ? a0[fr] : 0.f);
+        of[c0 * M + MH + k] = cur[c0 * M + MH + k] - (pr ? a1[fr] : 0.f);
+        if (two) {
+          of[c1 * M + k] = cur[c1 * M + k] - (pr ? b0[fr] : 0.f);
+          of[c1 * M + MH + k] = cur[c1 * M + MH + k] - (pr ? b1[fr] : 0.f);
+        }
+      }
+    } else if (real) {
+      float a0[STEP] = {};
+#pragma unroll
+      for (int m = 0; m < PM + STEP - 1; ++m) {
+#pragma unroll
+        for (int a = 0; a < C; ++a) {
+          const float x = L[a * M - m * CM];
+#pragma unroll
+          for (int fr = 0; fr < STEP; ++fr) {
+            const int dp = m - (STEP - 1 - fr);
+            if (dp >= 0 && dp < PM) a0[fr] = fmaf(g0[a * PM + dp].r, x, a0[fr]);
+          }
+        }
+      }
+#pragma unroll
+      for (int fr = 0; fr < STEP; ++fr) {
+        const int scf = sc + fr >= NC ? sc + fr - NC : sc + fr;
+        const float* cur = ring + (size_t)(CB + scf) * CM;
+        o[fr * CM + rc * M + rl] = cur[rc * M + rl] - (t0 + i0 + fr >= lowerN ? a0[fr] : 0.f);
+      }
     }
+  };
+
+  const int nsteps = (nt + STEP - 1) / STEP;
+  // slots hold zeros until their first copy: the padded taps dp >= P (g = 0)
+  // read them
+  for (int idx = tid; idx < NS * CM; idx += nthr) ring[idx] = 0.f;
+  __syncthreads();
+#pragma unroll 1
+  for (int g = 0; g < DG; ++g) fetch(g);
+  int sl = (S - lowerN) % NL;  // lag slot of dp = 0 of the step's first output
+  int sc = S % NC;             // its current slot, less CB
+  // probe: set-up done
+  for (int g = 0; g < nsteps; ++g) {
+    cp_wait<DG - 1>();
+    if (tid == 0) bulk_wait_read();  // step g - 2's rows have left their buffer
+    __syncthreads();
+    // probe: frame staged
+    if (g > 0) flush(g - 1);
+    fetch(g + DG);
+    // probe: stored
+    // both frames, also where the second is past the chunk (its row is
+    // computed from stale slots and not stored)
+    predict_step(g * STEP, sl, sc, outs + (g & 1) * STEP * CM);
+    sl = sl + STEP >= NL ? sl + STEP - NL : sl + STEP;
+    sc = sc + STEP >= NC ? sc + STEP - NC : sc + STEP;
+    fence_async_shared();
+    // probe: predicted
   }
+  __syncthreads();
+  if (nsteps > 0) flush(nsteps - 1);
+  if (tid == 0) bulk_wait();
+  // probe: kernel end
+}
+
+// ring sizes and shared memory of a launch
+struct Plan {
+  int NL, CB, NC;
+  size_t bytes;
+};
+
+Plan plan(int C, int M, int P, int PM, int lowerN, int STEP, int DG) {
+  const int S = lowerN + P - 1;
+  const size_t frame = sizeof(float) * (size_t)C * M;
+  // lags of DG + 1 steps, and the current frames of as many in the same ring
+  const int MIR = PM + STEP - 2;  // slots repeated past the end of the lag ring
+  const int NL = std::max(S + (DG + 1) * STEP, PM + STEP);
+  Plan p{NL, 0, NL, 0};
+  p.bytes = (size_t)(p.NL + MIR + 2 * STEP) * frame;
+  if (p.bytes > ONE_RING_MAX) {  // lags in one ring, current frames in another
+    p = Plan{std::max(P - 1 + (DG + 1) * STEP, PM + STEP), 0, (DG + 1) * STEP, 0};
+    p.CB = p.NL + MIR;
+    p.bytes = (size_t)(p.CB + p.NC + 2 * STEP) * frame;
+  }
+  return p;
+}
+
+template <int C, int MH, int PM>
+struct Launch {
+  static constexpr int threads = block_threads<C, MH>();
+  static cudaError_t prepare(size_t bytes) {
+    return cudaFuncSetAttribute(wpe_resid_kernel<C, MH, PM>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  }
+  static int run(const float* Yp, const float* G, float* out, int Tf, int B, int P, int lowerN,
+                 cudaStream_t stream) {
+    const Plan p = plan(C, 2 * MH, P, PM, lowerN, step_frames<C, MH>(), lead_steps<C, MH>());
+    if (p.bytes > 227 * 1024) return DSR_ERR_ARGS;
+    cudaError_t err = prepare(p.bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid((Tf + TC - 1) / TC, B);
+    wpe_resid_kernel<C, MH, PM><<<grid, threads, p.bytes, stream>>>(
+        Yp, reinterpret_cast<const cf*>(G), out, Tf, B, P, lowerN, p.NL, p.CB, p.NC);
+    return static_cast<int>(cudaGetLastError());
+  }
+  static int occupancy(int P, int lowerN, int* blocks, int* smem_bytes, int* nthreads) {
+    const Plan p = plan(C, 2 * MH, P, PM, lowerN, step_frames<C, MH>(), lead_steps<C, MH>());
+    *smem_bytes = (int)p.bytes;
+    *nthreads = threads;
+    if (p.bytes > 227 * 1024) return DSR_ERR_ARGS;
+    cudaError_t err = prepare(p.bytes);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, wpe_resid_kernel<C, MH, PM>,
+                                                          threads, p.bytes);
+    return static_cast<int>(err);
+  }
+};
+
+// (C, PM): the registers hold PM = 24 / C lag slots a channel, and 5 at C = 4;
+// M = 128 and 256
+#define DSR_SHAPES(X) \
+  X(1, 24) X(2, 12) X(3, 8) X(4, 5) X(4, 6) X(5, 4) X(6, 4) X(7, 3) X(8, 3)
+
+int slots(int C, int P) { return C == 4 && P <= 5 ? 5 : 24 / C; }
+
+bool args_ok(int Tf, int B, int C, int M, int P, int lowerN) {
+  return Tf > 0 && B > 0 && B <= 65535 && C > 0 && C <= 8 && P > 0 && P <= 24 / C &&
+         lowerN >= 0 && (M == 128 || M == 256);
 }
 
 }  // namespace
 
 extern "C" int dsr_wpe_resid(const float* Yp, const float* G, float* out, int Tf, int B, int C,
                              int M, int P, int lowerN, cudaStream_t stream) {
-  if (Tf <= 0 || B <= 0 || B > 65535 || C <= 0 || C > 8 || P <= 0 || lowerN < 0 || M < 4 ||
-      M % 2 != 0 || C * P > MAX_CP)
-    return DSR_ERR_ARGS;
-  const size_t smem = sizeof(cf) * (size_t)(TC + lowerN + P - 1) * C * FB;
-  if (smem > 227 * 1024) return DSR_ERR_ARGS;
-  cudaError_t err = cudaFuncSetAttribute(wpe_resid_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int F = M / 2 + 1;
-  const dim3 grid((F + FB - 1) / FB, B);
-  wpe_resid_kernel<<<grid, C * FB, smem, stream>>>(Yp, reinterpret_cast<const cf*>(G), out, Tf,
-                                                   B, C, M, P, lowerN);
-  return static_cast<int>(cudaGetLastError());
+  if (!args_ok(Tf, B, C, M, P, lowerN)) return DSR_ERR_ARGS;
+  const int PM = slots(C, P);
+#define DSR_CASE(c, pm)                                                              \
+  if (C == c && PM == pm)                                                            \
+    return M == 256 ? Launch<c, 128, pm>::run(Yp, G, out, Tf, B, P, lowerN, stream)  \
+                    : Launch<c, 64, pm>::run(Yp, G, out, Tf, B, P, lowerN, stream);
+  DSR_SHAPES(DSR_CASE)
+#undef DSR_CASE
+  return DSR_ERR_ARGS;
+}
+
+extern "C" int dsr_wpe_resid_occupancy(int C, int P, int lowerN, int M, int* blocks_per_sm,
+                                       int* smem_bytes, int* threads) {
+  if (!args_ok(1, 1, C, M, P, lowerN)) return DSR_ERR_ARGS;
+  const int PM = slots(C, P);
+#define DSR_CASE(c, pm)                                                                   \
+  if (C == c && PM == pm)                                                                 \
+    return M == 256 ? Launch<c, 128, pm>::occupancy(P, lowerN, blocks_per_sm, smem_bytes, \
+                                                    threads)                              \
+                    : Launch<c, 64, pm>::occupancy(P, lowerN, blocks_per_sm, smem_bytes,  \
+                                                   threads);
+  DSR_SHAPES(DSR_CASE)
+#undef DSR_CASE
+  return DSR_ERR_ARGS;
 }

@@ -17,17 +17,32 @@
 // multiply-adds per (utterance, bin, frame): about 3.3e11 FP32 flops per call
 // at B=256 x 4 ch x 10 s with P=5, ~5 ms at the 67 TFLOP/s FP32 peak, against
 // 1.3 GB of input (0.4 ms): it is bound by FP32 arithmetic.  The JAX package
-// runs it at HIGHEST precision, so no TF32.  Design: one block per
-// (utterance, group of FB bins); the frames are walked in chunks of TC.  Per
-// chunk the block stages the complex frames of all C channels (with the
-// lowerN + P - 1 frames of lag history) in shared memory, computes the C
-// weight tracks there once, then every thread accumulates a 4x4 tile of the
-// upper triangle of one target's R in registers, reading its lags from
-// shared memory (one 8-byte load feeds four complex multiply-adds; tap slots
-// past C*P read a channel of zeros that the stage carries for them).  The
-// threads of a diagonal tile, which need only 10 of their 16 entries, take
-// the 4 entries of r for the same rows, so every thread carries about the
-// same load.  Sums run in frame order in FP32, IEEE division and sqrtf.
+// runs it at HIGHEST precision, so no TF32.
+//
+// Design.  A block takes FB consecutive systems (utterance, bin) of the
+// flattened B*F (so no bin group idles at the top of an utterance) and walks
+// all their frames in chunks of TC.  Each thread holds a 4x4 tile of the upper
+// triangle of one target's R in registers (the threads of a diagonal tile,
+// which need only 10 of its 16 entries, take the 4 entries of r for the same
+// rows) and reads its lags from shared memory: one 8-byte load feeds four
+// complex multiply-adds, and tap slots past C*P read a channel of zeros.
+//   - The chunks pass through a ring of NSTAGE buffers filled by cp.async
+//     (4-byte copies: the ring interleaves Re and Im, which the packed rows
+//     keep apart, and zero-fills the history before t = 0 and the missing Im
+//     lanes), started two chunks ahead, so staging never waits on memory.
+//   - A chunk is stored frame-fastest ([channel][system][frame], rows padded
+//     to an odd length so that the eight systems of a warp fall in distinct
+//     banks): a thread's nine lag, target and weight addresses all advance by
+//     one element a frame, and the accumulation, unrolled by U frames, loads
+//     at immediate offsets with no address arithmetic.
+//   - Every warp weighs its share of chunk k+1 before it accumulates chunk
+//     k, with no barrier between the two, so a warp that is done weighing
+//     accumulates while others still weigh.
+// Sums run in frame order in FP32, one FMA per real product (written out, so
+// that nvcc does not split them into a multiply and an add), IEEE division
+// and sqrtf; every block walks all frames of its systems, so the result is
+// deterministic.  Frames past the end of the last chunk, up to a multiple of
+// U, carry weight 0 and add exact zeros.
 //
 // The residual that sets the weights is computed in FP64 (from the FP32
 // inputs, rounded to FP32 at the end): where a prediction cancels its target
@@ -35,84 +50,236 @@
 // chain's own frames), 1/|e|^2 carries the prediction's rounding amplified
 // by |pred terms|/|e|, and two FP32 evaluations of one EM iteration's R then
 // differ by ~0.3% of max|R|.  In FP64 the weights are those of the inputs to
-// FP32 precision.  It is CP complex multiply-adds (8 CP flops) per (target,
-// frame, bin) in FP64 beside about 8 CP(CP+1)/2 + 10 CP in FP32: 8% of the
-// flops, but an H100 runs FP64 at half its FP32 rate (34 against 67 TFLOP/s),
-// so about 15% of the arithmetic time.
+// FP32 precision.  The prediction of a system's C targets over 8 frames is a
+// real product [2C x 2 C*P] x [2 C*P x 8], which the FP64 tensor cores take
+// as mma.m8n8k4 steps (each chunk's lags converted to FP64 once, conj(G) held
+// in shared memory as the real matrix): on the FP64 pipe of the CUDA cores,
+// with their conversions, the same products took a quarter of the block.
+#include <type_traits>
+
 #include "dsr_kernels.h"
 
 namespace {
 
-constexpr int TC = 64;     // frames per chunk
-constexpr int TILE = 4;    // rows and columns of a thread's tile
+constexpr int TC = 64;       // frames per chunk
+constexpr int TCP = TC + 1;  // padded frames of a weight row
+constexpr int U = 8;         // frames of one step of the accumulation
+constexpr int NSTAGE = 3;    // chunks in the ring
+constexpr int TILE = 4;      // rows and columns of a thread's tile
+constexpr int IB = 4;        // weight items a thread runs side by side (no filters)
 constexpr int MAX_THREADS = 512;
+constexpr size_t MAX_SMEM = 227 * 1024;  // dynamic shared memory of a block
+constexpr int MAX_FB = 8;    // systems per block
 constexpr float SUBBAND_FLOOR = 1.0e-3f;  // dereverberation.cc:144
 
 struct cf {
   float r, i;
 };
 
-// acc += a * conj(b)
+// Per tap slot j (lag j = a*P + dp): the offset a*FB*ROWS + S - lowerN - dp
+// of its frame-0 element in a staged chunk and in its FP64 copy (slots past
+// C*P read the zero channel C of the staged chunk)
+struct Lags {
+  int lag[6 * TILE];
+};
+
+// acc += a * conj(b), one FMA per real product
 __device__ __forceinline__ void cmac_conj(cf& acc, cf a, cf b) {
-  acc.r += a.r * b.r + a.i * b.i;
-  acc.i += a.i * b.r - a.r * b.i;
+  acc.r = fmaf(a.r, b.r, acc.r);
+  acc.r = fmaf(a.i, b.i, acc.r);
+  acc.i = fmaf(a.i, b.r, acc.i);
+  acc.i = fmaf(-a.r, b.i, acc.i);
 }
 
+// 4-byte asynchronous copy global -> shared, zero-filled when !valid
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ float weight(float er, float ei) {
+  const float th = fmaxf(sqrtf(er * er + ei * ei), SUBBAND_FLOOR);
+  return 1.f / (th * th);
+}
+
+// NT: tiles along a side of R, NJ = NT * TILE >= C*P tap slots
+template <int NT>
 __global__ void __launch_bounds__(MAX_THREADS)
 wpe_stats_kernel(const float* __restrict__ Yp, const cf* __restrict__ G, cf* __restrict__ R,
                  cf* __restrict__ r, int Tf, int B, int C, int M, int P, int lowerN, int has_g,
-                 int FB, int nT) {
+                 int FB, const Lags lags) {
   extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int NJ = NT * TILE;
+  constexpr int NTILES = NT * (NT + 1) / 2;
+  constexpr int KA = 2 * NJ + 2;             // a row of the residual's real matrix, padded
   const int F = M / 2 + 1;
   const int CP = C * P;
-  const int S = lowerN + P - 1;   // deepest lag
-  const int CF = C * FB;          // one frame of weights
-  const int RS = CF + FB;         // one frame of staged data: C channels + a zero one
-  const int NJ = nT * TILE;       // tap slots of the tiles, CP of them used
-  cf* Ys = reinterpret_cast<cf*>(smem);             // [TC + S][C + 1][FB]
-  cf* Gs = Ys + (TC + S) * RS;                      // [C][CP][FB], conj(G)
-  float* Ws = reinterpret_cast<float*>(Gs + C * CP * FB);  // [TC][C][FB]
-  int* lagoff = reinterpret_cast<int*>(Ws + TC * CF);      // [NJ]
-
+  const int S = lowerN + P - 1;              // deepest lag
+  const int ROWS = (TC + S) | 1;             // staged frames of a lane, odd
+  const int CF = C * FB;
+  const int STAGE = (C + 1) * FB * ROWS;     // cf of one chunk, zero channel included
+  const int nsys = B * F;
+  const int sys0 = blockIdx.x * FB;
+  const int nchunks = (Tf + TC - 1) / TC;
+  const size_t frame_stride = (size_t)B * C * M;
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
-  const int b = blockIdx.y;
-  const int f0 = blockIdx.x * FB;
-  const size_t frame_stride = (size_t)B * C * M;
+  const int MT = (2 * C + 7) / 8;             // 8-row tiles of the residual's rows
+  // regions of 16-byte multiples
+  cf* Ys = reinterpret_cast<cf*>(smem);                                   // [NSTAGE][C + 1][FB][ROWS]
+  float* Ws = reinterpret_cast<float*>(Ys + (NSTAGE * STAGE + 1) / 2 * 2);  // [2][C][FB][TCP]
+  double2* Yd = reinterpret_cast<double2*>(Ws + (2 * CF * TCP + 3) / 4 * 4);  // [C][FB][ROWS]
+  double* Ad = reinterpret_cast<double*>(Yd + CF * ROWS);                // [FB][MT * 8][KA]
 
-  // frame t0 + tt is staged at row tt + S, so its lag j = a*P + dp sits at
-  // row tt + S - lowerN - dp, channel a; the tap slots past CP read the
-  // zero channel C, so the tiles need no selects
-  for (int j = tid; j < NJ; j += nthr) {
-    const int a = j < CP ? j / P : C, dp = j < CP ? j - (j / P) * P : 0;
-    lagoff[j] = ((S - lowerN - dp) * (C + 1) + a) * FB;
-  }
-  for (int idx = tid; idx < (TC + S) * FB; idx += nthr)
-    Ys[(idx / FB) * RS + CF + idx % FB] = cf{0.f, 0.f};
-  for (int idx = tid; idx < C * CP * FB; idx += nthr) {
-    const int ff = idx % FB, j = (idx / FB) % CP, c = idx / (FB * CP);
-    cf g = {0.f, 0.f};
-    if (has_g && f0 + ff < F) {
-      g = G[(((size_t)b * C + c) * F + f0 + ff) * CP + j];
-      g.i = -g.i;
+  for (int idx = tid; idx < NSTAGE * STAGE; idx += nthr) Ys[idx] = cf{0.f, 0.f};
+  if (has_g) {
+    // the residual's prediction as a real product: row (c, Re | Im) of A
+    // times column (tap j, Re | Im) of the lags, A = [[Re g, -Im g], [Im g,
+    // Re g]] per tap with g = conj(G[c, j])
+    for (int idx = tid; idx < FB * MT * 8 * KA; idx += nthr) {
+      const int k = idx % KA, row = (idx / KA) % (MT * 8), ff = idx / (KA * MT * 8);
+      const int c = row >> 1, j = k >> 1, sys = sys0 + ff;
+      double v = 0.0;
+      if (c < C && j < CP && sys < nsys) {
+        const int b = sys / F, fg = sys - (sys / F) * F;
+        const cf g = G[(((size_t)b * C + c) * F + fg) * CP + j];
+        const double gr = g.r, gi = -(double)g.i;
+        v = (row & 1) == 0 ? ((k & 1) == 0 ? gr : -gi) : ((k & 1) == 0 ? gi : gr);
+      }
+      Ad[idx] = v;
     }
-    Gs[(c * CP + j) * FB + ff] = g;
   }
+  __syncthreads();
+  // probe: set-up done
 
-  // this thread's tile (ti, tj), ti <= tj, of target c and bin f0 + f
+  // staging: thread tid < nlanes * nrow copies element e = (channel a,
+  // system ff, Re or Im) of rows row0, row0 + nrow, ... of each chunk
+  const int nrow = nthr / (2 * CF);
+  const int e = tid % (2 * CF), row0 = tid / (2 * CF);
+  const int part = e & 1, eff = (e >> 1) % FB, ea = (e >> 1) / FB;
+  const float* esrc = Yp;
+  bool elane = false;
+  {
+    const int sys = sys0 + eff;
+    const int b = sys / F, fg = sys - (sys / F) * F;
+    elane = row0 < nrow && sys < nsys && (part == 0 || (fg >= 1 && fg <= F - 2));
+    if (elane) esrc = Yp + ((size_t)b * C + ea) * M + (part ? F - 1 + fg : fg);
+  }
+  auto fetch = [&](int k) {  // chunk k's rows into stage k % NSTAGE
+    if (row0 < nrow && k < nchunks) {
+      const int t0 = k * TC;
+      const int rows = min(TC, Tf - t0) + S;
+      float* dst = reinterpret_cast<float*>(Ys + (k % NSTAGE) * STAGE + (ea * FB + eff) * ROWS) +
+                   part;
+      for (int tt = row0; tt < rows; tt += nrow) {
+        const int t = t0 - S + tt;
+        const bool ok = elane && t >= 0;
+        cp_async4(dst + 2 * tt, ok ? esrc + (size_t)t * frame_stride : Yp, ok);
+      }
+    }
+    cp_commit();
+  };
+
+  // this thread's tile (ti, tj), ti <= tj, of target c and system sys0 + f
   const int f = tid % FB;
   const int c = (tid / FB) % C;
-  const bool active = tid < nT * (nT + 1) / 2 * CF;
+  const int tile = tid / CF;
+  const bool active = tile < NTILES;
   int ti = 0, tj = 0;
   {
-    int k = active ? tid / CF : 0;
-    while (k >= nT - ti) {
-      k -= nT - ti;
+    int k = active ? tile : 0;
+    while (k >= NT - ti) {
+      k -= NT - ti;
       ++ti;
     }
     tj = ti + k;
   }
   const bool diag = ti == tj;
+
+  // weights of chunk k without filters (frames tile, tile + NTILES, ... of
+  // target c, system f) into weight buffer k % 2, from stage k % NSTAGE
+  auto weigh = [&](int k) {
+    if (!active) return;
+    const int t0 = k * TC;
+    const int nt = min(TC, Tf - t0);
+    const int ntp = (nt + U - 1) / U * U;
+    const cf* Yc = Ys + (k % NSTAGE) * STAGE + (c * FB + f) * ROWS + S;  // y_c of frame 0
+    float* Wc = Ws + (k % 2) * CF * TCP + (c * FB + f) * TCP;
+    for (int tb = tile; tb < ntp; tb += IB * NTILES) {
+#pragma unroll
+      for (int i = 0; i < IB; ++i) {
+        const int tt = tb + i * NTILES;
+        if (tt < ntp) {
+          const cf y = Yc[tt];
+          Wc[tt] = tt < nt && t0 + tt >= lowerN ? weight(y.r, y.i) : 0.f;
+        }
+      }
+    }
+  };
+  // the same with filters: a warp takes one (system, 8 rows of residual,
+  // 8 frames) unit at a time and forms its prediction with FP64 tensor-core
+  // products (exact products of the FP32 inputs, FP64 sums: see the note on
+  // the residual at the top)
+  auto weigh_fp64 = [&](int k) {
+    const int t0 = k * TC;
+    const int nt = min(TC, Tf - t0);
+    const int ntp = (nt + U - 1) / U * U;
+    const int lane = tid & 31, warp = tid >> 5, nwarps = nthr >> 5;
+    const int units = FB * MT * ((ntp + 7) / 8);
+    const double* Ydd = reinterpret_cast<const double*>(Yd);
+    for (int unit = warp; unit < units; unit += nwarps) {
+      const int ff = unit % FB, m = (unit / FB) % MT, n0 = unit / (FB * MT) * 8;
+      // A[row][k] at lane (row = lane / 4, k = lane % 4) of each k-step,
+      // B[k][n] at (k = lane % 4, n = lane / 4): tap 2 kk + (lane / 2) % 2,
+      // Re or Im by lane % 2, frame n0 + lane / 4
+      const double* Ar = Ad + (ff * MT * 8 + m * 8 + (lane >> 2)) * KA + (lane & 3);
+      const double* Bl = Ydd + 2 * (ff * ROWS + n0 + (lane >> 2)) + (lane & 1);
+      double d0 = 0.0, d1 = 0.0;
+#pragma unroll
+      for (int kk = 0; kk < NJ / 2; ++kk) {
+        const bool hi = (lane & 2) != 0;
+        const int j = 2 * kk + (hi ? 1 : 0);
+        const double a = Ar[4 * kk];
+        const double b = j < CP ? Bl[2 * (hi ? lags.lag[2 * kk + 1] : lags.lag[2 * kk])] : 0.0;
+        asm volatile("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, {%0, %1};"
+                     : "+d"(d0), "+d"(d1)
+                     : "d"(a), "d"(b));
+      }
+      // D[row][n] at (row = lane / 4, n = 2 (lane % 4) + {0, 1}); rows 2c and
+      // 2c + 1 hold Re and Im of target c: lanes 4 apart swap halves, and
+      // each takes one of the two frames
+      const double o0 = __shfl_xor_sync(0xffffffffu, d0, 4);
+      const double o1 = __shfl_xor_sync(0xffffffffu, d1, 4);
+      const int row = lane >> 2, part = row & 1;
+      const int cw = m * 4 + (row >> 1);
+      const int tt = n0 + 2 * (lane & 3) + part;
+      const double pr = part ? o1 : d0, pim = part ? d1 : o0;
+      if (cw < C && tt < ntp) {
+        const cf y = Ys[(k % NSTAGE) * STAGE + (cw * FB + ff) * ROWS + S + tt];
+        Ws[(k % 2) * CF * TCP + (cw * FB + ff) * TCP + tt] =
+            tt < nt && t0 + tt >= lowerN
+                ? weight((float)((double)y.r - pr), (float)((double)y.i - pim))
+                : 0.f;
+      }
+    }
+  };
+  // chunk k's rows (stage k % NSTAGE) in FP64, for its weights
+  auto widen = [&](int k) {
+    const cf* Yc = Ys + (k % NSTAGE) * STAGE;
+    const int rows = min(TC, Tf - k * TC) + S;
+    for (int idx = tid; idx < CF * rows; idx += nthr) {
+      const int lane = idx / rows, tt = idx - lane * rows;
+      const cf v = Yc[lane * ROWS + tt];
+      Yd[lane * ROWS + tt] = make_double2(v.r, v.i);
+    }
+  };
 
   cf acc[TILE][TILE], racc[TILE];
 #pragma unroll
@@ -121,131 +288,215 @@ wpe_stats_kernel(const float* __restrict__ Yp, const cf* __restrict__ G, cf* __r
 #pragma unroll
     for (int v = 0; v < TILE; ++v) acc[u][v] = {0.f, 0.f};
   }
-  __syncthreads();
+  // frame-0 offsets of this thread's lags (rows p and q of its tile), its
+  // target y_c and its weight, within a stage / weight buffer
   int offp[TILE], offq[TILE];
 #pragma unroll
   for (int u = 0; u < TILE; ++u) {
-    offp[u] = lagoff[ti * TILE + u] + f;
-    offq[u] = lagoff[tj * TILE + u] + f;
-  }
-  const int offy = (S * (C + 1) + c) * FB + f;
-
-  for (int t0 = 0; t0 < Tf; t0 += TC) {
-    const int nt = min(TC, Tf - t0);
-    __syncthreads();  // the previous chunk is consumed
-    // stage frames t0 - S .. t0 + nt - 1 of every channel (zero before t = 0);
-    // unrolled so that four loads are in flight before their stores
-#pragma unroll 4
-    for (int idx = tid; idx < (nt + S) * CF; idx += nthr) {
-      const int ff = idx % FB, a = (idx / FB) % C, tt = idx / CF;
-      const int t = t0 - S + tt, fg = f0 + ff;
-      cf y = {0.f, 0.f};
-      if (t >= 0 && fg < F) {
-        const float* row = Yp + t * frame_stride + ((size_t)b * C + a) * M;
-        y.r = row[fg];
-        if (fg >= 1 && fg <= F - 2) y.i = row[F - 1 + fg];
-      }
-      Ys[tt * RS + a * FB + ff] = y;
-    }
-    __syncthreads();
-    // weight tracks of the chunk, w = 0 outside lowerN <= t < Tf
-    for (int idx = tid; idx < nt * CF; idx += nthr) {
-      const int ff = idx % FB, cc = (idx / FB) % C, tt = idx / CF;
-      const int t = t0 + tt;
-      float w = 0.f;
-      if (t >= lowerN) {
-        cf e = Ys[(tt + S) * RS + cc * FB + ff];
-        if (has_g) {
-          // in float64: see the note on the residual at the top
-          const cf* g = Gs + cc * CP * FB + ff;
-          const cf* l = Ys + tt * RS + ff;
-          double pr = 0.0, pi = 0.0;
-          for (int j = 0; j < CP; ++j) {
-            const cf gv = g[j * FB], lv = l[lagoff[j]];
-            pr += (double)gv.r * lv.r - (double)gv.i * lv.i;
-            pi += (double)gv.r * lv.i + (double)gv.i * lv.r;
-          }
-          e.r = (float)((double)e.r - pr);
-          e.i = (float)((double)e.i - pi);
-        }
-        const float th = fmaxf(sqrtf(e.r * e.r + e.i * e.i), SUBBAND_FLOOR);
-        w = 1.f / (th * th);
-      }
-      Ws[tt * CF + cc * FB + ff] = w;
-    }
-    __syncthreads();
-    if (!active) continue;
-    for (int tt = 0; tt < nt; ++tt) {
-      const float w = Ws[tt * CF + c * FB + f];
-      const int base = tt * RS;
-      cf lp[TILE], lq[TILE];
+    offp[u] = lags.lag[0];
+    offq[u] = lags.lag[0];
 #pragma unroll
-      for (int u = 0; u < TILE; ++u) {
-        const cf zp = Ys[base + offp[u]];
-        lp[u] = cf{w * zp.r, w * zp.i};
-        lq[u] = Ys[base + offq[u]];
-      }
-      if (diag) {
-        const cf y = Ys[base + offy];
+    for (int j = 0; j < NJ; ++j) {
+      if (j == ti * TILE + u) offp[u] = lags.lag[j];
+      if (j == tj * TILE + u) offq[u] = lags.lag[j];
+    }
+    offp[u] += f * ROWS;
+    offq[u] += f * ROWS;
+  }
+  const int offy = (c * FB + f) * ROWS + S;
+  const int offw = (c * FB + f) * TCP;
+
+  // chunk k into this thread's tile; DIAG: a diagonal tile, which also
+  // takes r's rows
+  auto accumulate = [&](int k, auto diag_tile) {
+    constexpr bool DIAG = decltype(diag_tile)::value;
+    const int ntp = (min(TC, Tf - k * TC) + U - 1) / U * U;
+    const cf* Yc = Ys + (k % NSTAGE) * STAGE;
+    const cf* Pp[TILE];
+    const cf* Pq[TILE];
+#pragma unroll
+    for (int u = 0; u < TILE; ++u) {
+      Pp[u] = Yc + offp[u];
+      Pq[u] = Yc + offq[u];
+    }
+    const cf* Py = Yc + offy;
+    const float* Pw = Ws + (k % 2) * CF * TCP + offw;
+    for (int tt = 0; tt < ntp; tt += U) {
+#pragma unroll
+      for (int s = 0; s < U; ++s) {
+        const float w = Pw[s];
+        cf lp[TILE], lq[TILE];
 #pragma unroll
         for (int u = 0; u < TILE; ++u) {
-          cmac_conj(racc[u], lp[u], y);
-#pragma unroll
-          for (int v = u; v < TILE; ++v) cmac_conj(acc[u][v], lp[u], lq[v]);
+          const cf zp = Pp[u][s];
+          lp[u] = cf{w * zp.r, w * zp.i};
+          lq[u] = Pq[u][s];
         }
-      } else {
+        if constexpr (DIAG) {
+          const cf y = Py[s];
 #pragma unroll
-        for (int u = 0; u < TILE; ++u)
+          for (int u = 0; u < TILE; ++u) {
+            cmac_conj(racc[u], lp[u], y);
 #pragma unroll
-          for (int v = 0; v < TILE; ++v) cmac_conj(acc[u][v], lp[u], lq[v]);
+            for (int v = u; v < TILE; ++v) cmac_conj(acc[u][v], lp[u], lq[v]);
+          }
+        } else {
+#pragma unroll
+          for (int u = 0; u < TILE; ++u)
+#pragma unroll
+            for (int v = 0; v < TILE; ++v) cmac_conj(acc[u][v], lp[u], lq[v]);
+        }
       }
+#pragma unroll
+      for (int u = 0; u < TILE; ++u) {
+        Pp[u] += U;
+        Pq[u] += U;
+      }
+      Py += U;
+      Pw += U;
     }
+  };
+
+  fetch(0);
+  fetch(1);
+  cp_wait<1>();
+  __syncthreads();
+  if (has_g) {
+    widen(0);
+    __syncthreads();
+  }
+  has_g ? weigh_fp64(0) : weigh(0);
+  // probe: prologue done
+  for (int k = 0; k < nchunks; ++k) {
+    cp_wait<0>();     // this thread's copies of chunk k + 1
+    __syncthreads();  // everyone's; chunk k weighed; chunk k - 1 consumed
+    // probe: waited for chunk k + 1
+    fetch(k + 2);
+    // probe: fetching chunk k + 2
+    if (has_g && k + 1 < nchunks) widen(k + 1);
+    if (has_g) __syncthreads();
+    // probe: widened chunk k + 1
+    if (k + 1 < nchunks) has_g ? weigh_fp64(k + 1) : weigh(k + 1);
+    // probe: weighed chunk k + 1
+    // the tile's type is decided once a chunk, so that the unrolled frames
+    // have no branch between them and the loads of one frame can start
+    // while the previous one's products issue
+    if (active) diag ? accumulate(k, std::true_type{}) : accumulate(k, std::false_type{});
+    // probe: accumulated chunk k
   }
 
-  const int fg = f0 + f;
-  if (!active || fg >= F) return;
-  const size_t sys = ((size_t)b * C + c) * F + fg;
-  cf* Rs = R + sys * CP * CP;
+  const int sys = sys0 + f;
+  if (active && sys < nsys) {
+    const int b = sys / F, fg = sys - (sys / F) * F;
+    const size_t id = ((size_t)b * C + c) * F + fg;
+    cf* Rs = R + id * CP * CP;
 #pragma unroll
-  for (int u = 0; u < TILE; ++u) {
-    const int p = ti * TILE + u;
-    if (p >= CP) continue;
+    for (int u = 0; u < TILE; ++u) {
+      const int p = ti * TILE + u;
+      if (p >= CP) continue;
 #pragma unroll
-    for (int v = 0; v < TILE; ++v) {
-      const int q = tj * TILE + v;
-      if (q >= CP || (diag && v < u)) continue;
-      Rs[p * CP + q] = acc[u][v];
-      if (q != p) Rs[q * CP + p] = cf{acc[u][v].r, -acc[u][v].i};
+      for (int v = 0; v < TILE; ++v) {
+        const int q = tj * TILE + v;
+        if (q >= CP || (diag && v < u)) continue;
+        Rs[p * CP + q] = acc[u][v];
+        if (q != p) Rs[q * CP + p] = cf{acc[u][v].r, -acc[u][v].i};
+      }
+      if (diag) r[id * CP + p] = racc[u];
     }
-    if (diag) r[sys * CP + p] = racc[u];
   }
+  // probe: kernel end
+}
+
+template <int NT>
+struct Launch {
+  static size_t smem(int C, int P, int lowerN, int FB, int has_g) {
+    const size_t S = lowerN + P - 1, ROWS = (TC + S) | 1;
+    const size_t CF = (size_t)C * FB, MT = (2 * C + 7) / 8, KA = 2 * NT * TILE + 2;
+    return sizeof(cf) * ((NSTAGE * (C + 1) * FB * ROWS + 1) / 2 * 2) +
+           sizeof(float) * ((2 * CF * TCP + 3) / 4 * 4) +
+           (has_g ? sizeof(double2) * CF * ROWS + sizeof(double) * FB * MT * 8 * KA : 0);
+  }
+  // the tiles' threads, and at least one a staged element of a frame
+  static int threads(int C, int FB) {
+    return (max(NT * (NT + 1) / 2, 2) * C * FB + 31) / 32 * 32;
+  }
+  // systems per block: up to MAX_FB, as many as the threads and the shared
+  // memory allow
+  static int systems(int C, int P, int lowerN, int has_g) {
+    int FB = MAX_FB;
+    while (FB > 1 && (threads(C, FB) > MAX_THREADS || smem(C, P, lowerN, FB, has_g) > MAX_SMEM))
+      FB /= 2;
+    return threads(C, FB) <= MAX_THREADS && smem(C, P, lowerN, FB, has_g) <= MAX_SMEM ? FB : 0;
+  }
+  static cudaError_t prepare(size_t bytes) {
+    return cudaFuncSetAttribute(wpe_stats_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)bytes);
+  }
+  static int run(const float* Yp, const float* G, float* R, float* r, int Tf, int B, int C, int M,
+                 int P, int lowerN, int has_g, cudaStream_t stream) {
+    const int FB = systems(C, P, lowerN, has_g);
+    if (FB == 0) return DSR_ERR_ARGS;
+    const size_t bytes = smem(C, P, lowerN, FB, has_g);
+    cudaError_t err = prepare(bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int CP = C * P, S = lowerN + P - 1;
+    const int ROWS = (TC + S) | 1;
+    Lags lags;
+    for (int j = 0; j < NT * TILE; ++j) {
+      // tap slots past CP read the zero channel C
+      const int a = j < CP ? j / P : C, dp = j < CP ? j - (j / P) * P : 0;
+      lags.lag[j] = a * FB * ROWS + S - lowerN - dp;
+    }
+    const int F = M / 2 + 1;
+    const unsigned blocks = (unsigned)(((size_t)B * F + FB - 1) / FB);
+    wpe_stats_kernel<NT><<<blocks, threads(C, FB), bytes, stream>>>(
+        Yp, reinterpret_cast<const cf*>(G), reinterpret_cast<cf*>(R), reinterpret_cast<cf*>(r),
+        Tf, B, C, M, P, lowerN, has_g, FB, lags);
+    return static_cast<int>(cudaGetLastError());
+  }
+  static int occupancy(int C, int P, int lowerN, int* blocks, int* smem_bytes, int* nthreads) {
+    const int FB = systems(C, P, lowerN, 1);
+    if (FB == 0) return DSR_ERR_ARGS;
+    const size_t bytes = smem(C, P, lowerN, FB, 1);
+    *smem_bytes = (int)bytes;
+    *nthreads = threads(C, FB);
+    cudaError_t err = prepare(bytes);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, wpe_stats_kernel<NT>, *nthreads,
+                                                          bytes);
+    return static_cast<int>(err);
+  }
+};
+
+#define DSR_TILES(X) X(1) X(2) X(3) X(4) X(5) X(6)
+
+bool args_ok(int Tf, int B, int C, int M, int P, int lowerN) {
+  return Tf > 0 && B > 0 && C > 0 && C <= 8 && P > 0 && lowerN >= 0 && M >= 4 && M % 2 == 0 &&
+         C * P <= 6 * TILE && (long long)B * (M / 2 + 1) <= 0x7fffffffLL;
 }
 
 }  // namespace
 
 extern "C" int dsr_wpe_stats(const float* Yp, const float* G, float* R, float* r, int Tf, int B,
                              int C, int M, int P, int lowerN, int has_g, cudaStream_t stream) {
-  if (Tf <= 0 || B <= 0 || B > 65535 || C <= 0 || P <= 0 || lowerN < 0 || M < 4 ||
-      M % 2 != 0 || C * P > 6 * TILE)
-    return DSR_ERR_ARGS;
-  const int CP = C * P;
-  const int nT = (CP + TILE - 1) / TILE;
-  const int ntiles = nT * (nT + 1) / 2;
-  int FB = 8;
-  while (FB > 1 && ntiles * C * FB > MAX_THREADS) FB /= 2;
-  if (ntiles * C * FB > MAX_THREADS) return DSR_ERR_ARGS;
-  const int S = lowerN + P - 1;
-  const size_t smem = sizeof(cf) * ((size_t)(TC + S) * (C + 1) * FB + (size_t)C * CP * FB) +
-                      sizeof(float) * (size_t)TC * C * FB + sizeof(int) * nT * TILE;
-  if (smem > 227 * 1024) return DSR_ERR_ARGS;
-  cudaError_t err = cudaFuncSetAttribute(wpe_stats_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int F = M / 2 + 1;
-  const dim3 grid((F + FB - 1) / FB, B);
-  const int threads = (ntiles * C * FB + 31) / 32 * 32;
-  wpe_stats_kernel<<<grid, threads, smem, stream>>>(
-      Yp, reinterpret_cast<const cf*>(G), reinterpret_cast<cf*>(R), reinterpret_cast<cf*>(r),
-      Tf, B, C, M, P, lowerN, has_g, FB, nT);
-  return static_cast<int>(cudaGetLastError());
+  if (!args_ok(Tf, B, C, M, P, lowerN)) return DSR_ERR_ARGS;
+  switch ((C * P + TILE - 1) / TILE) {
+#define DSR_CASE(n) \
+    case n: return Launch<n>::run(Yp, G, R, r, Tf, B, C, M, P, lowerN, has_g, stream);
+    DSR_TILES(DSR_CASE)
+#undef DSR_CASE
+    default: return DSR_ERR_ARGS;
+  }
+}
+
+extern "C" int dsr_wpe_stats_occupancy(int C, int P, int lowerN, int* blocks_per_sm,
+                                       int* smem_bytes, int* threads) {
+  if (!args_ok(1, 1, C, 256, P, lowerN)) return DSR_ERR_ARGS;
+  switch ((C * P + TILE - 1) / TILE) {
+#define DSR_CASE(n) \
+    case n: return Launch<n>::occupancy(C, P, lowerN, blocks_per_sm, smem_bytes, threads);
+    DSR_TILES(DSR_CASE)
+#undef DSR_CASE
+    default: return DSR_ERR_ARGS;
+  }
 }

@@ -73,6 +73,8 @@ _SIGNATURES = {
     "dsr_aec_scan": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P],
     "dsr_wpe_stats": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "dsr_wpe_resid": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "dsr_wpe_stats_occupancy": [_I, _I, _I, _P, _P, _P],
+    "dsr_wpe_resid_occupancy": [_I, _I, _I, _I, _P, _P, _P],
     "dsr_gj_solve": [_P, _P, _P, _I, _I, _P],
 }
 

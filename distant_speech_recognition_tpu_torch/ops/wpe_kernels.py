@@ -53,8 +53,10 @@ __all__ = [
 
 SUBBAND_FLOOR = 1.0e-3  # dereverberation.cc:144
 # What the three kernels take: C*P prediction taps per target (K10's 4x4
-# tiles, K11's registers; K12 solves n <= 31), up to 8 channels (K11: one
-# warp per channel), and lowerN + P - 1 frames of lag history in shared memory.
+# tiles, K11's registers; K12 solves n <= 31), up to 8 channels (K10's
+# threads per block, K11's register rows), and lowerN + P - 1 frames of lag
+# history in shared memory.  K11 takes M = 128 and 256 (its lane offsets are
+# compiled in); the card pipelines run M = 256.
 WPE_MAX_CP = 24
 WPE_MAX_CHANNELS = 8
 WPE_MAX_LOWER = 32

@@ -359,19 +359,36 @@ def _wpe_case(seed, Tf, B, C, M, P):
     return Yp, torch.from_numpy(G.astype(np.complex64))
 
 
+def _old(*args):
+    """A case of the first parameter list, under its first id."""
+    return pytest.param(*args, id="-".join(str(a) for a in args[:-1]))
+
+
 @pytest.mark.parametrize(
-    "C,P,lowerN,M,B,has_g",
+    "C,P,lowerN,M,B,has_g,Tf",
     [
-        (4, 5, 2, 256, 3, False),  # config-4 widths, first EM iteration
-        (4, 5, 2, 256, 3, True),
-        (2, 3, 1, 128, 5, True),
-        (3, 4, 3, 256, 2, True),
-        (2, 5, 2, 128, 1, False),
-        (3, 7, 1, 128, 2, True),  # C*P = 21, the JAX kernel's largest
+        _old(4, 5, 2, 256, 3, False, 90),  # config-4 widths, first EM iteration
+        _old(4, 5, 2, 256, 3, True, 90),
+        _old(2, 3, 1, 128, 5, True, 90),
+        _old(3, 4, 3, 256, 2, True, 90),
+        _old(2, 5, 2, 128, 1, False, 90),
+        _old(3, 7, 1, 128, 2, True, 90),  # C*P = 21, the JAX kernel's largest
+        # the chunked ring's edges: Tf past a multiple of the 64-frame chunk,
+        # shorter than the lag history, the shallowest and deepest delay, one
+        # utterance, C*P = 24, and the config-4 widths over a whole 10 s
+        pytest.param(4, 5, 2, 256, 2, True, 130, id="Tf130"),
+        pytest.param(4, 5, 2, 256, 2, True, 6, id="Tf6-within-history"),
+        pytest.param(3, 4, 2, 128, 3, False, 3, id="Tf3-within-history-first-iteration"),
+        pytest.param(4, 5, 0, 256, 2, True, 90, id="lowerN0"),
+        pytest.param(3, 4, 32, 128, 2, True, 100, id="lowerN32"),
+        pytest.param(4, 5, 2, 256, 1, True, 90, id="B1"),
+        pytest.param(8, 3, 2, 128, 2, True, 90, id="C8-P3"),
+        pytest.param(8, 1, 32, 256, 2, True, 100, id="C8-P1-lowerN32-fewer-systems"),
+        pytest.param(4, 5, 2, 256, 2, True, 1254, id="config4-Tf1254"),
     ],
 )
-def test_wpe_stats_kernel_matches_plain(dev, C, P, lowerN, M, B, has_g):
-    Yp, G = _wpe_case(C * P + lowerN, 90, B, C, M, P)
+def test_wpe_stats_kernel_matches_plain(dev, C, P, lowerN, M, B, has_g, Tf):
+    Yp, G = _wpe_case(C * P + lowerN, Tf, B, C, M, P)
     R_ref, r_ref = wpe_stats(Yp, G, lowerN, P, has_g)
     before = wpe_stats.launches
     R, r = wpe_stats(Yp.to(dev), G.to(dev), lowerN, P, has_g)
@@ -380,12 +397,46 @@ def test_wpe_stats_kernel_matches_plain(dev, C, P, lowerN, M, B, has_g):
     _close_per_system(r, r_ref, 2e-4, 3)
 
 
+@pytest.mark.parametrize("has_g", [False, True])
+def test_wpe_stats_kernel_repeats_to_the_bit(dev, has_g):
+    """Every block walks all frames of its systems in one order, with no
+    atomics: two launches on the same input give the same bits."""
+    Yp, G = _wpe_case(7, 200, 3, 4, 256, 5)
+    Yp, G = Yp.to(dev), G.to(dev)
+    R1, r1 = wpe_stats(Yp, G, 2, 5, has_g)
+    R2, r2 = wpe_stats(Yp, G, 2, 5, has_g)
+    assert torch.equal(torch.view_as_real(R1), torch.view_as_real(R2))
+    assert torch.equal(torch.view_as_real(r1), torch.view_as_real(r2))
+
+
 @pytest.mark.parametrize(
-    "C,P,lowerN,M,B",
-    [(4, 5, 2, 256, 3), (2, 3, 1, 128, 5), (3, 4, 3, 256, 2), (8, 3, 2, 128, 1)],
+    "C,P,lowerN,M,B,Tf",
+    [
+        _old(4, 5, 2, 256, 3, 70),
+        _old(2, 3, 1, 128, 5, 70),
+        _old(3, 4, 3, 256, 2, 70),
+        _old(8, 3, 2, 128, 1, 70),
+        # the frame chunks' edges, as for the stats; lowerN = 32 at 8 x 256
+        # lanes keeps the current frames and the lags in two rings
+        pytest.param(4, 5, 2, 256, 2, 130, id="Tf130"),
+        pytest.param(4, 5, 2, 256, 2, 6, id="Tf6-within-history"),
+        pytest.param(2, 3, 1, 128, 3, 2, id="Tf2-within-history"),
+        pytest.param(4, 5, 0, 256, 2, 90, id="lowerN0"),
+        pytest.param(3, 4, 32, 128, 2, 100, id="lowerN32"),
+        pytest.param(8, 3, 32, 256, 2, 100, id="lowerN32-two-rings"),
+        pytest.param(4, 5, 2, 256, 1, 90, id="B1"),
+        pytest.param(8, 3, 2, 256, 2, 90, id="C8-P3"),
+        pytest.param(1, 24, 2, 128, 2, 90, id="C1-P24"),
+        pytest.param(5, 4, 1, 128, 2, 90, id="C5-P4"),
+        pytest.param(6, 4, 3, 128, 2, 90, id="C6-P4"),
+        pytest.param(7, 3, 2, 128, 2, 90, id="C7-P3"),
+        pytest.param(4, 6, 2, 256, 2, 90, id="C4-P6"),
+        pytest.param(4, 6, 32, 256, 2, 100, id="C4-P6-lowerN32-two-rings"),
+        pytest.param(4, 5, 2, 256, 2, 1254, id="config4-Tf1254"),
+    ],
 )
-def test_wpe_resid_kernel_matches_plain(dev, C, P, lowerN, M, B):
-    Yp, G = _wpe_case(C * P + lowerN, 70, B, C, M, P)
+def test_wpe_resid_kernel_matches_plain(dev, C, P, lowerN, M, B, Tf):
+    Yp, G = _wpe_case(C * P + lowerN, Tf, B, C, M, P)
     ref = wpe_resid(Yp, G, lowerN)
     before = wpe_resid.launches
     got = wpe_resid(Yp.to(dev), G.to(dev), lowerN)

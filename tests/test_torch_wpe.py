@@ -65,14 +65,14 @@ def _worst_system(got, want, lead=3):
     return (d / m).max()
 
 
-def _jax_stats(Xb, Gb):
+def _jax_stats(Xb, Gb, lowerN=LOWER):
     """R and r of one EM iteration of one utterance ``Xb [C, T, F]`` with
     filters ``Gb [C, F, CP]``, in the einsum formulation of JAX
     ``wpe_estimate`` (as tests/test_pallas_wpe.py states it)."""
     C_, T_, F_ = Xb.shape
-    L = j_wpe._lag_tensor(jnp.asarray(Xb), LOWER, P)
+    L = j_wpe._lag_tensor(jnp.asarray(Xb), lowerN, P)
     L = jnp.moveaxis(L, 0, -2).reshape(T_, F_, C_ * P)
-    valid = (jnp.arange(T_) >= LOWER)[:, None]
+    valid = (jnp.arange(T_) >= lowerN)[:, None]
     pred = ceinsum("cfp,tfp->ctf", jnp.conj(jnp.asarray(Gb)), L)
     resid = jnp.asarray(Xb) - jnp.where(valid, pred, 0.0)
     theta = jnp.maximum(jnp.abs(resid), j_wpe.SUBBAND_FLOOR) ** 2
@@ -130,6 +130,39 @@ def test_stats_match_jax_formulation(frames, has_g):
     R, r = wpe_kernels.stats_plain(torch.from_numpy(X), torch.from_numpy(G), LOWER, P, has_g)
     _close(R, np.stack(Rw), 2e-4)
     _close(r, np.stack(rw), 2e-4)
+
+
+# where the card kernels' history logic sits: T within the delay (no frame
+# carries weight), T within the lag history (T = lowerN + P - 1), no delay
+EDGES = [(LOWER, LOWER), (LOWER, LOWER + P - 1), (0, 40)]
+
+
+@pytest.mark.parametrize("has_g", [False, True])
+@pytest.mark.parametrize("lowerN,T_", EDGES)
+def test_stats_match_jax_formulation_at_history_edges(lowerN, T_, has_g):
+    """`stats_plain`, the specification the card kernel is held to, against
+    the JAX formulation where the lag history is all or part of the frames."""
+    rng = np.random.default_rng(10 * lowerN + T_)
+    X = _cplx(rng, 2, 2, T_, 17, scale=30.0)
+    X.imag[..., 0] = 0
+    X.imag[..., -1] = 0
+    G = _cplx(rng, 2, 2, 17, 2 * P, scale=0.1) if has_g else np.zeros((2, 2, 17, 2 * P),
+                                                                       np.complex64)
+    Rw, rw = zip(*(_jax_stats(X[b], G[b], lowerN) for b in range(2)))
+    R, r = wpe_kernels.stats_plain(torch.from_numpy(X), torch.from_numpy(G), lowerN, P, has_g)
+    _close(R, np.stack(Rw), 2e-4)
+    _close(r, np.stack(rw), 2e-4)
+    if T_ <= lowerN:  # no frame carries weight
+        assert not R.abs().any() and not r.abs().any()
+
+
+@pytest.mark.parametrize("lowerN,T_", EDGES)
+def test_apply_matches_jax_at_history_edges(lowerN, T_):
+    rng = np.random.default_rng(20 * lowerN + T_)
+    X = _cplx(rng, 3, T_, 17, scale=30.0)
+    G = _cplx(rng, 3, 17, 3 * P, scale=0.1)
+    want = j_wpe.wpe_apply(jnp.asarray(X), jnp.asarray(G), lowerN)
+    _close(t_wpe.wpe_apply(torch.from_numpy(X), torch.from_numpy(G), lowerN), want, 1e-5)
 
 
 def test_stats_on_chain_frames_with_em_filters():
