@@ -63,7 +63,11 @@ Phases (each raises on failure; the script then exits non-zero):
      reconstruction SNR (>= 50 dB), both banks against their plain versions,
      CUDA-event times of the round trip and of K13 alone beside its plain
      version and one grouped conv1d.
-Phase 2 also prints K4's and K5's blocks per SM and shared memory at
+Phase 2 also prints K2/K6's launch (blocks, threads, frames a chunk, shared
+memory, registers, blocks per SM) at B = 256, 132, 64 and 1 (C = 4) and at
+B = 256, C = 8; phase 5 also times K2 on the first 64 utterances and on the
+first alone, phase 9 K6 at B = 256 (the batch four times).  Phase 2 also
+prints K4's and K5's blocks per SM and shared memory at
 C = 2..8, and K10's and K11's blocks per SM, threads and shared memory at the
 config-4 shape and at C*P = 24 with lowerN = 32 (the compiler's registers and
 spills are in its report above them).  Phase 6c times K10 in both of the
@@ -88,7 +92,8 @@ The line before the last two is a JSON object with one entry per kernel
 path's, one forward each; K4, K5 and K8 also carry their error against the
 split kernels, K1, K3 and K8 the time of torch.fft over the same rows as a
 second yardstick, "fft_ms", K1 its dense-product route's time at M = 256,
-"dense_route_ms"); the line before the last is the card's name and
+"dense_route_ms"; K2 and K6 their times and launches at other batches,
+"ms_by_batch" and "launch_by_batch"); the line before the last is the card's name and
 power limit; the last line is {"ok": true, "device": {...}}.  Imports
 nothing of JAX.
 """
@@ -179,6 +184,7 @@ def main() -> None:
         analysis_gsc_synthesis,
         gsc_rls_zelinski,
         gsc_rls_zelinski_steered,
+        scan_launch_shape,
     )
     from distant_speech_recognition_tpu_torch.models.pipeline import (
         FIXED_WEIGHT,
@@ -252,6 +258,15 @@ def main() -> None:
                 C_, synth, 7, ctypes.addressof(blocks), ctypes.addressof(smem)), name)
             log(f"  {name} C={C_}: {blocks.value} blocks per SM, {smem.value} bytes of dynamic "
                 f"shared memory per block")
+    # K2/K6's launch at the batches timed below (C = 4, M = 256) and at C = 8
+    scan_shapes = {}
+    for B_, C_ in ((256, 4), (132, 4), (64, 4), (1, 4), (256, 8)):
+        sh = scan_launch_shape(B_, C_, 256)
+        scan_shapes[f"B={B_} C={C_}"] = sh
+        log(f"  gsc_rls_zelinski(_steered) B={B_} C={C_}: {sh['blocks']} blocks x "
+            f"{sh['threads']} threads, {sh['frames']} frames a chunk, {sh['smem_bytes']} bytes of "
+            f"dynamic shared memory, {sh['registers']} registers, {sh['blocks_per_sm']} blocks "
+            f"per SM")
     # K10 and K11 at the config-4 shape (C = 4, P = 5, lowerN = 2, M = 256) and
     # at C*P = 24 with the deepest delay
     for C_, P_, low_ in ((4, 5, 2), (8, 3, 32)):
@@ -703,6 +718,13 @@ def main() -> None:
                                 time_ms(lambda: plain_analysis(x), 5))
         times["gsc_rls_zelinski"] = (time_ms(lambda: gsc_rls_zelinski(Yr, *scan_args), 5),
                                      plain_k2_ms)
+        Yr64 = Yr[:, :64].contiguous()
+        scan_ms = {"gsc_rls_zelinski": {
+            "B=256": times["gsc_rls_zelinski"][0],
+            "B=64": time_ms(lambda: gsc_rls_zelinski(Yr64, *scan_args), 5),
+            # one utterance alone: the latency of the frame chain times Tf
+            "B=1": time_ms(lambda: gsc_rls_zelinski(Yr64[:, :1].contiguous(), *scan_args), 5)}}
+        del Yr64
         times["synthesis_tm"] = (time_ms(lambda: synthesis_tm_fused(Yp, enh.g, fb, S=enh.S), 5),
                                  time_ms(lambda: plain_synthesis(Yp), 5))
         # the one-kernel chains beside the split kernels on the same input;
@@ -740,6 +762,9 @@ def main() -> None:
     plain_path_ms = sum(times[name][1] for name in ("analysis_tm", "gsc_rls_zelinski",
                                                     "synthesis_tm"))
     audio_s = B * secs
+    log(f"  gsc_rls_zelinski on the same input's first 64 utterances: kernel "
+        f"{scan_ms['gsc_rls_zelinski']['B=64']:.3f} ms; first utterance alone (the frame "
+        f"chain's latency x Tf): {scan_ms['gsc_rls_zelinski']['B=1']:.3f} ms")
     for name in ("analysis_tm", "gsc_rls_zelinski", "synthesis_tm", "gsc_analysis", "gsc_mono"):
         k_ms, p_ms = times[name]
         lib = library[name]
@@ -1064,13 +1089,21 @@ def main() -> None:
         del Yb_ref
         times["gsc_rls_zelinski_steered"] = (
             time_ms(lambda: gsc_rls_zelinski_steered(Yp5, *steer5, *scan_tail), 3), plain_k6_ms)
+        # four copies of the batch, each utterance with its own steering
+        Yp5x4 = Yp5.repeat(1, 4, 1, 1)
+        steer5x4 = [w.repeat((4,) + (1,) * (w.dim() - 1)) for w in steer5]
+        scan_ms["gsc_rls_zelinski_steered"] = {
+            "B=64": times["gsc_rls_zelinski_steered"][0],
+            "B=256": time_ms(lambda: gsc_rls_zelinski_steered(Yp5x4, *steer5x4, *scan_tail), 3)}
+        del Yp5x4, steer5x4
         library["gsc_rls_zelinski_steered"] = None
         srp_ms = time_ms(lambda: enh5.steer(Yp5), 3)
         path5_ms = time_ms(lambda: enh5(x5), 3)
         del Yp5, steer5
     audio5_s = B5 * secs
     log(f"  gsc_rls_zelinski_steered: kernel {times['gsc_rls_zelinski_steered'][0]:.3f} ms   "
-        f"plain {plain_k6_ms:.3f} ms   library -")
+        f"plain {plain_k6_ms:.3f} ms   library -   at B=256 (the batch four times): "
+        f"{scan_ms['gsc_rls_zelinski_steered']['B=256']:.3f} ms")
     log(f"  SRP stage (unpack, SRP-PHAT over {len(phis5)} points, argmax, manifolds, blocking "
         f"matrices): {srp_ms:.3f} ms")
     log(f"  config-5 path: kernels {path5_ms:.3f} ms ({audio5_s / (path5_ms / 1e3):.1f} "
@@ -1234,6 +1267,9 @@ def main() -> None:
             row["fft_ms"] = fft_ms[name]
         if name == "analysis_tm":
             row["dense_route_ms"] = dense_route_ms
+        if name in scan_ms:  # K2 / K6: times at two batches, and the launch at each
+            row["ms_by_batch"] = scan_ms[name]
+            row["launch_by_batch"] = {b: scan_shapes[f"{b} C=4"] for b in scan_ms[name]}
         if name == "wpe_stats":  # "ms" is the later EM iteration's, with filters
             row["first_iteration_ms"] = stats_first_ms
         rows_json.append(row)

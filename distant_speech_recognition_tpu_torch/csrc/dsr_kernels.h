@@ -57,6 +57,12 @@ int dsr_gsc_rls_zelinski_steered(const float* Yp, const float* wq, const float* 
                                  float spectral_floor, int real_mode, int pf_min_frames,
                                  cudaStream_t stream);
 
+// the launch shape that dsr_gsc_rls_zelinski(_steered) takes for (B, C, M):
+// blocks, threads a block, frames a chunk, dynamic shared memory, the
+// kernel's registers a thread and blocks per SM
+int dsr_gsc_rls_zelinski_shape(int B, int C, int M, int* blocks, int* threads, int* frames,
+                               int* smem_bytes, int* regs, int* blocks_per_sm);
+
 // wq, ta: interleaved complex64 [F, C]
 int dsr_zelinski_apply(const float* Yp, const float* wq, const float* ta, float* out, int Tf,
                        int B, int C, int M, float pf_alpha, float one_minus_pf_alpha,

@@ -20,7 +20,7 @@
 // at B=256 x 4 ch x 10 s (0.25 ms at 3.35 TB/s; K5's 0.98 GB); its
 // transforms done by FFT and the RLS step need ~39 GFLOP (0.59 ms at the
 // FP32 peak).  What bounds this kernel: the RLS recursion, sequential over
-// an utterance's frames, ~4.5k cycles a frame (PERF.md), with a block
+// an utterance's frames, ~2.2k cycles a frame (PERF.md), with a block
 // reduction for the silence gate.  Design (K8's, csrc/fw_mono.cu, with the
 // RLS step in place of the fixed-weight one): one block of 256 threads per
 // utterance walks the frames in tiles of K = 64 / C frames; per tile it
@@ -150,18 +150,8 @@ gsc_mono_kernel(const float* __restrict__ x, const float* __restrict__ hr,
   const int lane = tid & 31;
   const int warp = tid >> 5;
   constexpr int nwarps = SCAN_THREADS / 32;
-  cf waH[BC], off[gsc_np(BC)];
-  float d[BC];
-#pragma unroll
-  for (int i = 0; i < BC; ++i) {
-    waH[i] = {0.f, 0.f};
-    d[i] = p.inv_delta;
-  }
-#pragma unroll
-  for (int n = 0; n < gsc_np(BC); ++n) off[n] = {0.f, 0.f};
-  cf phi_pair = {0.f, 0.f};
-  float phi_diag = 0.f;
-  float energy = p.delta;
+  GscState<BC> S = gsc_start<BC>(p);
+  GscFrontState fs = {{0.f, 0.f}, 0.f, p.delta};
 
   fft::stage_twiddles(smem, tw);
   const fft::Consts kc = fft::consts(tw);
@@ -203,8 +193,7 @@ gsc_mono_kernel(const float* __restrict__ x, const float* __restrict__ hr,
             for (int c = 0; c < C; ++c)
               bmc[i][c] = {sw[(4 * C + 2 * (i * C + c)) * F + fc],
                            sw[(4 * C + 2 * (i * C + c) + 1) * F + fc]};
-          Y = gsc_rls_zelinski_step<C, BC>(waH, off, d, phi_pair, phi_diag, energy, wqc, bmc,
-                                           tac, X, energy_t, t, p);
+          Y = gsc_rls_zelinski_step<C, BC>(S, fs, wqc, bmc, tac, X, energy_t, t, p);
           if (!SYNTH && owns_bin) {
             float* yrow = out + ((size_t)t * B + b) * M_;
             yrow[f] = Y.r;

@@ -3,26 +3,42 @@
 // one-kernel chains (K4/K5, csrc/gsc_mono.cu), so they round alike.  It
 // computes what models/adaptive_gsc.gsc_postfilter_fused(kind="rls",
 // real_packed=True, energy=None) computes for one frame, operation for
-// operation:
-//   blocking output Z = BmH X, quiescent output Yc = wqH X; RLS gain with the
-//   compressed Hermitian precision Pz (real diagonal + upper triangle);
-//   active-weight update with regularisation; quadratic constraint and norm
-//   cap with precision reset; the silence gate on the smoothed reference-
-//   channel frame energy; the Zelinski pair/trace CSD EMA and clamped gain.
-// The frame energy couples the bins of an utterance: `block_sum` adds one
-// value per thread over the block (warp shuffles, one barrier).
-// Speculative values never meet a blend: the norm cap's sqrt(max/||wa||^2)
-// is computed only inside the branch that uses it.  IEEE division and sqrtf.
+// operation, in two halves:
+//   - the state-free front (`gsc_front`): blocking output Z = BmH X,
+//     quiescent output Yc = wqH X, the silence gate on the smoothed
+//     reference-channel frame energy, the Zelinski pair/trace CSD EMA and
+//     clamped gain; it reads the bin's snapshot and fixed weights and carries
+//     only the energy and CSD recursions, none of the RLS state;
+//   - the state update (`gsc_update`): RLS gain with the compressed Hermitian
+//     precision Pz (real diagonal + upper triangle); active-weight update with
+//     regularisation; quadratic constraint and norm cap with precision reset;
+//     the gated commit; the output.
+// Each half runs its divisions through a policy (dsr_device.h):
+// BranchFreeOps, and where it cannot vouch for a quotient, IeeeOps again
+// from the same inputs, so both give the IEEE operators' bits.  The halves'
+// other operations are the ones the step had in one piece, in the same
+// order; the front has no branch, so a compiler can interleave it with
+// other work.  Speculative values never meet a blend: the norm cap's
+// sqrt(max/||wa||^2) is computed only inside the branch that uses it (IEEE
+// sqrtf there).
+// The frame energy couples the bins of an utterance: K4/K5 reduce it each
+// frame with `block_sum` (warp shuffles, one barrier); K2/K6 compute it a
+// chunk of frames at a time in the same order, from `energy_term`.
 #pragma once
 
 #include "dsr_device.h"
 
 namespace dsr {
 
-__device__ __forceinline__ cf cdiv(cf a, cf b) {
-  float s = b.r * b.r + b.i * b.i;
-  s = s > 0.f ? s : 1.f;
-  return {(a.r * b.r + a.i * b.i) / s, (a.i * b.r - a.r * b.i) / s};
+// a / b for complex a, b: a conj(b) / |b|^2 (1 where |b|^2 is 0); rb is
+// op.recip of that divisor, shared by the quotients of one b
+__device__ __forceinline__ float cdiv_divisor(cf b) {
+  const float s = b.r * b.r + b.i * b.i;
+  return s > 0.f ? s : 1.f;
+}
+template <class Ops>
+__device__ __forceinline__ cf cdiv(cf a, cf b, typename Ops::R rb, Ops& op) {
+  return {op.div(a.r * b.r + a.i * b.i, rb), op.div(a.i * b.r - a.r * b.i, rb)};
 }
 
 struct GscParams {
@@ -80,34 +96,104 @@ __device__ __forceinline__ float block_sum(float v, float* red, int lane, int wa
   return sum;
 }
 
-// Frame t of one bin: snapshot X, the bin's weights (wqc = wqH, bmc = BmH,
-// tac = conj of the alignment manifold) and the utterance's reference-channel
-// frame energy energy_t -> the beamformed, postfiltered output.  The bin's
-// adaptive state for the whole utterance: the active weights waH, the
-// compressed precision (diagonal d, upper triangle off), the Zelinski sums
-// phi_pair and phi_diag and the smoothed frame energy; a new utterance
-// starts from waH = 0, d = 1/delta, off = 0, phi = 0, energy = delta.
-template <int C, int BC>
-__device__ __forceinline__ cf gsc_rls_zelinski_step(cf (&waH)[BC], cf (&off)[gsc_np(BC)],
-                                                    float (&d)[BC], cf& phi_pair, float& phi_diag,
-                                                    float& energy, const cf (&wqc)[C],
-                                                    const cf (&bmc)[BC][C], const cf (&tac)[C],
-                                                    const cf (&X)[C], float energy_t, int t,
-                                                    const GscParams& p) {
-  constexpr int NP = gsc_np(BC);
-  const bool gate = energy_t > energy / p.sil_thresh;
+// One reference-channel bin's term of the frame energy: ew |X0|^2 (ew = 1 at
+// DC and Nyquist, 2 elsewhere), with nvcc's contraction of cabs2 written out
+__device__ __forceinline__ float energy_term(float ew, cf x0) {
+  return __fmul_rn(ew, __fmaf_rn(x0.r, x0.r, __fmul_rn(x0.i, x0.i)));
+}
 
+// The adaptive state of one bin for the whole utterance: the active weights
+// waH and the compressed precision (diagonal d, upper triangle off); a new
+// utterance starts from waH = 0, d = 1/delta, off = 0
+template <int BC>
+struct GscState {
+  cf waH[BC];
+  cf off[gsc_np(BC)];
+  float d[BC];
+};
+
+// The recursions of the front: the Zelinski sums and the smoothed frame
+// energy; a new utterance starts from phi = 0, energy = delta
+struct GscFrontState {
+  cf phi_pair;
+  float phi_diag;
+  float energy;
+};
+
+// A new utterance's state
+template <int BC>
+__device__ __forceinline__ GscState<BC> gsc_start(const GscParams& p) {
+  GscState<BC> S;
+#pragma unroll
+  for (int i = 0; i < BC; ++i) {
+    S.waH[i] = {0.f, 0.f};
+    S.d[i] = p.inv_delta;
+  }
+#pragma unroll
+  for (int n = 0; n < gsc_np(BC); ++n) S.off[n] = {0.f, 0.f};
+  return S;
+}
+
+// What the front hands the update for one frame
+template <int BC>
+struct GscFront {
   cf Z[BC];
+  cf Yc;
+  float W;    // Zelinski gain
+  bool gate;  // the frame adapts
+};
+
+// The state-free front of frame t of one bin: snapshot X, the bin's weights
+// (wqc = wqH, bmc = BmH, tac = conj of the alignment manifold) and the
+// utterance's reference-channel frame energy energy_t.
+template <int C, int BC, class Ops>
+__device__ __forceinline__ void gsc_front(GscFront<BC>& o, GscFrontState& s, const cf (&wqc)[C],
+                                          const cf (&bmc)[BC][C], const cf (&tac)[C],
+                                          const cf (&X)[C], float energy_t, int t,
+                                          const GscParams& p, Ops& op) {
+  o.gate = energy_t > op.div(s.energy, op.recip(p.sil_thresh));
 #pragma unroll
   for (int i = 0; i < BC; ++i) {
     cf z = {0.f, 0.f};
 #pragma unroll
     for (int c = 0; c < C; ++c) z = cadd(z, cmul(bmc[i][c], X[c]));
-    Z[i] = z;
+    o.Z[i] = z;
   }
   cf Yc = {0.f, 0.f};
 #pragma unroll
   for (int c = 0; c < C; ++c) Yc = cadd(Yc, cmul(wqc[c], X[c]));
+  o.Yc = Yc;
+  s.energy = s.energy * p.beta + p.one_minus_beta * energy_t;
+  // Zelinski postfilter on the time-aligned snapshot: dsr_device.h's
+  // zelinski_gain without a branch (the frame count and the trace pick with
+  // selects, the quotient by 1 where the trace is 0), |phi_pair|^2 fused as
+  // nvcc fused it there
+  cf ps;
+  float ds;
+  zelinski_sums<C>(tac, X, ps, ds);
+  const ZelinskiParams& z = p.pf;
+  const cf pe = cadd(cscale(s.phi_pair, z.alpha), cscale(ps, z.one_minus_alpha));
+  const float de = z.alpha * s.phi_diag + z.one_minus_alpha * ds;
+  s.phi_pair = t > 1 ? pe : ps;
+  s.phi_diag = t > 1 ? de : ds;
+  const cf& ph = s.phi_pair;
+  const float mod = op.sqrt(z.real_mode ? 1.f : __fmaf_rn(ph.r, ph.r, __fmul_rn(ph.i, ph.i)));
+  const float num = z.real_mode ? fmaxf(ph.r, 0.f) : mod;
+  const bool trace = s.phi_diag > 0.f;
+  const float q = op.div(num, op.recip(trace ? s.phi_diag : 1.f));
+  o.W = fminf(fmaxf((trace ? q : 0.f) * z.gain, z.spectral_floor), 1.f);
+}
+
+// The state update of frame t of one bin from its front: the new state in S,
+// the beamformed, postfiltered output returned.
+template <int BC, class Ops>
+__device__ __forceinline__ cf gsc_update(GscState<BC>& S, const GscFront<BC>& fr, int t,
+                                         const GscParams& p, Ops& op) {
+  constexpr int NP = gsc_np(BC);
+  cf(&waH)[BC] = S.waH;
+  cf(&off)[NP] = S.off;
+  float(&d)[BC] = S.d;
+  const cf(&Z)[BC] = fr.Z;
 
   // gain vector and precision update
   cf PzZ[BC];
@@ -116,12 +202,14 @@ __device__ __forceinline__ cf gsc_rls_zelinski_step(cf (&waH)[BC], cf (&off)[gsc
 #pragma unroll
   for (int i = 0; i < BC; ++i) ip = cadd(ip, cmul(cconj(Z[i]), PzZ[i]));
   const cf den = {p.mu + ip.r, ip.i};
+  const typename Ops::R rmu = op.recip(p.mu);
+  const typename Ops::R rden = op.recip(cdiv_divisor(den));
   cf gz[BC];
   float dK[BC];
 #pragma unroll
   for (int i = 0; i < BC; ++i) {
-    gz[i] = cdiv(PzZ[i], den);
-    dK[i] = (d[i] - cmulc(gz[i], PzZ[i]).r) / p.mu;
+    gz[i] = cdiv(PzZ[i], den, rden, op);
+    dK[i] = op.div(d[i] - cmulc(gz[i], PzZ[i]).r, rmu);
   }
   cf offK[NP];
 #pragma unroll
@@ -132,11 +220,11 @@ __device__ __forceinline__ cf gsc_rls_zelinski_step(cf (&waH)[BC], cf (&off)[gsc
     for (int j = i + 1; j < BC; ++j) {
       const int n = pidx<BC>(i, j);
       const cf v = csub(off[n], cmulc(gz[i], PzZ[j]));
-      offK[n] = {v.r / p.mu, v.i / p.mu};
+      offK[n] = {op.div(v.r, rmu), op.div(v.i, rmu)};
     }
 
   // active weight update
-  cf ep = Yc;
+  cf ep = fr.Yc;
 #pragma unroll
   for (int i = 0; i < BC; ++i) ep = csub(ep, cmul(waH[i], Z[i]));
   cf wn[BC];
@@ -175,14 +263,15 @@ __device__ __forceinline__ cf gsc_rls_zelinski_step(cf (&waH)[BC], cf (&off)[gsc
       const float cc = waK2 - p.alpha2;
       const float arg = bq * bq - 4.f * a * cc;
       const float a_safe = a > 0.f ? a : 1.f;
-      const float betaK = arg > 0.f ? -(bq + sqrtf(arg)) / (2.f * a_safe) : -bq / (2.f * a_safe);
+      const typename Ops::R r2a = op.recip(2.f * a_safe);
+      const float betaK = arg > 0.f ? op.div(-(bq + sqrtf(arg)), r2a) : op.div(-bq, r2a);
 #pragma unroll
       for (int i = 0; i < BC; ++i) wn[i] = csub(wn[i], cscale(cconj(va[i]), betaK));
     }
     // norm cap + precision reset (pybeamformer.py:862-865), on the
     // pre-constraint norm like the reference
     if (p.constraint_option >= 2 && waK2 > p.max_wa_l2norm) {
-      const float scale = sqrtf(p.max_wa_l2norm / waK2);
+      const float scale = sqrtf(op.div(p.max_wa_l2norm, op.recip(waK2)));
 #pragma unroll
       for (int i = 0; i < BC; ++i) {
         wn[i] = cscale(wn[i], scale);
@@ -193,7 +282,7 @@ __device__ __forceinline__ cf gsc_rls_zelinski_step(cf (&waH)[BC], cf (&off)[gsc
     }
   }
 
-  if (gate) {
+  if (fr.gate) {
 #pragma unroll
     for (int i = 0; i < BC; ++i) {
       waH[i] = wn[i];
@@ -202,16 +291,38 @@ __device__ __forceinline__ cf gsc_rls_zelinski_step(cf (&waH)[BC], cf (&off)[gsc
 #pragma unroll
     for (int n = 0; n < NP; ++n) off[n] = offK[n];
   }
-  cf Y = Yc;
+  cf Y = fr.Yc;
   if (t >= p.min_frames) {
 #pragma unroll
     for (int i = 0; i < BC; ++i) Y = csub(Y, cmul(waH[i], Z[i]));
   }
-  energy = energy * p.beta + p.one_minus_beta * energy_t;
+  if (t > p.pf.min_frames) Y = cscale(Y, fr.W);
+  return Y;
+}
 
-  // Zelinski postfilter on the time-aligned snapshot
-  const float W = zelinski_gain<C>(phi_pair, phi_diag, tac, X, t, p.pf);
-  if (t > p.pf.min_frames) Y = cscale(Y, W);
+// Frame t of one bin in one piece: the front, then the update, both with
+// BranchFreeOps, and both again with IeeeOps where it could not vouch for a
+// result.  The state (S, s) moves to frame t + 1.
+template <int C, int BC>
+__device__ __forceinline__ cf gsc_rls_zelinski_step(GscState<BC>& S, GscFrontState& s,
+                                                    const cf (&wqc)[C], const cf (&bmc)[BC][C],
+                                                    const cf (&tac)[C], const cf (&X)[C],
+                                                    float energy_t, int t, const GscParams& p) {
+  BranchFreeOps op;
+  GscFront<BC> fr;
+  GscFrontState s1 = s;
+  gsc_front<C, BC>(fr, s1, wqc, bmc, tac, X, energy_t, t, p, op);
+  GscState<BC> S1 = S;
+  cf Y = gsc_update<BC>(S1, fr, t, p, op);
+  if (!op.ok) {
+    IeeeOps iv;
+    s1 = s;
+    gsc_front<C, BC>(fr, s1, wqc, bmc, tac, X, energy_t, t, p, iv);
+    S1 = S;
+    Y = gsc_update<BC>(S1, fr, t, p, iv);
+  }
+  S = S1;
+  s = s1;
   return Y;
 }
 

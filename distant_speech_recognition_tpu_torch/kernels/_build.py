@@ -55,6 +55,7 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
         _F, _F, _F, _F, _F, _F, _F, _F, _I, _F, _F, _I, _F, _F, _F, _F, _I, _I, _P,
     ],
+    "dsr_gsc_rls_zelinski_shape": [_I, _I, _I, _P, _P, _P, _P, _P, _P],
     "dsr_zelinski_apply": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I, _P],
     "dsr_fw_mono": [
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,

@@ -39,6 +39,7 @@ from .postfilter import PostFilterType, zelinski_args
 __all__ = [
     "gsc_rls_zelinski",
     "gsc_rls_zelinski_steered",
+    "scan_launch_shape",
     "gsc_mono_supported",
     "analysis_gsc_rls_zelinski",
     "analysis_gsc_synthesis",
@@ -131,6 +132,22 @@ def gsc_rls_zelinski_steered(
 
 
 gsc_rls_zelinski_steered.launches = 0
+
+
+def scan_launch_shape(B: int, C: int, M: int) -> dict[str, int]:
+    """The launch K2 and K6 take for ``B`` utterances of ``C`` channels and
+    ``M`` lanes on the current card: blocks, threads a block, frames a chunk,
+    dynamic shared memory (bytes), registers a thread, blocks per SM."""
+    import ctypes
+
+    from ..kernels import _build
+
+    keys = ("blocks", "threads", "frames", "smem_bytes", "registers", "blocks_per_sm")
+    vals = [ctypes.c_int() for _ in keys]
+    code = _build.library().dsr_gsc_rls_zelinski_shape(
+        B, C, M, *(ctypes.addressof(v) for v in vals))
+    _build.check(code, "gsc_rls_zelinski shape")
+    return {k: v.value for k, v in zip(keys, vals)}
 
 
 def gsc_mono_supported(fb: FilterbankParams, C: int) -> bool:

@@ -255,10 +255,10 @@ def _scan_case(C, M, seed, Tf=40, B=3):
     max/||wa||^2 overflows to inf there)."""
     rng = np.random.default_rng(seed)
     Yp = (rng.standard_normal((Tf, B, C, M)) * 100).astype(np.float32)
-    Yp[10:16, 1] *= np.float32(1e-6)
+    Yp[10:16, 1:2] *= np.float32(1e-6)
     lo, hi = 3 * M // 8, M // 2
-    Yp[:, 2, :, lo:hi + 1] *= np.float32(1.8e-8)
-    Yp[:, 2, :, lo + M // 2:] *= np.float32(1.8e-8)
+    Yp[:, 2:3, :, lo:hi + 1] *= np.float32(1.8e-8)
+    Yp[:, 2:3, :, lo + M // 2:] *= np.float32(1.8e-8)
     wqH, BmH = gsc_weights(M, FS, _delays(C), 1)
     vs = array_manifold(M, FS, _delays(C))
     return torch.from_numpy(Yp), wqH, BmH, vs
@@ -273,10 +273,29 @@ def _scan_vs_plain(dev, Yp, wqH, BmH, vs, cfg, pf_type, pf_min_frames):
     _close(got, ref, 2e-4)
 
 
-@pytest.mark.parametrize("C", [2, 3, 4, 5, 6, 7, 8])
-def test_scan_kernel_matches_plain_channel_counts(dev, C):
-    Yp, wqH, BmH, vs = _scan_case(C, 256, seed=C)
+@pytest.mark.parametrize("C,B", [(2, 3), (3, 3), (4, 3), (5, 3), (6, 3), (7, 3), (8, 3),
+                                 (2, 1), (8, 1)])
+def test_scan_kernel_matches_plain_channel_counts(dev, C, B):
+    Yp, wqH, BmH, vs = _scan_case(C, 256, seed=C, B=B)
     _scan_vs_plain(dev, Yp, wqH, BmH, vs, GSCRLSConfig(min_frames=8), 1, 2)
+
+
+@pytest.mark.parametrize("C", [2, 4, 8])
+def test_scan_kernels_around_a_chunk_of_frames(dev, C):
+    """K2 against its plain version, and K6 under one steering for all equal
+    to K2, at 1 frame, one frame fewer than a chunk of the kernel's frame
+    ring, and one and two chunks and a frame."""
+    tc = fused_scan.scan_launch_shape(2, C, 256)["frames"]
+    _, wqH, BmH, vs = _scan_case(C, 256, seed=30 + C, Tf=1, B=2)
+    cfg = GSCRLSConfig(min_frames=2)
+    for Tf in sorted({1, max(tc - 1, 1), tc + 1, 2 * tc + 1}):
+        Yp = _scan_case(C, 256, seed=30 + C + Tf, Tf=Tf, B=2)[0]
+        _scan_vs_plain(dev, Yp, wqH, BmH, vs, cfg, 1, 0)
+        Yd = Yp.to(dev)
+        shared = [w.to(dev) for w in (wqH, BmH, vs)]
+        rows = [w.expand((2,) + w.shape) for w in shared]
+        assert torch.equal(gsc_rls_zelinski_steered(Yd, *rows, cfg, 0.6, 1, 0),
+                           gsc_rls_zelinski(Yd, *shared, cfg, 0.6, 1, 0))
 
 
 @pytest.mark.parametrize(
@@ -639,12 +658,13 @@ def _steerings(C, B):
     return steering_weights(array_manifold(256, FS, torch.from_numpy(delays)))
 
 
-@pytest.mark.parametrize("C", [2, 4, 8])
-def test_steered_scan_kernel_matches_plain(dev, C):
+@pytest.mark.parametrize("C,B", [(2, 3), (4, 3), (8, 3), (4, 1), (4, 63), (4, 64), (4, 133)])
+def test_steered_scan_kernel_matches_plain(dev, C, B):
     """K6 with one steering per utterance against its plain version (the
     case has a gate that closes and near-silent bins), and with one
-    steering for all, against K2 bit for bit."""
-    Yp, wqH, BmH, vs = _scan_case(C, 256, seed=20 + C)
+    steering for all, against K2 bit for bit; batches that take blocks of
+    64 and of 128 threads, with blocks that straddle utterances."""
+    Yp, wqH, BmH, vs = _scan_case(C, 256, seed=20 + C, B=B)
     cfg = GSCRLSConfig(min_frames=8)
     per_utt = _steerings(C, Yp.shape[1])
     ref = gsc_rls_zelinski_steered(Yp, *per_utt, cfg, 0.6, 1, 2)
@@ -775,18 +795,27 @@ def _hash_noise(shape, seed):
     return v.reshape(shape)
 
 
-@pytest.mark.parametrize("tag,Tf,B,C,pf_type,pf_min_frames", [
-    ("a", 24, 2, 3, 1, 2),  # K2, a gate that closes and near-silent bins
-    ("b", 16, 2, 8, 2, 0),  # K2 at C = 8
-    ("s", 16, 3, 4, 1, 2),  # K6, one steering per utterance
+@pytest.mark.parametrize("tag,Tf,B,C,pf_type,pf_min_frames,M", [
+    ("a", 24, 2, 3, 1, 2, 32),  # K2, a gate that closes and near-silent bins
+    ("b", 16, 2, 8, 2, 0, 32),  # K2 at C = 8
+    ("s", 16, 3, 4, 1, 2, 32),  # K6, one steering per utterance
+    # F = 129: five groups of 32 bins, the last with one; 37 frames, no
+    # multiple of a chunk of frames; the gate closes and the top bins are
+    # near-silent in each case
+    ("a", 37, 2, 4, 1, 2, 256),  # K2
+    ("b", 37, 2, 8, 2, 0, 256),  # K2 at C = 8
+    ("s", 37, 3, 4, 1, 2, 256),  # K6, three steerings
 ])
-def test_scan_kernels_equal_stored_outputs(dev, tag, Tf, B, C, pf_type, pf_min_frames):
+def test_scan_kernels_equal_stored_outputs(dev, tag, Tf, B, C, pf_type, pf_min_frames, M):
     """K2 and K6 give, bit for bit, the outputs stored from their kernels as
-    they were before the per-frame step became a shared device function."""
-    z = np.load(Path(__file__).parent / "data" / "gsc_scan_case.npz")
-    M = 32
-    Yp = _hash_noise((Tf, B, C, M), ord(tag))
-    if tag != "s":
+    they were before the per-frame step became a shared device function (M =
+    32, ``gsc_scan_case.npz``) and before the scan was cut into chunks of
+    frames and blocks of bins (M = 256, ``gsc_scan_case_m256.npz``, from
+    ``tests/probe_gsc_scan_phases.py --write-case``)."""
+    z = np.load(Path(__file__).parent / "data" /
+                ("gsc_scan_case.npz" if M == 32 else "gsc_scan_case_m256.npz"))
+    Yp = _hash_noise((Tf, B, C, M), ord(tag) + (M if M == 256 else 0))
+    if tag != "s" or M == 256:
         Yp[8:12, 1] *= np.float32(1e-6)
         lo, hi = 3 * M // 8, M // 2
         Yp[:, -1, :, lo:hi + 1] *= np.float32(1.8e-8)
