@@ -33,10 +33,12 @@ Phases (each raises on failure; the script then exits non-zero):
      build_pipeline() with the default device on the same B=256 x 4 ch x
      10 s plus a far-end playback, launch counts around one forward (each
      kernel exactly as often as the path needs it); each of
-     its new kernels against its plain version at that shape and the path's
-     output against the plain chain; CUDA-event times of each kernel (beside
-     its plain version, its least time on the card and, where one exists, one
-     PyTorch call computing the same function) and of the whole path;
+     its new kernels against its plain version at that shape (the echo
+     canceller also in its Kalman form, the solve also at the widest systems
+     WPE takes, C*P = 24) and the path's output against the plain chain;
+     CUDA-event times of each kernel (beside its plain version, its least time
+     on the card and, where one exists, one PyTorch call computing the same
+     function; both Kalman and n = 24 too) and of the whole path;
   7. torch.profiler over three flagship and three config-4 forwards: device
      time per kernel and the device's idle share (reported, not checked);
   8. the fixed-weight path (BASELINE configs 1-2, D&S and SD-MVDR +
@@ -93,7 +95,8 @@ path's, one forward each; K4, K5 and K8 also carry their error against the
 split kernels, K1, K3 and K8 the time of torch.fft over the same rows as a
 second yardstick, "fft_ms", K1 its dense-product route's time at M = 256,
 "dense_route_ms"; K2 and K6 their times and launches at other batches,
-"ms_by_batch" and "launch_by_batch"); the line before the last is the card's name and
+"ms_by_batch" and "launch_by_batch"; K9 its Kalman form's time,
+"kalman_ms", and K12 its time, bound and library time at n = 24, "n24"); the line before the last is the card's name and
 power limit; the last line is {"ok": true, "device": {...}}.  Imports
 nothing of JAX.
 """
@@ -118,6 +121,9 @@ SEED = 0
 # exact solution; the loaded systems of the chain's frames have condition
 # numbers up to ~1000, and 1e-3 of a system's own max|x| leaves ~10x
 GJ_SYS_BUDGET = 1e-3
+# the Kalman echo canceller's beta and sigma2 where the smoke runs it (the
+# JAX package's test values)
+KALMAN_P = (0.95, 1e-3)
 # H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): HBM bytes/s, FP32
 # flop/s outside the tensor cores, FP64 flop/s on the tensor cores (34e12 on
 # the CUDA cores), which K10's FP64 residual runs on
@@ -427,7 +433,7 @@ def main() -> None:
     Vs[40:80, 1:4] *= 1e-3
     n_closed = (unpack_half(Vs).abs() ** 2 <= cfg4.aec_threshold).sum().item()
     log(f"  far end: {n_closed} of {Vs.numel() // M * F} (frame, utterance, bin) gates closed")
-    for kind, p1, p2 in (("nlms", cfg4.aec_delta, cfg4.aec_epsilon), ("kalman", 0.95, 1e-3)):
+    for kind, p1, p2 in (("nlms", cfg4.aec_delta, cfg4.aec_epsilon), ("kalman", *KALMAN_P)):
         compare(f"aec_scan {kind}", aec_scan(Yr_ref, Vs, kind, p1, p2, cfg4.aec_threshold),
                 plain_aec(Yr_ref, Vs, kind, p1, p2), 1e-4, "aec_scan")
     Ya = plain_aec(Yr_ref, Vs)
@@ -812,6 +818,9 @@ def main() -> None:
         Ya_ref = plain_aec(Yr, Vp)
         compare("aec_scan", aec_scan(Yr, Vp, "nlms", cfg4.aec_delta, cfg4.aec_epsilon,
                                      cfg4.aec_threshold), Ya_ref, 1e-4, "aec_scan")
+        # the Kalman form at the same shape (config 4 runs NLMS)
+        compare("aec_scan kalman", aec_scan(Yr, Vp, "kalman", *KALMAN_P, cfg4.aec_threshold),
+                plain_aec(Yr, Vp, "kalman", *KALMAN_P), 1e-4, "aec_scan")
         del Yr
         G0 = torch.zeros((B, C, F, C * P), dtype=torch.complex64, device=dev)
         Xa = frames(Ya_ref)
@@ -831,6 +840,12 @@ def main() -> None:
         del Rk, rk
         G2 = wpe_truncate_taps(gj_solve_plain(wpe_load(R), r), C, lower)
         del R, r
+        # the solve at the widest systems WPE takes, C*P = 24 (P + 1 taps)
+        R24, r24 = wpe_stats(Ya_ref, torch.zeros((B, C, F, C * (P + 1)), dtype=torch.complex64,
+                                                 device=dev), lower, P + 1, False)
+        R24 = wpe_load(R24)
+        compare("gj_solve n=24", gj_solve(R24, r24), gj_solve_plain(R24, r24), 1e-4, "gj_solve",
+                lead=3, sys_budget=GJ_SYS_BUDGET)
         compare("wpe_resid", wpe_resid(Ya_ref, G2, lower),
                 pack_half(resid_plain(Xa, G2, lower).permute(2, 0, 1, 3)), 1e-5, "wpe_resid")
         del Xa
@@ -846,6 +861,8 @@ def main() -> None:
                                      cfg4.aec_threshold), 5),
             time_ms(lambda: plain_aec(Ya, Vp), 1))
         library["aec_scan"] = None
+        kalman_ms = (time_ms(lambda: aec_scan(Ya, Vp, "kalman", *KALMAN_P, cfg4.aec_threshold), 5),
+                     time_ms(lambda: plain_aec(Ya, Vp, "kalman", *KALMAN_P), 1))
         # both of the path's calls: the first EM iteration (no filters, no
         # FP64 residual) and the later one
         stats_first_ms = time_ms(lambda: wpe_stats(Ya, G0, lower, P, False), 3)
@@ -872,6 +889,10 @@ def main() -> None:
         library["gj_solve"] = time_ms(lambda: torch.linalg.solve(R, r[..., None]), 3)
         n_sys = r.numel() // (C * P)
         del R, r
+        gj24_ms = (time_ms(lambda: gj_solve(R24, r24), 5),
+                   time_ms(lambda: gj_solve_plain(R24, r24), 1),
+                   time_ms(lambda: torch.linalg.solve(R24, r24[..., None]), 3))
+        del R24, r24
         times["wpe_resid"] = (time_ms(lambda: wpe_resid(Ya, G2, lower), 5),
                               time_ms(lambda: resid_plain(frames(Ya), G2, lower), 1))
         del Ya, Ya_ref, Vp, G0, G1, G2
@@ -881,6 +902,9 @@ def main() -> None:
         lib = library[name]
         log(f"  {name}: kernel {k_ms:.3f} ms   plain {p_ms:.3f} ms   "
             f"library {'-' if lib is None else f'{lib:.3f} ms'}")
+    log(f"  aec_scan kalman: kernel {kalman_ms[0]:.3f} ms   plain {kalman_ms[1]:.3f} ms")
+    log(f"  gj_solve n=24: kernel {gj24_ms[0]:.3f} ms   plain {gj24_ms[1]:.3f} ms   "
+        f"library {gj24_ms[2]:.3f} ms")
     log(f"  wpe_stats, first EM iteration (no filters): kernel {stats_first_ms:.3f} ms")
     log(f"  config-4 path: kernels {path4_ms:.3f} ms "
         f"({audio_s / (path4_ms / 1e3):.1f} audio-s/s/GPU)   plain {plain_path4_ms:.3f} ms "
@@ -1187,6 +1211,9 @@ def main() -> None:
     zel_flops = 8 * (3 * C + C * (C - 1) // 2)  # K7's per (frame, utterance, bin)
     rls_flops = 8 * scan_macs * Tf * B * F  # the scan's per (frame, utterance, bin) work
     fir_rows = B * C * Tf  # the round trip's analysis FIR: rows out, and (m-1)*R more in
+    def gj_bound(n):  # n_sys systems of n: R, r read once, x written once
+        return bound(8 * n_sys * (n * n + 2 * n), n_sys * 8 * n * n * (n + 1))
+
     bounds = {
         "analysis_tm": bound(4 * (B * C * T + rows * M + M * M + fb.N),
                              rows * fft_flops + fir_in),
@@ -1199,7 +1226,7 @@ def main() -> None:
         "wpe_stats": bound(4 * rows * M + 8 * B * C * F * (CP * CP + 2 * CP),
                            B * C * F * valid * (8 * CP * (CP + 1) // 2 + 2 * CP + 8 * CP),
                            B * C * F * valid * 8 * CP),
-        "gj_solve": bound(8 * n_sys * (CP * CP + 2 * CP), n_sys * 8 * CP * CP * (CP + 1)),
+        "gj_solve": gj_bound(CP),
         "wpe_resid": bound(8 * rows * M + 8 * B * C * F * CP, 8 * CP * B * C * F * valid),
     }
     rows5 = Tf * B5 * C
@@ -1272,6 +1299,12 @@ def main() -> None:
             row["launch_by_batch"] = {b: scan_shapes[f"{b} C=4"] for b in scan_ms[name]}
         if name == "wpe_stats":  # "ms" is the later EM iteration's, with filters
             row["first_iteration_ms"] = stats_first_ms
+        if name == "aec_scan":  # "ms" is NLMS's, the path's
+            row["kalman_ms"], row["kalman_plain_ms"] = kalman_ms
+        if name == "gj_solve":  # "ms" is n = C*P = 20's, the path's
+            b24 = gj_bound(C * (P + 1))
+            row["n24"] = {"ms": gj24_ms[0], "plain_ms": gj24_ms[1], "library_ms": gj24_ms[2],
+                          "bound_ms": b24[0], "bound_by": b24[1]}
         rows_json.append(row)
     log(f"script time {time.perf_counter() - t_script:.1f} s")
     log(json.dumps({"kernels": rows_json}))

@@ -14,111 +14,360 @@
 //
 // What bounds it on an H100: each (utterance, channel, bin) reads 16 bytes
 // and writes 8 per frame for a few dozen flops, so it is bound by memory
-// (2.96 GB at B=256 x 4 ch x 10 s, 0.88 ms at 3.35 TB/s).  Design: one thread
-// per (utterance, channel, bin), the filter (and the Kalman state) in
-// registers for the whole utterance; neighbouring threads take neighbouring
-// bins of one packed row, so every frame's reads and writes are coalesced;
-// frames go in groups of K, and the next group's loads start before the
-// current group is processed, so K frames of loads are in flight per thread.
-// The DC and Nyquist bins have no Im lane and read it as 0.  The gate and the
-// guarded quotient A conj(V)/|V|^2 are branches (selects), never blends: a
-// speculative quotient on a silent bin never reaches the state.
+// (2.96 GB at B=256 x 4 ch x 10 s, 0.88 ms at 3.35 TB/s).  Design:
+//   - A block takes one utterance and a group of cg channels (cg divides C;
+//     the host takes the largest that fits a block and still gives the card
+//     a block for each SM), one thread a (channel, bin) of the group, the
+//     filter (and the Kalman state) in registers for the whole utterance.
+//   - A frame's rows of the group (cg x M floats of A, contiguous) and its
+//     far-end row (M floats of V, read once for the group's channels) are
+//     staged into a shared-memory ring by 16-byte cp.async copies, DG steps
+//     of S frames ahead of the step computed, one block barrier a step; E is
+//     written over A's rows in the ring and leaves as one bulk (TMA) copy a
+//     frame, issued by a warp of its own, so that loads, recursion and
+//     stores of different steps overlap.
+//   - A step first computes the state-free front of its S frames (|V|^2,
+//     the gate, and NLMS's quotient A conj(V)/|V|^2 and step size), which
+//     depends on no state, so the S frames' divisions overlap; then the
+//     recursion runs the S frames one after the other.  The divisions run
+//     branch-free with the IEEE bits (FastDivOps, dsr_device.h: the
+//     instructions of an IEEE division's fast path without its range check
+//     and branch), one
+//     reciprocal a shared divisor (|V|^2; Kalman's gain and its variance
+//     update share one); a gated frame whose quotient it cannot vouch for is
+//     redone with the IEEE operators.  The gate and the guarded quotient
+//     stay selects of computed values, never blends: a speculative quotient
+//     on a silent bin never reaches the state.
+// The DC and Nyquist bins have no Im lane and read it as 0.  The arithmetic
+// is the first design's (one thread loading groups of 4 frames from device
+// memory), operation for operation, so E has the same bits.
+#include "dsr_device.h"
 #include "dsr_kernels.h"
 
 namespace {
 
-constexpr int THREADS = 128;
-constexpr int K = 4;  // frames per group; the next group is loaded while one is processed
+using dsr::FastDivOps;
+using dsr::IeeeOps;
+
+constexpr int S = 4;         // frames a step: one block barrier a step
+constexpr int DG = 3;        // steps staged ahead of the one computed
+constexpr int NSS = DG + 2;  // steps in the ring: stored, computed, staged ahead
+constexpr int RING = NSS * S;  // frame slots
+constexpr int MAX_THREADS = 1024;
+// blocks of up to NARROW threads (4 channels of M = 256: 576) are compiled
+// for two a SM, so that their registers leave room for both; wider blocks
+// for one
+constexpr int NARROW = 576;
+constexpr size_t MAX_SMEM = 227 * 1024;
+static_assert(RING % S == 0, "a step's slots are consecutive");
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+// bulk (TMA) copy of one row shared -> global, and its bookkeeping
+__device__ __forceinline__ void bulk_store(float* dst, const float* src, int bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(dst),
+               "r"(smem_addr(src)), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+// makes this thread's shared-memory writes visible to the bulk copies
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
 
 struct Frame {
   float ar, ai, vr, vi;
 };
 
-__device__ __forceinline__ Frame load_frame(const float* a, const float* v, int f, int F,
-                                            bool has_im) {
-  Frame x;
-  x.ar = a[f];
-  x.ai = has_im ? a[F - 1 + f] : 0.f;
-  x.vr = v[f];
-  x.vi = has_im ? v[F - 1 + f] : 0.f;
-  return x;
+// The first design's arithmetic, with each contraction nvcc chose for it
+// written out (its SASS): intrinsics are never contracted again, so the bits
+// cannot depend on the context.
+__device__ __forceinline__ float abs2(float re, float im) {
+  return __fmaf_rn(re, re, __fmul_rn(im, im));
+}
+// E = A - R V (the imaginary part's second product is the fused one)
+__device__ __forceinline__ void aec_error(const Frame& x, float Rr, float Ri, float& Er,
+                                          float& Ei) {
+  Er = __fsub_rn(x.ar, __fmaf_rn(Rr, x.vr, -__fmul_rn(Ri, x.vi)));
+  Ei = __fsub_rn(x.ai, __fmaf_rn(Ri, x.vr, __fmul_rn(Rr, x.vi)));
 }
 
-__global__ void __launch_bounds__(THREADS)
-aec_scan_kernel(const float* __restrict__ A, const float* __restrict__ V, float* __restrict__ E,
-                int Tf, int B, int C, int M, int kalman, float p1, float p2, float thr) {
-  const int F = M / 2 + 1;
-  const int idx = blockIdx.x * THREADS + threadIdx.x;
-  if (idx >= B * C * F) return;
-  const int f = idx % F;
-  const int row = idx / F;  // b * C + c
-  const int b = row / C;
-  const bool has_im = f >= 1 && f <= F - 2;
-  const size_t a_stride = (size_t)B * C * M;
-  const size_t v_stride = (size_t)B * M;
-  const float* a = A + (size_t)row * M;
-  const float* v = V + (size_t)b * M;
-  float* e = E + (size_t)row * M;
+// NLMS's state-free front of one frame: the gate, the quotient A/V (by 1
+// where |V| = 0) and the step size
+struct NlmsFront {
+  bool gate;
+  float Gr, Gi, mu;
+};
 
-  float Rr = 0.f, Ri = 0.f;
-  float sv = p2, kk = p2;  // Kalman observation noise and state variance
-  Frame cur[K], nxt[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    cur[k] = nxt[k] = Frame{0.f, 0.f, 0.f, 0.f};
-    if (k < Tf) cur[k] = load_frame(a + k * a_stride, v + k * v_stride, f, F, has_im);
+template <class Ops>
+__device__ __forceinline__ void nlms_quotients(NlmsFront& q, const Frame& x, float v2, float p1,
+                                               float p2, Ops& op) {
+  const float den = v2 > 0.f ? v2 : 1.f;
+  const typename Ops::R rd = op.recip(den);
+  q.Gr = op.div(__fmaf_rn(x.ar, x.vr, __fmul_rn(x.ai, x.vi)), rd);
+  q.Gi = op.div(__fmaf_rn(x.ai, x.vr, -__fmul_rn(x.ar, x.vi)), rd);
+  q.mu = op.div(__fmul_rn(v2, p2), op.recip(__fadd_rn(abs2(x.ar, x.ai), p1)));
+}
+
+__device__ __forceinline__ NlmsFront nlms_front(const Frame& x, float v2, float p1, float p2,
+                                                float thr) {
+  NlmsFront q;
+  q.gate = v2 > thr;
+  FastDivOps op;
+  nlms_quotients(q, x, v2, p1, p2, op);
+  if (q.gate && !op.ok) {
+    IeeeOps iv;
+    nlms_quotients(q, x, v2, p1, p2, iv);
   }
-  for (int t0 = 0; t0 < Tf; t0 += K) {
+  return q;
+}
+
+// R <- R - mu (R - G)
+__device__ __forceinline__ void nlms_update(float& Rr, float& Ri, const NlmsFront& q) {
+  Rr = __fmaf_rn(__fsub_rn(Rr, q.Gr), -q.mu, Rr);
+  Ri = __fmaf_rn(__fsub_rn(Ri, q.Gi), -q.mu, Ri);
+}
+
+struct KalmanState {
+  float Rr, Ri, sv, kk;  // filter, observation noise, state variance
+};
+
+template <class Ops>
+__device__ __forceinline__ void kalman_update(KalmanState& st, const Frame& x, float Er, float Ei,
+                                              float v2, float p1, float p2, Ops& op) {
+  const float svn = __fmaf_rn(st.sv, p1, __fmul_rn(__fsub_rn(1.f, p1), abs2(Er, Ei)));
+  const float kp = __fadd_rn(st.kk, p2);
+  const float vk = __fmul_rn(v2, kp);
+  const typename Ops::R rs = op.recip(__fadd_rn(svn, vk));
+  const float gk = op.div(kp, rs);
+  st.Rr = __fmaf_rn(__fmaf_rn(Er, x.vr, __fmul_rn(Ei, x.vi)), gk, st.Rr);
+  st.Ri = __fmaf_rn(__fmaf_rn(Ei, x.vr, -__fmul_rn(Er, x.vi)), gk, st.Ri);
+  st.sv = svn;
+  st.kk = __fmul_rn(kp, __fsub_rn(1.f, op.div(vk, rs)));
+}
+
+// One block: utterance b, channels c0 .. c0 + cg - 1; thread (cl, f) =
+// (tid / F, tid % F).  Ring slot t % RING holds frame t: the group's rows
+// [cg][M] (A in, E out) then the far-end row [M].
+template <bool KALMAN, int MAXT, int MINB>
+__global__ void __launch_bounds__(MAXT, MINB)
+aec_scan_kernel(const float* __restrict__ A, const float* __restrict__ V, float* __restrict__ E,
+                int Tf, int B, int C, int M, int cg, float p1, float p2, float thr) {
+  extern __shared__ __align__(16) float ring[];
+  // probe: kernel start
+  const int F = M / 2 + 1;
+  const int groups = C / cg;
+  const int b = blockIdx.x / groups;
+  const int c0 = (blockIdx.x - b * groups) * cg;
+  const int tid = threadIdx.x;
+  const int nthr = blockDim.x;
+  const int cl = tid / F;
+  const int f = tid - cl * F;
+  const bool active = cl < cg;
+  const bool has_im = f >= 1 && f <= F - 2;
+  const int slot_floats = (cg + 1) * M;
+  // this thread's lanes in a slot (a real bin reads its Re lane twice, and
+  // takes 0 for the second)
+  const int ia = cl * M + f;
+  const int ia_im = has_im ? ia + F - 1 : ia;
+  const int iv = cg * M + f;
+  const int iv_im = has_im ? iv + F - 1 : iv;
+  const size_t a_frame = (size_t)B * C * M, v_frame = (size_t)B * M;
+  const float* Ab = A + ((size_t)b * C + c0) * M;
+  const float* Vb = V + (size_t)b * M;
+  float* Eb = E + ((size_t)b * C + c0) * M;
+  const int nsteps = (Tf + S - 1) / S;
+  // the copies: 16 bytes of a frame's slot a thread (a frame has no more
+  // 16-byte pieces, (cg + 1) M / 4, than the block has threads)
+  const int row16 = cg * M / 4;
+  const bool copier = tid < row16 + M / 4;
+  const float* src0 = tid < row16 ? Ab + 4 * tid : Vb + 4 * (tid - row16);
+  const size_t src_frame = tid < row16 ? a_frame : v_frame;
+
+  auto fetch = [&](int st) {  // the frames of step st into their slots
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int t = t0 + K + k;
-      if (t < Tf) nxt[k] = load_frame(a + t * a_stride, v + t * v_stride, f, F, has_im);
+    for (int tt = 0; tt < S; ++tt) {
+      const int t = st * S + tt;
+      if (copier && t < Tf)
+        cp_async16(ring + (size_t)(t % RING) * slot_floats + 4 * tid, src0 + t * src_frame);
     }
+    cp_commit();
+  };
+  // the store warp, the block's last, computes nothing: its first thread
+  // issues the bulk stores, off the recursion's warps
+  const bool storer = tid == nthr - 32;
+  auto flush = [&](int st) {  // E of step st's frames, one bulk copy a frame
+    if (storer) {
+      for (int t = st * S; t < min(st * S + S, Tf); ++t)
+        bulk_store(Eb + t * a_frame, ring + (size_t)(t % RING) * slot_floats,
+                   cg * M * (int)sizeof(float));
+      bulk_commit();
+    }
+  };
+
+  KalmanState ks{0.f, 0.f, p2, p2};  // NLMS keeps its filter in Rr, Ri
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int t = t0 + k;
-      if (t >= Tf) continue;
-      const Frame x = cur[k];
-      const float Er = x.ar - (Rr * x.vr - Ri * x.vi);
-      const float Ei = x.ai - (Rr * x.vi + Ri * x.vr);
-      const float v2 = x.vr * x.vr + x.vi * x.vi;
-      if (v2 > thr) {
-        if (kalman) {
-          const float svn = p1 * sv + (1.f - p1) * (Er * Er + Ei * Ei);
-          const float kp = kk + p2;
-          const float ss = v2 * kp + svn;
-          const float gk = kp / ss;
-          Rr += (x.vr * Er + x.vi * Ei) * gk;
-          Ri += (x.vr * Ei - x.vi * Er) * gk;
-          sv = svn;
-          kk = (1.f - kp * v2 / ss) * kp;
-        } else {
-          const float den = v2 > 0.f ? v2 : 1.f;
-          const float Gr = (x.ar * x.vr + x.ai * x.vi) / den;
-          const float Gi = (x.ai * x.vr - x.ar * x.vi) / den;
-          const float mu = p2 * v2 / (p1 + (x.ar * x.ar + x.ai * x.ai));
-          Rr = Rr - (Rr - Gr) * mu;
-          Ri = Ri - (Ri - Gi) * mu;
-        }
+  for (int st = 0; st < DG; ++st)
+    if (st < nsteps) fetch(st);
+    else cp_commit();
+  // probe: set-up done
+  for (int st = 0; st < nsteps; ++st) {
+    cp_wait<DG - 1>();
+    if (storer) bulk_wait_read();  // the slots refilled below have left for E
+    __syncthreads();
+    // probe: step staged
+    if (st > 0) flush(st - 1);
+    if (st + DG < nsteps) fetch(st + DG);
+    else cp_commit();
+    // probe: copies started
+    if (active) {
+      const int t0 = st * S;
+      const int slot0 = t0 % RING;  // the step's S slots are consecutive
+      float* sl = ring + slot0 * slot_floats;
+      Frame x[S];
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        const float* fr = sl + s * slot_floats;
+        const float ai = fr[ia_im], vi = fr[iv_im];
+        x[s] = Frame{fr[ia], has_im ? ai : 0.f, fr[iv], has_im ? vi : 0.f};
       }
-      float* o = e + t * a_stride;
-      o[f] = Er;
-      if (has_im) o[F - 1 + f] = Ei;
-    }
+      // the state-free front of the step's frames (past Tf: stale slots,
+      // computed and dropped)
+      NlmsFront q[S];
+      float v2[S];
 #pragma unroll
-    for (int k = 0; k < K; ++k) cur[k] = nxt[k];
+      for (int s = 0; s < S; ++s) {
+        v2[s] = abs2(x[s].vr, x[s].vi);
+        if constexpr (!KALMAN) q[s] = nlms_front(x[s], v2[s], p1, p2, thr);
+      }
+      // probe: front done
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        if (t0 + s >= Tf) break;  // uniform over the block
+        const Frame& xs = x[s];
+        float Er, Ei;
+        aec_error(xs, ks.Rr, ks.Ri, Er, Ei);
+        if constexpr (KALMAN) {
+          if (v2[s] > thr) {
+            FastDivOps op;
+            KalmanState k1 = ks;
+            kalman_update(k1, xs, Er, Ei, v2[s], p1, p2, op);
+            if (!op.ok) {
+              IeeeOps iv_;
+              k1 = ks;
+              kalman_update(k1, xs, Er, Ei, v2[s], p1, p2, iv_);
+            }
+            ks = k1;
+          }
+        } else if (q[s].gate) {
+          nlms_update(ks.Rr, ks.Ri, q[s]);
+        }
+        sl[s * slot_floats + ia] = Er;
+        if (has_im) sl[s * slot_floats + ia_im] = Ei;
+      }
+      // probe: recursion done
+    }
+    fence_async_shared();
+    // probe: stored
   }
+  __syncthreads();
+  if (nsteps > 0) flush(nsteps - 1);
+  if (storer) bulk_wait();
+  // probe: kernel end
+}
+
+// The launch: channels a block (a divisor cg of C whose block fits in 1024
+// threads and the shared memory), threads and ring bytes.  Fewest waves of
+// blocks first; then, where some cg gives every SM a block, the largest
+// such cg (the far-end row is staged once for cg channels); else cg = 1,
+// the most blocks (a step's front then shares an SM with the fewest warps)
+struct Plan {
+  int cg, threads;
+  size_t bytes;
+};
+
+template <bool KALMAN>
+void* kernel_for(int threads) {
+  return threads <= NARROW ? (void*)aec_scan_kernel<KALMAN, NARROW, 2>
+                           : (void*)aec_scan_kernel<KALMAN, MAX_THREADS, 1>;
+}
+
+template <bool KALMAN>
+cudaError_t plan(int B, int C, int M, int sms, Plan* out) {
+  const int F = M / 2 + 1;
+  *out = Plan{0, 0, 0};
+  long long best_waves = 0;
+  for (int cg = 1; cg <= C; ++cg) {
+    if (C % cg) continue;
+    const int threads = (cg * F + 31) / 32 * 32 + 32;  // and the store warp
+    const size_t bytes = sizeof(float) * RING * (size_t)(cg + 1) * M;
+    if (threads > MAX_THREADS || bytes > MAX_SMEM) break;
+    const void* kern = kernel_for<KALMAN>(threads);
+    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)bytes);
+    int per_sm = 0;
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads, bytes);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) break;
+    const long long blocks = (long long)B * (C / cg);
+    const long long waves = (blocks + (long long)per_sm * sms - 1) / ((long long)per_sm * sms);
+    if (out->cg == 0 || waves < best_waves || (waves == best_waves && blocks >= sms)) {
+      *out = Plan{cg, threads, bytes};
+      best_waves = waves;
+    }
+  }
+  return cudaSuccess;
+}
+
+template <bool KALMAN>
+int launch(const float* A, const float* V, float* E, int Tf, int B, int C, int M, float p1,
+           float p2, float thr, cudaStream_t stream) {
+  int dev = 0, sms = 0;
+  Plan p;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = plan<KALMAN>(B, C, M, sms, &p);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (p.cg == 0) return DSR_ERR_ARGS;
+  const void* kern = kernel_for<KALMAN>(p.threads);
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(B * (C / p.cg));
+  if (p.threads <= NARROW)
+    aec_scan_kernel<KALMAN, NARROW, 2><<<grid, p.threads, p.bytes, stream>>>(
+        A, V, E, Tf, B, C, M, p.cg, p1, p2, thr);
+  else
+    aec_scan_kernel<KALMAN, MAX_THREADS, 1><<<grid, p.threads, p.bytes, stream>>>(
+        A, V, E, Tf, B, C, M, p.cg, p1, p2, thr);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" int dsr_aec_scan(const float* A, const float* V, float* E, int Tf, int B, int C, int M,
                             int kalman, float p1, float p2, float thr, cudaStream_t stream) {
-  if (Tf <= 0 || B <= 0 || C <= 0 || M < 4 || M % 2 != 0 ||
-      (long long)B * C * (M / 2 + 1) > 0x7fffffffLL)
+  if (Tf <= 0 || B <= 0 || C <= 0 || M < 4 || M > 1024 || M % 4 != 0 ||
+      (long long)B * C > 0x7fffffffLL)
     return DSR_ERR_ARGS;
-  const int n = B * C * (M / 2 + 1);
-  aec_scan_kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0, stream>>>(A, V, E, Tf, B, C, M,
-                                                                        kalman, p1, p2, thr);
-  return static_cast<int>(cudaGetLastError());
+  return kalman ? launch<true>(A, V, E, Tf, B, C, M, p1, p2, thr, stream)
+                : launch<false>(A, V, E, Tf, B, C, M, p1, p2, thr, stream);
 }

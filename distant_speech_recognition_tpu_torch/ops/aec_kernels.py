@@ -3,7 +3,10 @@
 Counterpart of the JAX package's ``ops/pallas_aec.py`` (``aec_scan_pallas``).
 For a CUDA tensor `aec_scan` launches ``csrc/aec_scan.cu`` or raises; for a
 CPU tensor it unpacks the lanes, runs the plain loops `models.aec.nlms_aec`
-/ `kalman_aec` (the specification the kernel is held to) and repacks.
+/ `kalman_aec` (the specification the kernel is held to) and repacks.  The
+kernel stages whole packed rows by 16-byte copies and takes a bin a thread,
+so it takes M a multiple of 4 up to `AEC_MAX_M` (the card pipelines run M =
+256); the plain loops take any even M.
 """
 
 from __future__ import annotations
@@ -13,9 +16,10 @@ import torch
 from ..models.aec import kalman_aec, nlms_aec
 from .filterbank import pack_half, unpack_half
 
-__all__ = ["AEC_KINDS", "aec_scan"]
+__all__ = ["AEC_KINDS", "AEC_MAX_M", "aec_scan"]
 
 AEC_KINDS = ("nlms", "kalman")
+AEC_MAX_M = 1024
 
 
 def aec_scan(
@@ -46,6 +50,9 @@ def aec_scan(
         return pack_half(E)
     if Ap.device.type != "cuda":
         raise ValueError(f"aec_scan runs on cpu or cuda tensors, got {Ap.device}")
+    if M % 4 or not 4 <= M <= AEC_MAX_M:
+        raise NotImplementedError(f"the aec_scan kernel takes M a multiple of 4 in "
+                                  f"[4, {AEC_MAX_M}], got M = {M}")
     from ..kernels import _build, check_cuda_tensor, stream_handle
 
     Ap = Ap.contiguous()

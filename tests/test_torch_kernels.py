@@ -23,7 +23,8 @@ against the plain chain; 2e-5
 for the strided FIR (K13), which rounds like its plain version.  K2 and K6
 are also held bit for bit to outputs their kernels gave on an H100 before
 their per-frame step moved into ``csrc/gsc_step.h``
-(``tests/data/gsc_scan_case.npz``).  The shapes reach
+(``tests/data/gsc_scan_case.npz``), and K9 and K12 to outputs of their first
+designs (``tests/data/aec_gj_case.npz``).  The shapes reach
 past the flagship's and config 4's: partial last blocks, other delay modes,
 decimations and channel counts, every constraint option, gates that close,
 far-end bins that are zero, other WPE delays, tap counts and band limits,
@@ -351,6 +352,12 @@ def _packed(rng, Tf, B, C, M, scale=100.0):
         ("kalman", 0.95, 1e-3, 4, 256, 3),
         ("nlms", 100.0, 1e-4, 2, 128, 5),
         ("kalman", 0.95, 1e-3, 3, 128, 1),
+        # one channel a block, and eight (two blocks of four) an utterance
+        ("nlms", 100.0, 1e-4, 1, 256, 2),
+        ("kalman", 0.95, 1e-3, 1, 128, 2),
+        ("nlms", 100.0, 1e-4, 8, 256, 2),
+        ("kalman", 0.95, 1e-3, 8, 128, 1),
+        ("nlms", 100.0, 1e-4, 4, 128, 1),
     ],
 )
 def test_aec_kernel_matches_plain(dev, kind, p1, p2, C, M, B):
@@ -368,6 +375,40 @@ def test_aec_kernel_matches_plain(dev, kind, p1, p2, C, M, B):
     got = aec_scan(A.to(dev), V.to(dev), kind, p1, p2, 100.0)
     assert aec_scan.launches == before + 1
     _close(got, ref, 1e-4)
+
+
+@pytest.mark.parametrize("kind,p1,p2", [("nlms", 100.0, 1e-4), ("kalman", 0.95, 1e-3)])
+@pytest.mark.parametrize("Tf,B,C,M", [(1, 2, 4, 256), (3, 1, 2, 256), (23, 3, 4, 256),
+                                      (37, 2, 1, 128), (38, 1, 8, 128)])
+def test_aec_kernel_frame_counts(dev, kind, p1, p2, Tf, B, C, M):
+    """Frame counts below one step of the kernel's ring (4 frames) and no
+    multiple of it or of the ring (16 frames); zero far-end bins everywhere
+    and, past frame 2, a stretch where the gate closes."""
+    rng = np.random.default_rng(Tf * 1000 + B * 100 + C)
+    F = M // 2 + 1
+    A = _packed(rng, Tf, B, C, M)
+    V = _packed(rng, Tf, B, 1, M)[:, :, 0]
+    V[:, :, 3:9] = 0.0
+    V[:, :, F + 2:F + 8] = 0.0
+    V[2:9] *= 1e-3
+    ref = aec_scan(A, V, kind, p1, p2, 100.0)
+    before = aec_scan.launches
+    got = aec_scan(A.to(dev), V.to(dev), kind, p1, p2, 100.0)
+    assert aec_scan.launches == before + 1
+    _close(got, ref, 1e-4)
+
+
+def test_aec_kernel_refuses_what_it_does_not_take(dev):
+    """The kernel stages whole rows by 16-byte copies and takes a bin a
+    thread: M a multiple of 4 up to 1024.  The wrapper raises on the rest
+    before any launch; the plain loops on the CPU still take them."""
+    kernels.reset_launch_counts()
+    for M in (6, 130, 1028):
+        A = torch.zeros((3, 1, 2, M), device=dev)
+        with pytest.raises(NotImplementedError, match="multiple of 4"):
+            aec_scan(A, torch.zeros((3, 1, M), device=dev))
+    assert set(kernels.launch_counts().values()) == {0}
+    assert aec_scan(torch.ones((3, 1, 2, 6)), torch.ones((3, 1, 6))).shape == (3, 1, 2, 6)
 
 
 def _wpe_case(seed, Tf, B, C, M, P):
@@ -463,7 +504,11 @@ def test_wpe_resid_kernel_matches_plain(dev, C, P, lowerN, M, B, Tf):
     _close(got, ref, 1e-5)
 
 
-@pytest.mark.parametrize("n,N", [(20, 1000), (6, 37), (21, 5), (31, 3)])
+@pytest.mark.parametrize("n,N", [(20, 1000), (6, 37), (21, 5), (31, 3),
+                                 # the edges of the kernel's compiled row widths (4, 8,
+                                 # ..., 24, 32), and batches of 4 systems left partial
+                                 (1, 7), (4, 33), (5, 9), (20, 1001), (24, 61), (25, 6),
+                                 (31, 10)])
 def test_gj_solve_kernel_matches_plain(dev, n, N):
     """Diagonally loaded Hermitian positive-definite systems, as WPE builds them."""
     rng = np.random.default_rng(n * N)
@@ -477,6 +522,24 @@ def test_gj_solve_kernel_matches_plain(dev, n, N):
     before = gj_solve.launches
     got = gj_solve(R.to(dev), r.to(dev))
     assert gj_solve.launches == before + 1
+    _close_per_system(got, ref, 1e-4, 1)
+
+
+@pytest.mark.parametrize("n", [1, 6, 20, 24, 31])
+def test_gj_solve_kernel_zero_pivot(dev, n):
+    """A zero pivot divides by 1, as the plain version does: R's first
+    diagonal entry set to zero in every third system."""
+    rng = np.random.default_rng(n + 77)
+    N = 10
+    L = rng.standard_normal((N, n, 3 * n)) + 1j * rng.standard_normal((N, n, 3 * n))
+    R = np.einsum("npt,nqt->npq", L, L.conj())
+    R += (np.abs(np.diagonal(R, axis1=1, axis2=2)).max(-1) * 0.01)[:, None, None] * np.eye(n)
+    R[::3, 0, 0] = 0
+    R = torch.from_numpy(R.astype(np.complex64))
+    r = torch.from_numpy((rng.standard_normal((N, n)) + 1j * rng.standard_normal((N, n))).astype(
+        np.complex64))
+    ref = gj_solve(R, r)
+    got = gj_solve(R.to(dev), r.to(dev))
     _close_per_system(got, ref, 1e-4, 1)
 
 
@@ -825,6 +888,34 @@ def test_scan_kernels_equal_stored_outputs(dev, tag, Tf, B, C, pf_type, pf_min_f
     got = fn(torch.from_numpy(Yp).to(dev), *w, GSCRLSConfig(min_frames=4), 0.6, pf_type,
              pf_min_frames)
     assert torch.equal(got.cpu(), torch.from_numpy(z[f"{tag}_out"]))
+
+
+@pytest.mark.parametrize("case", ["n256", "k256", "n128", "k128", "gj6", "gj20", "gj24", "gj31"])
+def test_aec_gj_kernels_equal_stored_outputs(dev, case):
+    """K9 and K12 give, bit for bit, the outputs stored from their first
+    designs (K9: a thread loading groups of 4 frames from device memory; K12:
+    a lane per column, factors by shuffle) by ``tests/probe_aec_gj_phases.py
+    --write-case`` (``tests/data/aec_gj_case.npz``): K9 at M = 256 and 128,
+    17 and 23 frames, far-end bins that are zero and frames where the gate
+    closes; K12 at n = 6 (one zero first pivot), 20, 24 and 31."""
+    z = np.load(Path(__file__).parent / "data" / "aec_gj_case.npz")
+    if case.startswith("gj"):
+        got = gj_solve(torch.from_numpy(z[f"{case}_R"]).to(dev),
+                       torch.from_numpy(z[f"{case}_r"]).to(dev))
+        assert torch.equal(torch.view_as_real(got.cpu()).view(torch.int32),
+                           torch.view_as_real(torch.from_numpy(z[f"{case}_x"])).view(torch.int32))
+        return
+    kind, M = ("nlms" if case[0] == "n" else "kalman"), int(case[1:])
+    Tf, B, C = (17, 2, 2) if M == 256 else (23, 1, 3)
+    F = M // 2 + 1
+    A = _hash_noise((Tf, B, C, M), ord(case[0]) + M)
+    V = _hash_noise((Tf, B, M), ord(case[0]) + M + 1)
+    V[:, 0, 3:9] = 0.0
+    V[:, 0, F + 2:F + 8] = 0.0
+    V[5:11] *= np.float32(1e-3)
+    p1, p2 = (100.0, 1e-4) if kind == "nlms" else (0.95, 1e-3)
+    got = aec_scan(torch.from_numpy(A).to(dev), torch.from_numpy(V).to(dev), kind, p1, p2, 100.0)
+    assert torch.equal(got.cpu().view(torch.int32), torch.from_numpy(z[f"{case}_E"]).view(torch.int32))
 
 
 def _gsc_args(C, pf_type, pf_min_frames, min_frames=8):
