@@ -201,7 +201,7 @@ def main() -> None:
         build_steered_pipeline,
         steering_weights,
     )
-    from distant_speech_recognition_tpu_torch.ops.aec_kernels import aec_scan
+    from distant_speech_recognition_tpu_torch.ops.aec_kernels import aec_launch_shape, aec_scan
     from distant_speech_recognition_tpu_torch.ops.filterbank import (
         FilterbankParams,
         _analysis_with,
@@ -273,6 +273,14 @@ def main() -> None:
             f"{sh['threads']} threads, {sh['frames']} frames a chunk, {sh['smem_bytes']} bytes of "
             f"dynamic shared memory, {sh['registers']} registers, {sh['blocks_per_sm']} blocks "
             f"per SM")
+    # K9's launch at the config-4 shape, and where an utterance takes several blocks
+    aec_shapes = {}
+    for B_, C_, kind in ((256, 4, "nlms"), (256, 4, "kalman"), (40, 8, "nlms"), (132, 6, "nlms")):
+        sh = aec_launch_shape(B_, C_, 256, kind)
+        aec_shapes[f"B={B_} C={C_} {kind}"] = sh
+        log(f"  aec_scan {kind} B={B_} C={C_}: {sh['blocks']} blocks x {sh['threads']} threads "
+            f"({sh['cg']} channels a block), {sh['smem_bytes']} bytes of dynamic shared memory, "
+            f"{sh['registers']} registers, {sh['blocks_per_sm']} blocks per SM")
     # K10 and K11 at the config-4 shape (C = 4, P = 5, lowerN = 2, M = 256) and
     # at C*P = 24 with the deepest delay
     for C_, P_, low_ in ((4, 5, 2), (8, 3, 32)):
@@ -1212,7 +1220,11 @@ def main() -> None:
     rls_flops = 8 * scan_macs * Tf * B * F  # the scan's per (frame, utterance, bin) work
     fir_rows = B * C * Tf  # the round trip's analysis FIR: rows out, and (m-1)*R more in
     def gj_bound(n):  # n_sys systems of n: R, r read once, x written once
-        return bound(8 * n_sys * (n * n + 2 * n), n_sys * 8 * n * n * (n + 1))
+        # step k: n - k quotients of the columns right of the pivot (a
+        # complex product and two divisions, 8 flops each), and the other
+        # n - 1 rows' complex multiply-adds on those columns (8 each): in
+        # all 4 n (n + 1) + 4 (n - 1) n (n + 1) = 4 n^2 (n + 1) flops a system
+        return bound(8 * n_sys * (n * n + 2 * n), n_sys * 4 * n * n * (n + 1))
 
     bounds = {
         "analysis_tm": bound(4 * (B * C * T + rows * M + M * M + fb.N),
@@ -1301,6 +1313,7 @@ def main() -> None:
             row["first_iteration_ms"] = stats_first_ms
         if name == "aec_scan":  # "ms" is NLMS's, the path's
             row["kalman_ms"], row["kalman_plain_ms"] = kalman_ms
+            row["launch"] = aec_shapes[f"B={B} C={C} nlms"]
         if name == "gj_solve":  # "ms" is n = C*P = 20's, the path's
             b24 = gj_bound(C * (P + 1))
             row["n24"] = {"ms": gj24_ms[0], "plain_ms": gj24_ms[1], "library_ms": gj24_ms[2],

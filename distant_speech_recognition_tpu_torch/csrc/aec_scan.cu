@@ -16,9 +16,10 @@
 // and writes 8 per frame for a few dozen flops, so it is bound by memory
 // (2.96 GB at B=256 x 4 ch x 10 s, 0.88 ms at 3.35 TB/s).  Design:
 //   - A block takes one utterance and a group of cg channels (cg divides C;
-//     the host takes the largest that fits a block and still gives the card
-//     a block for each SM), one thread a (channel, bin) of the group, the
-//     filter (and the Kalman state) in registers for the whole utterance.
+//     the host takes the largest that fits a block of THREADS and still
+//     gives the card a block for each SM), one thread a (channel, bin) of the
+//     group, the filter (and the Kalman state) in registers for the whole
+//     utterance.
 //   - A frame's rows of the group (cg x M floats of A, contiguous) and its
 //     far-end row (M floats of V, read once for the group's channels) are
 //     staged into a shared-memory ring by 16-byte cp.async copies, DG steps
@@ -53,11 +54,9 @@ constexpr int S = 4;         // frames a step: one block barrier a step
 constexpr int DG = 3;        // steps staged ahead of the one computed
 constexpr int NSS = DG + 2;  // steps in the ring: stored, computed, staged ahead
 constexpr int RING = NSS * S;  // frame slots
-constexpr int MAX_THREADS = 1024;
-// blocks of up to NARROW threads (4 channels of M = 256: 576) are compiled
-// for two a SM, so that their registers leave room for both; wider blocks
-// for one
-constexpr int NARROW = 576;
+// the largest block (4 channels of M = 256 and the store warp), compiled for
+// two an SM so that their registers leave room for both
+constexpr int THREADS = 576;
 constexpr size_t MAX_SMEM = 227 * 1024;
 static_assert(RING % S == 0, "a step's slots are consecutive");
 
@@ -167,8 +166,8 @@ __device__ __forceinline__ void kalman_update(KalmanState& st, const Frame& x, f
 // One block: utterance b, channels c0 .. c0 + cg - 1; thread (cl, f) =
 // (tid / F, tid % F).  Ring slot t % RING holds frame t: the group's rows
 // [cg][M] (A in, E out) then the far-end row [M].
-template <bool KALMAN, int MAXT, int MINB>
-__global__ void __launch_bounds__(MAXT, MINB)
+template <bool KALMAN>
+__global__ void __launch_bounds__(THREADS, 2)
 aec_scan_kernel(const float* __restrict__ A, const float* __restrict__ V, float* __restrict__ E,
                 int Tf, int B, int C, int M, int cg, float p1, float p2, float thr) {
   extern __shared__ __align__(16) float ring[];
@@ -294,44 +293,42 @@ aec_scan_kernel(const float* __restrict__ A, const float* __restrict__ V, float*
   // probe: kernel end
 }
 
-// The launch: channels a block (a divisor cg of C whose block fits in 1024
-// threads and the shared memory), threads and ring bytes.  Fewest waves of
+// The launch: channels a block (a divisor cg of C whose block fits in
+// THREADS and the shared memory), threads and ring bytes.  Fewest waves of
 // blocks first; then, where some cg gives every SM a block, the largest
 // such cg (the far-end row is staged once for cg channels); else cg = 1,
 // the most blocks (a step's front then shares an SM with the fewest warps)
 struct Plan {
-  int cg, threads;
+  int cg, threads, per_sm;
   size_t bytes;
 };
 
 template <bool KALMAN>
-void* kernel_for(int threads) {
-  return threads <= NARROW ? (void*)aec_scan_kernel<KALMAN, NARROW, 2>
-                           : (void*)aec_scan_kernel<KALMAN, MAX_THREADS, 1>;
-}
-
-template <bool KALMAN>
-cudaError_t plan(int B, int C, int M, int sms, Plan* out) {
+cudaError_t plan(int B, int C, int M, Plan* out) {
+  const void* kern = (const void*)aec_scan_kernel<KALMAN>;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  // once for every candidate: the occupancy query takes the ring's bytes
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)MAX_SMEM);
+  if (err != cudaSuccess) return err;
   const int F = M / 2 + 1;
-  *out = Plan{0, 0, 0};
+  *out = Plan{0, 0, 0, 0};
   long long best_waves = 0;
   for (int cg = 1; cg <= C; ++cg) {
     if (C % cg) continue;
     const int threads = (cg * F + 31) / 32 * 32 + 32;  // and the store warp
     const size_t bytes = sizeof(float) * RING * (size_t)(cg + 1) * M;
-    if (threads > MAX_THREADS || bytes > MAX_SMEM) break;
-    const void* kern = kernel_for<KALMAN>(threads);
-    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)bytes);
+    if (threads > THREADS || bytes > MAX_SMEM) break;
     int per_sm = 0;
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads, bytes);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads, bytes);
     if (err != cudaSuccess) return err;
     if (per_sm < 1) break;
     const long long blocks = (long long)B * (C / cg);
     const long long waves = (blocks + (long long)per_sm * sms - 1) / ((long long)per_sm * sms);
     if (out->cg == 0 || waves < best_waves || (waves == best_waves && blocks >= sms)) {
-      *out = Plan{cg, threads, bytes};
+      *out = Plan{cg, threads, per_sm, bytes};
       best_waves = waves;
     }
   }
@@ -341,33 +338,50 @@ cudaError_t plan(int B, int C, int M, int sms, Plan* out) {
 template <bool KALMAN>
 int launch(const float* A, const float* V, float* E, int Tf, int B, int C, int M, float p1,
            float p2, float thr, cudaStream_t stream) {
-  int dev = 0, sms = 0;
   Plan p;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) err = plan<KALMAN>(B, C, M, sms, &p);
+  const cudaError_t err = plan<KALMAN>(B, C, M, &p);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (p.cg == 0) return DSR_ERR_ARGS;
-  const void* kern = kernel_for<KALMAN>(p.threads);
-  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(B * (C / p.cg));
-  if (p.threads <= NARROW)
-    aec_scan_kernel<KALMAN, NARROW, 2><<<grid, p.threads, p.bytes, stream>>>(
-        A, V, E, Tf, B, C, M, p.cg, p1, p2, thr);
-  else
-    aec_scan_kernel<KALMAN, MAX_THREADS, 1><<<grid, p.threads, p.bytes, stream>>>(
-        A, V, E, Tf, B, C, M, p.cg, p1, p2, thr);
+  aec_scan_kernel<KALMAN><<<B * (C / p.cg), p.threads, p.bytes, stream>>>(
+      A, V, E, Tf, B, C, M, p.cg, p1, p2, thr);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool KALMAN>
+int shape(int B, int C, int M, int* blocks, int* threads, int* cg, int* smem_bytes, int* regs,
+          int* blocks_per_sm) {
+  Plan p;
+  cudaFuncAttributes attr;
+  cudaError_t err = plan<KALMAN>(B, C, M, &p);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, aec_scan_kernel<KALMAN>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (p.cg == 0) return DSR_ERR_ARGS;
+  *blocks = B * (C / p.cg);
+  *threads = p.threads;
+  *cg = p.cg;
+  *smem_bytes = (int)p.bytes;
+  *regs = attr.numRegs;
+  *blocks_per_sm = p.per_sm;
+  return 0;
+}
+
+bool args_ok(int Tf, int B, int C, int M) {
+  return Tf > 0 && B > 0 && C > 0 && M >= 4 && M <= 1024 && M % 4 == 0 &&
+         (long long)B * C <= 0x7fffffffLL;
 }
 
 }  // namespace
 
 extern "C" int dsr_aec_scan(const float* A, const float* V, float* E, int Tf, int B, int C, int M,
                             int kalman, float p1, float p2, float thr, cudaStream_t stream) {
-  if (Tf <= 0 || B <= 0 || C <= 0 || M < 4 || M > 1024 || M % 4 != 0 ||
-      (long long)B * C > 0x7fffffffLL)
-    return DSR_ERR_ARGS;
+  if (!args_ok(Tf, B, C, M)) return DSR_ERR_ARGS;
   return kalman ? launch<true>(A, V, E, Tf, B, C, M, p1, p2, thr, stream)
                 : launch<false>(A, V, E, Tf, B, C, M, p1, p2, thr, stream);
+}
+
+extern "C" int dsr_aec_scan_shape(int B, int C, int M, int kalman, int* blocks, int* threads,
+                                  int* cg, int* smem_bytes, int* regs, int* blocks_per_sm) {
+  if (!args_ok(1, B, C, M)) return DSR_ERR_ARGS;
+  return kalman ? shape<true>(B, C, M, blocks, threads, cg, smem_bytes, regs, blocks_per_sm)
+                : shape<false>(B, C, M, blocks, threads, cg, smem_bytes, regs, blocks_per_sm);
 }

@@ -115,6 +115,12 @@ int dsr_polyphase_fir(const float* S, const float* h, float* v, int N, int T, in
 int dsr_aec_scan(const float* A, const float* V, float* E, int Tf, int B, int C, int M,
                  int kalman, float p1, float p2, float thr, cudaStream_t stream);
 
+// the launch that dsr_aec_scan takes for (B, C, M) and its kind: blocks,
+// threads a block, channels a block, dynamic shared memory, the kernel's
+// registers a thread and blocks per SM
+int dsr_aec_scan_shape(int B, int C, int M, int kalman, int* blocks, int* threads, int* cg,
+                       int* smem_bytes, int* regs, int* blocks_per_sm);
+
 // G, R, r: interleaved complex64
 int dsr_wpe_stats(const float* Yp, const float* G, float* R, float* r, int Tf, int B, int C,
                   int M, int P, int lowerN, int has_g, cudaStream_t stream);

@@ -16,7 +16,7 @@ import torch
 from ..models.aec import kalman_aec, nlms_aec
 from .filterbank import pack_half, unpack_half
 
-__all__ = ["AEC_KINDS", "AEC_MAX_M", "aec_scan"]
+__all__ = ["AEC_KINDS", "AEC_MAX_M", "aec_launch_shape", "aec_scan"]
 
 AEC_KINDS = ("nlms", "kalman")
 AEC_MAX_M = 1024
@@ -70,3 +70,23 @@ def aec_scan(
 
 
 aec_scan.launches = 0
+
+
+def aec_launch_shape(B: int, C: int, M: int, kind: str = "nlms") -> dict[str, int]:
+    """The launch the kernel takes for ``B`` utterances of ``C`` channels and
+    ``M`` lanes on the current card: blocks, threads a block, channels a
+    block (``cg``; a block takes channels ``c0 .. c0 + cg - 1`` of one
+    utterance), dynamic shared memory (bytes), registers a thread, blocks
+    per SM."""
+    import ctypes
+
+    from ..kernels import _build
+
+    if kind not in AEC_KINDS:
+        raise NotImplementedError(f"aec kind {kind!r} is not ported; only {AEC_KINDS}")
+    keys = ("blocks", "threads", "cg", "smem_bytes", "registers", "blocks_per_sm")
+    vals = [ctypes.c_int() for _ in keys]
+    code = _build.library().dsr_aec_scan_shape(
+        B, C, M, int(kind == "kalman"), *(ctypes.addressof(v) for v in vals))
+    _build.check(code, "aec_scan shape")
+    return {k: v.value for k, v in zip(keys, vals)}

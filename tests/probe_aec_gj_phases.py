@@ -458,7 +458,9 @@ def main() -> None:
                 outs.append(gj_solve(R, r))
             same[f"K12 N=132096 n={n}"] = bits_equal(*outs)
         for n, N in ((1, 1000), (4, 333), (5, 77), (6, 37), (19, 100), (20, 1001), (21, 5),
-                     (24, 64), (25, 9), (31, 3), (31, 40)):
+                     (24, 64), (25, 9), (31, 3), (31, 40),
+                     # several systems a warp
+                     (5, 16901), (20, 16901), (31, 3301)):
             R, r = gj_inputs(N, n, dev)
             R[0, 0, 0] = 0  # a zero first pivot: the divisor taken as 1
             outs = []
@@ -469,7 +471,9 @@ def main() -> None:
         for kind, (p1, p2) in KINDS.items():
             for Tf, B, C, M in ((TF, 256, 4, 256), (1, 1, 1, 256), (3, 2, 4, 256),
                                 (37, 3, 8, 256), (23, 5, 1, 128), (50, 9, 3, 128),
-                                (41, 2, 2, 8)):
+                                (41, 2, 2, 8),
+                                # several channels a block, several blocks an utterance
+                                (45, 40, 8, 256), (45, 132, 6, 256)):
                 Ac, Vc = aec_inputs(rng, Tf, B, C, M, dev)
                 outs = []
                 for lib_ in (plain_lib, own):

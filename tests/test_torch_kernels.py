@@ -352,7 +352,9 @@ def _packed(rng, Tf, B, C, M, scale=100.0):
         ("kalman", 0.95, 1e-3, 4, 256, 3),
         ("nlms", 100.0, 1e-4, 2, 128, 5),
         ("kalman", 0.95, 1e-3, 3, 128, 1),
-        # one channel a block, and eight (two blocks of four) an utterance
+        # one channel an utterance, and eight (at these few utterances the
+        # plan takes one channel a block: test_aec_kernel_channel_groups
+        # holds the blocks of several channels)
         ("nlms", 100.0, 1e-4, 1, 256, 2),
         ("kalman", 0.95, 1e-3, 1, 128, 2),
         ("nlms", 100.0, 1e-4, 8, 256, 2),
@@ -369,6 +371,32 @@ def test_aec_kernel_matches_plain(dev, kind, p1, p2, C, M, B):
     V = _packed(rng, 60, B, 1, M)[:, :, 0]
     V[:, 0, 3:9] = 0.0
     V[:, 0, F + 2:F + 8] = 0.0
+    V[20:35] *= 1e-3
+    ref = aec_scan(A, V, kind, p1, p2, 100.0)
+    before = aec_scan.launches
+    got = aec_scan(A.to(dev), V.to(dev), kind, p1, p2, 100.0)
+    assert aec_scan.launches == before + 1
+    _close(got, ref, 1e-4)
+
+
+@pytest.mark.parametrize("kind,p1,p2", [("nlms", 100.0, 1e-4), ("kalman", 0.95, 1e-3)])
+@pytest.mark.parametrize("B,C", [(40, 8), (132, 6)])
+def test_aec_kernel_channel_groups(dev, kind, p1, p2, B, C):
+    """Enough utterances that the plan gives a block several channels and an
+    utterance several blocks (channels c0 > 0 in a block, the far-end row
+    staged once for the block's channels); 45 frames, no multiple of a step
+    or of the ring, zero far-end bins and a stretch where the gate closes."""
+    from distant_speech_recognition_tpu_torch.ops.aec_kernels import aec_launch_shape
+
+    M = 256
+    sh = aec_launch_shape(B, C, M, kind)
+    assert 1 < sh["cg"] < C and sh["blocks"] == B * (C // sh["cg"]), sh
+    rng = np.random.default_rng(B * 10 + C)
+    F = M // 2 + 1
+    A = _packed(rng, 45, B, C, M)
+    V = _packed(rng, 45, B, 1, M)[:, :, 0]
+    V[:, :, 3:9] = 0.0
+    V[:, :, F + 2:F + 8] = 0.0
     V[20:35] *= 1e-3
     ref = aec_scan(A, V, kind, p1, p2, 100.0)
     before = aec_scan.launches
@@ -508,7 +536,12 @@ def test_wpe_resid_kernel_matches_plain(dev, C, P, lowerN, M, B, Tf):
                                  # the edges of the kernel's compiled row widths (4, 8,
                                  # ..., 24, 32), and batches of 4 systems left partial
                                  (1, 7), (4, 33), (5, 9), (20, 1001), (24, 61), (25, 6),
-                                 (31, 10)])
+                                 (31, 10),
+                                 # more systems than warps the card holds (at most 16
+                                 # blocks of 4 warps an SM; at n = 31, 3 by shared
+                                 # memory): every warp solves several, staging the
+                                 # next into its second slot
+                                 (20, 16901), (5, 16901), (31, 3301)])
 def test_gj_solve_kernel_matches_plain(dev, n, N):
     """Diagonally loaded Hermitian positive-definite systems, as WPE builds them."""
     rng = np.random.default_rng(n * N)
