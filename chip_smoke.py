@@ -64,7 +64,19 @@ Phases (each raises on failure; the script then exits non-zero):
      B=256 x 4 ch x 10 s (the strided FIR K13 twice, no other kernel), the
      reconstruction SNR (>= 50 dB), both banks against their plain versions,
      CUDA-event times of the round trip and of K13 alone beside its plain
-     version and one grouped conv1d.
+     version and one grouped conv1d;
+ 11. BASELINE config 3 (cell gsc-lms-c8-b256: GSC with the NLMS active weight
+     vector + Zelinski): build_pipeline() with the default device on B=256
+     utterances x 8 channels x 10 s, launch counts around one forward
+     (exactly one each of the analysis kernel, the LMS scan and the synthesis
+     kernel, nothing else); the LMS scan against its plain loop (2e-4), K1 and
+     K3 at 8 channels against their plain versions and the path against the
+     plain chain (3e-4); CUDA-event times of the path, of the LMS scan at
+     B = 256, 64 and 1, and of K1 -> K2 -> K3 and K4 (the RLS flagship's
+     kernels) on the same input; the peak device memory and a profile of
+     three forwards; then the pipelines without a postfilter at B=8 x 4 ch x
+     2 s (gsc_lms, gsc_rls and ds + "none"): K1, the scan (none for fixed
+     weights) and K3 once each, against the plain beamformers alone.
 Phase 2 also prints K2/K6's launch (blocks, threads, frames a chunk, shared
 memory, registers, blocks per SM) at B = 256, 132, 64 and 1 (C = 4) and at
 B = 256, C = 8; phase 5 also times K2 on the first 64 utterances and on the
@@ -167,12 +179,19 @@ def main() -> None:
     from distant_speech_recognition_tpu_torch import kernels
     from distant_speech_recognition_tpu_torch.kernels import _build
     from distant_speech_recognition_tpu_torch.models.adaptive_gsc import (
+        GSCLMSConfig,
         GSCRLSConfig,
+        gsc_lms,
         gsc_postfilter_fused,
+        gsc_rls,
         gsc_weights,
     )
     from distant_speech_recognition_tpu_torch.models.aec import kalman_aec, nlms_aec
-    from distant_speech_recognition_tpu_torch.models.beamforming import array_manifold
+    from distant_speech_recognition_tpu_torch.models.beamforming import (
+        apply_weights,
+        array_manifold,
+        frame_energy_half,
+    )
     # the packed WPE path's loading (with its default constants) and
     # apply-time tap truncation, between the kernels held below
     from distant_speech_recognition_tpu_torch.models.dereverberation import _load as wpe_load
@@ -186,8 +205,10 @@ def main() -> None:
         zelinski_apply_plain,
     )
     from distant_speech_recognition_tpu_torch.models.fused_scan import (
+        NO_POSTFILTER,
         analysis_gsc_rls_zelinski,
         analysis_gsc_synthesis,
+        gsc_lms_zelinski,
         gsc_rls_zelinski,
         gsc_rls_zelinski_steered,
         scan_launch_shape,
@@ -919,18 +940,28 @@ def main() -> None:
         f"({audio_s / (plain_path4_ms / 1e3):.1f} audio-s/s/GPU)")
     log(f"  peak device memory of phase 6 {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     def profile_path(fn, n=3):
         """Device busy time and idle share over ``n`` back-to-back calls of
-        ``fn``, and device time per kernel (reported, not checked)."""
+        ``fn``, and device time per kernel (reported, not checked).  One call
+        runs first inside the session and is left out: a session has been
+        seen to miss the first call's kernels (2 of 3 launches recorded)."""
         with torch.no_grad():
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                for _ in range(n):
-                    fn()
+                fn()
                 torch.cuda.synchronize()
-        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                       if e.device_type == torch.autograd.DeviceType.CUDA)
+                with record_function("dsr_measured"):
+                    for _ in range(n):
+                        fn()
+                    torch.cuda.synchronize()
+        t0 = min(e.time_range.start for e in prof.events() if e.name == "dsr_measured")
+        # the device events of the measured calls (the range's own mark on
+        # the device timeline is no kernel)
+        device = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and e.time_range.start >= t0
+                  and e.name != "dsr_measured"]
+        spans = sorted((e.time_range.start, e.time_range.end) for e in device)
         if not spans:
             log("  the profiler recorded no device time")
             return
@@ -941,16 +972,17 @@ def main() -> None:
             hi = max(hi, s1)
         busy += hi - lo
         span = spans[-1][1] - spans[0][0]
-        per_kernel = {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                name = e.name.replace("(anonymous namespace)::", "").removeprefix("void ")
-                name = re.split(r"[<(]", name)[0].split("::")[-1][:40]
-                per_kernel[name] = per_kernel.get(name, 0.0) + e.time_range.elapsed_us()
+        per_kernel, recorded = {}, {}
+        for e in device:
+            name = e.name.replace("(anonymous namespace)::", "").removeprefix("void ")
+            name = re.split(r"[<(]", name)[0].split("::")[-1][:40]
+            per_kernel[name] = per_kernel.get(name, 0.0) + e.time_range.elapsed_us()
+            recorded[name] = recorded.get(name, 0) + 1
         log(f"  device busy {busy / (1e3 * n):.3f} ms per forward of a {span / (1e3 * n):.3f} ms "
             f"span: idle {100 * (1 - busy / span):.2f}%")
         for name, us in sorted(per_kernel.items(), key=lambda kv: -kv[1]):
-            log(f"  {name:40s} {us / (1e3 * n):9.3f} ms per forward  {100 * us / busy:5.1f}%")
+            log(f"  {name:40s} {us / (1e3 * n):9.3f} ms per forward  {100 * us / busy:5.1f}%  "
+                f"({recorded[name]} launches recorded)")
 
     log("== 7. torch.profiler over 3 back-to-back flagship (gsc_mono) forwards")
     profile_path(lambda: enh(x))
@@ -1205,6 +1237,139 @@ def main() -> None:
     log(f"  peak device memory of phase 10 {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     del x10
 
+    # -- 11. BASELINE config 3 at real size: GSC-LMS + Zelinski, 8 channels -------
+    C3 = 8
+    cfg3 = dataclasses.replace(cfg, beamformer="gsc_lms")
+    mpos3 = np.c_[np.arange(C3) * 50.0, np.zeros((C3, 2))]
+    delays3 = geometry.calc_la_delays(mpos3[:, :1], azimuth=np.pi / 3)
+    log(f"== 11. config-3 path (gsc-lms-c8-b256: GSC-LMS + Zelinski): build_pipeline() on the "
+        f"card, B={B} x {C3} ch x {secs} s")
+    enh3 = build_pipeline(cfg3, mpos3, delays3, h, g)
+    torch.cuda.reset_peak_memory_stats()
+    x3 = torch.from_numpy(signal(rng, (B, C3, T))).to(dev)
+    log(f"  input {tuple(x3.shape)} ({x3.numel() * 4 / 1e9:.2f} GB), packed spectrum "
+        f"{Tf * B * C3 * M * 4 / 1e9:.2f} GB")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        y3 = enh3(x3)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts3 = kernels.launch_counts()
+    log(f"  forward wall {wall * 1e3:.1f} ms (first call), launches {counts3}")
+    if tuple(y3.shape) != (B, T_out) or not torch.isfinite(y3).all():
+        raise AssertionError(f"config-3 output {tuple(y3.shape)} is not finite {(B, T_out)}")
+    want = dict.fromkeys(counts3, 0) | {"analysis_tm": 1, "gsc_lms_zelinski": 1,
+                                        "synthesis_tm": 1}
+    if counts3 != want:
+        raise AssertionError(f"config-3 launches {counts3}, the path needs {want}")
+    lms_args = (enh3.wqH, enh3.BmH, enh3.wq_manifold, cfg3.lms, cfg3.pf_alpha, cfg3.pf_type,
+                cfg3.pf_min_frames)
+    rls_args3 = (enh3.wqH, enh3.BmH, enh3.wq_manifold, cfg.rls, cfg.pf_alpha, cfg.pf_type,
+                 cfg.pf_min_frames)
+
+    def plain_lms(Yr):
+        wqH, BmH, wqm, lms_cfg, alpha, pf_type, pf_min = lms_args
+        return gsc_postfilter_fused(Yr, None, wqH, BmH, wqm, "lms", lms_cfg, alpha, pf_type,
+                                    pf_min, True)
+
+    with torch.no_grad():
+        Yr3_ref = analysis_half_real_tm(x3, enh3.h, fb, packed=True, A=enh3.A)
+        compare("analysis_tm, 8 channels", analysis_tm_fused(x3, enh3.h, fb, A=enh3.A, hr=enh3.hr),
+                Yr3_ref, 2e-5, "analysis_tm")
+        # the plain loop runs for seconds: timed here, once
+        Yp3_ref, plain_lms_ms = timed(lambda: plain_lms(Yr3_ref))
+        compare("gsc_lms_zelinski", gsc_lms_zelinski(Yr3_ref, *lms_args), Yp3_ref, 2e-4,
+                "gsc_lms_zelinski")
+        y3_ref = synthesis_half_real_tm(Yp3_ref, enh3.g, fb, S=enh3.S)
+        compare("synthesis_tm of the config-3 spectrum",
+                synthesis_tm_fused(Yp3_ref, enh3.g, fb, S=enh3.S, gf=enh3.gf), y3_ref, 2e-5,
+                "synthesis_tm")
+        compare("config-3 path (build_pipeline) vs plain chain", y3, y3_ref, 3e-4)
+        del Yp3_ref, y3_ref, y3
+        Yr3 = analysis_tm_fused(x3, enh3.h, fb, A=enh3.A, hr=enh3.hr)
+        times["gsc_lms_zelinski"] = (time_ms(lambda: gsc_lms_zelinski(Yr3, *lms_args), 5),
+                                     plain_lms_ms)
+        Yr3_64 = Yr3[:, :64].contiguous()
+        Yr3_1 = Yr3[:, :1].contiguous()
+        scan_ms["gsc_lms_zelinski"] = {
+            "B=256": times["gsc_lms_zelinski"][0],
+            "B=64": time_ms(lambda: gsc_lms_zelinski(Yr3_64, *lms_args), 5),
+            # one utterance alone: the latency of the frame chain times Tf
+            "B=1": time_ms(lambda: gsc_lms_zelinski(Yr3_1, *lms_args), 5)}
+        library["gsc_lms_zelinski"] = None
+        k1_8_ms = time_ms(lambda: analysis_tm_fused(x3, enh3.h, fb, A=enh3.A, hr=enh3.hr), 5)
+        Yp3 = gsc_lms_zelinski(Yr3, *lms_args)
+        k3_8_ms = time_ms(lambda: synthesis_tm_fused(Yp3, enh3.g, fb, S=enh3.S, gf=enh3.gf), 5)
+        k2_8_ms = time_ms(lambda: gsc_rls_zelinski(Yr3, *rls_args3), 5)
+        del Yr3, Yr3_ref, Yr3_64, Yr3_1, Yp3
+        # the RLS flagship's kernels on the same input: K1 -> K2 -> K3 and K4
+        rls_chain3_ms = time_ms(lambda: synthesis_tm_fused(
+            gsc_rls_zelinski(analysis_tm_fused(x3, enh3.h, fb, A=enh3.A, hr=enh3.hr),
+                             *rls_args3), enh3.g, fb, S=enh3.S, gf=enh3.gf), 3)
+        k4_8_ms = time_ms(lambda: analysis_gsc_synthesis(
+            x3, enh3.h, enh3.g, fb, *rls_args3, A=enh3.A, S=enh3.S, hr=enh3.hr, gf=enh3.gf), 3)
+        path3_ms = time_ms(lambda: enh3(x3), 3)
+    peak3 = torch.cuda.max_memory_allocated() / 1e9
+    lms_ms = scan_ms["gsc_lms_zelinski"]
+    log(f"  gsc_lms_zelinski: kernel {lms_ms['B=256']:.3f} ms   B=64 {lms_ms['B=64']:.3f} ms   "
+        f"B=1 {lms_ms['B=1']:.3f} ms   plain {plain_lms_ms:.3f} ms   library -")
+    # K1's least time at 8 channels (as for the kernel table below: samples in,
+    # packed rows out, FFT-cost DFT rows)
+    rows3 = Tf * B * C3
+    k1_8_bound = bound(4 * (B * C3 * T + rows3 * M + M * M + fb.N),
+                       rows3 * 2.5 * M * np.log2(M) + 2 * fb.m * M * rows3)
+    log(f"  at 8 channels: analysis_tm {k1_8_ms:.3f} ms (bound {k1_8_bound[0]:.3f} ms, "
+        f"{k1_8_bound[1]})   synthesis_tm {k3_8_ms:.3f} ms   gsc_rls_zelinski {k2_8_ms:.3f} ms")
+    log(f"  config-3 path (K1 -> LMS scan -> K3): {path3_ms:.3f} ms "
+        f"({audio_s / (path3_ms / 1e3):.1f} audio-s/s/GPU)")
+    log(f"  same input, the RLS flagship's kernels: K1->K2->K3 {rls_chain3_ms:.3f} ms "
+        f"({audio_s / (rls_chain3_ms / 1e3):.1f} audio-s/s/GPU)   gsc_mono (K4) {k4_8_ms:.3f} ms "
+        f"({audio_s / (k4_8_ms / 1e3):.1f} audio-s/s/GPU)")
+    log(f"  peak device memory of phase 11 {peak3:.2f} GB   ({smi_line()})")
+    log("  torch.profiler over 3 back-to-back config-3 forwards")
+    profile_path(lambda: enh3(x3))
+    del enh3, x3
+
+    # postfilter "none": the scan without the gain, or the fixed weights' plain
+    # product, between K1 and K3, against the plain beamformers alone
+    B11, T11 = 8, 2 * FS
+    log(f"== 11b. pipelines without a postfilter: build_pipeline() on the card, B={B11} x {C} ch "
+        f"x 2 s")
+    x11 = torch.from_numpy(signal(rng, (B11, C, T11))).to(dev)
+    counts_none = {}
+    for bf11, scan_name in (("gsc_lms", "gsc_lms_zelinski"), ("gsc_rls", "gsc_rls_zelinski"),
+                            ("ds", None)):
+        cfg11 = dataclasses.replace(cfg, beamformer=bf11, postfilter="none",
+                                    lms=GSCLMSConfig(min_frames=8),
+                                    rls=GSCRLSConfig(min_frames=8))
+        enh11 = build_pipeline(cfg11, mpos, delays, h, g)
+        kernels.reset_launch_counts()
+        with torch.no_grad():
+            y11 = enh11(x11)
+        torch.cuda.synchronize()
+        c11 = kernels.launch_counts()
+        want = dict.fromkeys(c11, 0) | {"analysis_tm": 1, "synthesis_tm": 1}
+        if scan_name:
+            want[scan_name] = 1
+        if c11 != want:
+            raise AssertionError(f"{bf11} + none launches {c11}, the path needs {want}")
+        counts_none[bf11] = c11
+        with torch.no_grad():
+            X11 = unpack_half(analysis_half_real_tm(x11, enh11.h, fb, packed=True,
+                                                    A=enh11.A)).movedim(-2, -1)
+            if bf11 == "ds":
+                Y11 = apply_weights(enh11.wqH, X11)
+            else:
+                plain_bf = gsc_lms if bf11 == "gsc_lms" else gsc_rls
+                Y11 = plain_bf(X11, frame_energy_half(X11[..., 0], M), enh11.wqH, enh11.BmH,
+                               cfg11.lms if bf11 == "gsc_lms" else cfg11.rls)[0]
+            compare(f"{bf11} + none (build_pipeline) vs the plain beamformer alone", y11,
+                    synthesis_half_real_tm(pack_half(Y11), enh11.g, fb, S=enh11.S), 3e-4)
+        del enh11, y11, X11, Y11
+    del x11
+
     # least time on the card for the work of each timed call, from its shapes
     CP = C * P
     valid = Tf - lower  # frames that carry WPE weight
@@ -1242,6 +1407,13 @@ def main() -> None:
         "wpe_resid": bound(8 * rows * M + 8 * B * C * F * CP, 8 * CP * B * C * F * valid),
     }
     rows5 = Tf * B5 * C
+    # the LMS scan at config 3's shape: C3 channels in, one out; its complex
+    # multiply-adds per (frame, utterance, bin): Z, Yc, the Zelinski sums,
+    # xpow, the error, the update with its leak, the norm and the output
+    Bc3 = C3 - 1
+    lms_macs = Bc3 * C3 + C3 + 2 * C3 + C3 * (C3 - 1) // 2 + C3 + 5 * Bc3
+    bounds["gsc_lms_zelinski"] = bound(4 * (Tf * B * C3 * M + Tf * B * M) + 8 * F * C3 * (2 + Bc3),
+                                       8 * lms_macs * Tf * B * F)
     bounds |= {
         "gsc_rls_zelinski_steered": bound(4 * (rows5 * M + Tf * B5 * M) + 8 * B5 * F * C * (2 + Bc),
                                           8 * scan_macs * Tf * B5 * F),
@@ -1283,9 +1455,14 @@ def main() -> None:
                          "distant_speech_recognition_tpu/models/pallas_fused_scan.py:876"),
         "polyphase_fir": ("polyphase_fir.cu",
                           "distant_speech_recognition_tpu/ops/pallas_kernels.py:674"),
+        # no TPU kernel: the JAX package runs this scan in XLA
+        "gsc_lms_zelinski": ("gsc_lms_zelinski.cu",
+                             "distant_speech_recognition_tpu/models/adaptive_gsc.py:346 "
+                             "(XLA scan, kind='lms'; no TPU kernel)"),
     }
     by_path = {"flagship": counts, "config4": counts4, "fixed_weight": counts_fw,
-               "fixed_weight_split": counts_split, "config5": counts5, "filterbank": counts_fb}
+               "fixed_weight_split": counts_split, "config5": counts5, "filterbank": counts_fb,
+               "config3": counts3} | {f"{bf}_none": c for bf, c in counts_none.items()}
     rows_json = []
     for name, (src, rep) in sources.items():
         b_ms, b_by = bounds[name]
@@ -1306,9 +1483,10 @@ def main() -> None:
             row["fft_ms"] = fft_ms[name]
         if name == "analysis_tm":
             row["dense_route_ms"] = dense_route_ms
-        if name in scan_ms:  # K2 / K6: times at two batches, and the launch at each
+        if name in scan_ms:  # the scans: times at other batches, and K2/K6's launch at each
             row["ms_by_batch"] = scan_ms[name]
-            row["launch_by_batch"] = {b: scan_shapes[f"{b} C=4"] for b in scan_ms[name]}
+            if name != "gsc_lms_zelinski":
+                row["launch_by_batch"] = {b: scan_shapes[f"{b} C=4"] for b in scan_ms[name]}
         if name == "wpe_stats":  # "ms" is the later EM iteration's, with filters
             row["first_iteration_ms"] = stats_first_ms
         if name == "aec_scan":  # "ms" is NLMS's, the path's

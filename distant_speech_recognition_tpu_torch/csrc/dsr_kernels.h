@@ -57,6 +57,18 @@ int dsr_gsc_rls_zelinski_steered(const float* Yp, const float* wq, const float* 
                                  float spectral_floor, int real_mode, int pf_min_frames,
                                  cudaStream_t stream);
 
+// the GSC with the leaky power-normalised LMS active weight vector + Zelinski
+// (no TPU kernel: the JAX package's XLA scan gsc_postfilter_fused(kind="lms")),
+// one set of weights [F, ...]; the launch is dsr_gsc_rls_zelinski's
+int dsr_gsc_lms_zelinski(const float* Yp, const float* wq, const float* bm,
+                         const float* ta, float* out, int Tf, int B, int C, int Bc,
+                         int M, float beta, float one_minus_beta, float gamma,
+                         float delta, float reg_param, float sil_thresh,
+                         float energy_floor, float max_wa_l2norm, int min_frames,
+                         int slowdown_after, float pf_alpha, float one_minus_pf_alpha,
+                         float pf_gain, float spectral_floor, int real_mode,
+                         int pf_min_frames, cudaStream_t stream);
+
 // the launch shape that dsr_gsc_rls_zelinski(_steered) takes for (B, C, M):
 // blocks, threads a block, frames a chunk, dynamic shared memory, the
 // kernel's registers a thread and blocks per SM

@@ -7,6 +7,9 @@ path went through the kernels:
 - K1 `ops.filterbank_kernels.analysis_tm_fused` (``csrc/analysis_tm.cu``);
 - K2 `models.fused_scan.gsc_rls_zelinski` and K6
   `models.fused_scan.gsc_rls_zelinski_steered` (``csrc/gsc_rls_zelinski.cu``);
+- the LMS scan `models.fused_scan.gsc_lms_zelinski`
+  (``csrc/gsc_lms_zelinski.cu``; it replaces no TPU kernel: the JAX package
+  runs that recursion in XLA);
 - K3 `ops.filterbank_kernels.synthesis_tm_fused` (``csrc/synthesis_tm.cu``);
 - K4 `models.fused_scan.analysis_gsc_synthesis` and K5
   `models.fused_scan.analysis_gsc_rls_zelinski` (``csrc/gsc_mono.cu``);
@@ -33,6 +36,7 @@ def _wrappers():
     from ..models.fused_scan import (
         analysis_gsc_rls_zelinski,
         analysis_gsc_synthesis,
+        gsc_lms_zelinski,
         gsc_rls_zelinski,
         gsc_rls_zelinski_steered,
     )
@@ -54,6 +58,7 @@ def _wrappers():
         "gsc_mono": analysis_gsc_synthesis,
         "gsc_analysis": analysis_gsc_rls_zelinski,
         "polyphase_fir": polyphase_fir,
+        "gsc_lms_zelinski": gsc_lms_zelinski,
     }
 
 

@@ -1,20 +1,26 @@
-"""Adaptive GSC beamformer (RLS) fused with the Zelinski postfilter, plain torch.
+"""Adaptive GSC beamformers (LMS and RLS), alone or fused with the Zelinski
+postfilter, plain torch.
 
 The reference adapts the active weight vector ``wa`` per frame per bin
-(SubbandGSCRLSBeamformer.__iter__, pybeamformer.py:816-898; the C++ twin is
+(SubbandGSCLMSBeamformer.__iter__, pybeamformer.py:659-762;
+SubbandGSCRLSBeamformer.__iter__, pybeamformer.py:816-898, whose C++ twin is
 SubbandGSCRLS::update_active_weight_vector2_, beamformer.cc:1576-1645) and
 runs the Zelinski postfilter on the same snapshots (postfilter.cc:424-473).
 Here one Python loop over frames carries the state of every (utterance,
 bin) pair at once: all operations are vectorised over ``[B, F]``.
 
-`gsc_postfilter_fused` is the specification the CUDA scan kernel
-(`models.fused_scan.gsc_rls_zelinski`, ``csrc/gsc_rls_zelinski.cu``) is
-held to, and its plain version on the CPU.
+`gsc_lms` and `gsc_rls` run the beamformer alone on complex snapshots (the
+JAX package's route for ``postfilter="none"``).  `gsc_postfilter_fused` is
+the specification the CUDA scan kernels (`models.fused_scan.gsc_rls_zelinski`
+and `gsc_lms_zelinski`, ``csrc/gsc_rls_zelinski.cu`` and
+``csrc/gsc_lms_zelinski.cu``) are held to, and their
+plain version on the CPU.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import torch
 
@@ -22,7 +28,25 @@ from ..ops.filterbank import pack_half, unpack_half
 from .beamforming import array_manifold, blocking_matrix, frame_energy_half
 from .postfilter import PostFilterType, zelinski_step
 
-__all__ = ["GSCRLSConfig", "gsc_weights", "gsc_postfilter_fused"]
+__all__ = [
+    "GSCLMSConfig", "GSCRLSConfig", "LMSState", "RLSState", "gsc_weights", "lms_init_state",
+    "rls_init_state", "gsc_lms", "gsc_rls", "gsc_postfilter_fused",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class GSCLMSConfig:
+    """Defaults per SubbandGSCLMSBeamformer.__init__ (pybeamformer.py:595-607)."""
+
+    beta: float = 0.97
+    gamma: float = 0.01
+    init_diagonal_load: float = 1.0e6
+    regularization_param: float = 1.0e-4
+    energy_floor: float = 90.0
+    sil_thresh: float = 1.0e8
+    max_wa_l2norm: float = 100.0
+    min_frames: int = 128
+    slowdown_after: int = 4096
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +65,59 @@ class GSCRLSConfig:
     min_frames: int = 128
 
 
+class LMSState(NamedTuple):
+    """The LMS carry: the JAX package's ``_LMSState``."""
+
+    waH: torch.Tensor  # [..., F, Bc] conjugate active weights
+    subband_energy: torch.Tensor  # [..., F] smoothed sum_c |X_c|^2
+    energy: torch.Tensor  # [...] smoothed reference-channel frame energy
+    gamma: torch.Tensor  # 0-d step size, halved every slowdown_after frames
+    isamp: int  # frames seen
+
+
+class RLSState(NamedTuple):
+    """The RLS carry: the JAX package's ``_RLSState``.  The Hermitian
+    precision Pz is carried as its real diagonal and its upper triangle
+    (pairs (i, j), i < j, row-major)."""
+
+    waH: torch.Tensor  # [..., F, Bc]
+    pz_diag: torch.Tensor  # [..., F, Bc]
+    pz_off: torch.Tensor  # [..., F, Bc*(Bc-1)/2]
+    energy: torch.Tensor  # [...]
+    isamp: int
+
+
+def _real_dtype(cdtype: torch.dtype) -> torch.dtype:
+    return torch.float32 if cdtype == torch.complex64 else torch.float64
+
+
+def lms_init_state(batch: tuple, F: int, Bc: int, c: GSCLMSConfig, cdtype=torch.complex64,
+                   device=None) -> LMSState:
+    """Fresh LMS state: wa = 0, the smoothed energies at the initial diagonal
+    load, the initial step size (pybeamformer.py:620-640)."""
+    rdt = _real_dtype(cdtype)
+    return LMSState(
+        waH=torch.zeros(batch + (F, Bc), dtype=cdtype, device=device),
+        subband_energy=torch.full(batch + (F,), c.init_diagonal_load, dtype=rdt, device=device),
+        energy=torch.full(batch, c.init_diagonal_load, dtype=rdt, device=device),
+        gamma=torch.tensor(c.gamma, dtype=rdt, device=device),
+        isamp=0,
+    )
+
+
+def rls_init_state(batch: tuple, F: int, B: int, init_diagonal_load: float,
+                   cdtype=torch.complex64, device=None) -> RLSState:
+    """Fresh RLS state: wa = 0, Pz = I / delta (pybeamformer.py:795-807)."""
+    rdt = _real_dtype(cdtype)
+    return RLSState(
+        waH=torch.zeros(batch + (F, B), dtype=cdtype, device=device),
+        pz_diag=torch.full(batch + (F, B), 1.0 / init_diagonal_load, dtype=rdt, device=device),
+        pz_off=torch.zeros(batch + (F, B * (B - 1) // 2), dtype=cdtype, device=device),
+        energy=torch.full(batch, init_diagonal_load, dtype=rdt, device=device),
+        isamp=0,
+    )
+
+
 def gsc_weights(fftlen: int, samplerate: float, delays, Nc: int = 1):
     """Quiescent weights + blocking matrix for a GSC
     (calc_beamformer_weights, pybeamformer.py:739-746 / 882-889).
@@ -51,6 +128,61 @@ def gsc_weights(fftlen: int, samplerate: float, delays, Nc: int = 1):
     vs = array_manifold(fftlen, samplerate, delays)
     B = blocking_matrix(vs, Nc)
     return torch.conj(vs).resolve_conj(), B.transpose(-1, -2).contiguous()
+
+
+def _lms_step_factory(c: GSCLMSConfig, wqH: torch.Tensor, BmH: torch.Tensor):
+    """One leaky power-normalised LMS frame update (pybeamformer.py:659-762),
+    shape-generic over the batch axes: ``step(state, Xt [..., F, C],
+    energy_t [...]) -> (state, Y [..., F])``."""
+    Bc, C = BmH.shape[-2], BmH.shape[-1]
+
+    def step(state: LMSState, Xt, energy_t):
+        # step-size slowdown (pybeamformer.py:669-671)
+        slow = state.isamp > 0 and state.isamp % c.slowdown_after == 0
+        gamma = state.gamma / 2.0 if slow else state.gamma
+
+        gate = energy_t > state.energy / c.sil_thresh  # [...]
+
+        Z = torch.stack([sum(BmH[..., i, ch] * Xt[..., ch] for ch in range(C))
+                         for i in range(Bc)], dim=-1)  # blocking-matrix outputs
+        Yc = sum(wqH[..., ch] * Xt[..., ch] for ch in range(C))  # upper branch
+
+        xpow = torch.sum(torch.abs(Xt) ** 2, dim=-1)  # per-bin cross-channel power
+        if state.isamp > 0:
+            se = state.subband_energy * c.beta + (1.0 - c.beta) * xpow
+        else:
+            se = xpow
+        se = torch.clamp(se, min=c.energy_floor)
+
+        # leak and error both on the old weights
+        epa = Yc - torch.sum(state.waH * Z, dim=-1)
+        alpha = gamma / se  # [..., F]
+        watH = state.waH + epa[..., None] * torch.conj(Z) * alpha[..., None]
+        if c.regularization_param > 0:
+            watH = watH - alpha[..., None] * c.regularization_param * state.waH
+        norm = torch.abs(torch.sum(watH * torch.conj(watH), dim=-1))
+        # the select never lets the speculative inf scale of a zero norm through
+        scale = torch.where(norm > c.max_wa_l2norm, torch.sqrt(c.max_wa_l2norm / norm),
+                            torch.ones_like(norm))
+        waH_new = watH * scale[..., None]
+
+        waH = torch.where(gate[..., None, None], waH_new, state.waH)
+        subband_energy = torch.where(gate[..., None], se, state.subband_energy)
+
+        if state.isamp >= c.min_frames:
+            Y = Yc - torch.sum(waH * Z, dim=-1)
+        else:
+            Y = Yc
+        new_state = LMSState(
+            waH=waH,
+            subband_energy=subband_energy,
+            energy=state.energy * c.beta + (1.0 - c.beta) * energy_t,
+            gamma=gamma,
+            isamp=state.isamp + 1,
+        )
+        return new_state, Y
+
+    return step
 
 
 def _pz_pairs(B: int):
@@ -154,6 +286,49 @@ def _rls_step_factory(c: GSCRLSConfig, wqH: torch.Tensor, BmH: torch.Tensor):
     return step
 
 
+def gsc_lms(X: torch.Tensor, energy: torch.Tensor, wqH: torch.Tensor, BmH: torch.Tensor,
+            config: GSCLMSConfig = GSCLMSConfig(), init_state: LMSState | None = None):
+    """Leaky power-normalised LMS GSC over an utterance (pybeamformer.py:659-762).
+
+    ``X``: complex snapshots ``[T, ..., F, C]`` (batch axes ``...`` between
+    time and bins); ``energy [T, ...]``: the reference channel's frame
+    energies (`beamforming.frame_energy_half`); ``wqH [F, C]``, ``BmH [F,
+    C-Nc, C]`` from `gsc_weights`.  Returns ``(Y [T, ..., F], final_state)``.
+    """
+    F, Bc = BmH.shape[-3], BmH.shape[-2]
+    state = init_state
+    if state is None:
+        state = lms_init_state(X.shape[1:-2], F, Bc, config, X.dtype, X.device)
+    step = _lms_step_factory(config, wqH, BmH)
+    outs = []
+    for t in range(X.shape[0]):
+        state, Y = step(state, X[t], energy[t].to(state.energy.dtype))
+        outs.append(Y)
+    return torch.stack(outs, dim=0), state
+
+
+def gsc_rls(X: torch.Tensor, energy: torch.Tensor, wqH: torch.Tensor, BmH: torch.Tensor,
+            config: GSCRLSConfig = GSCRLSConfig(), init_state: RLSState | None = None):
+    """RLS GSC with quadratic constraint over an utterance
+    (pybeamformer.py:816-898).  Same interface as `gsc_lms`."""
+    F, Bc = BmH.shape[-3], BmH.shape[-2]
+    s = init_state
+    if s is None:
+        s = rls_init_state(X.shape[1:-2], F, Bc, config.init_diagonal_load, X.dtype, X.device)
+    step = _rls_step_factory(config, wqH, BmH)
+    npair = Bc * (Bc - 1) // 2
+    state = ([s.waH[..., i] for i in range(Bc)], [s.pz_diag[..., i] for i in range(Bc)],
+             [s.pz_off[..., n] for n in range(npair)], s.energy)
+    outs = []
+    for t in range(X.shape[0]):
+        state, Y = step(state, X[t], energy[t].to(s.energy.dtype), s.isamp + t)
+        outs.append(Y)
+    waH, d, off, en = state
+    final = RLSState(torch.stack(waH, dim=-1), torch.stack(d, dim=-1),
+                     torch.stack(off, dim=-1) if npair else s.pz_off, en, s.isamp + X.shape[0])
+    return torch.stack(outs, dim=0), final
+
+
 def gsc_postfilter_fused(
     X: torch.Tensor,
     energy,
@@ -161,13 +336,14 @@ def gsc_postfilter_fused(
     BmH: torch.Tensor,
     wq_manifold: torch.Tensor,
     kind: str,
-    config: GSCRLSConfig,
+    config: GSCLMSConfig | GSCRLSConfig,
     pf_alpha: float = 0.6,
     pf_type: int = PostFilterType.ZELINSKI1_REAL,
     pf_min_frames: int = 0,
     real_packed: bool = True,
 ) -> torch.Tensor:
-    """Adaptive GSC-RLS + Zelinski postfilter in one loop over frames.
+    """Adaptive GSC (``kind`` "lms" with a `GSCLMSConfig`, "rls" with a
+    `GSCRLSConfig`) + Zelinski postfilter in one loop over frames.
 
     ``X``: the packed real analysis output ``[T, ..., C, M]``
     (``[Re(0..M/2) | Im(1..M/2-1)]`` lanes); the complex snapshot
@@ -181,10 +357,13 @@ def gsc_postfilter_fused(
     ``[F, ...]`` give the shared-weight result bit for bit.  Returns the
     postfiltered output in the same packed layout, ``[T, ..., M]`` float32.
 
-    Only ``kind="rls"`` on the packed layout with in-loop energy is ported.
+    The gain is applied from frame ``pf_min_frames + 1`` on; a
+    ``pf_min_frames`` past the last frame gives the beamformer's output
+    alone, as `gsc_lms` / `gsc_rls` compute it.  Only the packed layout with
+    in-loop energy is ported.
     """
-    if kind != "rls":
-        raise NotImplementedError(f"gsc_postfilter_fused kind={kind!r} is not ported; only 'rls'")
+    if kind not in ("lms", "rls"):
+        raise ValueError(f"unknown gsc kind {kind!r}")
     if not real_packed or energy is not None:
         raise NotImplementedError("only the packed layout with in-loop frame energy is ported")
     c = config
@@ -196,15 +375,21 @@ def gsc_postfilter_fused(
     dev = X.device
     cdtype = torch.complex64 if X.dtype == torch.float32 else torch.complex128
     real_mode = bool(pf_type & PostFilterType.ZELINSKI1_REAL)
-    rls_step = _rls_step_factory(c, wqH, BmH)
+    if kind == "lms":
+        lms_step = _lms_step_factory(c, wqH, BmH)
+        state = lms_init_state(batch, F, Bc, c, cdtype, dev)
 
-    zc = torch.zeros(batch + (F,), dtype=cdtype, device=dev)
-    state = (
-        [zc] * Bc,
-        [torch.full(batch + (F,), 1.0 / c.init_diagonal_load, dtype=X.dtype, device=dev)] * Bc,
-        [zc] * (Bc * (Bc - 1) // 2),
-        torch.full(batch, c.init_diagonal_load, dtype=X.dtype, device=dev),
-    )
+        def gsc_step(state, Xt, energy_t, t):
+            return lms_step(state, Xt, energy_t)
+    else:
+        gsc_step = _rls_step_factory(c, wqH, BmH)
+        zc = torch.zeros(batch + (F,), dtype=cdtype, device=dev)
+        state = (
+            [zc] * Bc,
+            [torch.full(batch + (F,), 1.0 / c.init_diagonal_load, dtype=X.dtype, device=dev)] * Bc,
+            [zc] * (Bc * (Bc - 1) // 2),
+            torch.full(batch, c.init_diagonal_load, dtype=X.dtype, device=dev),
+        )
     phi_pair = phi_diag = None
     ta_conj = torch.conj(wq_manifold)
 
@@ -212,7 +397,7 @@ def gsc_postfilter_fused(
     for t in range(X.shape[0]):
         Xt = unpack_half(X[t]).movedim(-2, -1)  # [..., F, C]
         energy_t = frame_energy_half(Xt[..., 0], M)
-        state, Y = rls_step(state, Xt, energy_t, t)
+        state, Y = gsc_step(state, Xt, energy_t, t)
         phi_pair, phi_diag, W = zelinski_step(phi_pair, phi_diag, ta_conj * Xt, t, pf_alpha,
                                               real_mode)
         out = Y * W if t > pf_min_frames else Y

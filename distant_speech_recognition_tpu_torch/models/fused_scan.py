@@ -1,6 +1,9 @@
-"""GSC-RLS + Zelinski as hand-written CUDA kernels: the scans and the one-kernel chains.
+"""The adaptive GSC + Zelinski as hand-written CUDA kernels: the scans and the
+one-kernel chains.
 
-Counterpart of the JAX package's ``models/pallas_fused_scan.py``:
+Counterpart of the JAX package's ``models/pallas_fused_scan.py`` and, for
+the LMS form, of its XLA scan ``models/adaptive_gsc.gsc_postfilter_fused(
+kind="lms")``:
 
 - `gsc_rls_zelinski` (K2) replaces ``gsc_rls_zelinski_pallas``: one set of
   weights for every utterance.
@@ -10,6 +13,12 @@ Counterpart of the JAX package's ``models/pallas_fused_scan.py``:
   for a CUDA tensor or raise; for a CPU tensor they run the plain loop
   `models.adaptive_gsc.gsc_postfilter_fused`, the specification the kernel
   is held to.
+- `gsc_lms_zelinski` runs the GSC with the NLMS active weight vector
+  (BASELINE config 3), ``csrc/gsc_lms_zelinski.cu``: K2's design and
+  staging (``csrc/gsc_scan.h``) with the LMS update; it has no TPU
+  counterpart (the JAX package runs this recursion in XLA).
+- Passing ``pf_min_frames=NO_POSTFILTER`` to a scan gives the beamformer's
+  output without the gain (``postfilter="none"``), to the bit.
 - `analysis_gsc_synthesis` (K4) replaces ``analysis_gsc_synthesis_pallas``
   (raw samples in, samples out) and `analysis_gsc_rls_zelinski` (K5)
   replaces ``analysis_gsc_rls_zelinski_pallas`` (raw samples in, the packed
@@ -33,10 +42,12 @@ from ..ops.filterbank import (
     synthesis_taps,
 )
 from ..ops.filterbank_kernels import fft_twiddles_tensor, prototype_taps
-from .adaptive_gsc import GSCRLSConfig, gsc_postfilter_fused
+from .adaptive_gsc import GSCLMSConfig, GSCRLSConfig, gsc_postfilter_fused
 from .postfilter import PostFilterType, zelinski_args
 
 __all__ = [
+    "NO_POSTFILTER",
+    "gsc_lms_zelinski",
     "gsc_rls_zelinski",
     "gsc_rls_zelinski_steered",
     "scan_launch_shape",
@@ -50,6 +61,17 @@ __all__ = [
 # passes it to csrc/gsc_mono.cu, which refuses it unless it equals its ROWS
 GSC_MONO_ROWS = 64
 
+# a pf_min_frames that no frame index passes (the kernels take an int32):
+# the Zelinski gain is computed and never applied
+NO_POSTFILTER = 2**31 - 1
+
+
+def _lms_args(cfg: GSCLMSConfig) -> tuple:
+    """The LMS arguments the CUDA entry point takes, in its order."""
+    c = cfg
+    return (c.beta, 1.0 - c.beta, c.gamma, c.init_diagonal_load, c.regularization_param,
+            c.sil_thresh, c.energy_floor, c.max_wa_l2norm, c.min_frames, c.slowdown_after)
+
 
 def _rls_args(cfg: GSCRLSConfig) -> tuple:
     """The RLS arguments the CUDA entry points take, in their order."""
@@ -59,14 +81,15 @@ def _rls_args(cfg: GSCRLSConfig) -> tuple:
             c.constraint_option, c.alpha2, c.max_wa_l2norm, c.min_frames)
 
 
-def _scan(wrapper, entry: str, Yp, wqH, BmH, wq_manifold, cfg: GSCRLSConfig, pf_alpha,
-          pf_type, pf_min_frames, lead: tuple) -> torch.Tensor:
-    """Run the GSC-RLS + Zelinski scan on ``Yp [Tf, B, C, M]``: the plain
-    loop for a CPU tensor, else the kernel's C entry point ``entry`` with
-    weights ``lead + [F, ...]`` (``lead`` is ``()`` for K2, ``(B,)`` for K6)."""
+def _scan(wrapper, entry: str, kind: str, Yp, wqH, BmH, wq_manifold, cfg, pf_alpha, pf_type,
+          pf_min_frames, lead: tuple) -> torch.Tensor:
+    """Run the GSC (``kind`` "lms" or "rls") + Zelinski scan on ``Yp [Tf, B,
+    C, M]``: the plain loop for a CPU tensor, else the kernel's C entry point
+    ``entry`` with weights ``lead + [F, ...]`` (``lead`` is ``()`` for one
+    steering, ``(B,)`` for K6)."""
     if Yp.device.type == "cpu":
         return gsc_postfilter_fused(
-            Yp, None, wqH, BmH, wq_manifold, "rls", cfg, pf_alpha, pf_type, pf_min_frames, True
+            Yp, None, wqH, BmH, wq_manifold, kind, cfg, pf_alpha, pf_type, pf_min_frames, True
         )
     if Yp.device.type != "cuda":
         raise ValueError(f"{wrapper.__name__} runs on cpu or cuda tensors, got {Yp.device}")
@@ -85,7 +108,7 @@ def _scan(wrapper, entry: str, Yp, wqH, BmH, wq_manifold, cfg: GSCRLSConfig, pf_
     out = torch.empty((Tf, B, M), dtype=torch.float32, device=Yp.device)
     code = getattr(_build.library(), entry)(
         Yp.data_ptr(), wq.data_ptr(), bm.data_ptr(), ta.data_ptr(), out.data_ptr(),
-        Tf, B, C, Bc, M, *_rls_args(cfg),
+        Tf, B, C, Bc, M, *(_lms_args(cfg) if kind == "lms" else _rls_args(cfg)),
         *zelinski_args(C, pf_alpha, pf_type, pf_min_frames), stream_handle(Yp.device),
     )
     _build.check(code, wrapper.__name__)
@@ -107,8 +130,8 @@ def gsc_rls_zelinski(
     spectrum ``Yp [Tf, B, C, M]`` -> packed ``[Tf, B, M]``.  Weights are
     complex64: ``wqH [F, C]``, ``BmH [F, C-1, C]``, ``wq_manifold [F, C]``
     on ``Yp``'s device."""
-    return _scan(gsc_rls_zelinski, "dsr_gsc_rls_zelinski", Yp, wqH, BmH, wq_manifold, cfg,
-                 pf_alpha, pf_type, pf_min_frames, ())
+    return _scan(gsc_rls_zelinski, "dsr_gsc_rls_zelinski", "rls", Yp, wqH, BmH, wq_manifold,
+                 cfg, pf_alpha, pf_type, pf_min_frames, ())
 
 
 gsc_rls_zelinski.launches = 0
@@ -127,11 +150,33 @@ def gsc_rls_zelinski_steered(
     """`gsc_rls_zelinski` with one steering per utterance: complex64
     ``wq_b [B, F, C]``, ``bm_b [B, F, C-1, C]`` and the alignment manifolds
     ``ta_b [B, F, C]`` on ``Yp``'s device."""
-    return _scan(gsc_rls_zelinski_steered, "dsr_gsc_rls_zelinski_steered", Yp, wq_b, bm_b, ta_b,
-                 cfg, pf_alpha, pf_type, pf_min_frames, (Yp.shape[1],))
+    return _scan(gsc_rls_zelinski_steered, "dsr_gsc_rls_zelinski_steered", "rls", Yp, wq_b,
+                 bm_b, ta_b, cfg, pf_alpha, pf_type, pf_min_frames, (Yp.shape[1],))
 
 
 gsc_rls_zelinski_steered.launches = 0
+
+
+def gsc_lms_zelinski(
+    Yp: torch.Tensor,
+    wqH: torch.Tensor,
+    BmH: torch.Tensor,
+    wq_manifold: torch.Tensor,
+    cfg: GSCLMSConfig,
+    pf_alpha: float = 0.6,
+    pf_type: int = PostFilterType.ZELINSKI1_REAL,
+    pf_min_frames: int = 0,
+) -> torch.Tensor:
+    """GSC with the leaky power-normalised LMS active weight vector + Zelinski
+    postfilter over the packed time-major spectrum ``Yp [Tf, B, C, M]`` ->
+    packed ``[Tf, B, M]``; weights as for `gsc_rls_zelinski`.  On a CUDA
+    tensor it launches ``csrc/gsc_lms_zelinski.cu``, on a CPU tensor it
+    runs `adaptive_gsc.gsc_postfilter_fused(kind="lms")`."""
+    return _scan(gsc_lms_zelinski, "dsr_gsc_lms_zelinski", "lms", Yp, wqH, BmH, wq_manifold,
+                 cfg, pf_alpha, pf_type, pf_min_frames, ())
+
+
+gsc_lms_zelinski.launches = 0
 
 
 def scan_launch_shape(B: int, C: int, M: int) -> dict[str, int]:

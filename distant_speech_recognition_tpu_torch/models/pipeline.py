@@ -1,5 +1,6 @@
-"""End-to-end enhancement pipelines: analysis -> [AEC] -> [WPE] -> GSC-RLS +
-Zelinski -> synthesis, and analysis -> fixed weights + Zelinski -> synthesis.
+"""End-to-end enhancement pipelines: analysis -> [AEC] -> [WPE] -> adaptive
+GSC (RLS or LMS) [+ Zelinski] -> synthesis, and analysis -> fixed weights [+
+Zelinski] -> synthesis.
 
 The flagship chain of the reference's canonical pull graph
 (unit_test/test_online_beamforming.py:82-159: SampleFeature ->
@@ -14,15 +15,20 @@ channel, aec.cc:41-81 -> dereverberation.cc:214-275).
 out-of-loop ``wrapper_weights_calculator`` does, and returns an `Enhancer`
 module whose buffers live on the requested device, the card unless the
 caller asks for the CPU.  On a CUDA device its forward pass runs the CUDA
-kernels; on the CPU, their plain versions.  Ported, all with
-``postfilter="zelinski"``: ``beamformer="gsc_rls"`` with ``aec`` in none |
-nlms | kalman and WPE on or off, and the fixed-weight beamformers ``ds``,
-``sd_mvdr`` and ``lcmv`` (BASELINE configs 1-2) without AEC or WPE.  The
-flagship chain (GSC-RLS without AEC and WPE) and the fixed-weight chains
-are each one kernel (`fused_scan.analysis_gsc_synthesis`,
-`fixed_weight.analysis_fw_synthesis`) where its frame tiles take the shape
-(`fused_scan.gsc_mono_supported`, `fixed_weight.fw_mono_supported`), else
-the analysis, beamformer + Zelinski and synthesis kernels in a row.
+kernels; on the CPU, their plain versions.  Ported, each with ``postfilter``
+"zelinski" or "none": ``beamformer="gsc_rls"`` and ``"gsc_lms"`` (BASELINE
+config 3) with ``aec`` in none | nlms | kalman and WPE on or off, and the
+fixed-weight beamformers ``ds``, ``sd_mvdr`` and ``lcmv`` (BASELINE configs
+1-2) without AEC or WPE.  The flagship chain (GSC-RLS + Zelinski without AEC
+and WPE) and the fixed-weight chains with Zelinski are each one kernel
+(`fused_scan.analysis_gsc_synthesis`, `fixed_weight.analysis_fw_synthesis`)
+where its frame tiles take the shape (`fused_scan.gsc_mono_supported`,
+`fixed_weight.fw_mono_supported`), else the analysis, beamformer and
+synthesis kernels in a row: the adaptive beamformers through their scan
+kernels (`fused_scan.gsc_rls_zelinski`, `gsc_lms_zelinski`; without the
+postfilter the scan's gain is never applied), the fixed weights through
+K7 with Zelinski or a plain product ``wqH X`` without (XLA's
+`apply_weights` in the JAX package).
 """
 
 from __future__ import annotations
@@ -39,16 +45,24 @@ from ..ops.filterbank import (
     FilterbankParams,
     analysis_matrix_tensor,
     analysis_taps,
+    pack_half,
     synthesis_matrix_tensor,
     synthesis_taps,
+    unpack_half,
 )
 from ..ops.filterbank_kernels import analysis_tm_fused, prototype_taps, synthesis_tm_fused
 from ..ops.wpe_kernels import WPE_MAX_CHANNELS, WPE_MAX_CP, WPE_MAX_LOWER, wpe_supported
 from . import beamforming as bf
-from .adaptive_gsc import GSCRLSConfig, gsc_weights
+from .adaptive_gsc import GSCLMSConfig, GSCRLSConfig, gsc_weights
 from .dereverberation import wpe_multichannel_packed_tm
 from .fixed_weight import analysis_fw_synthesis, fw_mono_supported, zelinski_apply
-from .fused_scan import analysis_gsc_synthesis, gsc_mono_supported, gsc_rls_zelinski
+from .fused_scan import (
+    NO_POSTFILTER,
+    analysis_gsc_synthesis,
+    gsc_lms_zelinski,
+    gsc_mono_supported,
+    gsc_rls_zelinski,
+)
 from .postfilter import PostFilterType
 
 __all__ = ["PipelineConfig", "Enhancer", "build_pipeline", "from_jax_params", "FIXED_WEIGHT",
@@ -56,6 +70,10 @@ __all__ = ["PipelineConfig", "Enhancer", "build_pipeline", "from_jax_params", "F
 
 # beamformers whose weights are fixed at build time (BASELINE configs 1-2)
 FIXED_WEIGHT = ("ds", "sd_mvdr", "lcmv")
+# adaptive GSCs: quiescent weights and a blocking matrix at build time, the
+# active weights adapted per frame (BASELINE configs 3-5)
+ADAPTIVE = ("gsc_lms", "gsc_rls")
+POSTFILTERS = ("none", "zelinski")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,12 +90,13 @@ class PipelineConfig:
 
     fb: FilterbankParams = FilterbankParams()
     samplerate: float = 16000.0
-    beamformer: str = "ds"  # ds | sd_mvdr | lcmv | gsc_rls
-    postfilter: str = "none"  # only "zelinski" is ported
+    beamformer: str = "ds"  # ds | sd_mvdr | lcmv | gsc_lms | gsc_rls
+    postfilter: str = "none"  # none | zelinski
     pf_alpha: float = 0.6
     pf_type: int = PostFilterType.ZELINSKI1_REAL
     pf_min_frames: int = 0
     sd_mu: float = 0.01  # sd_mvdr's absolute diagonal loading
+    lms: GSCLMSConfig = GSCLMSConfig()
     rls: GSCRLSConfig = GSCRLSConfig()
     # full-chain extensions (BASELINE config 4: AEC -> WPE -> GSC -> postfilter)
     aec: str = "none"  # none | nlms | kalman
@@ -95,10 +114,10 @@ def _check_supported(cfg: PipelineConfig, n_chan: int | None = None) -> None:
     """Raise `NotImplementedError` for what the port does not run, on every
     device; ``n_chan``, where known, is checked against the WPE kernels'
     limits."""
-    if cfg.beamformer not in FIXED_WEIGHT + ("gsc_rls",) or cfg.postfilter != "zelinski":
+    if cfg.beamformer not in FIXED_WEIGHT + ADAPTIVE or cfg.postfilter not in POSTFILTERS:
         raise NotImplementedError(
             f"beamformer={cfg.beamformer!r} postfilter={cfg.postfilter!r} is not ported; "
-            f"only beamformer in {FIXED_WEIGHT + ('gsc_rls',)} with postfilter='zelinski'"
+            f"only beamformer in {FIXED_WEIGHT + ADAPTIVE} with postfilter in {POSTFILTERS}"
         )
     if cfg.beamformer in FIXED_WEIGHT and (cfg.aec != "none" or cfg.wpe):
         raise NotImplementedError(
@@ -161,7 +180,7 @@ class Enhancer(nn.Module):
     from them, ``hr``, ``gf`` (`filterbank_kernels.prototype_taps`); packed
     DFT matrices ``A`` (analysis) and ``S`` (synthesis, segment reversal
     baked in); complex64 weights
-    ``wqH [F, C]``, for GSC-RLS ``BmH [F, C-1, C]`` (None for the
+    ``wqH [F, C]``, for the adaptive GSCs ``BmH [F, C-1, C]`` (None for the
     fixed-weight beamformers, which have no blocking matrix), and the
     postfilter alignment manifold ``wq_manifold [F, C]``.
     """
@@ -201,7 +220,7 @@ class Enhancer(nn.Module):
                 raise ValueError(f"beamformer={cfg.beamformer!r} takes no blocking matrix")
             self.register_buffer("BmH", None)
         elif BmH is None:
-            raise ValueError("beamformer='gsc_rls' needs the blocking matrix BmH")
+            raise ValueError(f"beamformer={cfg.beamformer!r} needs the blocking matrix BmH")
         else:
             self.register_buffer("BmH", cplx(BmH))
         if self.BmH is not None and self.BmH.shape != (F, C - 1, C):
@@ -228,16 +247,22 @@ class Enhancer(nn.Module):
         C = x.shape[1]
         taps = dict(A=self.A, hr=self.hr)
         synth = dict(S=self.S, gf=self.gf)
-        pf = (c.pf_alpha, c.pf_type, c.pf_min_frames)
+        zelinski = c.postfilter == "zelinski"
+        pf = (c.pf_alpha, c.pf_type, c.pf_min_frames if zelinski else NO_POSTFILTER)
         if c.beamformer in FIXED_WEIGHT:
-            if fw_mono_supported(c.fb, C):
+            if zelinski and fw_mono_supported(c.fb, C):
                 return analysis_fw_synthesis(x, self.h, self.g, c.fb, self.wqH, self.wq_manifold,
                                              *pf, **taps, **synth)
             Yr = analysis_tm_fused(x, self.h, c.fb, **taps)
-            return synthesis_tm_fused(zelinski_apply(Yr, self.wqH, self.wq_manifold, *pf), self.g,
-                                      c.fb, **synth)
-        gsc = (self.wqH, self.BmH, self.wq_manifold, c.rls, *pf)
-        if play is None and not c.wpe and gsc_mono_supported(c.fb, C):
+            if zelinski:
+                Yp = zelinski_apply(Yr, self.wqH, self.wq_manifold, *pf)
+            else:  # wqH X, a plain product (XLA's in the JAX package)
+                Yp = pack_half(bf.apply_weights(self.wqH, unpack_half(Yr).movedim(-2, -1)))
+            return synthesis_tm_fused(Yp, self.g, c.fb, **synth)
+        lms = c.beamformer == "gsc_lms"
+        gsc = (self.wqH, self.BmH, self.wq_manifold, c.lms if lms else c.rls, *pf)
+        if (not lms and zelinski and play is None and not c.wpe
+                and gsc_mono_supported(c.fb, C)):
             # the flagship chain in one kernel, as the JAX package runs it
             return analysis_gsc_synthesis(x, self.h, self.g, c.fb, *gsc, **taps, **synth)
         Yr = analysis_tm_fused(x, self.h, c.fb, **taps)  # [Tf, B, C, M]
@@ -249,15 +274,16 @@ class Enhancer(nn.Module):
                 Yr, c.wpe_lower, c.wpe_upper, c.wpe_iterations,
                 band_width=c.wpe_band_width, samplerate=c.samplerate,
             )
-        return synthesis_tm_fused(gsc_rls_zelinski(Yr, *gsc), self.g, c.fb, **synth)
+        scan = gsc_lms_zelinski if lms else gsc_rls_zelinski
+        return synthesis_tm_fused(scan(Yr, *gsc), self.g, c.fb, **synth)
 
 
 def build_pipeline(cfg: PipelineConfig, mpos, delays, h, g, noise_delays=None,
                    device="cuda") -> Enhancer:
     """Build the enhancer for an array steered by ``delays`` (seconds, one
     per channel), with the weights computed once on the host as JAX
-    `build_pipeline` computes them: GSC-RLS's quiescent weights and blocking
-    matrix; D&S ``conj(vs)``; super-directive MVDR against the diffuse
+    `build_pipeline` computes them: the adaptive GSCs' quiescent weights and
+    blocking matrix; D&S ``conj(vs)``; super-directive MVDR against the diffuse
     noise field of the mic positions ``mpos`` (mm) with loading
     ``cfg.sd_mu``; LCMV with the target's manifold and one null per entry of
     ``noise_delays`` (a list of per-channel delays).  The postfilter's
@@ -274,7 +300,7 @@ def build_pipeline(cfg: PipelineConfig, mpos, delays, h, g, noise_delays=None,
     M, fs = cfg.fb.M, cfg.samplerate
     vs = bf.array_manifold(M, fs, delays)
     BmH = None
-    if cfg.beamformer == "gsc_rls":
+    if cfg.beamformer in ADAPTIVE:
         wqH, BmH = gsc_weights(M, fs, delays)
     elif cfg.beamformer == "ds":
         wqH = bf.delay_and_sum_weights(M, fs, delays)
@@ -290,12 +316,16 @@ def build_pipeline(cfg: PipelineConfig, mpos, delays, h, g, noise_delays=None,
 
 def from_jax_params(params: dict, cfg: PipelineConfig, device="cuda") -> Enhancer:
     """The same `Enhancer` from parameters computed by the JAX package, given
-    as numpy arrays: ``h``, ``g``, ``wqH``, ``wq_manifold`` and, for
-    GSC-RLS, ``BmH``."""
-    need = {"h", "g", "wqH", "wq_manifold"} | ({"BmH"} if cfg.beamformer == "gsc_rls" else set())
+    as numpy arrays: ``h``, ``g``, ``wqH``, ``wq_manifold`` and, for the
+    adaptive GSCs, ``BmH``.  ``params["lms"]``, where given, holds the JAX
+    configuration's `GSCLMSConfig` fields (``dataclasses.asdict``) and
+    replaces ``cfg.lms``."""
+    need = {"h", "g", "wqH", "wq_manifold"} | ({"BmH"} if cfg.beamformer in ADAPTIVE else set())
     missing = need - set(params)
     if missing:
         raise KeyError(f"missing parameters: {sorted(missing)}")
+    if "lms" in params:
+        cfg = dataclasses.replace(cfg, lms=GSCLMSConfig(**params["lms"]))
     return Enhancer(
         cfg, params["h"], params["g"], params["wqH"], params.get("BmH"), params["wq_manifold"],
         device=device,

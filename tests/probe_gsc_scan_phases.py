@@ -25,7 +25,8 @@ one written first (one block per utterance, one frame per block barrier)
 and the chunked one (blocks over bin ranges of the flattened (utterance,
 bin) index, the frame energies and snapshots of a chunk of frames staged
 ahead, the state-free front of frame t + 1 computed beside frame t's state
-chain).  ``--root DIR`` measures the kernels of another checkout of the
+chain), the latter with its staging and frame energies in the kernel's file
+or in ``csrc/gsc_scan.h``, which it shares with the GSC-LMS scan.  ``--root DIR`` measures the kernels of another checkout of the
 repository (e.g. the parent commit unpacked with ``git archive``) with this
 checkout's wrappers (the C interface is the same), and then also holds this
 checkout's uninstrumented kernels to that checkout's, bit for bit, at C = 2..8
@@ -78,6 +79,7 @@ from distant_speech_recognition_tpu_torch.utils.prototypes import load_pair  # n
 
 FS = 16000.0
 KERNEL = "gsc_rls_zelinski.cu"
+SCAN_H = "gsc_scan.h"
 NSLOT = 16
 STAGES = ("wait for the snapshot", "frame energy + barrier", "state-free front", "state chain",
           "output store", "start copies", "set-up")
@@ -136,6 +138,19 @@ DESIGNS = {
         start="  // probe: kernel start\n",
         end="  // probe: kernel end\n",
     ),
+    "chunked, staging in gsc_scan.h": dict(
+        marks=(
+            (KERNEL, "  // probe: set-up done\n", 6, ""),
+            (KERNEL, "      // probe: chunk staged\n", 0, ""),
+            (SCAN_H, "  // probe: copies started\n", 5, ""),
+            (SCAN_H, "  // probe: energies done\n", 1, ""),
+            (KERNEL, "    // probe: front done\n", 2, ""),
+            (KERNEL, "    // probe: chain done\n", 3, ""),
+            (KERNEL, "    // probe: stored\n", 4, ""),
+        ),
+        start="  // probe: kernel start\n",
+        end="  // probe: kernel end\n",
+    ),
 }
 
 
@@ -143,9 +158,10 @@ def instrument(pkg: Path) -> str:
     """Put the marks of the matching design into ``pkg``'s csrc; return the
     design's name."""
     csrc = pkg / "csrc"
-    texts = {name: (csrc / name).read_text() for name in (KERNEL, "gsc_step.h")}
+    texts = {name: (csrc / name).read_text() for name in (KERNEL, "gsc_step.h", SCAN_H)
+             if (csrc / name).exists()}
     for design, d in DESIGNS.items():
-        if all(texts[f].count(a) == 1 for f, a, _, _ in d["marks"]) and \
+        if all(texts.get(f, "").count(a) == 1 for f, a, _, _ in d["marks"]) and \
                 texts[KERNEL].count(d["start"]) == 1 and texts[KERNEL].count(d["end"]) == 1:
             break
     else:
@@ -156,9 +172,10 @@ def instrument(pkg: Path) -> str:
     k = k.replace(d["start"], d["start"] + INIT)
     k = k.replace(d["end"], d["end"] + FLUSH)
     texts[KERNEL] = MARK_DEF + k + READ
-    # the other kernels that include the step header see no marks
-    texts["gsc_step.h"] = ("#ifndef DSR_PROBE_MARK\n#define DSR_PROBE_MARK(slot)\n#endif\n"
-                           + texts["gsc_step.h"])
+    # the other kernels that include the step and scan headers see no marks
+    for name in texts:
+        if name != KERNEL:
+            texts[name] = "#ifndef DSR_PROBE_MARK\n#define DSR_PROBE_MARK(slot)\n#endif\n" + texts[name]
     for name, text in texts.items():
         (csrc / name).write_text(text)
     return design

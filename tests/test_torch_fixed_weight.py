@@ -180,12 +180,12 @@ def test_one_kernel_chain_shape_limits():
     assert not t_fw.fw_mono_supported(fb, 9)
 
 
-@pytest.mark.parametrize("kw", [dict(aec="nlms"), dict(wpe=True), dict(postfilter="none"),
+@pytest.mark.parametrize("kw", [dict(aec="nlms"), dict(wpe=True), dict(postfilter="apab"),
                                 dict(postfilter="mccowan")])
 def test_unported_fixed_weight_configurations_raise(kw):
-    """Fixed weights with AEC or WPE, or with another postfilter, are
-    refused at build time on every device (the JAX package runs them on
-    XLA only)."""
+    """Fixed weights with AEC or WPE, or with a postfilter other than
+    Zelinski or none, are refused at build time on every device (the JAX
+    package runs them on XLA only)."""
     with pytest.raises(NotImplementedError):
         t_pipe.build_pipeline(_port_cfg("sd_mvdr", **kw), MPOS, DELAYS, np.zeros(1024),
                               np.zeros(1024), device="cpu")

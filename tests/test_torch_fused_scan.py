@@ -127,8 +127,9 @@ def test_frame_energy_half_matches_jax(rng):
 def test_unported_variants_raise(weights):
     wqH, BmH, vs = (torch.from_numpy(a) for a in weights)
     Yp = torch.zeros((3, 1, C, M))
-    with pytest.raises(NotImplementedError):
-        t_gsc.gsc_postfilter_fused(Yp, None, wqH, BmH, vs, "lms", t_gsc.GSCRLSConfig())
+    with pytest.raises(NotImplementedError):  # LMS with the frame energies given
+        t_gsc.gsc_postfilter_fused(Yp, torch.zeros(3, 1), wqH, BmH, vs, "lms",
+                                   t_gsc.GSCLMSConfig())
     with pytest.raises(NotImplementedError):
         t_gsc.gsc_postfilter_fused(Yp, torch.zeros(3, 1), wqH, BmH, vs, "rls", t_gsc.GSCRLSConfig())
 

@@ -34,7 +34,13 @@ that are no multiple of the kernels' frame groups and tiles.  K1 (at M =
 256), K3, K4/K5 and K8, whose DFTs are FFTs (``csrc/dsr_fft.h``), also take
 pure tones at bins 0, 1, 64, 127 and 128 and impulse trains, one case per
 bin; K1 also keeps its M = 128 and 512 cases on its dense-product route and
-takes tiles of 1 to 8 signals.
+takes tiles of 1 to 8 signals.  The LMS scan (the K2 kernel with the LMS
+update, no TPU counterpart) is held to its plain loop at 2e-4, K2's budget,
+at C = 2..8, M = 256 and 32, B = 1, 64 and 256, across step-size halvings,
+with silent opening frames and a norm cap that fires; the scans without the
+gain (``postfilter="none"``) to the plain `gsc_lms` / `gsc_rls`; and the
+`Enhancer` with ``gsc_lms`` (alone, at C = 8, and after the echo canceller
+and WPE) and with ``postfilter="none"`` to the same module on the CPU.
 """
 
 import numpy as np
@@ -46,12 +52,16 @@ from pathlib import Path
 
 from distant_speech_recognition_tpu_torch.models import fixed_weight, fused_scan
 from distant_speech_recognition_tpu_torch.models.adaptive_gsc import (
+    GSCLMSConfig,
     GSCRLSConfig,
+    gsc_lms,
     gsc_postfilter_fused,
+    gsc_rls,
     gsc_weights,
 )
 from distant_speech_recognition_tpu_torch.models.beamforming import (
     array_manifold,
+    frame_energy_half,
     superdirective_weights,
 )
 from distant_speech_recognition_tpu_torch.models.fixed_weight import (
@@ -59,8 +69,10 @@ from distant_speech_recognition_tpu_torch.models.fixed_weight import (
     zelinski_apply,
 )
 from distant_speech_recognition_tpu_torch.models.fused_scan import (
+    NO_POSTFILTER,
     analysis_gsc_rls_zelinski,
     analysis_gsc_synthesis,
+    gsc_lms_zelinski,
     gsc_rls_zelinski,
     gsc_rls_zelinski_steered,
 )
@@ -78,9 +90,11 @@ from distant_speech_recognition_tpu_torch.ops.filterbank import (
     analysis,
     analysis_half_real_tm,
     num_analysis_frames,
+    pack_half,
     polyphase_fir_plain,
     synthesis,
     synthesis_half_real_tm,
+    unpack_half,
 )
 from distant_speech_recognition_tpu_torch.ops.filterbank_kernels import (
     analysis_polyphase,
@@ -1120,4 +1134,122 @@ def test_port_kernels_raise_on_bad_cuda_input(dev):
     with pytest.raises(ValueError, match="float32"):
         polyphase_fir(torch.zeros((40, 8), device=dev, dtype=torch.float64),
                       torch.zeros((2, 8), device=dev), 2, 1)
+    assert set(kernels.launch_counts().values()) == {0}
+
+
+def _lms_case(C, M, B, Tf, seed):
+    """Packed spectrum whose first 3 frames are silent (the gate stays shut)
+    and with a silent stretch in the middle utterance."""
+    rng = np.random.default_rng(seed)
+    Yp = (rng.standard_normal((Tf, B, C, M)) * 100).astype(np.float32)
+    Yp[:3] *= np.float32(1e-6)
+    Yp[10:14, B // 2] *= np.float32(1e-6)
+    wqH, BmH = gsc_weights(M, FS, _delays(C), 1)
+    vs = array_manifold(M, FS, _delays(C))
+    return torch.from_numpy(Yp), wqH, BmH, vs
+
+
+# adapts from frame 6, halves its step at frames 7, 14, ...; the small cap
+# makes the norm cap fire (the weights' norm reaches ~1e-6 on this input)
+LMS_CARD = dict(min_frames=6, slowdown_after=7)
+
+
+@pytest.mark.parametrize("C,M,B,Tf,cap", [(c, 256, 3, 40, 5e-7) for c in range(2, 9)] + [
+    (4, 32, 3, 40, 5e-7), (8, 32, 2, 40, 100.0), (4, 256, 1, 37, 5e-7), (8, 256, 64, 30, 5e-7),
+    (8, 256, 256, 20, 5e-7), (4, 256, 256, 20, 100.0)])
+def test_lms_scan_kernel_matches_plain(dev, C, M, B, Tf, cap):
+    """The LMS scan against its plain loop, both Zelinski modes."""
+    Yp, wqH, BmH, vs = _lms_case(C, M, B, Tf, seed=100 + C + M + B)
+    cfg = GSCLMSConfig(max_wa_l2norm=cap, **LMS_CARD)
+    w = [a.to(dev) for a in (wqH, BmH, vs)]
+    for pf_type, pf_min_frames in ((1, 2), (2, 0)):
+        ref = gsc_postfilter_fused(Yp, None, wqH, BmH, vs, "lms", cfg, 0.6, pf_type,
+                                   pf_min_frames, True)
+        before = gsc_lms_zelinski.launches
+        got = gsc_lms_zelinski(Yp.to(dev), *w, cfg, 0.6, pf_type, pf_min_frames)
+        assert gsc_lms_zelinski.launches == before + 1
+        _close(got, ref, 2e-4)
+
+
+@pytest.mark.parametrize("kind", ["lms", "rls"])
+@pytest.mark.parametrize("C", [2, 8])
+def test_scans_without_the_gain_match_the_plain_beamformers(dev, kind, C):
+    """``pf_min_frames=NO_POSTFILTER``: the scans give the beamformer alone,
+    held to the plain `gsc_lms` / `gsc_rls` on the complex snapshots
+    (postfilter "none")."""
+    Yp, wqH, BmH, vs = _lms_case(C, 256, 3, 40, seed=200 + C)
+    X = unpack_half(Yp).movedim(-2, -1)  # [Tf, B, F, C]
+    energy = frame_energy_half(X[..., 0], 256)
+    if kind == "lms":
+        cfg, plain, scan = GSCLMSConfig(max_wa_l2norm=5e-7, **LMS_CARD), gsc_lms, gsc_lms_zelinski
+    else:
+        cfg, plain, scan = GSCRLSConfig(min_frames=6), gsc_rls, gsc_rls_zelinski
+    ref = pack_half(plain(X, energy, wqH, BmH, cfg)[0])
+    got = scan(Yp.to(dev), *(a.to(dev) for a in (wqH, BmH, vs)), cfg, 0.6, 1, NO_POSTFILTER)
+    _close(got, ref, 2e-4)
+
+
+def _pipe_case(C, T, seed, **kw):
+    fb = FilterbankParams(M=256, m=4, r=1, delay_compensation_type=2)
+    cfg = PipelineConfig(fb=fb, samplerate=FS, pf_min_frames=2, rls=GSCRLSConfig(min_frames=4),
+                         lms=GSCLMSConfig(min_frames=4, slowdown_after=8), **kw)
+    rng = np.random.default_rng(seed)
+    h = rng.standard_normal(fb.N).astype(np.float32) / 32
+    g = rng.standard_normal(fb.N).astype(np.float32) / 32
+    mpos = np.c_[np.arange(C) * 50.0, np.zeros((C, 2))]
+    x = torch.from_numpy((rng.standard_normal((3, C, T)) * 1500).astype(np.float32))
+    cpu = build_pipeline(cfg, mpos, _delays(C), h, g, device="cpu")
+    gpu = build_pipeline(cfg, mpos, _delays(C), h, g)
+    return cpu, gpu, x
+
+
+@pytest.mark.parametrize("C,bf,pf,launches", [
+    (8, "gsc_lms", "zelinski", dict(analysis_tm=1, gsc_lms_zelinski=1, synthesis_tm=1)),
+    (4, "gsc_lms", "none", dict(analysis_tm=1, gsc_lms_zelinski=1, synthesis_tm=1)),
+    (4, "gsc_rls", "none", dict(analysis_tm=1, gsc_rls_zelinski=1, synthesis_tm=1)),
+    (4, "ds", "none", dict(analysis_tm=1, synthesis_tm=1)),
+    (8, "sd_mvdr", "none", dict(analysis_tm=1, synthesis_tm=1)),
+])
+def test_lms_and_no_postfilter_pipelines_match_plain(dev, C, bf, pf, launches):
+    """The `Enhancer` with the LMS GSC (BASELINE config 3) or without a
+    postfilter: K1, the scan (none for fixed weights: a plain product) and
+    K3, once each, against the same module on the CPU."""
+    cpu, gpu, x = _pipe_case(C, 7000, seed=C, beamformer=bf, postfilter=pf)
+    with torch.no_grad():
+        ref = cpu(x)
+        kernels.reset_launch_counts()
+        got = gpu(x.to(dev))
+    assert kernels.launch_counts() == _only(**launches)
+    _close(got, ref, 3e-4)
+
+
+@pytest.mark.parametrize("aec", ["nlms", "kalman"])
+def test_config4_lms_pipeline_matches_plain(dev, aec):
+    """Config 4's chain with the LMS GSC: AEC -> WPE -> LMS scan, on the card
+    against the same module on the CPU, with every kernel's launch count."""
+    cpu, gpu, x = _pipe_case(4, 9000, seed=11, beamformer="gsc_lms", postfilter="zelinski",
+                             aec=aec, wpe=True)
+    play = torch.from_numpy((np.random.default_rng(12).standard_normal((3, 9000)) * 1500)
+                            .astype(np.float32))
+    with torch.no_grad():
+        ref = cpu(x, play)
+        kernels.reset_launch_counts()
+        got = gpu(x.to(dev), play.to(dev))
+    assert kernels.launch_counts() == _only(analysis_tm=2, gsc_lms_zelinski=1, synthesis_tm=1,
+                                            aec_scan=1, wpe_stats=2, wpe_resid=1, gj_solve=2)
+    _close(got, ref, 3e-4)
+
+
+def test_lms_wrapper_raises_on_bad_cuda_input(dev):
+    """The LMS scan on CUDA tensors launches or raises; it never falls back."""
+    Yp, wqH, BmH, vs = _lms_case(4, 256, 2, 8, seed=0)
+    Yd = Yp.to(dev)
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="complex64"):
+        gsc_lms_zelinski(Yd, wqH.to(dev, torch.complex128), BmH.to(dev), vs.to(dev),
+                         GSCLMSConfig())
+    with pytest.raises(ValueError, match="CUDA"):
+        gsc_lms_zelinski(Yd, wqH.to(dev), BmH, vs.to(dev), GSCLMSConfig())
+    with pytest.raises(RuntimeError, match="shape outside"):
+        gsc_lms_zelinski(Yd, *(a.to(dev) for a in (wqH, BmH, vs)), GSCLMSConfig(slowdown_after=0))
     assert set(kernels.launch_counts().values()) == {0}

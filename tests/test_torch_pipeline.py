@@ -106,8 +106,10 @@ def test_cuda_device_raises_without_a_card(case):
                               device="cuda")
 
 
-@pytest.mark.parametrize("kw", [dict(beamformer="ds", aec="nlms"), dict(beamformer="gsc_lms"),
-                                dict(postfilter="mccowan"), dict(postfilter="none")])
+@pytest.mark.parametrize("kw", [dict(beamformer="ds", aec="nlms"),
+                                dict(beamformer="gsc_lms", postfilter="lefkimmiatis"),
+                                dict(postfilter="mccowan"),
+                                dict(beamformer="ds", postfilter="none", wpe=True)])
 def test_unported_configurations_raise(case, kw):
     with pytest.raises(NotImplementedError):
         t_pipe.build_pipeline(_port_cfg(**kw), case["mpos"], case["delays"], case["h"], case["g"],
