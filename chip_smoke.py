@@ -68,14 +68,19 @@ Phases (each raises on failure; the script then exits non-zero):
  11. BASELINE config 3 (cell gsc-lms-c8-b256: GSC with the NLMS active weight
      vector + Zelinski): build_pipeline() with the default device on B=256
      utterances x 8 channels x 10 s, launch counts around one forward
-     (exactly one each of the analysis kernel, the LMS scan and the synthesis
-     kernel, nothing else); the LMS scan against its plain loop (2e-4), K1 and
-     K3 at 8 channels against their plain versions and the path against the
-     plain chain (3e-4); CUDA-event times of the path, of the LMS scan at
-     B = 256, 64 and 1, and of K1 -> K2 -> K3 and K4 (the RLS flagship's
-     kernels) on the same input; the peak device memory and a profile of
-     three forwards; then the pipelines without a postfilter at B=8 x 4 ch x
-     2 s (gsc_lms, gsc_rls and ds + "none"): K1, the scan (none for fixed
+     (exactly one each of the analysis kernel, the LMS scan's gate pass, the
+     LMS scan and the synthesis kernel, nothing else); the gate pass against
+     its plain version (flag for flag), the LMS scan against its plain loop
+     (2e-4), K1 and K3 at 8 channels against their plain versions and the
+     path against the plain chain (3e-4); the LMS scan's launch (lanes a bin,
+     blocks, frames staged ahead, registers, spills, blocks per SM);
+     CUDA-event times of the path, of the gate pass, of the LMS scan (with
+     its gate pass) at B = 256, 64 and 1 and without the gain at B = 256,
+     and of K1 -> K2 -> K3 and K4
+     (the RLS flagship's kernels) on the same input, K2 and K4 beside their
+     bounds at 8 channels; the peak device memory and a profile of three
+     forwards; then the pipelines without a postfilter at B=8 x 4 ch x 2 s
+     (gsc_lms, gsc_rls and ds + "none"): K1, the scan (none for fixed
      weights) and K3 once each, against the plain beamformers alone.
 Phase 2 also prints K2/K6's launch (blocks, threads, frames a chunk, shared
 memory, registers, blocks per SM) at B = 256, 132, 64 and 1 (C = 4) and at
@@ -107,7 +112,10 @@ path's, one forward each; K4, K5 and K8 also carry their error against the
 split kernels, K1, K3 and K8 the time of torch.fft over the same rows as a
 second yardstick, "fft_ms", K1 its dense-product route's time at M = 256,
 "dense_route_ms"; K2 and K6 their times and launches at other batches,
-"ms_by_batch" and "launch_by_batch"; K9 its Kalman form's time,
+"ms_by_batch" and "launch_by_batch", and at 8 channels, "c8"; the LMS scan
+its launch, "launch", and its time without the gain, "none_ms" (its times
+include its gate pass, which has a row of its own, "lms_gates"); K4 its time
+and bound at 8 channels, "c8"; K9 its Kalman form's time,
 "kalman_ms", and K12 its time, bound and library time at n = 24, "n24"); the line before the last is the card's name and
 power limit; the last line is {"ok": true, "device": {...}}.  Imports
 nothing of JAX.
@@ -185,6 +193,7 @@ def main() -> None:
         gsc_postfilter_fused,
         gsc_rls,
         gsc_weights,
+        lms_silence_gates,
     )
     from distant_speech_recognition_tpu_torch.models.aec import kalman_aec, nlms_aec
     from distant_speech_recognition_tpu_torch.models.beamforming import (
@@ -211,6 +220,8 @@ def main() -> None:
         gsc_lms_zelinski,
         gsc_rls_zelinski,
         gsc_rls_zelinski_steered,
+        lms_gates,
+        lms_launch_shape,
         scan_launch_shape,
     )
     from distant_speech_recognition_tpu_torch.models.pipeline import (
@@ -1245,6 +1256,12 @@ def main() -> None:
     log(f"== 11. config-3 path (gsc-lms-c8-b256: GSC-LMS + Zelinski): build_pipeline() on the "
         f"card, B={B} x {C3} ch x {secs} s")
     enh3 = build_pipeline(cfg3, mpos3, delays3, h, g)
+    lms_shape = lms_launch_shape(B, C3, M)
+    sh = lms_shape
+    log(f"  gsc_lms_zelinski B={B} C={C3}: {sh['lanes']} lanes a bin, {sh['blocks']} "
+        f"blocks x {sh['threads']} threads, {sh['frames']} frames staged ahead, "
+        f"{sh['smem_bytes']} bytes of dynamic shared memory, {sh['registers']} registers, "
+        f"{sh['local_bytes']} bytes of local memory, {sh['blocks_per_sm']} blocks per SM")
     torch.cuda.reset_peak_memory_stats()
     x3 = torch.from_numpy(signal(rng, (B, C3, T))).to(dev)
     log(f"  input {tuple(x3.shape)} ({x3.numel() * 4 / 1e9:.2f} GB), packed spectrum "
@@ -1260,8 +1277,8 @@ def main() -> None:
     log(f"  forward wall {wall * 1e3:.1f} ms (first call), launches {counts3}")
     if tuple(y3.shape) != (B, T_out) or not torch.isfinite(y3).all():
         raise AssertionError(f"config-3 output {tuple(y3.shape)} is not finite {(B, T_out)}")
-    want = dict.fromkeys(counts3, 0) | {"analysis_tm": 1, "gsc_lms_zelinski": 1,
-                                        "synthesis_tm": 1}
+    want = dict.fromkeys(counts3, 0) | {"analysis_tm": 1, "lms_gates": 1,
+                                        "gsc_lms_zelinski": 1, "synthesis_tm": 1}
     if counts3 != want:
         raise AssertionError(f"config-3 launches {counts3}, the path needs {want}")
     lms_args = (enh3.wqH, enh3.BmH, enh3.wq_manifold, cfg3.lms, cfg3.pf_alpha, cfg3.pf_type,
@@ -1278,6 +1295,9 @@ def main() -> None:
         Yr3_ref = analysis_half_real_tm(x3, enh3.h, fb, packed=True, A=enh3.A)
         compare("analysis_tm, 8 channels", analysis_tm_fused(x3, enh3.h, fb, A=enh3.A, hr=enh3.hr),
                 Yr3_ref, 2e-5, "analysis_tm")
+        gates_ref, plain_gates_ms = timed(lambda: lms_silence_gates(Yr3_ref, cfg3.lms))
+        compare("lms_gates", lms_gates(Yr3_ref, cfg3.lms), gates_ref, 0.0, "lms_gates")
+        del gates_ref
         # the plain loop runs for seconds: timed here, once
         Yp3_ref, plain_lms_ms = timed(lambda: plain_lms(Yr3_ref))
         compare("gsc_lms_zelinski", gsc_lms_zelinski(Yr3_ref, *lms_args), Yp3_ref, 2e-4,
@@ -1298,7 +1318,11 @@ def main() -> None:
             "B=64": time_ms(lambda: gsc_lms_zelinski(Yr3_64, *lms_args), 5),
             # one utterance alone: the latency of the frame chain times Tf
             "B=1": time_ms(lambda: gsc_lms_zelinski(Yr3_1, *lms_args), 5)}
+        # without the gain (postfilter "none"): the gain computed, never applied
+        lms_none_ms = time_ms(lambda: gsc_lms_zelinski(Yr3, *lms_args[:-1], NO_POSTFILTER), 5)
         library["gsc_lms_zelinski"] = None
+        times["lms_gates"] = (time_ms(lambda: lms_gates(Yr3, cfg3.lms), 5), plain_gates_ms)
+        library["lms_gates"] = None
         k1_8_ms = time_ms(lambda: analysis_tm_fused(x3, enh3.h, fb, A=enh3.A, hr=enh3.hr), 5)
         Yp3 = gsc_lms_zelinski(Yr3, *lms_args)
         k3_8_ms = time_ms(lambda: synthesis_tm_fused(Yp3, enh3.g, fb, S=enh3.S, gf=enh3.gf), 5)
@@ -1314,7 +1338,9 @@ def main() -> None:
     peak3 = torch.cuda.max_memory_allocated() / 1e9
     lms_ms = scan_ms["gsc_lms_zelinski"]
     log(f"  gsc_lms_zelinski: kernel {lms_ms['B=256']:.3f} ms   B=64 {lms_ms['B=64']:.3f} ms   "
-        f"B=1 {lms_ms['B=1']:.3f} ms   plain {plain_lms_ms:.3f} ms   library -")
+        f"B=1 {lms_ms['B=1']:.3f} ms   without the gain {lms_none_ms:.3f} ms   plain "
+        f"{plain_lms_ms:.3f} ms   library -   (each with its gate pass: "
+        f"lms_gates {times['lms_gates'][0]:.3f} ms, plain {plain_gates_ms:.3f} ms)")
     # K1's least time at 8 channels (as for the kernel table below: samples in,
     # packed rows out, FFT-cost DFT rows)
     rows3 = Tf * B * C3
@@ -1353,6 +1379,8 @@ def main() -> None:
         want = dict.fromkeys(c11, 0) | {"analysis_tm": 1, "synthesis_tm": 1}
         if scan_name:
             want[scan_name] = 1
+        if bf11 == "gsc_lms":
+            want["lms_gates"] = 1
         if c11 != want:
             raise AssertionError(f"{bf11} + none launches {c11}, the path needs {want}")
         counts_none[bf11] = c11
@@ -1371,11 +1399,25 @@ def main() -> None:
     del x11
 
     # least time on the card for the work of each timed call, from its shapes
+    def rls_macs(Cx):  # K2's complex multiply-adds per (frame, utterance, bin) at Cx channels
+        Bx = Cx - 1
+        return (Bx * Cx + Cx + 3 * Bx * Bx + 8 * Bx + Bx * (Bx - 1) // 2 + 2 * Cx
+                + Cx * (Cx - 1) // 2)
+
+    def k2_bound(Cx):  # Cx channels in, one out, the weights read once
+        return bound(4 * (Tf * B * Cx * M + Tf * B * M) + 8 * F * Cx * (1 + Cx),
+                     8 * rls_macs(Cx) * Tf * B * F)
+
+    def k4_bound(Cx):  # samples in and out; the spectra never leave the chip
+        rows_x = Tf * B * Cx
+        return bound(4 * (B * Cx * T + B * T_out + 2 * M * M + 2 * fb.N) + 8 * F * Cx * (1 + Cx),
+                     (rows_x + Tf * B) * fft_flops + 2 * fb.m * M * rows_x + fir_out
+                     + 8 * rls_macs(Cx) * Tf * B * F)
+
     CP = C * P
     valid = Tf - lower  # frames that carry WPE weight
     Bc = C - 1
-    scan_macs = (Bc * C + C + 3 * Bc * Bc + 8 * Bc + Bc * (Bc - 1) // 2 + 2 * C
-                 + C * (C - 1) // 2)  # complex multiply-adds per (frame, utterance, bin)
+    scan_macs = rls_macs(C)
     rows = Tf * B * C
     # the least work of one row's M-point real DFT is an FFT's, ~2.5 M log2 M
     # flops (half of a complex FFT's 5 N log2 N); the kernels do FFTs
@@ -1394,8 +1436,7 @@ def main() -> None:
     bounds = {
         "analysis_tm": bound(4 * (B * C * T + rows * M + M * M + fb.N),
                              rows * fft_flops + fir_in),
-        "gsc_rls_zelinski": bound(4 * (rows * M + Tf * B * M) + 8 * F * C * (2 + Bc),
-                                  8 * scan_macs * Tf * B * F),
+        "gsc_rls_zelinski": k2_bound(C),
         "synthesis_tm": bound(4 * (Tf * B * M + B * T_out + M * M + fb.N),
                               Tf * B * fft_flops + fir_out),
         "aec_scan": bound(4 * (2 * rows * M + Tf * B * M), 30 * rows * F),
@@ -1414,6 +1455,9 @@ def main() -> None:
     lms_macs = Bc3 * C3 + C3 + 2 * C3 + C3 * (C3 - 1) // 2 + C3 + 5 * Bc3
     bounds["gsc_lms_zelinski"] = bound(4 * (Tf * B * C3 * M + Tf * B * M) + 8 * F * C3 * (2 + Bc3),
                                        8 * lms_macs * Tf * B * F)
+    # the gate pass: the reference channel's rows in, a flag per (frame,
+    # utterance) out; a square and an add per lane
+    bounds["lms_gates"] = bound(4 * (Tf * B * M + Tf * B), 2 * Tf * B * M)
     bounds |= {
         "gsc_rls_zelinski_steered": bound(4 * (rows5 * M + Tf * B5 * M) + 8 * B5 * F * C * (2 + Bc),
                                           8 * scan_macs * Tf * B5 * F),
@@ -1425,8 +1469,7 @@ def main() -> None:
                          (rows + Tf * B) * fft_flops + fir_in + fir_out
                          + zel_flops * Tf * B * F),
         # samples in, samples (K4) or the beamformed spectrum (K5) out
-        "gsc_mono": bound(4 * (B * C * T + B * T_out + 2 * M * M + 2 * fb.N) + 8 * F * C * (2 + Bc),
-                          (rows + Tf * B) * fft_flops + fir_in + fir_out + rls_flops),
+        "gsc_mono": k4_bound(C),
         "gsc_analysis": bound(4 * (B * C * T + Tf * B * M + M * M + fb.N) + 8 * F * C * (2 + Bc),
                               rows * fft_flops + fir_in + rls_flops),
         # the reversed windows in, the FIR rows out
@@ -1459,10 +1502,18 @@ def main() -> None:
         "gsc_lms_zelinski": ("gsc_lms_zelinski.cu",
                              "distant_speech_recognition_tpu/models/adaptive_gsc.py:346 "
                              "(XLA scan, kind='lms'; no TPU kernel)"),
+        "lms_gates": ("gsc_lms_zelinski.cu",
+                      "distant_speech_recognition_tpu/models/adaptive_gsc.py:169 "
+                      "(the LMS step's silence gate in the XLA scan; no TPU kernel)"),
     }
     by_path = {"flagship": counts, "config4": counts4, "fixed_weight": counts_fw,
                "fixed_weight_split": counts_split, "config5": counts5, "filterbank": counts_fb,
                "config3": counts3} | {f"{bf}_none": c for bf, c in counts_none.items()}
+    # the RLS kernels at config 3's 8 channels (phase 11)
+    c8 = {"gsc_rls_zelinski": (k2_8_ms, k2_bound(C3)), "gsc_mono": (k4_8_ms, k4_bound(C3))}
+    for name, (ms_, (b_ms, b_by)) in c8.items():
+        log(f"  {name} at {C3} channels: {ms_:.3f} ms, bound {b_ms:.3f} ms ({b_by}), "
+            f"{100 * b_ms / ms_:.1f}% of it")
     rows_json = []
     for name, (src, rep) in sources.items():
         b_ms, b_by = bounds[name]
@@ -1487,6 +1538,12 @@ def main() -> None:
             row["ms_by_batch"] = scan_ms[name]
             if name != "gsc_lms_zelinski":
                 row["launch_by_batch"] = {b: scan_shapes[f"{b} C=4"] for b in scan_ms[name]}
+        if name in c8:
+            row["c8"] = {"ms": c8[name][0], "bound_ms": c8[name][1][0],
+                         "bound_by": c8[name][1][1]}
+        if name == "gsc_lms_zelinski":  # "ms" includes the gate pass it launches first
+            row["launch"] = lms_shape
+            row["none_ms"] = lms_none_ms
         if name == "wpe_stats":  # "ms" is the later EM iteration's, with filters
             row["first_iteration_ms"] = stats_first_ms
         if name == "aec_scan":  # "ms" is NLMS's, the path's

@@ -57,17 +57,42 @@ int dsr_gsc_rls_zelinski_steered(const float* Yp, const float* wq, const float* 
                                  float spectral_floor, int real_mode, int pf_min_frames,
                                  cudaStream_t stream);
 
+// the silence gates of the GSC-LMS, gates[t * B + b] = 1 or 0: the
+// reference channel's frame energy of utterance b against its smoothed
+// energy before frame t's update (from delta) divided by sil_thresh
+int dsr_lms_gates(const float* Yp, float* gates, int Tf, int B, int C, int M, float beta,
+                  float one_minus_beta, float delta, float sil_thresh, cudaStream_t stream);
+
 // the GSC with the leaky power-normalised LMS active weight vector + Zelinski
 // (no TPU kernel: the JAX package's XLA scan gsc_postfilter_fused(kind="lms")),
-// one set of weights [F, ...]; the launch is dsr_gsc_rls_zelinski's
-int dsr_gsc_lms_zelinski(const float* Yp, const float* wq, const float* bm,
+// one set of weights [F, ...], on the gates [Tf, B] of dsr_lms_gates: two
+// lanes a bin
+int dsr_gsc_lms_zelinski(const float* Yp, const float* gates, const float* wq, const float* bm,
                          const float* ta, float* out, int Tf, int B, int C, int Bc,
                          int M, float beta, float one_minus_beta, float gamma,
-                         float delta, float reg_param, float sil_thresh,
-                         float energy_floor, float max_wa_l2norm, int min_frames,
-                         int slowdown_after, float pf_alpha, float one_minus_pf_alpha,
-                         float pf_gain, float spectral_floor, int real_mode,
-                         int pf_min_frames, cudaStream_t stream);
+                         float delta, float reg_param, float energy_floor,
+                         float max_wa_l2norm, int min_frames, int slowdown_after,
+                         float pf_alpha, float one_minus_pf_alpha, float pf_gain,
+                         float spectral_floor, int real_mode, int pf_min_frames,
+                         cudaStream_t stream);
+
+// 0 where dsr_gsc_lms_zelinski takes these shapes and step-size countdown,
+// else DSR_ERR_ARGS (its wrapper asks before either kernel launches)
+int dsr_gsc_lms_zelinski_args_ok(int Tf, int B, int C, int Bc, int M, int slowdown_after);
+
+// the launch dsr_gsc_lms_zelinski's scan takes for (B, C, M) with the
+// Zelinski stage zmode (1 real part, 2 modulus): lanes a bin, blocks,
+// threads a block, frames a warp stages ahead, dynamic shared memory, the
+// kernel's registers and local memory bytes, and the blocks an SM holds
+int dsr_gsc_lms_zelinski_shape(int B, int C, int M, int zmode, int* lanes, int* blocks,
+                               int* threads, int* frames, int* smem_bytes, int* regs,
+                               int* local_bytes, int* blocks_per_sm);
+
+// test entry (fastdiv_check.cu): q[i] = fast_div<scale_exp>(a[i], b[i])
+// (dsr_device.h; scale_exp 0 or 32, the LMS scan's), and ok[i] whether it
+// vouches for it
+int dsr_fastdiv_check(const float* a, const float* b, float* q, int* ok, int n, int scale_exp,
+                      cudaStream_t stream);
 
 // the launch shape that dsr_gsc_rls_zelinski(_steered) takes for (B, C, M):
 // blocks, threads a block, frames a chunk, dynamic shared memory, the

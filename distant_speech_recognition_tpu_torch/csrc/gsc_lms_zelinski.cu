@@ -3,193 +3,491 @@
 //
 // dsr_gsc_lms_zelinski computes what
 // models/adaptive_gsc.gsc_postfilter_fused(kind="lms", real_packed=True,
-// energy=None) computes, one frame at a time, within rounding: the same
-// front as the GSC-RLS scan (Z = BmH X, Yc = wqH X, the silence gate on the
-// smoothed reference-channel frame energy, the Zelinski gain;
-// csrc/gsc_step.h's gsc_front) and the snapshot's power, then the LMS update
-// (lms_update: the step size halved every slowdown_after frames, the
-// smoothed subband power, the leaky normalised update on the old weights,
-// the norm cap, the gated commit, the output on the committed weights).
-// Input and output keep the packed time-major lanes [Re(0..M/2) | Im(1..M/2-1)].
-// With pf_min_frames past the last frame the gain is never applied: the
-// beamformer's output alone (postfilter "none").
+// energy=None) computes, within rounding: per frame the blocking and
+// quiescent outputs Z = BmH X and Yc = wqH X, the silence gate on the
+// smoothed reference-channel frame energy, the Zelinski gain on the
+// time-aligned snapshot, and the LMS update (the step size halved every
+// slowdown_after frames, the smoothed subband power, the leaky normalised
+// update on the old weights, the norm cap, the gated commit, the output on
+// the committed weights).  Input and output keep the packed time-major lanes
+// [Re(0..M/2) | Im(1..M/2-1)].  With pf_min_frames at or past the last frame
+// the gain is computed and never applied (postfilter "none").  It replaces
+// no TPU kernel: the JAX package runs this recursion in XLA.
 //
-// It replaces no TPU kernel: the JAX package runs this recursion in XLA, and a
-// plain torch loop over the frames takes seconds a batch on a GPU.  Like the
-// GSC-RLS scan (csrc/gsc_rls_zelinski.cu, whose design notes hold here) it is
-// bound by the latency of a frame's dependent chain at small batches and by
-// instruction issue at large ones, not by its bytes: one thread per
-// (utterance, bin) in blocks of THREADS with the bin's weights and state in
-// registers, the frames of a chunk staged ahead by cp.async with their frame
-// energies computed a chunk at a time (two barriers a chunk), and frame t +
-// 1's front beside frame t's update; the launch plan, the ring, the chunk
-// energies and the snapshot read are the RLS scan's (csrc/gsc_scan.h).  The
-// update is far shorter than the RLS one (no precision matrix), so the
-// front, longer at C = 8 (56 complex products for Z), takes most of a frame.
-// Its two divisions (gamma / se, and max_wa_l2norm / ||wa||^2 where the cap
-// fires) run branch-free through BranchFreeOps, redone with the IEEE
-// operators where it cannot vouch for a result.
+// What bounds it on an H100: the recursion is serial over frames and
+// independent over (utterance, bin).  A frame of a bin reads C complex
+// values and multiplies them by the C x C matrix [wqH; BmH] (C^2 complex
+// products), so the scan is bound by instruction issue at large batches and
+// by the latency of one frame's chain at small ones, not by its bytes.
+// Design:
+//   - two kernels on the stream, each with its C entry: the silence gates
+//     first, once per (utterance, frame) (dsr_lms_gates), then the scan
+//     (dsr_gsc_lms_zelinski).  The gate compares the frame's
+//     reference-channel energy with the smoothed energy before its update,
+//     divided by sil_thresh (the JAX step's order, the IEEE division); a
+//     block an utterance sums its frames' energies (a warp a frame, a shuffle
+//     butterfly over the lanes' partial sums) and one thread runs the
+//     recursion from delta.  The scan reads one flag a bin-frame: neither the
+//     reference rows of the utterances a block touches nor the recursion and
+//     its division are in the scan;
+//   - two lanes a bin, adjacent lanes of a warp.  Lane h holds rows h R ..
+//     h R + R - 1 (R = ceil(C/2)) of [wqH; BmH] in registers, so a bin's
+//     constants are split between its lanes, not copied, and each lane forms
+//     its rows of [Yc; Z] from the whole snapshot.  The active weights are
+//     split the same way and carried as v = -waH, beside a fixed 1 for the Yc
+//     row: the error Yc - waH Z and the output are each a lane's partial sum
+//     and one shuffle, the weights' squared norm one more.  Lane h also takes
+//     channels h R .. of the snapshot's power and of the Zelinski sums, one
+//     butterfly step for all of them.  Both lanes then run the scalar part of
+//     the update alike (same operands, same bits), so neither waits on the
+//     other's quotients.  At most 128 registers a lane: four blocks of 128
+//     lanes fill an SM, and B = 256 utterances at M = 256 run in one wave;
+//   - each warp stages its own 16 bins, a frame at a time and RING frames
+//     ahead, by cp.async into a ring of its own in shared memory (lane 0 of a
+//     bin copies the real parts and the gate, lane 1 the imaginary parts).
+//     The copies are spread evenly over the frames, so the load unit never
+//     holds the lanes up the way a whole chunk's copies at once did, and a
+//     warp waits only for its own copies (cp.async.wait_group, __syncwarp):
+//     no block barrier;
+//   - the Zelinski pair sum in O(C) work: for pf_type & 1 only
+//     Re sum_{i<j} a_i conj(a_j) = (|sum_c a_c|^2 - sum_c |a_c|^2) / 2 is
+//     read; otherwise sum_j (sum_{i<j} a_i) conj(a_j) within each lane's
+//     channels, and the two lanes' halves joined by A_lo conj(A_hi);
+//   - the divisions gamma / se and the Zelinski quotient (and the norm cap's,
+//     where it fires) through FastDivOps (dsr_device.h) on the dividend
+//     scaled by 2^32, which is exact and moves these quotients into the range
+//     it vouches for; the IEEE operator where it cannot vouch.
 #include "dsr_kernels.h"
-#include "gsc_step.h"
-#include "gsc_scan.h"
+#include "gsc_scan.h"  // cp.async, args_ok
 
 namespace {
 
 using namespace dsr;
 
-template <int C, int BC>
-__global__ void __launch_bounds__(THREADS)
-    gsc_lms_zelinski_kernel(const float* __restrict__ Yp, const float* __restrict__ wq,
-                            const float* __restrict__ bm, const float* __restrict__ ta,
-                            float* __restrict__ out, int Tf, int B, int M, LmsParams p,
-                            Plan pl) {
-  extern __shared__ __align__(16) float smem[];
+constexpr int LMS_THREADS = 128;
+constexpr int LMS_LANES = 2;      // lanes a bin
+constexpr int LMS_BLOCKS_SM = 4;  // blocks an SM holds at 128 registers a lane
+constexpr int LMS_RING = 12;      // frames a warp stages ahead: its ring's slots
+constexpr int GATE_THREADS = 512;
+constexpr int GATE_TILE = 2048;  // frames of an utterance whose energies sit in shared memory
+
+// the Zelinski stage compiled in: the positive real part of the pair sum
+// (pf_type & 1), or its modulus
+enum { ZEL_REAL = 1, ZEL_ABS = 2 };
+
+struct LmsParams {
+  float beta, one_minus_beta, gamma, delta, reg_param, energy_floor, max_wa_l2norm;
+  int min_frames, slowdown_after;
+  float pf_alpha, one_minus_pf_alpha, pf_gain, spectral_floor;
+  int pf_min_frames;
+};
+
+// a ring slot of a warp: its 16 bins of channels 0..C-1 [C][16] as float2,
+// then their gates [16]
+__host__ __device__ constexpr int slot_floats(int C) { return C * 32 + 16; }
+size_t lms_smem_bytes(int C) {
+  return 4 * (size_t)(LMS_THREADS / 32) * LMS_RING * slot_floats(C);
+}
+int lms_blocks(int B, int M) {
+  return (int)(((long long)B * (M / 2 + 1) * LMS_LANES + LMS_THREADS - 1) / LMS_THREADS);
+}
+
+// The silence gates gate[t * B + b] of utterance b = blockIdx.x, a tile of
+// GATE_TILE frames at a time: warp w sums the energies of frames w, w + 16,
+// ... (lane l adds ew |X0|^2 of bins l, l + 32, ... in order, its loads all
+// issued at once; a shuffle butterfly adds the lanes, the sum over M is the
+// frame's energy); thread 0 runs the smoothed-energy recursion over the
+// tile alone (the energy before each frame's update, starting at delta),
+// and then every thread takes frames in turn: the gate compares the frame's
+// energy with that smoothed energy divided by sil_thresh
+__global__ void __launch_bounds__(GATE_THREADS)
+    lms_gates_kernel(const float* __restrict__ Yp, float* __restrict__ gates, int Tf, int B, int C,
+                     int M, float beta, float one_minus_beta, float delta, float sil_thresh) {
+  __shared__ float en[GATE_TILE], sm[GATE_TILE];  // energies, smoothed energies
+  const int b = blockIdx.x, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int F = M / 2 + 1;
-  const long long n = (long long)B * F;
-  const long long i0 = (long long)blockIdx.x * THREADS;
-  const long long i = i0 + threadIdx.x;
-  Blk k;
-  k.Yp = Yp;
-  k.B = B;
-  k.M = M;
-  k.F = F;
-  k.valid = i < n;
-  const long long ic = k.valid ? i : n - 1;  // idle lanes shadow the last bin, never write
-  k.b = (int)(ic / F);
-  k.f = (int)(ic - (long long)k.b * F);
-  k.has_im = k.f >= 1 && k.f <= F - 2;
-  k.b_lo = (int)(i0 / F);
-  k.nu = (int)(((i0 + THREADS - 1 < n ? i0 + THREADS - 1 : n - 1) / F) - k.b_lo + 1);
-
-  // ring slot j of the two at smem + j * pl.stage, then the energies
-  float* en = smem + 2 * pl.stage;
-
-  const size_t wf = k.f;  // one set of weights [F, ...] for every utterance
-  cf wqc[C], tac[C], bmc[BC][C];
+  float st = delta;
+  for (int t0 = 0; t0 < Tf; t0 += GATE_TILE) {
+    const int nt = min(GATE_TILE, Tf - t0);
+#pragma unroll 2
+    for (int tt = warp; tt < nt; tt += GATE_THREADS / 32) {
+      const float* x = Yp + ((size_t)(t0 + tt) * B + b) * C * M;
+      float s = 0.f;
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
-    wqc[c] = {wq[(wf * C + c) * 2], wq[(wf * C + c) * 2 + 1]};
-    tac[c] = {ta[(wf * C + c) * 2], -ta[(wf * C + c) * 2 + 1]};  // conj(ta)
-  }
+      for (int g = 0; g < 8; ++g) {  // F <= 256
+        const int bin = g * 32 + lane;
+        if (bin < F) {
+          const float im = bin >= 1 && bin <= F - 2 ? __ldg(x + F + bin - 1) : 0.f;
+          s += energy_term(bin == 0 || bin == F - 1 ? 1.f : 2.f, {__ldg(x + bin), im});
+        }
+      }
 #pragma unroll
-  for (int q = 0; q < BC; ++q)
-#pragma unroll
-    for (int c = 0; c < C; ++c)
-      bmc[q][c] = {bm[((wf * BC + q) * C + c) * 2], bm[((wf * BC + q) * C + c) * 2 + 1]};
-
-  LmsState<BC> S = lms_start<BC>(p);
-  GscFrontState fs = {{0.f, 0.f}, 0.f, p.g.delta};
-
-  const int nchunks = (Tf + pl.TC - 1) / pl.TC;
-  stage_chunk<C>(k, pl, smem, 0, min(pl.TC, Tf));
-  if (nchunks > 1) {
-    stage_chunk<C>(k, pl, smem + pl.stage, pl.TC, min(pl.TC, Tf - pl.TC));
-    cp_wait<1>();
-  } else {
-    cp_wait<0>();
-  }
-  __syncthreads();
-  chunk_energies(k, pl, smem, en, min(pl.TC, Tf));
-
-  // the front of frame 0
-  LmsFront<BC> fr;
-  {
-    cf X[C];
-    read_snapshot<C>(k, pl, smem, 0, X);
-    const float et = en[k.b - k.b_lo];
-    BranchFreeOps op;
-    GscFrontState s1 = fs;
-    lms_front<C, BC>(fr, s1, wqc, bmc, tac, X, et, 0, p, op);
-    if (!op.ok) {
-      IeeeOps iv;
-      s1 = fs;
-      lms_front<C, BC>(fr, s1, wqc, bmc, tac, X, et, 0, p, iv);
+      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+      if (lane == 0) en[tt] = s / (float)M;
     }
-    fs = s1;
-  }
-
-  float* o = out + (size_t)k.b * M + k.f;  // this bin's lane of frame t's output row
-  for (int t = 0; t < Tf; ++t) {
-    const int t1 = t + 1;
-    if (t1 < Tf && t1 % pl.TC == 0) {  // chunk t1 / TC starts: its copies were started a chunk ago
-      const int kc = t1 / pl.TC;
-      cp_wait<0>();
-      __syncthreads();
-      if (kc + 1 < nchunks)
-        stage_chunk<C>(k, pl, smem + ((kc + 1) & 1) * pl.stage, t1 + pl.TC,
-                       min(pl.TC, Tf - t1 - pl.TC));
-      chunk_energies(k, pl, smem + (kc & 1) * pl.stage, en, min(pl.TC, Tf - t1));
+    __syncthreads();
+    if (threadIdx.x == 0) {
+#pragma unroll 8
+      for (int tt = 0; tt < nt; ++tt) {
+        sm[tt] = st;
+        st = __fadd_rn(__fmul_rn(st, beta), __fmul_rn(one_minus_beta, en[tt]));
+      }
     }
-    // frame t1's front (frame Tf - 1's inputs again after the last frame,
-    // and dropped) beside frame t's update
-    const int tr = t1 < Tf ? t1 : Tf - 1;
-    const int tt = tr % pl.TC;
-    cf X[C];
-    read_snapshot<C>(k, pl, smem + ((tr / pl.TC) & 1) * pl.stage, tt, X);
-    const float et = en[tt * pl.NU + k.b - k.b_lo];
-    BranchFreeOps op;
-    LmsFront<BC> fn;
-    GscFrontState s1 = fs;
-    lms_front<C, BC>(fn, s1, wqc, bmc, tac, X, et, t1, p, op);
-    LmsState<BC> S1 = S;
-    cf Y = lms_update<BC>(S1, fr, t, p, op);
-    if (!op.ok) {
-      IeeeOps iv;
-      s1 = fs;
-      lms_front<C, BC>(fn, s1, wqc, bmc, tac, X, et, t1, p, iv);
-      S1 = S;
-      Y = lms_update<BC>(S1, fr, t, p, iv);
-    }
-    S = S1;
-    fs = s1;
-    fr = fn;
-    if (k.valid) {
-      o[0] = Y.r;
-      if (k.has_im) o[F - 1] = Y.i;
-    }
-    o += (size_t)B * M;
+    __syncthreads();
+    for (int tt = threadIdx.x; tt < nt; tt += GATE_THREADS)
+      gates[(size_t)(t0 + tt) * B + b] = en[tt] > sm[tt] / sil_thresh ? 1.f : 0.f;
+    __syncthreads();
   }
 }
 
-template <int C>
-int launch(const float* Yp, const float* wq, const float* bm, const float* ta, float* out,
-           int Tf, int B, int M, const LmsParams& p, const Plan& pl, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(gsc_lms_zelinski_kernel<C, C - 1>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)pl.bytes);
+// acc + a x
+__device__ __forceinline__ cf cfma(cf a, cf x, cf acc) {
+  return {__fmaf_rn(-a.i, x.i, __fmaf_rn(a.r, x.r, acc.r)),
+          __fmaf_rn(a.i, x.r, __fmaf_rn(a.r, x.i, acc.i))};
+}
+
+// v summed over the bin's two lanes; both lanes get the same bits (IEEE
+// addition commutes)
+__device__ __forceinline__ float pair_sum(float v) {
+  return v + __shfl_xor_sync(0xffffffffu, v, 1);
+}
+
+// a / b with IEEE division's bits: FastDivOps at 2^32 (gamma / se ~ 1e-12
+// and the Zelinski ratio both lie inside its range), the operator where it
+// cannot vouch
+__device__ __forceinline__ float lms_div(float a, float b) {
+  bool ok;
+  float q = fast_div<32>(a, b, ok);
+  if (!ok) q = a / b;
+  return q;
+}
+
+template <int C, int ZM>
+__global__ void __launch_bounds__(LMS_THREADS, LMS_BLOCKS_SM)
+    gsc_lms_zelinski_kernel(const float* __restrict__ Yp, const float* __restrict__ gates,
+                            const float* __restrict__ wq, const float* __restrict__ bm,
+                            const float* __restrict__ ta, float* __restrict__ out, int Tf, int B,
+                            int M, LmsParams p) {
+  // rows of [wqH; BmH] a lane holds, and channels of its partial sums
+  constexpr int R = (C + 1) / 2;
+  constexpr int SLOT = slot_floats(C);
+  extern __shared__ __align__(16) float smem[];
+  // probe: kernel start
+  const int F = M / 2 + 1;
+  const long long n = (long long)B * F;
+  const int h = threadIdx.x & 1;          // the lane in the bin
+  const int j = (threadIdx.x & 31) >> 1;  // the bin in the warp
+  const long long i = (long long)blockIdx.x * (LMS_THREADS / 2) + (threadIdx.x >> 1);
+  const bool valid = i < n;
+  const long long ic = valid ? i : n - 1;  // idle lanes shadow the last bin, never write
+  const int b = (int)(ic / F);
+  const int f = (int)(ic - (long long)b * F);
+  const bool has_im = f >= 1 && f <= F - 2;
+  const bool yc = h == 0;  // this lane's row 0 is Yc's
+
+  // this lane's rows of [wqH; BmH] (zero past row C - 1), one set of weights
+  // [F, ...] for every utterance
+  const size_t wf = f;
+  cf W[R][C];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int g = h * R + r;
+    const float* w = g == 0 ? wq + wf * C * 2 : bm + (wf * (C - 1) + (g - 1)) * C * 2;
+#pragma unroll
+    for (int c = 0; c < C; ++c) W[r][c] = g < C ? cf{w[2 * c], w[2 * c + 1]} : cf{0.f, 0.f};
+  }
+  // conj of the alignment manifold at this lane's channels h R + r, and |.|^2
+  cf tz[R];
+  float t2[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int c = h * R + r;
+    tz[r] = c < C ? cf{ta[(wf * C + c) * 2], -ta[(wf * C + c) * 2 + 1]} : cf{0.f, 0.f};
+    t2[r] = cabs2(tz[r]);
+  }
+
+  // v: -waH of this lane's Z rows, and 1 for the Yc row; a new utterance
+  // starts from waH = 0, the smoothed subband power at delta
+  cf v[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) v[r] = {yc && r == 0 ? 1.f : 0.f, 0.f};
+  float se = p.delta, gamma = p.gamma;
+  int until_slow = p.slowdown_after;  // frames until the step size halves
+  float phr = 0.f, phi = 0.f, phd = 0.f;  // the smoothed Zelinski pair sum and trace
+
+  // this warp's ring, and this lane's part of its bin in a slot: the real
+  // (lane 0) or imaginary (lane 1, zero at DC and Nyquist) parts of
+  // channels 0..C-1, and lane 0 the gate
+  float* ring = smem + (size_t)(threadIdx.x >> 5) * LMS_RING * SLOT;
+  const bool on = valid && (h == 0 || has_im);
+  const size_t frame = (size_t)B * C * M;
+  auto stage = [&](const float* x, const float* g, float* slot) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) cp_async4(slot + c * 32 + 2 * j + h, x + (size_t)c * M, on);
+    if (h == 0) cp_async4(slot + C * 32 + j, g, valid);
+  };
+  // the next frame to stage, and its gate
+  const float* x = Yp + (size_t)b * C * M + (h ? (has_im ? F - 1 + f : 0) : f);
+  const float* g = gates + b;
+  for (int t = 0; t < LMS_RING - 1; ++t, x += frame, g += B) {
+    if (t < Tf) stage(x, g, ring + t * SLOT);
+    cp_commit();
+  }
+  // probe: set-up done
+
+  float* o = out + (size_t)b * M + (h ? F - 1 + f : f);  // lane 0 stores Re, lane 1 Im
+  const bool store = valid && (h == 0 || has_im);
+  for (int t = 0, s = 0, s1 = LMS_RING - 1; t < Tf; ++t) {
+    // frame t + RING - 1 into the slot of frame t - 1, which both lanes of
+    // every bin of the warp are done with; then frame t's copies are in
+    __syncwarp();
+    if (t + LMS_RING - 1 < Tf) stage(x, g, ring + s1 * SLOT);
+    cp_commit();
+    x += frame;
+    g += B;
+    cp_wait<LMS_RING - 1>();
+    __syncwarp();
+    // probe: frame staged
+    const float2* X = reinterpret_cast<const float2*>(ring + s * SLOT) + j;
+    const bool gate = ring[s * SLOT + C * 32 + j] != 0.f;
+    s = s + 1 == LMS_RING ? 0 : s + 1;
+    s1 = s1 + 1 == LMS_RING ? 0 : s1 + 1;
+
+    // front: this lane's rows of [Yc; Z] from the whole snapshot, and the
+    // partial sums over its channels h R + r: the snapshot's power and the
+    // Zelinski sums (A = sum of the aligned channels, ds = their power,
+    // P = sum_j (sum_{i<j} a_i) conj(a_j))
+    cf row[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) row[r] = {0.f, 0.f};
+    float xp = 0.f, ds = 0.f;
+    cf A = {0.f, 0.f}, P = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float2 ga = X[r * 16];
+      const float2 gb = R + r < C ? X[(R + r < C ? R + r : 0) * 16] : float2{0.f, 0.f};
+      const cf xa = {ga.x, ga.y}, xb = {gb.x, gb.y};
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        row[q] = cfma(W[q][r], xa, row[q]);
+        if (R + r < C) row[q] = cfma(W[q][R + r < C ? R + r : 0], xb, row[q]);
+      }
+      const cf x = h ? xb : xa;
+      const float x2 = __fmaf_rn(x.r, x.r, __fmul_rn(x.i, x.i));
+      xp += x2;
+      if constexpr (ZM == ZEL_REAL) {
+        A = cfma(tz[r], x, A);
+        ds = __fmaf_rn(t2[r], x2, ds);
+      } else if constexpr (ZM == ZEL_ABS) {
+        const cf al = cmul(tz[r], x);
+        ds = __fmaf_rn(al.r, al.r, __fmaf_rn(al.i, al.i, ds));
+        P = {__fmaf_rn(A.i, al.i, __fmaf_rn(A.r, al.r, P.r)),
+             __fmaf_rn(-A.r, al.i, __fmaf_rn(A.i, al.r, P.i))};  // P + A conj(al)
+        A = cadd(A, al);
+      }
+    }
+    // probe: front done
+
+    // the bin's sums: one butterfly step
+    xp = pair_sum(xp);
+    float Wz;  // the Zelinski gain
+    {
+      ds = pair_sum(ds);
+      float psr, psi = 0.f;
+      if constexpr (ZM == ZEL_REAL) {
+        A.r = pair_sum(A.r);
+        A.i = pair_sum(A.i);
+        psr = 0.5f * (__fmaf_rn(A.r, A.r, __fmul_rn(A.i, A.i)) - ds);
+      } else {
+        const cf Ao = {__shfl_xor_sync(0xffffffffu, A.r, 1),
+                       __shfl_xor_sync(0xffffffffu, A.i, 1)};
+        const cf lo = h ? Ao : A, hi = h ? A : Ao;
+        const cf cross = cmulc(lo, hi);  // the pairs across the halves
+        psr = pair_sum(P.r) + cross.r;
+        psi = pair_sum(P.i) + cross.i;
+      }
+      // smoothed from the third frame on (postfilter.cc:424-463)
+      if (t > 1) {
+        phr = p.pf_alpha * phr + p.one_minus_pf_alpha * psr;
+        phi = p.pf_alpha * phi + p.one_minus_pf_alpha * psi;
+        phd = p.pf_alpha * phd + p.one_minus_pf_alpha * ds;
+      } else {
+        phr = psr;
+        phi = psi;
+        phd = ds;
+      }
+      const float num = ZM == ZEL_REAL ? fmaxf(phr, 0.f)
+                                       : sqrtf(__fmaf_rn(phr, phr, __fmul_rn(phi, phi)));
+      // a zero trace gives ratio 0, a zero numerator quotient 0
+      const float q = phd > 0.f && num != 0.f ? lms_div(num, phd) : 0.f;
+      Wz = fminf(fmaxf(q * p.pf_gain, p.spectral_floor), 1.f);
+    }
+    // probe: sums done
+
+    // the LMS update, the scalars alike in both lanes: the step size, the
+    // smoothed subband power, the error on the old weights
+    if (until_slow == 0) {
+      gamma *= 0.5f;
+      until_slow = p.slowdown_after;
+    }
+    --until_slow;
+    const float sn = fmaxf(t > 0 ? se * p.beta + p.one_minus_beta * xp : xp, p.energy_floor);
+    cf e = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < R; ++r) e = cfma(v[r], row[r], e);
+    e.r = pair_sum(e.r);
+    e.i = pair_sum(e.i);
+    const float alpha = lms_div(gamma, sn);
+    const float leak = alpha * p.reg_param;
+    const cf ea = {e.r * alpha, e.i * alpha};
+    // -waH_new = v - leak v - alpha e conj(Z)
+    cf vn[R];
+    float nrm = 0.f;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const cf z = row[r];
+      vn[r] = {__fmaf_rn(-ea.i, z.i, __fmaf_rn(-ea.r, z.r, __fmaf_rn(-leak, v[r].r, v[r].r))),
+               __fmaf_rn(ea.r, z.i, __fmaf_rn(-ea.i, z.r, __fmaf_rn(-leak, v[r].i, v[r].i)))};
+      const float n2 = cabs2(vn[r]);
+      nrm += r == 0 && yc ? 0.f : n2;
+    }
+    nrm = pair_sum(nrm);
+    if (nrm > p.max_wa_l2norm) {
+      const float scale = sqrtf(lms_div(p.max_wa_l2norm, nrm));
+#pragma unroll
+      for (int r = 0; r < R; ++r) vn[r] = cscale(vn[r], scale);
+    }
+    if (yc) vn[0] = {1.f, 0.f};
+    if (gate) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) v[r] = vn[r];
+      se = sn;
+    }
+    // probe: update done
+
+    // the output on the committed weights, Re summed in lane 0, Im in lane 1
+    cf y = {0.f, 0.f};
+    if (t >= p.min_frames) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) y = cfma(v[r], row[r], y);
+    } else if (yc) {
+      y = row[0];
+    }
+    float val = (h ? y.i : y.r) + __shfl_xor_sync(0xffffffffu, h ? y.r : y.i, 1);
+    if (t > p.pf_min_frames) val *= Wz;
+    if (store) *o = val;
+    o += (size_t)B * M;
+    // probe: stored
+  }
+  // probe: kernel end
+}
+
+// args_ok, and a frame's offsets in int
+bool lms_args_ok(int Tf, int B, int C, int Bc, int M) {
+  return args_ok(Tf, B, C, Bc, M) && (long long)B * C * M <= 0x7fffffffLL;
+}
+
+template <int C, int ZM>
+int lms_launch(const float* Yp, const float* gates, const float* wq, const float* bm,
+               const float* ta, float* out, int Tf, int B, int M, const LmsParams& p,
+               cudaStream_t stream) {
+  const size_t bytes = lms_smem_bytes(C);
+  cudaError_t err = cudaFuncSetAttribute(gsc_lms_zelinski_kernel<C, ZM>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  gsc_lms_zelinski_kernel<C, C - 1><<<pl.blocks, THREADS, pl.bytes, stream>>>(
-      Yp, wq, bm, ta, out, Tf, B, M, p, pl);
+  gsc_lms_zelinski_kernel<C, ZM><<<lms_blocks(B, M), LMS_THREADS, bytes, stream>>>(
+      Yp, gates, wq, bm, ta, out, Tf, B, M, p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int C>
+int lms_launch_mode(int zm, const float* Yp, const float* gates, const float* wq,
+                    const float* bm, const float* ta, float* out, int Tf, int B, int M,
+                    const LmsParams& p, cudaStream_t stream) {
+  return zm == ZEL_REAL
+             ? lms_launch<C, ZEL_REAL>(Yp, gates, wq, bm, ta, out, Tf, B, M, p, stream)
+             : lms_launch<C, ZEL_ABS>(Yp, gates, wq, bm, ta, out, Tf, B, M, p, stream);
+}
+
+// the kernel's registers and local memory (spills) in Zelinski mode ZM, and
+// the blocks an SM holds with its shared memory
+template <int C, int ZM>
+int lms_shape(int* regs, int* local_bytes, int* blocks_per_sm) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, gsc_lms_zelinski_kernel<C, ZM>);
+  const size_t bytes = lms_smem_bytes(C);
+  if (err == cudaSuccess) {
+    *regs = a.numRegs;
+    *local_bytes = (int)a.localSizeBytes;
+    err = cudaFuncSetAttribute(gsc_lms_zelinski_kernel<C, ZM>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  }
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, gsc_lms_zelinski_kernel<C, ZM>, LMS_THREADS, bytes);
+  return static_cast<int>(err);
+}
+
+template <int C>
+int lms_shape_mode(int zm, int* regs, int* local_bytes, int* blocks_per_sm) {
+  return zm == ZEL_REAL ? lms_shape<C, ZEL_REAL>(regs, local_bytes, blocks_per_sm)
+                        : lms_shape<C, ZEL_ABS>(regs, local_bytes, blocks_per_sm);
 }
 
 }  // namespace
 
-extern "C" int dsr_gsc_lms_zelinski(const float* Yp, const float* wq, const float* bm,
-                                    const float* ta, float* out, int Tf, int B, int C, int Bc,
-                                    int M, float beta, float one_minus_beta, float gamma,
-                                    float delta, float reg_param, float sil_thresh,
+extern "C" int dsr_lms_gates(const float* Yp, float* gates, int Tf, int B, int C, int M,
+                             float beta, float one_minus_beta, float delta, float sil_thresh,
+                             cudaStream_t stream) {
+  if (!lms_args_ok(Tf, B, C, C - 1, M)) return DSR_ERR_ARGS;
+  lms_gates_kernel<<<B, GATE_THREADS, 0, stream>>>(Yp, gates, Tf, B, C, M, beta, one_minus_beta,
+                                                   delta, sil_thresh);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int dsr_gsc_lms_zelinski_args_ok(int Tf, int B, int C, int Bc, int M,
+                                            int slowdown_after) {
+  return lms_args_ok(Tf, B, C, Bc, M) && slowdown_after >= 1 ? 0 : DSR_ERR_ARGS;
+}
+
+extern "C" int dsr_gsc_lms_zelinski(const float* Yp, const float* gates, const float* wq,
+                                    const float* bm, const float* ta, float* out, int Tf, int B,
+                                    int C, int Bc, int M, float beta, float one_minus_beta,
+                                    float gamma, float delta, float reg_param,
                                     float energy_floor, float max_wa_l2norm, int min_frames,
                                     int slowdown_after, float pf_alpha,
                                     float one_minus_pf_alpha, float pf_gain,
                                     float spectral_floor, int real_mode, int pf_min_frames,
                                     cudaStream_t stream) {
-  if (!args_ok(Tf, B, C, Bc, M) || slowdown_after < 1) return DSR_ERR_ARGS;
-  // the GscParams fields the LMS step does not read (mu, inv_delta,
-  // constraint_option, alpha2) are zero
-  const LmsParams p = {{beta, one_minus_beta, gamma, 0.f, delta, 0.f, reg_param, sil_thresh, 0,
-                        0.f, max_wa_l2norm, min_frames,
-                        {pf_alpha, one_minus_pf_alpha, pf_gain, spectral_floor, real_mode,
-                         pf_min_frames}},
-                       energy_floor,
-                       slowdown_after};
-  int sms = 0;
-  const cudaError_t err = sm_count(&sms);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const Plan pl = plan(B, C, M, sms);
+  if (const int code = dsr_gsc_lms_zelinski_args_ok(Tf, B, C, Bc, M, slowdown_after))
+    return code;
+  const LmsParams p = {beta,           one_minus_beta, gamma,      delta,
+                       reg_param,      energy_floor,   max_wa_l2norm,
+                       min_frames,     slowdown_after, pf_alpha,   one_minus_pf_alpha,
+                       pf_gain,        spectral_floor, pf_min_frames};
+  const int zm = real_mode ? ZEL_REAL : ZEL_ABS;
   switch (C) {
 #define DSR_CASE(c) \
-  case c: return launch<c>(Yp, wq, bm, ta, out, Tf, B, M, p, pl, stream);
+  case c: return lms_launch_mode<c>(zm, Yp, gates, wq, bm, ta, out, Tf, B, M, p, stream);
+    DSR_CASE(2) DSR_CASE(3) DSR_CASE(4) DSR_CASE(5) DSR_CASE(6) DSR_CASE(7) DSR_CASE(8)
+#undef DSR_CASE
+    default: return DSR_ERR_ARGS;
+  }
+}
+
+extern "C" int dsr_gsc_lms_zelinski_shape(int B, int C, int M, int zmode, int* lanes, int* blocks,
+                                          int* threads, int* frames, int* smem_bytes, int* regs,
+                                          int* local_bytes, int* blocks_per_sm) {
+  if (!lms_args_ok(1, B, C, C - 1, M) || (zmode != ZEL_REAL && zmode != ZEL_ABS))
+    return DSR_ERR_ARGS;
+  *lanes = LMS_LANES;
+  *blocks = lms_blocks(B, M);
+  *threads = LMS_THREADS;
+  *frames = LMS_RING;
+  *smem_bytes = (int)lms_smem_bytes(C);
+  switch (C) {
+#define DSR_CASE(c) \
+  case c: return lms_shape_mode<c>(zmode, regs, local_bytes, blocks_per_sm);
     DSR_CASE(2) DSR_CASE(3) DSR_CASE(4) DSR_CASE(5) DSR_CASE(6) DSR_CASE(7) DSR_CASE(8)
 #undef DSR_CASE
     default: return DSR_ERR_ARGS;

@@ -46,11 +46,9 @@
 //     after the other.  A frame that BranchFreeOps cannot vouch for is
 //     redone with the IEEE operators (not on ordinary data).
 // The launch plan, the frame ring, the chunk energies and the snapshot read
-// live in csrc/gsc_scan.h, shared with the GSC-LMS scan
-// (csrc/gsc_lms_zelinski.cu), which runs the same design with the LMS
-// update; this kernel's own text is left as it was, because the same step
-// reached through a step policy was rounded otherwise by nvcc at C = 2
-// (PERF.md).
+// live in csrc/gsc_scan.h.  This kernel's own text is left as it was: the
+// same step reached through a step policy was rounded otherwise by nvcc at
+// C = 2 (PERF.md).
 #include "dsr_kernels.h"
 #include "gsc_step.h"
 #include "gsc_scan.h"

@@ -1,13 +1,12 @@
-// The parts of the adaptive GSC scan kernels that do not depend on the
-// update, shared by the GSC-RLS + Zelinski scan (K2/K6,
-// csrc/gsc_rls_zelinski.cu) and the GSC-LMS + Zelinski scan
-// (csrc/gsc_lms_zelinski.cu): the launch plan (blocks of THREADS (utterance,
-// bin) threads, frames a chunk), the cp.async ring that stages a chunk of
-// frames ahead (the reference channel's rows of the utterances a block
-// touches and each thread's bin of the other channels), the chunk's
+// The parts of the GSC-RLS + Zelinski scan (K2/K6, csrc/gsc_rls_zelinski.cu)
+// that do not depend on the update: the launch plan (blocks of THREADS
+// (utterance, bin) threads, frames a chunk), the cp.async ring that stages a
+// chunk of frames ahead (the reference channel's rows of the utterances a
+// block touches and each thread's bin of the other channels), the chunk's
 // reference-channel frame energies (the silence gate's), and the read of a
 // frame's snapshot.  The design and what bounds it are described atop
-// csrc/gsc_rls_zelinski.cu.
+// csrc/gsc_rls_zelinski.cu.  The GSC-LMS scan (csrc/gsc_lms_zelinski.cu)
+// takes only the cp.async helpers and args_ok from here.
 #pragma once
 
 #include "dsr_kernels.h"

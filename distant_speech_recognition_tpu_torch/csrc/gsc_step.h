@@ -1,9 +1,7 @@
 // One frame of the GSC-RLS beamformer + Zelinski postfilter for one bin,
 // shared by the scan kernels (K2/K6, csrc/gsc_rls_zelinski.cu) and the
-// one-kernel chains (K4/K5, csrc/gsc_mono.cu), so they round alike; and the
-// GSC-LMS update beside it (`lms_front`, `lms_update`: the LMS scan of
-// csrc/gsc_lms_zelinski.cu), on the same front.  The RLS step
-// computes what models/adaptive_gsc.gsc_postfilter_fused(kind="rls",
+// one-kernel chains (K4/K5, csrc/gsc_mono.cu), so they round alike.  The RLS
+// step computes what models/adaptive_gsc.gsc_postfilter_fused(kind="rls",
 // real_packed=True, energy=None) computes for one frame, operation for
 // operation, in two halves:
 //   - the state-free front (`gsc_front`): blocking output Z = BmH X,
@@ -325,112 +323,6 @@ __device__ __forceinline__ cf gsc_rls_zelinski_step(GscState<BC>& S, GscFrontSta
   }
   S = S1;
   s = s1;
-  return Y;
-}
-
-// ---------------------------------------------------------------------------
-// The GSC-LMS update: what models/adaptive_gsc._lms_step_factory computes for
-// one bin (pybeamformer.py:659-762), on the RLS step's front (Z, Yc, the
-// gate, the energy recursion and the Zelinski gain are the same functions of
-// the snapshot) and the snapshot's power xpow = sum_c |X_c|^2.
-
-// The LMS step's parameters beyond the front's.  Of `g` it reads beta,
-// one_minus_beta, gamma (the first step size), delta (the smoothed energies'
-// start), reg_param, sil_thresh, max_wa_l2norm, min_frames and pf.
-struct LmsParams {
-  GscParams g;
-  float energy_floor;
-  int slowdown_after;
-};
-
-// The LMS state of one bin: the active weights, the smoothed subband power
-// and the step size, halved at every frame t > 0 with t % slowdown_after ==
-// 0 (frames left until the next halving in `until_slow`)
-template <int BC>
-struct LmsState {
-  cf waH[BC];
-  float se;
-  float gamma;
-  int until_slow;
-};
-
-template <int BC>
-__device__ __forceinline__ LmsState<BC> lms_start(const LmsParams& p) {
-  LmsState<BC> S;
-#pragma unroll
-  for (int i = 0; i < BC; ++i) S.waH[i] = {0.f, 0.f};
-  S.se = p.g.delta;
-  S.gamma = p.g.gamma;
-  S.until_slow = p.slowdown_after;
-  return S;
-}
-
-// What the front hands the LMS update: the RLS step's front and the
-// snapshot's power sum_c |X_c|^2
-template <int BC>
-struct LmsFront {
-  GscFront<BC> g;
-  float xpow;
-};
-
-template <int C, int BC, class Ops>
-__device__ __forceinline__ void lms_front(LmsFront<BC>& o, GscFrontState& s, const cf (&wqc)[C],
-                                          const cf (&bmc)[BC][C], const cf (&tac)[C],
-                                          const cf (&X)[C], float energy_t, int t,
-                                          const LmsParams& p, Ops& op) {
-  gsc_front<C, BC>(o.g, s, wqc, bmc, tac, X, energy_t, t, p.g, op);
-  float xp = 0.f;
-#pragma unroll
-  for (int c = 0; c < C; ++c) xp += cabs2(X[c]);
-  o.xpow = xp;
-}
-
-// The state update of frame t of one bin from its front: the new state in S,
-// the beamformed, postfiltered output returned.  The leak and the error use
-// the old weights, the output the committed ones.  Two divisions a frame go
-// through the policy: gamma / se and, only where the norm cap fires,
-// max_wa_l2norm / ||wa||^2.
-template <int BC, class Ops>
-__device__ __forceinline__ cf lms_update(LmsState<BC>& S, const LmsFront<BC>& fr, int t,
-                                         const LmsParams& lp, Ops& op) {
-  const GscParams& p = lp.g;
-  const cf(&Z)[BC] = fr.g.Z;
-  if (S.until_slow == 0) {
-    S.gamma *= 0.5f;
-    S.until_slow = lp.slowdown_after;
-  }
-  --S.until_slow;
-  float se = t > 0 ? S.se * p.beta + p.one_minus_beta * fr.xpow : fr.xpow;
-  se = fmaxf(se, lp.energy_floor);
-  cf ep = fr.g.Yc;
-#pragma unroll
-  for (int i = 0; i < BC; ++i) ep = csub(ep, cmul(S.waH[i], Z[i]));
-  const float alpha = op.div(S.gamma, op.recip(se));
-  const float leak = alpha * p.reg_param;
-  cf wn[BC];
-  float norm = 0.f;
-#pragma unroll
-  for (int i = 0; i < BC; ++i) {
-    wn[i] = cadd(S.waH[i], cscale(cmulc(ep, Z[i]), alpha));  // + ep conj(Z) alpha
-    if (p.reg_param > 0.f) wn[i] = csub(wn[i], cscale(S.waH[i], leak));
-    norm += cabs2(wn[i]);
-  }
-  if (norm > p.max_wa_l2norm) {
-    const float scale = sqrtf(op.div(p.max_wa_l2norm, op.recip(norm)));
-#pragma unroll
-    for (int i = 0; i < BC; ++i) wn[i] = cscale(wn[i], scale);
-  }
-  if (fr.g.gate) {
-#pragma unroll
-    for (int i = 0; i < BC; ++i) S.waH[i] = wn[i];
-    S.se = se;
-  }
-  cf Y = fr.g.Yc;
-  if (t >= p.min_frames) {
-#pragma unroll
-    for (int i = 0; i < BC; ++i) Y = csub(Y, cmul(S.waH[i], Z[i]));
-  }
-  if (t > p.pf.min_frames) Y = cscale(Y, fr.g.W);
   return Y;
 }
 

@@ -7,8 +7,9 @@ path went through the kernels:
 - K1 `ops.filterbank_kernels.analysis_tm_fused` (``csrc/analysis_tm.cu``);
 - K2 `models.fused_scan.gsc_rls_zelinski` and K6
   `models.fused_scan.gsc_rls_zelinski_steered` (``csrc/gsc_rls_zelinski.cu``);
-- the LMS scan `models.fused_scan.gsc_lms_zelinski`
-  (``csrc/gsc_lms_zelinski.cu``; it replaces no TPU kernel: the JAX package
+- the LMS scan `models.fused_scan.gsc_lms_zelinski` and its silence gates
+  `models.fused_scan.lms_gates`, which the scan's wrapper launches first
+  (``csrc/gsc_lms_zelinski.cu``; they replace no TPU kernel: the JAX package
   runs that recursion in XLA);
 - K3 `ops.filterbank_kernels.synthesis_tm_fused` (``csrc/synthesis_tm.cu``);
 - K4 `models.fused_scan.analysis_gsc_synthesis` and K5
@@ -39,6 +40,7 @@ def _wrappers():
         gsc_lms_zelinski,
         gsc_rls_zelinski,
         gsc_rls_zelinski_steered,
+        lms_gates,
     )
     from ..ops.aec_kernels import aec_scan
     from ..ops.filterbank_kernels import analysis_tm_fused, polyphase_fir, synthesis_tm_fused
@@ -59,6 +61,7 @@ def _wrappers():
         "gsc_analysis": analysis_gsc_rls_zelinski,
         "polyphase_fir": polyphase_fir,
         "gsc_lms_zelinski": gsc_lms_zelinski,
+        "lms_gates": lms_gates,
     }
 
 

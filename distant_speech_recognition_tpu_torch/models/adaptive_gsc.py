@@ -30,7 +30,7 @@ from .postfilter import PostFilterType, zelinski_step
 
 __all__ = [
     "GSCLMSConfig", "GSCRLSConfig", "LMSState", "RLSState", "gsc_weights", "lms_init_state",
-    "rls_init_state", "gsc_lms", "gsc_rls", "gsc_postfilter_fused",
+    "rls_init_state", "gsc_lms", "gsc_rls", "lms_silence_gates", "gsc_postfilter_fused",
 ]
 
 
@@ -305,6 +305,23 @@ def gsc_lms(X: torch.Tensor, energy: torch.Tensor, wqH: torch.Tensor, BmH: torch
         state, Y = step(state, X[t], energy[t].to(state.energy.dtype))
         outs.append(Y)
     return torch.stack(outs, dim=0), state
+
+
+def lms_silence_gates(X: torch.Tensor, config: GSCLMSConfig) -> torch.Tensor:
+    """The LMS update's silence gates over the packed spectrum ``X [T, ...,
+    C, M]``: 1 where the reference channel's frame energy exceeds the
+    smoothed energy before the frame's update (from ``init_diagonal_load``)
+    divided by ``sil_thresh``, else 0, float ``[T, ...]``; what the LMS step
+    of `gsc_postfilter_fused` gates on."""
+    c = config
+    energy = frame_energy_half(unpack_half(X[..., 0, :]), X.shape[-1])  # [T, ...]
+    smoothed = torch.full(energy.shape[1:], c.init_diagonal_load, dtype=energy.dtype,
+                          device=energy.device)
+    gates = []
+    for energy_t in energy:
+        gates.append(energy_t > smoothed / c.sil_thresh)
+        smoothed = smoothed * c.beta + (1.0 - c.beta) * energy_t
+    return torch.stack(gates).to(X.dtype)
 
 
 def gsc_rls(X: torch.Tensor, energy: torch.Tensor, wqH: torch.Tensor, BmH: torch.Tensor,

@@ -14,9 +14,10 @@ kind="lms")``:
   `models.adaptive_gsc.gsc_postfilter_fused`, the specification the kernel
   is held to.
 - `gsc_lms_zelinski` runs the GSC with the NLMS active weight vector
-  (BASELINE config 3), ``csrc/gsc_lms_zelinski.cu``: K2's design and
-  staging (``csrc/gsc_scan.h``) with the LMS update; it has no TPU
-  counterpart (the JAX package runs this recursion in XLA).
+  (BASELINE config 3), ``csrc/gsc_lms_zelinski.cu``: `lms_gates` first, the
+  silence gate once per (utterance, frame), then the scan, two lanes a bin;
+  neither has a TPU counterpart (the JAX package runs this recursion in
+  XLA).  `lms_launch_shape` reads the scan's launch.
 - Passing ``pf_min_frames=NO_POSTFILTER`` to a scan gives the beamformer's
   output without the gain (``postfilter="none"``), to the bit.
 - `analysis_gsc_synthesis` (K4) replaces ``analysis_gsc_synthesis_pallas``
@@ -42,15 +43,17 @@ from ..ops.filterbank import (
     synthesis_taps,
 )
 from ..ops.filterbank_kernels import fft_twiddles_tensor, prototype_taps
-from .adaptive_gsc import GSCLMSConfig, GSCRLSConfig, gsc_postfilter_fused
+from .adaptive_gsc import GSCLMSConfig, GSCRLSConfig, gsc_postfilter_fused, lms_silence_gates
 from .postfilter import PostFilterType, zelinski_args
 
 __all__ = [
     "NO_POSTFILTER",
     "gsc_lms_zelinski",
+    "lms_gates",
     "gsc_rls_zelinski",
     "gsc_rls_zelinski_steered",
     "scan_launch_shape",
+    "lms_launch_shape",
     "gsc_mono_supported",
     "analysis_gsc_rls_zelinski",
     "analysis_gsc_synthesis",
@@ -67,10 +70,10 @@ NO_POSTFILTER = 2**31 - 1
 
 
 def _lms_args(cfg: GSCLMSConfig) -> tuple:
-    """The LMS arguments the CUDA entry point takes, in its order."""
+    """The LMS arguments the scan's CUDA entry point takes, in its order."""
     c = cfg
     return (c.beta, 1.0 - c.beta, c.gamma, c.init_diagonal_load, c.regularization_param,
-            c.sil_thresh, c.energy_floor, c.max_wa_l2norm, c.min_frames, c.slowdown_after)
+            c.energy_floor, c.max_wa_l2norm, c.min_frames, c.slowdown_after)
 
 
 def _rls_args(cfg: GSCRLSConfig) -> tuple:
@@ -105,9 +108,17 @@ def _scan(wrapper, entry: str, kind: str, Yp, wqH, BmH, wq_manifold, cfg, pf_alp
     ta = complex_view("wq_manifold", wq_manifold, lead + (F, C))
     Yp = Yp.contiguous()
     check_cuda_tensor("Yp", Yp)
+    lib = _build.library()
+    gates = ()  # the LMS scan's silence gates [Tf, B]
+    if kind == "lms":
+        # a shape the scan refuses raises before either kernel launches
+        _build.check(lib.dsr_gsc_lms_zelinski_args_ok(Tf, B, C, Bc, M, cfg.slowdown_after),
+                     wrapper.__name__)
+        gates = (lms_gates(Yp, cfg),)
     out = torch.empty((Tf, B, M), dtype=torch.float32, device=Yp.device)
-    code = getattr(_build.library(), entry)(
-        Yp.data_ptr(), wq.data_ptr(), bm.data_ptr(), ta.data_ptr(), out.data_ptr(),
+    code = getattr(lib, entry)(
+        Yp.data_ptr(), *(t.data_ptr() for t in gates), wq.data_ptr(), bm.data_ptr(),
+        ta.data_ptr(), out.data_ptr(),
         Tf, B, C, Bc, M, *(_lms_args(cfg) if kind == "lms" else _rls_args(cfg)),
         *zelinski_args(C, pf_alpha, pf_type, pf_min_frames), stream_handle(Yp.device),
     )
@@ -170,13 +181,42 @@ def gsc_lms_zelinski(
     """GSC with the leaky power-normalised LMS active weight vector + Zelinski
     postfilter over the packed time-major spectrum ``Yp [Tf, B, C, M]`` ->
     packed ``[Tf, B, M]``; weights as for `gsc_rls_zelinski`.  On a CUDA
-    tensor it launches ``csrc/gsc_lms_zelinski.cu``, on a CPU tensor it
-    runs `adaptive_gsc.gsc_postfilter_fused(kind="lms")`."""
+    tensor it launches `lms_gates` and then the scan of
+    ``csrc/gsc_lms_zelinski.cu`` (counted here), on a CPU tensor it runs
+    `adaptive_gsc.gsc_postfilter_fused(kind="lms")`."""
     return _scan(gsc_lms_zelinski, "dsr_gsc_lms_zelinski", "lms", Yp, wqH, BmH, wq_manifold,
                  cfg, pf_alpha, pf_type, pf_min_frames, ())
 
 
 gsc_lms_zelinski.launches = 0
+
+
+def lms_gates(Yp: torch.Tensor, cfg: GSCLMSConfig) -> torch.Tensor:
+    """The LMS scan's silence gates of the packed time-major spectrum ``Yp
+    [Tf, B, C, M]``: float ``[Tf, B]``, 1 where frame t of utterance b
+    adapts.  On a CUDA tensor it launches the gate kernel of
+    ``csrc/gsc_lms_zelinski.cu``, on a CPU tensor it runs
+    `adaptive_gsc.lms_silence_gates`."""
+    if Yp.device.type == "cpu":
+        return lms_silence_gates(Yp, cfg)
+    from ..kernels import _build, check_cuda_tensor, stream_handle
+
+    if Yp.dim() != 4:
+        raise ValueError(f"Yp must be [Tf, B, C, M], got {tuple(Yp.shape)}")
+    Yp = Yp.contiguous()
+    check_cuda_tensor("Yp", Yp)
+    Tf, B, C, M = Yp.shape
+    gates = torch.empty((Tf, B), dtype=torch.float32, device=Yp.device)
+    c = cfg
+    code = _build.library().dsr_lms_gates(
+        Yp.data_ptr(), gates.data_ptr(), Tf, B, C, M, c.beta, 1.0 - c.beta,
+        c.init_diagonal_load, c.sil_thresh, stream_handle(Yp.device))
+    _build.check(code, "lms_gates")
+    lms_gates.launches += 1
+    return gates
+
+
+lms_gates.launches = 0
 
 
 def scan_launch_shape(B: int, C: int, M: int) -> dict[str, int]:
@@ -192,6 +232,30 @@ def scan_launch_shape(B: int, C: int, M: int) -> dict[str, int]:
     code = _build.library().dsr_gsc_rls_zelinski_shape(
         B, C, M, *(ctypes.addressof(v) for v in vals))
     _build.check(code, "gsc_rls_zelinski shape")
+    return {k: v.value for k, v in zip(keys, vals)}
+
+
+# the LMS scan's Zelinski stages (csrc/gsc_lms_zelinski.cu)
+LMS_ZELINSKI_MODES = {"real": 1, "abs": 2}
+
+
+def lms_launch_shape(B: int, C: int, M: int, zelinski: str = "real") -> dict[str, int]:
+    """The launch the LMS scan takes for ``B`` utterances of ``C`` channels
+    and ``M`` lanes on the current card, with its Zelinski stage ``zelinski``
+    ("real": ``pf_type & 1``, or "abs"): lanes a bin,
+    blocks, threads a block, frames a warp stages ahead, dynamic shared
+    memory (bytes), registers a thread, local memory a thread (bytes;
+    spills), blocks per SM."""
+    import ctypes
+
+    from ..kernels import _build
+
+    keys = ("lanes", "blocks", "threads", "frames", "smem_bytes", "registers", "local_bytes",
+            "blocks_per_sm")
+    vals = [ctypes.c_int() for _ in keys]
+    code = _build.library().dsr_gsc_lms_zelinski_shape(
+        B, C, M, LMS_ZELINSKI_MODES[zelinski], *(ctypes.addressof(v) for v in vals))
+    _build.check(code, "gsc_lms_zelinski shape")
     return {k: v.value for k, v in zip(keys, vals)}
 
 

@@ -34,13 +34,21 @@ that are no multiple of the kernels' frame groups and tiles.  K1 (at M =
 256), K3, K4/K5 and K8, whose DFTs are FFTs (``csrc/dsr_fft.h``), also take
 pure tones at bins 0, 1, 64, 127 and 128 and impulse trains, one case per
 bin; K1 also keeps its M = 128 and 512 cases on its dense-product route and
-takes tiles of 1 to 8 signals.  The LMS scan (the K2 kernel with the LMS
-update, no TPU counterpart) is held to its plain loop at 2e-4, K2's budget,
-at C = 2..8, M = 256 and 32, B = 1, 64 and 256, across step-size halvings,
-with silent opening frames and a norm cap that fires; the scans without the
-gain (``postfilter="none"``) to the plain `gsc_lms` / `gsc_rls`; and the
-`Enhancer` with ``gsc_lms`` (alone, at C = 8, and after the echo canceller
-and WPE) and with ``postfilter="none"`` to the same module on the CPU.
+takes tiles of 1 to 8 signals.  The LMS scan (two lanes a bin, no TPU
+counterpart) is held to its plain loop at 2e-4, K2's budget, at C = 2..8, M
+= 256, 40 and 32, B = 1, 3, 5, 33, 64 and 256 (blocks and lane pairs across
+utterance boundaries), frame counts around its ring of staged frames and
+across the gate pass's tiles, both Zelinski modes
+and the gain applied at the last frame only, across step-size halvings,
+with silent opening frames and a norm cap that fires; bit for bit to outputs
+it gave on an H100 (``tests/data/gsc_lms_case.npz``); its launch plan to the
+registers, spills and residency it reports; its silence gates (a kernel of
+their own, launched first) to their plain version, exactly, across the gate
+pass's tiles of frames; the scans without the gain (``postfilter="none"``)
+to the plain `gsc_lms` / `gsc_rls`; and the `Enhancer` with ``gsc_lms`` (alone, at C
+= 8, and after the echo canceller and WPE) and with ``postfilter="none"`` to
+the same module on the CPU.  `FastDivOps`, the division the LMS scan, K9 and
+K12 rest on, is held to the card's IEEE division over edge operands.
 """
 
 import numpy as np
@@ -58,6 +66,7 @@ from distant_speech_recognition_tpu_torch.models.adaptive_gsc import (
     gsc_postfilter_fused,
     gsc_rls,
     gsc_weights,
+    lms_silence_gates,
 )
 from distant_speech_recognition_tpu_torch.models.beamforming import (
     array_manifold,
@@ -75,6 +84,7 @@ from distant_speech_recognition_tpu_torch.models.fused_scan import (
     gsc_lms_zelinski,
     gsc_rls_zelinski,
     gsc_rls_zelinski_steered,
+    lms_gates,
 )
 from distant_speech_recognition_tpu_torch.models.dereverberation import (
     wpe_multichannel_packed_tm,
@@ -1156,23 +1166,31 @@ LMS_CARD = dict(min_frames=6, slowdown_after=7)
 
 @pytest.mark.parametrize("C,M,B,Tf,cap", [(c, 256, 3, 40, 5e-7) for c in range(2, 9)] + [
     (4, 32, 3, 40, 5e-7), (8, 32, 2, 40, 100.0), (4, 256, 1, 37, 5e-7), (8, 256, 64, 30, 5e-7),
-    (8, 256, 256, 20, 5e-7), (4, 256, 256, 20, 100.0)])
+    (8, 256, 256, 20, 5e-7), (4, 256, 256, 20, 100.0),
+    # odd batches: blocks of 64 bins start and end inside utterances
+    (8, 256, 5, 23, 5e-7), (3, 256, 33, 21, 5e-7), (7, 32, 5, 40, 5e-7), (8, 256, 257, 23, 5e-7),
+    # the gate pass's tiles of 2048 frames
+    (2, 32, 2, 2100, 5e-7),
+    # F = 21: blocks of 64 bins over three utterances and a part
+    (4, 40, 3, 30, 5e-7)])
 def test_lms_scan_kernel_matches_plain(dev, C, M, B, Tf, cap):
-    """The LMS scan against its plain loop, both Zelinski modes."""
+    """The LMS scan against its plain loop, both Zelinski modes, and the
+    gain applied from the first frames on, at the last frame only or never;
+    each call launches the gate pass and the scan once."""
     Yp, wqH, BmH, vs = _lms_case(C, M, B, Tf, seed=100 + C + M + B)
     cfg = GSCLMSConfig(max_wa_l2norm=cap, **LMS_CARD)
     w = [a.to(dev) for a in (wqH, BmH, vs)]
-    for pf_type, pf_min_frames in ((1, 2), (2, 0)):
+    for pf_type, pf_min_frames in ((1, 2), (2, 0), (1, Tf - 2), (2, Tf - 1)):
         ref = gsc_postfilter_fused(Yp, None, wqH, BmH, vs, "lms", cfg, 0.6, pf_type,
                                    pf_min_frames, True)
-        before = gsc_lms_zelinski.launches
+        before = gsc_lms_zelinski.launches, lms_gates.launches
         got = gsc_lms_zelinski(Yp.to(dev), *w, cfg, 0.6, pf_type, pf_min_frames)
-        assert gsc_lms_zelinski.launches == before + 1
+        assert (gsc_lms_zelinski.launches, lms_gates.launches) == (before[0] + 1, before[1] + 1)
         _close(got, ref, 2e-4)
 
 
-@pytest.mark.parametrize("kind", ["lms", "rls"])
-@pytest.mark.parametrize("C", [2, 8])
+@pytest.mark.parametrize("kind,C", [("lms", 2), ("lms", 3), ("lms", 5), ("lms", 8), ("rls", 2),
+                                    ("rls", 8)])
 def test_scans_without_the_gain_match_the_plain_beamformers(dev, kind, C):
     """``pf_min_frames=NO_POSTFILTER``: the scans give the beamformer alone,
     held to the plain `gsc_lms` / `gsc_rls` on the complex snapshots
@@ -1204,8 +1222,9 @@ def _pipe_case(C, T, seed, **kw):
 
 
 @pytest.mark.parametrize("C,bf,pf,launches", [
-    (8, "gsc_lms", "zelinski", dict(analysis_tm=1, gsc_lms_zelinski=1, synthesis_tm=1)),
-    (4, "gsc_lms", "none", dict(analysis_tm=1, gsc_lms_zelinski=1, synthesis_tm=1)),
+    (8, "gsc_lms", "zelinski", dict(analysis_tm=1, lms_gates=1, gsc_lms_zelinski=1,
+                                    synthesis_tm=1)),
+    (4, "gsc_lms", "none", dict(analysis_tm=1, lms_gates=1, gsc_lms_zelinski=1, synthesis_tm=1)),
     (4, "gsc_rls", "none", dict(analysis_tm=1, gsc_rls_zelinski=1, synthesis_tm=1)),
     (4, "ds", "none", dict(analysis_tm=1, synthesis_tm=1)),
     (8, "sd_mvdr", "none", dict(analysis_tm=1, synthesis_tm=1)),
@@ -1235,8 +1254,9 @@ def test_config4_lms_pipeline_matches_plain(dev, aec):
         ref = cpu(x, play)
         kernels.reset_launch_counts()
         got = gpu(x.to(dev), play.to(dev))
-    assert kernels.launch_counts() == _only(analysis_tm=2, gsc_lms_zelinski=1, synthesis_tm=1,
-                                            aec_scan=1, wpe_stats=2, wpe_resid=1, gj_solve=2)
+    assert kernels.launch_counts() == _only(analysis_tm=2, lms_gates=1, gsc_lms_zelinski=1,
+                                            synthesis_tm=1, aec_scan=1, wpe_stats=2, wpe_resid=1,
+                                            gj_solve=2)
     _close(got, ref, 3e-4)
 
 
@@ -1253,3 +1273,130 @@ def test_lms_wrapper_raises_on_bad_cuda_input(dev):
     with pytest.raises(RuntimeError, match="shape outside"):
         gsc_lms_zelinski(Yd, *(a.to(dev) for a in (wqH, BmH, vs)), GSCLMSConfig(slowdown_after=0))
     assert set(kernels.launch_counts().values()) == {0}
+
+
+@pytest.mark.parametrize("C,M,B,Tf", [(4, 256, 3, 40), (8, 256, 257, 23), (2, 32, 2, 2100),
+                                      (3, 32, 5, 4200), (8, 40, 1, 7)])
+def test_lms_gates_kernel_matches_plain(dev, C, M, B, Tf):
+    """The gate pass against `adaptive_gsc.lms_silence_gates`, flag for
+    flag, across its tiles of 2048 frames and with silent frames; one launch
+    a call."""
+    Yp = _lms_case(C, M, B, Tf, seed=400 + C + B)[0]
+    cfg = GSCLMSConfig()
+    ref = lms_silence_gates(Yp, cfg)
+    before = lms_gates.launches
+    got = lms_gates(Yp.to(dev), cfg)
+    assert lms_gates.launches == before + 1
+    assert torch.equal(got.cpu(), ref)
+    assert not ref[:3].any() and ref.any()
+
+
+@pytest.mark.parametrize("C", [2, 4, 8])
+def test_lms_scan_around_its_ring_of_frames(dev, C):
+    """The LMS scan against its plain loop at 1 frame, one frame fewer than
+    its ring of staged frames, and one and two rings and a frame, at a batch
+    that takes the whole card and at one of two utterances."""
+    cfg = GSCLMSConfig(max_wa_l2norm=5e-7, **LMS_CARD)
+    for B in (2, 200):
+        tc = fused_scan.lms_launch_shape(B, C, 256)["frames"]
+        for Tf in sorted({1, max(tc - 1, 1), tc + 1, 2 * tc + 1}):
+            Yp, wqH, BmH, vs = _lms_case(C, 256, B, Tf, seed=300 + C + Tf + B)
+            ref = gsc_postfilter_fused(Yp, None, wqH, BmH, vs, "lms", cfg, 0.6, 1, 0, True)
+            got = gsc_lms_zelinski(Yp.to(dev), *(a.to(dev) for a in (wqH, BmH, vs)), cfg, 0.6, 1, 0)
+            _close(got, ref, 2e-4)
+
+
+@pytest.mark.parametrize("C", range(2, 9))
+def test_lms_launch_shape(dev, C):
+    """The LMS scan's launch against what the card reports: two lanes a bin,
+    blocks of 128 lanes over the (utterance, bin) pairs, no spill and at
+    most 128 registers in every Zelinski stage, and at B = 256 one wave with
+    four blocks (16 warps) an SM, each warp staging more frames ahead than
+    the chunk of 4 of the one-lane scan at C = 8."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for zel in fused_scan.LMS_ZELINSKI_MODES:
+        for B, M in ((256, 256), (1, 256), (64, 256), (3, 32)):
+            sh = fused_scan.lms_launch_shape(B, C, M, zel)
+            F = M // 2 + 1
+            assert sh["lanes"] == 2 and sh["threads"] == 128
+            assert sh["blocks"] == -(-B * F * 2 // 128)
+            assert sh["registers"] <= 128 and sh["local_bytes"] == 0, (zel, sh)
+            assert 1 <= sh["frames"] <= 16 and sh["blocks_per_sm"] >= 1
+            if B == 256:
+                assert sh["blocks"] <= sms * sh["blocks_per_sm"], (zel, sh)
+                assert sh["blocks_per_sm"] >= 4, (zel, sh)
+                assert sh["frames"] >= 5, (zel, sh)
+
+
+# the stored LMS cases: (tag, C, pf_type, pf_min_frames, max_wa_l2norm); all
+# M = 256, B = 3, Tf = 37 (no multiple of a chunk), hash noise with a gate
+# that closes and near-silent top bins
+LMS_STORED = (("r", 4, 1, 2, 5e-7), ("a", 8, 2, 0, 100.0), ("n", 8, 1, NO_POSTFILTER, 5e-7))
+
+
+@pytest.mark.parametrize("tag,C,pf_type,pf_min_frames,cap", LMS_STORED)
+def test_lms_scan_equals_stored_outputs(dev, tag, C, pf_type, pf_min_frames, cap):
+    """The LMS scan gives, bit for bit, the outputs stored from the lane-pair
+    kernel by ``tests/probe_gsc_lms_phases.py --write-case``
+    (``tests/data/gsc_lms_case.npz``): the real and modulus Zelinski modes
+    and without the gain, C = 4 and 8."""
+    z = np.load(Path(__file__).parent / "data" / "gsc_lms_case.npz")
+    Tf, B, M = 37, 3, 256
+    Yp = _hash_noise((Tf, B, C, M), ord(tag) + 1000)
+    Yp[8:12, 1] *= np.float32(1e-6)
+    Yp[:, -1, :, 3 * M // 8:M // 2 + 1] *= np.float32(1.8e-8)
+    Yp[:, -1, :, 3 * M // 8 + M // 2:] *= np.float32(1.8e-8)
+    w = [torch.from_numpy(z[f"{tag}_{k}"]).to(dev) for k in ("wqH", "BmH", "vs")]
+    cfg = GSCLMSConfig(max_wa_l2norm=cap, min_frames=4, slowdown_after=9)
+    got = gsc_lms_zelinski(torch.from_numpy(Yp).to(dev), *w, cfg, 0.6, pf_type, pf_min_frames)
+    assert torch.equal(got.cpu().view(torch.int32),
+                       torch.from_numpy(z[f"{tag}_out"]).view(torch.int32))
+
+
+def _edge_floats():
+    """Floats at the edges of `FastDivOps`' range and of float32's."""
+    f = np.float32
+    base = [0.0, 1.0, 1.5, 3.0, 2.0**-36, 2.0**64, 2.0**-68, 2.0**32, 2.0**-126, 2.0**-149,
+            2.0**-130, 2.0**127, 3.4028235e38, 1e-30, 1e30, 2.0**-100, 2.0**100]
+    vals = []
+    for v in base:
+        v = f(v)
+        vals += [v, np.nextafter(v, f(np.inf)), np.nextafter(v, f(0)) if v > 0 else v]
+    vals += [f(np.inf), f(np.nan)]
+    vals = np.array(vals, dtype=np.float32)
+    return np.unique(np.concatenate([vals, -vals]))
+
+
+@pytest.mark.parametrize("scale_exp", [0, 32])
+def test_fast_div_has_ieee_bits_where_it_vouches(dev, scale_exp):
+    """`FastDivOps` (``csrc/dsr_device.h``) alone and on the dividend scaled
+    by 2^32 as the LMS scan runs it, over every pair of edge operands
+    (subnormal, zero, the edges of its range, near overflow, +-inf, NaN) and
+    4M pairs of random bit patterns over all exponents: wherever it vouches
+    for a quotient, the quotient has the bits of the card's IEEE a / b; and
+    it vouches for operands of ordinary size."""
+    from distant_speech_recognition_tpu_torch.kernels import _build, stream_handle
+
+    with np.errstate(over="ignore"):  # nextafter past the largest float gives inf
+        e = _edge_floats()
+    a = np.repeat(e, e.size)
+    b = np.tile(e, e.size)
+    rng = np.random.default_rng(7)
+    bits = rng.integers(0, 2**32, size=(2, 1 << 22), dtype=np.uint64).astype(np.uint32)
+    a = np.concatenate([a, bits[0].view(np.float32)])
+    b = np.concatenate([b, bits[1].view(np.float32)])
+    ordinary = rng.uniform(-15, 15, (2, 1 << 16)) * np.log(2)
+    a = np.concatenate([a, np.exp(ordinary[0]).astype(np.float32)])
+    b = np.concatenate([b, np.exp(ordinary[1]).astype(np.float32)])
+    ad, bd = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+    q = torch.empty_like(ad)
+    ok = torch.empty(ad.shape, dtype=torch.int32, device=dev)
+    _build.check(_build.library().dsr_fastdiv_check(
+        ad.data_ptr(), bd.data_ptr(), q.data_ptr(), ok.data_ptr(), ad.numel(), scale_exp,
+        stream_handle(dev)), "fastdiv_check")
+    ref = ad / bd
+    ok = ok.bool()
+    same = q.view(torch.int32) == ref.view(torch.int32)
+    bad = ok & ~same
+    assert not bad.any(), (a[bad.cpu().numpy()][:5], b[bad.cpu().numpy()][:5])
+    assert ok[-(1 << 16):].float().mean().item() > 0.99

@@ -13,6 +13,14 @@
 - `gsc_postfilter_fused(kind="lms", real_packed=True, energy=None)` and its
   CUDA wrapper `fused_scan.gsc_lms_zelinski` on CPU tensors against JAX,
   both Zelinski modes.
+- `adaptive_gsc.lms_silence_gates` and its CUDA wrapper `fused_scan.lms_gates`
+  on CPU tensors against the gates of JAX's LMS step (the smoothed energy
+  its state carries into each frame), exactly.
+- The two forms the CUDA LMS scan takes of the Zelinski pair sum
+  sum_{i<j} a_i conj(a_j), at C = 2..8: its real part as (|sum a|^2 - sum
+  |a|^2) / 2, and the whole as the prefix sums of two halves of the channels
+  joined by A_lo conj(A_hi); against the pairwise sum in float64 (1e-12 of
+  sum |a|^2), the real part also in float32 (8 C eps32 of it).
 - `build_pipeline` / `from_jax_params` against JAX `build_pipeline` for
   ``gsc_lms`` + ``zelinski`` at C = 8, ``gsc_lms`` / ``gsc_rls`` / ``ds`` +
   ``none`` at C = 4, and ``gsc_lms`` after the NLMS echo canceller and WPE
@@ -46,7 +54,7 @@ from distant_speech_recognition_tpu_torch import kernels
 from distant_speech_recognition_tpu_torch.models import adaptive_gsc as t_gsc
 from distant_speech_recognition_tpu_torch.models import pipeline as t_pipe
 from distant_speech_recognition_tpu_torch.models.beamforming import frame_energy_half
-from distant_speech_recognition_tpu_torch.models.fused_scan import gsc_lms_zelinski
+from distant_speech_recognition_tpu_torch.models.fused_scan import gsc_lms_zelinski, lms_gates
 from distant_speech_recognition_tpu_torch.ops.filterbank import FilterbankParams
 
 from reference_beamform import gsc_lms_ref
@@ -198,6 +206,75 @@ def test_lms_zelinski_scan_matches_jax(pf_type):
     wrapped = gsc_lms_zelinski(torch.from_numpy(Yp), *w, cfg, 0.6, pf_type, 2)
     torch.testing.assert_close(wrapped, got, rtol=0, atol=0)
     assert set(kernels.launch_counts().values()) == {0}
+
+
+def test_lms_silence_gates_match_jax():
+    """The gates the LMS update commits on: the reference channel's frame
+    energy against the smoothed energy that JAX's LMS step carries into the
+    frame, over silent opening frames and a quiet stretch in one utterance;
+    the CPU wrapper gives the same and launches nothing."""
+    import jax
+
+    C, M, Tf, B = 4, 64, 80, 3
+    rng = np.random.default_rng(9)
+    Yp = (rng.standard_normal((Tf, B, C, M)) * 100).astype(np.float32)
+    Yp[:SILENT] *= np.float32(1e-6)
+    Yp[40:46, 1] *= np.float32(1e-6)
+    cfg = j_gsc.GSCLMSConfig(**LMS_KW)
+    F = M // 2 + 1
+    zero = np.zeros((Tf, B, C, 1), np.float32)
+    X = jnp.asarray(np.moveaxis(Yp[..., :F] + 1j * np.concatenate([zero, Yp[..., F:], zero], -1),
+                                -2, -1).astype(np.complex64))  # [Tf, B, F, C]
+    energy = j_bf.frame_energy_half(X[..., 0], M)
+    step = j_gsc._lms_step_factory(cfg, jnp.zeros((F, C), jnp.complex64),
+                                   jnp.zeros((F, C - 1, C), jnp.complex64))
+    init = j_gsc._LMSState(waH=jnp.zeros((B, F, C - 1), jnp.complex64),
+                           subband_energy=jnp.full((B, F), cfg.init_diagonal_load, jnp.float32),
+                           energy=jnp.full((B,), cfg.init_diagonal_load, jnp.float32),
+                           gamma=jnp.asarray(cfg.gamma, jnp.float32),
+                           isamp=jnp.asarray(0, jnp.int32))
+
+    def carried(state, inputs):  # the smoothed energy each frame's gate reads
+        return step(state, inputs)[0], state.energy
+
+    _, smoothed = jax.lax.scan(carried, init, (X, energy))
+    want = (np.asarray(energy) > np.asarray(smoothed) / np.float32(cfg.sil_thresh))
+    got = t_gsc.lms_silence_gates(torch.from_numpy(Yp), t_gsc.GSCLMSConfig(**LMS_KW))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (Tf, B)
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.float32))
+    assert want[SILENT:40].all() and not want[:SILENT].any() and not want[40:46, 1].any()
+    kernels.reset_launch_counts()
+    torch.testing.assert_close(lms_gates(torch.from_numpy(Yp), t_gsc.GSCLMSConfig(**LMS_KW)),
+                               got, rtol=0, atol=0)
+    assert set(kernels.launch_counts().values()) == {0}
+
+
+@pytest.mark.parametrize("C", range(2, 9))
+def test_zelinski_pair_sum_forms(C):
+    """The pair sum sum_{i<j} a_i conj(a_j): its real part as (|sum a|^2 -
+    sum |a|^2) / 2, and the whole as the lanes' prefix sums joined by
+    A_lo conj(A_hi), against the pairwise sum in float64 (to 1e-12 of
+    sum |a|^2) and, in float32, the real part within 8 C eps32 of it."""
+    rng = np.random.default_rng(50 + C)
+    a = rng.standard_normal((1000, C)) + 1j * rng.standard_normal((1000, C))
+    pair = sum(a[:, i] * np.conj(a[:, k]) for i in range(C) for k in range(i + 1, C))
+    power = (np.abs(a) ** 2).sum(-1)
+    real = 0.5 * (np.abs(a.sum(-1)) ** 2 - power)
+    R = (C + 1) // 2
+    halves = [a[:, :R], a[:, R:]]
+    prefix = 0
+    for half in halves:
+        s = 0
+        for k in range(half.shape[1]):
+            prefix = prefix + s * np.conj(half[:, k])
+            s = s + half[:, k]
+    prefix = prefix + halves[0].sum(-1) * np.conj(halves[1].sum(-1))
+    assert np.abs(real - pair.real).max() <= 1e-12 * power.max()
+    assert np.abs(prefix - pair).max() <= 1e-12 * power.max()
+    a32 = a.astype(np.complex64)
+    p32 = (np.abs(a32) ** 2).sum(-1, dtype=np.float32)
+    real32 = np.float32(0.5) * (np.abs(a32.sum(-1)) ** 2 - p32)
+    assert np.abs(real32 - pair.real).max() <= 8 * C * np.finfo(np.float32).eps * power.max()
 
 
 # the pipeline configurations held to JAX: (name, C, port / JAX config fields)
