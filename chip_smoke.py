@@ -11,12 +11,16 @@ Phases (each raises on failure; the script then exits non-zero):
   3. each kernel against its plain torch version on the card, at B=8 x 4 ch
      x 2 s: the filterbank and scan kernels (plus the near-silent-bin
      trigger for the scan) and the flagship chain; then the echo canceller
-     (NLMS and Kalman, with far-end bins that are zero and a stretch where
-     the gate closes), the WPE stats (first and later EM iteration), the
-     Gauss-Jordan solve and the WPE residual; the WPE stats and solve are
-     held per system (utterance, channel, bin) against that system's own
-     scale, and a planted fault that the largest entry hides (R left at
-     zero in the systems of small scale) must fail that check;
+     (NLMS, Kalman and the one-tap block Kalman, with far-end bins that are
+     zero and a stretch where the gate closes), the WPE stats (first and
+     later EM iteration, also at C*P = 28, 32 and 40), the Gauss-Jordan
+     solve (also at n = 32, 33 and 40 on 20,000 systems, more than the card
+     holds warps, with a zero first pivot in every third at n = 40) and the
+     WPE residual (also at (C, P) = (8, 5), (5, 8), (7, 5), (6, 6)); the
+     WPE stats and solve are held per system (utterance, channel, bin)
+     against that system's own scale, and a planted fault that the largest
+     entry hides (R left at zero in the systems of small scale) must fail
+     that check;
   4. the flagship path: build_pipeline() with the default device on B=256
      utterances x 4 channels x 10 s, with every kernel's launch count read
      around the call (exactly one launch of the one-kernel chain K4, no
@@ -34,11 +38,14 @@ Phases (each raises on failure; the script then exits non-zero):
      10 s plus a far-end playback, launch counts around one forward (each
      kernel exactly as often as the path needs it); each of
      its new kernels against its plain version at that shape (the echo
-     canceller also in its Kalman form, the solve also at the widest systems
-     WPE takes, C*P = 24) and the path's output against the plain chain;
-     CUDA-event times of each kernel (beside its plain version, its least time
-     on the card and, where one exists, one PyTorch call computing the same
-     function; both Kalman and n = 24 too) and of the whole path;
+     canceller also in its Kalman and block Kalman forms, the solve also at
+     C*P = 24 and at the widest systems WPE takes, C*P = 40) and the path's
+     output against the plain chain; CUDA-event times of each kernel (beside
+     its plain version, its least time on the card and, where one exists,
+     one PyTorch call computing the same function; both Kalman forms and n
+     = 24 and 40 too) and of the whole path; then (6d) the same chain with
+     the one-tap block Kalman canceller: launch counts, its first 32
+     utterances against the plain chain, its time;
   7. torch.profiler over three flagship and three config-4 forwards: device
      time per kernel and the device's idle share (reported, not checked);
   8. the fixed-weight path (BASELINE configs 1-2, D&S and SD-MVDR +
@@ -81,15 +88,29 @@ Phases (each raises on failure; the script then exits non-zero):
      bounds at 8 channels; the peak device memory and a profile of three
      forwards; then the pipelines without a postfilter at B=8 x 4 ch x 2 s
      (gsc_lms, gsc_rls and ds + "none"): K1, the scan (none for fixed
-     weights) and K3 once each, against the plain beamformers alone.
+     weights) and K3 once each, against the plain beamformers alone;
+ 12. BASELINE config 4 at 8 channels (cell config4-c8-b256: NLMS AEC -> WPE
+     with the default taps, C*P = 40 -> GSC-LMS + Zelinski): build_pipeline()
+     with the default device on B=256 x 8 ch x 10 s plus a far end, launch
+     counts around one forward (K1 twice, K9, K10 and K12 twice each, K11,
+     the LMS gate pass and scan, K3, nothing else); K9 (NLMS and block
+     Kalman), K10 (both EM iterations), K12 at n = 40 and K11 at (8, 5)
+     against their plain versions at that shape (K10/K12 per system), the
+     path's first 32 utterances against the plain chain (the plain chain at
+     B = 256 would take minutes); CUDA-event times of each widened kernel
+     beside its plain version, its bound and its library call (K10/K11: a
+     batched torch.matmul, K12: torch.linalg.solve), of the path, its peak
+     memory and a profile of three forwards; then (12d) the same input
+     through the gsc_rls route (K2 at 8 channels): launch counts, its first
+     32 utterances against its plain chain, its time.
 Phase 2 also prints K2/K6's launch (blocks, threads, frames a chunk, shared
 memory, registers, blocks per SM) at B = 256, 132, 64 and 1 (C = 4) and at
 B = 256, C = 8; phase 5 also times K2 on the first 64 utterances and on the
 first alone, phase 9 K6 at B = 256 (the batch four times).  Phase 2 also
 prints K4's and K5's blocks per SM and shared memory at
 C = 2..8, and K10's and K11's blocks per SM, threads and shared memory at the
-config-4 shape and at C*P = 24 with lowerN = 32 (the compiler's registers and
-spills are in its report above them).  Phase 6c times K10 in both of the
+config-4 shape, at C*P = 24 with lowerN = 32 and at C*P = 40 (C = 8, lowerN 2
+and 32; the compiler's registers and spills are in its report above them).  Phase 6c times K10 in both of the
 path's calls (the first EM iteration has no filters and no FP64 residual).
 Phase 3 also holds, at B=8: K1 at M = 128 and 512 (its dense-product
 route); K1, K3, K4/K5 and K8 (whose DFTs are FFTs) on pure tones at bins 0,
@@ -116,7 +137,9 @@ second yardstick, "fft_ms", K1 its dense-product route's time at M = 256,
 its launch, "launch", and its time without the gain, "none_ms" (its times
 include its gate pass, which has a row of its own, "lms_gates"); K4 its time
 and bound at 8 channels, "c8"; K9 its Kalman form's time,
-"kalman_ms", and K12 its time, bound and library time at n = 24, "n24"); the line before the last is the card's name and
+"kalman_ms", and its block Kalman form's, "block_kalman_ms"; K12 its time,
+bound and library time at n = 24 and 40, "n24" and "n40"; K9-K12 their
+forms at config 4's 8 channels, "c8"); the line before the last is the card's name and
 power limit; the last line is {"ok": true, "device": {...}}.  Imports
 nothing of JAX.
 """
@@ -178,6 +201,15 @@ def bound(nbytes: float, flops: float, flops64: float = 0.0) -> tuple[float, str
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
+def gj_bound(n: int, n_sys: int) -> tuple[float, str]:
+    """K12's least time for ``n_sys`` systems of ``n``: R, r read once, x
+    written once.  Step k: n - k quotients of the columns right of the pivot
+    (a complex product and two divisions, 8 flops each), and the other n - 1
+    rows' complex multiply-adds on those columns (8 each): in all 4 n (n + 1)
+    + 4 (n - 1) n (n + 1) = 4 n^2 (n + 1) flops a system."""
+    return bound(8 * n_sys * (n * n + 2 * n), n_sys * 4 * n * n * (n + 1))
+
+
 def main() -> None:
     import torch
 
@@ -195,7 +227,11 @@ def main() -> None:
         gsc_weights,
         lms_silence_gates,
     )
-    from distant_speech_recognition_tpu_torch.models.aec import kalman_aec, nlms_aec
+    from distant_speech_recognition_tpu_torch.models.aec import (
+        block_kalman_aec,
+        kalman_aec,
+        nlms_aec,
+    )
     from distant_speech_recognition_tpu_torch.models.beamforming import (
         apply_weights,
         array_manifold,
@@ -266,6 +302,7 @@ def main() -> None:
 
     t_script = time.perf_counter()
     dev = torch.device("cuda", 0)
+    torch.manual_seed(SEED)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -307,15 +344,17 @@ def main() -> None:
             f"per SM")
     # K9's launch at the config-4 shape, and where an utterance takes several blocks
     aec_shapes = {}
-    for B_, C_, kind in ((256, 4, "nlms"), (256, 4, "kalman"), (40, 8, "nlms"), (132, 6, "nlms")):
+    for B_, C_, kind in ((256, 4, "nlms"), (256, 4, "kalman"), (40, 8, "nlms"), (132, 6, "nlms"),
+                         (256, 8, "nlms"), (256, 4, "block_kalman")):
         sh = aec_launch_shape(B_, C_, 256, kind)
         aec_shapes[f"B={B_} C={C_} {kind}"] = sh
         log(f"  aec_scan {kind} B={B_} C={C_}: {sh['blocks']} blocks x {sh['threads']} threads "
             f"({sh['cg']} channels a block), {sh['smem_bytes']} bytes of dynamic shared memory, "
             f"{sh['registers']} registers, {sh['blocks_per_sm']} blocks per SM")
-    # K10 and K11 at the config-4 shape (C = 4, P = 5, lowerN = 2, M = 256) and
-    # at C*P = 24 with the deepest delay
-    for C_, P_, low_ in ((4, 5, 2), (8, 3, 32)):
+    # K10 and K11 at the config-4 shape (C = 4, P = 5, lowerN = 2, M = 256), at
+    # C*P = 24 with the deepest delay, and at C*P = 40 (config 4 at 8
+    # channels, and with the deepest delay)
+    for C_, P_, low_ in ((4, 5, 2), (8, 3, 32), (8, 5, 2), (8, 5, 32)):
         for name, fn, extra in (("wpe_stats", "dsr_wpe_stats_occupancy", ()),
                                 ("wpe_resid", "dsr_wpe_resid_occupancy", (256,))):
             blocks, smem, nthr = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
@@ -371,8 +410,11 @@ def main() -> None:
 
     def plain_aec(Ap, Vp, kind="nlms", p1=cfg4.aec_delta, p2=cfg4.aec_epsilon,
                   thr=cfg4.aec_threshold):
-        fn = nlms_aec if kind == "nlms" else kalman_aec
-        E, _ = fn(unpack_half(Vp)[:, :, None, :], unpack_half(Ap), p1, p2, thr)
+        V, A = unpack_half(Vp)[:, :, None, :], unpack_half(Ap)
+        if kind == "block_kalman":  # one tap, sigmak2 at its default
+            E, _ = block_kalman_aec(V, A, 1, p1, p2, threshold=thr)
+        else:
+            E, _ = (nlms_aec if kind == "nlms" else kalman_aec)(V, A, p1, p2, thr)
         return pack_half(E)
 
     def frames(Yp):  # packed [Tf, B, C, M] -> complex [B, C, Tf, F]
@@ -386,9 +428,9 @@ def main() -> None:
                          for b in range(X.shape[0])])
         return pack_half(Y.permute(2, 0, 1, 3))
 
-    def plain_chain4(x, play):
+    def plain_chain4(x, play, kind="nlms", p=(cfg4.aec_delta, cfg4.aec_epsilon)):
         Yr = plain_analysis(x)
-        Yr = plain_aec(Yr, plain_analysis(play[:, None, :])[:, :, 0, :])
+        Yr = plain_aec(Yr, plain_analysis(play[:, None, :])[:, :, 0, :], kind, *p)
         return plain_synthesis(plain_scan(plain_wpe(Yr)))
 
     results = {}
@@ -403,6 +445,21 @@ def main() -> None:
         m = ref.abs().flatten(lead).amax(-1)
         rel = torch.where(m > 0, d / m, torch.where(d > 0, torch.inf, 0.0))
         return rel.max().item()
+
+    def hpd_systems(N, n, chunk=16384):
+        """Diagonally loaded Hermitian positive-definite systems, as WPE builds
+        them, and right-hand sides (complex64, made on the card from its
+        generator)."""
+        Rs, rs = [], []
+        for s0 in range(0, N, chunk):
+            k = min(chunk, N - s0)
+            L = torch.complex(torch.randn(k, n, 3 * n, device=dev, dtype=torch.float64),
+                              torch.randn(k, n, 3 * n, device=dev, dtype=torch.float64))
+            R = L @ L.conj().transpose(-1, -2)
+            load = torch.diagonal(R, dim1=-2, dim2=-1).abs().amax(-1) * 0.01
+            Rs.append((R + load[:, None, None] * torch.eye(n, device=dev)).to(torch.complex64))
+            rs.append(torch.complex(torch.randn(k, n, device=dev), torch.randn(k, n, device=dev)))
+        return torch.cat(Rs), torch.cat(rs)
 
     def compare(name, got, ref, rel_budget, key=None, lead=0, sys_budget=None):
         """Max abs error against ``rel_budget`` x max|ref|.  With ``lead`` > 0
@@ -473,7 +530,8 @@ def main() -> None:
     Vs[40:80, 1:4] *= 1e-3
     n_closed = (unpack_half(Vs).abs() ** 2 <= cfg4.aec_threshold).sum().item()
     log(f"  far end: {n_closed} of {Vs.numel() // M * F} (frame, utterance, bin) gates closed")
-    for kind, p1, p2 in (("nlms", cfg4.aec_delta, cfg4.aec_epsilon), ("kalman", *KALMAN_P)):
+    for kind, p1, p2 in (("nlms", cfg4.aec_delta, cfg4.aec_epsilon), ("kalman", *KALMAN_P),
+                         ("block_kalman", *KALMAN_P)):
         compare(f"aec_scan {kind}", aec_scan(Yr_ref, Vs, kind, p1, p2, cfg4.aec_threshold),
                 plain_aec(Yr_ref, Vs, kind, p1, p2), 1e-4, "aec_scan")
     Ya = plain_aec(Yr_ref, Vs)
@@ -517,6 +575,41 @@ def main() -> None:
     G2 = wpe_truncate_taps(gj_solve_plain(wpe_load(R1), r1), C, lower)
     compare("wpe_resid", wpe_resid(Ya, G2, lower),
             pack_half(resid_plain(Xa, G2, lower).permute(2, 0, 1, 3)), 1e-5, "wpe_resid")
+    # past C*P = 24: K10 at seven, eight and ten tiles a side (C*P = 28, 32,
+    # 40 on these 4 channels), both EM iterations
+    for P_ in (7, 8, 10):
+        Gw = torch.from_numpy((0.1 * (rng.standard_normal((8, C, F, C * P_))
+                                      + 1j * rng.standard_normal((8, C, F, C * P_)))
+                               ).astype(np.complex64)).to(dev)
+        for has_g in (False, True):
+            Rw, rw = stats_plain(Xa, Gw, lower, P_, has_g)
+            Rk, rk = wpe_stats(Ya, Gw, lower, P_, has_g)
+            compare(f"wpe_stats R, C*P={C * P_}, has_g={has_g}", Rk, Rw, 2e-4, "wpe_stats", lead=3)
+            compare(f"wpe_stats r, C*P={C * P_}, has_g={has_g}", rk, rw, 2e-4, "wpe_stats", lead=3)
+    del Gw, Rw, rw
+    # K11 past 24 taps a target (one target a thread; two blocks an
+    # utterance's chunk at C >= 5), on packed frames of C channels
+    Tf_s = Ya.shape[0]
+    for C_, P_ in ((8, 5), (5, 8), (7, 5), (6, 6)):
+        Yw = torch.from_numpy(rng.standard_normal((Tf_s, 8, C_, M), dtype=np.float32)
+                              * np.float32(30.0)).to(dev)
+        Gw = torch.from_numpy((0.1 * (rng.standard_normal((8, C_, F, C_ * P_))
+                                      + 1j * rng.standard_normal((8, C_, F, C_ * P_)))
+                               ).astype(np.complex64)).to(dev)
+        compare(f"wpe_resid C={C_} P={P_}", wpe_resid(Yw, Gw, lower),
+                pack_half(resid_plain(frames(Yw), Gw, lower).permute(2, 0, 1, 3)), 1e-5,
+                "wpe_resid")
+    del Yw, Gw
+    # K12 at n = 32, 33 and 40 (rows 32 .. 39 split across four lanes), more
+    # systems than the card holds warps, and a zero first pivot at n = 40
+    for n_ in (32, 33, 40):
+        Rg, rg = hpd_systems(20000, n_)
+        if n_ == 40:
+            Rg[::3, 0, 0] = 0
+        compare(f"gj_solve n={n_}, 20000 systems" + (", every third pivot 0" if n_ == 40 else ""),
+                gj_solve(Rg, rg), gj_solve_plain(Rg, rg), 1e-4, "gj_solve", lead=1,
+                sys_budget=GJ_SYS_BUDGET)
+    del Rg, rg
     del Yp_ref, Yns, play_s, Vs, Ya, Xa, G0, R0, r0, Rk, rk, R1, r1, G1, G2
 
     # fixed weights (configs 1-2; LCMV with one jammer at 2 pi/3): K7 against
@@ -880,11 +973,17 @@ def main() -> None:
         del Rk, rk
         G2 = wpe_truncate_taps(gj_solve_plain(wpe_load(R), r), C, lower)
         del R, r
-        # the solve at the widest systems WPE takes, C*P = 24 (P + 1 taps)
+        # the solve at the widest systems WPE took before 8 channels, C*P = 24
+        # (P + 1 taps), and at the widest it takes now, C*P = 40 (10 taps)
         R24, r24 = wpe_stats(Ya_ref, torch.zeros((B, C, F, C * (P + 1)), dtype=torch.complex64,
                                                  device=dev), lower, P + 1, False)
         R24 = wpe_load(R24)
         compare("gj_solve n=24", gj_solve(R24, r24), gj_solve_plain(R24, r24), 1e-4, "gj_solve",
+                lead=3, sys_budget=GJ_SYS_BUDGET)
+        R40, r40 = wpe_stats(Ya_ref, torch.zeros((B, C, F, C * 10), dtype=torch.complex64,
+                                                 device=dev), lower, 10, False)
+        R40 = wpe_load(R40)
+        compare("gj_solve n=40", gj_solve(R40, r40), gj_solve_plain(R40, r40), 1e-4, "gj_solve",
                 lead=3, sys_budget=GJ_SYS_BUDGET)
         compare("wpe_resid", wpe_resid(Ya_ref, G2, lower),
                 pack_half(resid_plain(Xa, G2, lower).permute(2, 0, 1, 3)), 1e-5, "wpe_resid")
@@ -903,6 +1002,9 @@ def main() -> None:
         library["aec_scan"] = None
         kalman_ms = (time_ms(lambda: aec_scan(Ya, Vp, "kalman", *KALMAN_P, cfg4.aec_threshold), 5),
                      time_ms(lambda: plain_aec(Ya, Vp, "kalman", *KALMAN_P), 1))
+        block_kalman_ms = (
+            time_ms(lambda: aec_scan(Ya, Vp, "block_kalman", *KALMAN_P, cfg4.aec_threshold), 5),
+            time_ms(lambda: plain_aec(Ya, Vp, "block_kalman", *KALMAN_P), 1))
         # both of the path's calls: the first EM iteration (no filters, no
         # FP64 residual) and the later one
         stats_first_ms = time_ms(lambda: wpe_stats(Ya, G0, lower, P, False), 3)
@@ -933,6 +1035,11 @@ def main() -> None:
                    time_ms(lambda: gj_solve_plain(R24, r24), 1),
                    time_ms(lambda: torch.linalg.solve(R24, r24[..., None]), 3))
         del R24, r24
+        gj40_ms = (time_ms(lambda: gj_solve(R40, r40), 5),
+                   time_ms(lambda: gj_solve_plain(R40, r40), 1),
+                   time_ms(lambda: torch.linalg.solve(R40, r40[..., None]), 3))
+        n_sys40 = r40.numel() // 40
+        del R40, r40
         times["wpe_resid"] = (time_ms(lambda: wpe_resid(Ya, G2, lower), 5),
                               time_ms(lambda: resid_plain(frames(Ya), G2, lower), 1))
         del Ya, Ya_ref, Vp, G0, G1, G2
@@ -943,13 +1050,45 @@ def main() -> None:
         log(f"  {name}: kernel {k_ms:.3f} ms   plain {p_ms:.3f} ms   "
             f"library {'-' if lib is None else f'{lib:.3f} ms'}")
     log(f"  aec_scan kalman: kernel {kalman_ms[0]:.3f} ms   plain {kalman_ms[1]:.3f} ms")
+    log(f"  aec_scan block_kalman: kernel {block_kalman_ms[0]:.3f} ms   plain "
+        f"{block_kalman_ms[1]:.3f} ms")
     log(f"  gj_solve n=24: kernel {gj24_ms[0]:.3f} ms   plain {gj24_ms[1]:.3f} ms   "
         f"library {gj24_ms[2]:.3f} ms")
+    log(f"  gj_solve n=40 ({n_sys40} systems): kernel {gj40_ms[0]:.3f} ms   plain "
+        f"{gj40_ms[1]:.3f} ms   library {gj40_ms[2]:.3f} ms")
     log(f"  wpe_stats, first EM iteration (no filters): kernel {stats_first_ms:.3f} ms")
     log(f"  config-4 path: kernels {path4_ms:.3f} ms "
         f"({audio_s / (path4_ms / 1e3):.1f} audio-s/s/GPU)   plain {plain_path4_ms:.3f} ms "
         f"({audio_s / (plain_path4_ms / 1e3):.1f} audio-s/s/GPU)")
     log(f"  peak device memory of phase 6 {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+    # the one-tap block Kalman canceller in config 4's chain (beta 0.95,
+    # sigmau2 1e-3, sigmak2 5): the Kalman kernel from another initial state
+    BK = 32  # utterances held against the plain chain (each is independent of the others)
+    log(f"== 6d. config-4 path with aec='block_kalman': build_pipeline() on the card, B={B} x "
+        f"{C} ch x {secs} s + far end; the first {BK} utterances against the plain chain")
+    cfg4bk = dataclasses.replace(cfg4, aec="block_kalman", aec_delta=KALMAN_P[0],
+                                 aec_epsilon=KALMAN_P[1])
+    enh4bk = build_pipeline(cfg4bk, mpos, delays, h, g)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        y4bk = enh4bk(x, play)
+    torch.cuda.synchronize()
+    counts4bk = kernels.launch_counts()
+    if counts4bk != counts4:  # the same kernels as the NLMS chain, as often
+        raise AssertionError(f"config-4 block Kalman launches {counts4bk}, the path needs "
+                             f"{counts4}")
+    if tuple(y4bk.shape) != (B, T_out) or not torch.isfinite(y4bk).all():
+        raise AssertionError(f"config-4 block Kalman output {tuple(y4bk.shape)} is not finite")
+    with torch.no_grad():
+        compare(f"config-4 block Kalman path (build_pipeline) vs plain chain, first {BK}",
+                y4bk[:BK], plain_chain4(x[:BK], play[:BK], "block_kalman", KALMAN_P), 3e-4)
+        path4bk_ms = time_ms(lambda: enh4bk(x, play), 3)
+    log(f"  config-4 path with the block Kalman canceller: {path4bk_ms:.3f} ms "
+        f"({audio_s / (path4bk_ms / 1e3):.1f} audio-s/s/GPU); aec_scan block_kalman kernel "
+        f"{block_kalman_ms[0]:.3f} ms beside nlms {times['aec_scan'][0]:.3f} ms and kalman "
+        f"{kalman_ms[0]:.3f} ms")
+    del enh4bk, y4bk
 
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -1398,6 +1537,186 @@ def main() -> None:
         del enh11, y11, X11, Y11
     del x11
 
+    # -- 12. BASELINE config 4 at 8 channels: the full enhancement stack ----------
+    C12 = C3
+    cfg12 = dataclasses.replace(cfg3, aec="nlms", wpe=True, wpe_iterations=2)
+    P12 = cfg12.wpe_upper - cfg12.wpe_lower + 1
+    CP12 = C12 * P12
+    B12 = 32  # utterances held against the plain chain (each is independent of the others)
+    log(f"== 12. config-4 path at 8 channels (config4-c8-b256: NLMS AEC -> WPE, C*P = {CP12} "
+        f"-> GSC-LMS + Zelinski): build_pipeline() on the card, B={B} x {C12} ch x {secs} s + "
+        f"far end")
+    enh12 = build_pipeline(cfg12, mpos3, delays3, h, g)
+    x12 = torch.from_numpy(signal(rng, (B, C12, T))).to(dev)
+    play12 = torch.from_numpy(signal(rng, (B, T))).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        y12 = enh12(x12, play12)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts12 = kernels.launch_counts()
+    log(f"  forward wall {wall * 1e3:.1f} ms (first call), peak device memory of the forward "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, launches {counts12}")
+    if tuple(y12.shape) != (B, T_out) or not torch.isfinite(y12).all():
+        raise AssertionError(f"config-4 C=8 output {tuple(y12.shape)} is not finite {(B, T_out)}")
+    want12 = dict.fromkeys(counts12, 0) | {
+        "analysis_tm": 2, "aec_scan": 1, "wpe_stats": cfg12.wpe_iterations,
+        "gj_solve": cfg12.wpe_iterations, "wpe_resid": 1, "lms_gates": 1,
+        "gsc_lms_zelinski": 1, "synthesis_tm": 1}
+    if counts12 != want12:
+        raise AssertionError(f"config-4 C=8 launches {counts12}, the path needs {want12}")
+    lms_args12 = (enh12.wqH, enh12.BmH, enh12.wq_manifold, cfg12.lms, cfg12.pf_alpha,
+                  cfg12.pf_type, cfg12.pf_min_frames)
+
+    def plain_chain12(x_, play_, scan_args_, kind):
+        """The plain chain at 8 channels: analysis, NLMS AEC, per-utterance
+        WPE, the GSC scan's plain loop (``kind`` "lms" or "rls"), synthesis."""
+        Yr_ = plain_analysis(x_)
+        Yr_ = plain_aec(Yr_, plain_analysis(play_[:, None, :])[:, :, 0, :])
+        wqH_, BmH_, wqm_, gcfg_, alpha_, pf_type_, pf_min_ = scan_args_
+        Yp_ = gsc_postfilter_fused(plain_wpe(Yr_), None, wqH_, BmH_, wqm_, kind, gcfg_, alpha_,
+                                   pf_type_, pf_min_, True)
+        return plain_synthesis(Yp_)
+
+    log(f"== 12b. the widened kernels vs plain torch at that shape (B={B}, {C12} ch, C*P = "
+        f"{CP12}); the path against the plain chain on its first {B12} utterances")
+    wide8 = {}  # the 8-channel forms of K9-K12: times, plain times, library times, bounds
+    with torch.no_grad():
+        Yr12 = analysis_tm_fused(x12, enh12.h, fb, A=enh12.A, hr=enh12.hr)
+        V12 = analysis_tm_fused(play12[:, None, :], enh12.h, fb, A=enh12.A, hr=enh12.hr)[:, :, 0]
+        Ya12, plain_aec12_ms = timed(lambda: plain_aec(Yr12, V12))
+        compare("aec_scan, 8 channels", aec_scan(Yr12, V12, "nlms", cfg12.aec_delta,
+                                                 cfg12.aec_epsilon, cfg12.aec_threshold),
+                Ya12, 1e-4, "aec_scan")
+        compare("aec_scan block_kalman, 8 channels",
+                aec_scan(Yr12, V12, "block_kalman", *KALMAN_P, cfg12.aec_threshold),
+                plain_aec(Yr12, V12, "block_kalman", *KALMAN_P), 1e-4, "aec_scan")
+        X12 = frames(Ya12)
+        G0_12 = torch.zeros((B, C12, F, CP12), dtype=torch.complex64, device=dev)
+        (R12, r12), plain_stats12_first_ms = timed(lambda: stats_plain(X12, G0_12, lower, P12,
+                                                                        False))
+        Rk, rk = wpe_stats(Ya12, G0_12, lower, P12, False)
+        compare(f"wpe_stats R, first iteration, C*P={CP12}", Rk, R12, 2e-4, "wpe_stats", lead=3)
+        compare(f"wpe_stats r, first iteration, C*P={CP12}", rk, r12, 2e-4, "wpe_stats", lead=3)
+        del Rk, rk
+        R12 = wpe_load(R12)
+        G1_12, plain_gj12_ms = timed(lambda: gj_solve_plain(R12, r12))
+        compare(f"gj_solve n={CP12}", gj_solve(R12, r12), G1_12, 1e-4, "gj_solve", lead=3,
+                sys_budget=GJ_SYS_BUDGET)
+        (R12, r12), plain_stats12_ms = timed(lambda: stats_plain(X12, G1_12, lower, P12, True))
+        Rk, rk = wpe_stats(Ya12, G1_12, lower, P12, True)
+        compare(f"wpe_stats R, later iteration, C*P={CP12}", Rk, R12, 2e-4, "wpe_stats", lead=3)
+        compare(f"wpe_stats r, later iteration, C*P={CP12}", rk, r12, 2e-4, "wpe_stats", lead=3)
+        del Rk, rk
+        G2_12 = wpe_truncate_taps(gj_solve_plain(wpe_load(R12), r12), C12, lower)
+        ref12, plain_resid12_ms = timed(
+            lambda: pack_half(resid_plain(X12, G2_12, lower).permute(2, 0, 1, 3)))
+        compare(f"wpe_resid C={C12} P={P12}", wpe_resid(Ya12, G2_12, lower), ref12, 1e-5,
+                "wpe_resid")
+        del ref12, X12
+        y12_ref, plain_path12_ms = timed(lambda: plain_chain12(x12[:B12], play12[:B12],
+                                                               lms_args12, "lms"))
+        compare(f"config-4 C=8 path (build_pipeline) vs plain chain, first {B12}", y12[:B12],
+                y12_ref, 3e-4)
+        del y12_ref, y12
+
+    log("== 12c. CUDA-event times at that shape")
+    with torch.no_grad():
+        R12 = wpe_load(R12)
+        wide8["aec_scan"] = dict(
+            ms=time_ms(lambda: aec_scan(Yr12, V12, "nlms", cfg12.aec_delta, cfg12.aec_epsilon,
+                                        cfg12.aec_threshold), 5),
+            plain_ms=plain_aec12_ms,
+            block_kalman_ms=time_ms(lambda: aec_scan(Yr12, V12, "block_kalman", *KALMAN_P,
+                                                     cfg12.aec_threshold), 5))
+        del Yr12
+        wide8["wpe_stats"] = dict(
+            ms=time_ms(lambda: wpe_stats(Ya12, G1_12, lower, P12, True), 3),
+            first_iteration_ms=time_ms(lambda: wpe_stats(Ya12, G0_12, lower, P12, False), 3),
+            plain_ms=plain_stats12_ms, first_iteration_plain_ms=plain_stats12_first_ms)
+        # the library yardsticks on 16 utterances, scaled to B, as in phase 6c
+        Xc = frames(Ya12[:, :16])
+        L = torch.stack([torch.nn.functional.pad(Xc, (0, 0, lower + dp, 0))[:, :, :Tf]
+                         for dp in range(P12)], dim=-1)  # [16, C, Tf, F, P]
+        L = L.permute(0, 3, 1, 4, 2).reshape(16, F, CP12, Tf)
+        Lw = L[:, None] * torch.rand((16, C12, F, 1, Tf), device=dev)
+        LH = L.conj().transpose(-1, -2)[:, None].resolve_conj()
+        wide8["wpe_stats"]["library_ms"] = time_ms(lambda: torch.matmul(Lw, LH), 3) * B / 16
+        del Lw, LH
+        G16 = G2_12[:16].conj()[:, :, :, None, :].resolve_conj()
+        wide8["wpe_resid"] = dict(
+            ms=time_ms(lambda: wpe_resid(Ya12, G2_12, lower), 5), plain_ms=plain_resid12_ms,
+            library_ms=time_ms(lambda: torch.matmul(G16, L[:, None]), 3) * B / 16)
+        del Xc, L, G16
+        wide8["gj_solve"] = dict(
+            ms=time_ms(lambda: gj_solve(R12, r12), 5), plain_ms=plain_gj12_ms,
+            library_ms=time_ms(lambda: torch.linalg.solve(R12, r12[..., None]), 3))
+        n_sys12 = r12.numel() // CP12
+        del R12, r12, G0_12, G1_12, G2_12, Ya12, V12
+        path12_ms = time_ms(lambda: enh12(x12, play12), 3)
+    peak12 = torch.cuda.max_memory_allocated() / 1e9
+    rows12 = Tf * B * C12
+    valid12 = Tf - lower
+    bounds12 = {
+        "aec_scan": bound(4 * (2 * rows12 * M + Tf * B * M), 30 * rows12 * F),
+        "wpe_stats": bound(4 * rows12 * M + 8 * B * C12 * F * (CP12 * CP12 + 2 * CP12),
+                           B * C12 * F * valid12 * (8 * CP12 * (CP12 + 1) // 2 + 2 * CP12
+                                                    + 8 * CP12),
+                           B * C12 * F * valid12 * 8 * CP12),
+        "wpe_resid": bound(8 * rows12 * M + 8 * B * C12 * F * CP12,
+                           8 * CP12 * B * C12 * F * valid12),
+        "gj_solve": gj_bound(CP12, n_sys12),
+    }
+    for name, row in wide8.items():
+        row["bound_ms"], row["bound_by"] = bounds12[name]
+        log(f"  {name} at {C12} channels: kernel {row['ms']:.3f} ms   plain "
+            f"{row['plain_ms']:.3f} ms   library "
+            + (f"{row['library_ms']:.3f} ms" if "library_ms" in row else "-")
+            + f"   bound {row['bound_ms']:.3f} ms ({row['bound_by']}), "
+            f"{100 * row['bound_ms'] / row['ms']:.1f}% of it"
+            + (f"   first EM iteration {row['first_iteration_ms']:.3f} ms (plain "
+               f"{row['first_iteration_plain_ms']:.3f})" if name == "wpe_stats" else "")
+            + (f"   block Kalman {row['block_kalman_ms']:.3f} ms" if name == "aec_scan" else ""))
+    log(f"  config-4 C=8 path (gsc_lms): {path12_ms:.3f} ms "
+        f"({audio_s / (path12_ms / 1e3):.1f} audio-s/s/GPU)   plain chain on {B12} utterances "
+        f"{plain_path12_ms:.3f} ms")
+    log(f"  peak device memory of phase 12 (with the plain comparisons) {peak12:.2f} GB   "
+        f"({smi_line()})")
+    log("  torch.profiler over 3 back-to-back config-4 C=8 forwards")
+    profile_path(lambda: enh12(x12, play12))
+    del enh12
+
+    # the same chain with the GSC-RLS scan (bench.py's config 4): K2 at 8 channels
+    log(f"== 12d. config-4 path at 8 channels with gsc_rls: build_pipeline() on the card, the "
+        f"same input; the first {B12} utterances against the plain chain")
+    cfg12r = dataclasses.replace(cfg12, beamformer="gsc_rls")
+    enh12r = build_pipeline(cfg12r, mpos3, delays3, h, g)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        y12r = enh12r(x12, play12)
+    torch.cuda.synchronize()
+    counts12r = kernels.launch_counts()
+    want12r = dict.fromkeys(counts12r, 0) | {
+        "analysis_tm": 2, "aec_scan": 1, "wpe_stats": cfg12.wpe_iterations,
+        "gj_solve": cfg12.wpe_iterations, "wpe_resid": 1, "gsc_rls_zelinski": 1,
+        "synthesis_tm": 1}
+    if counts12r != want12r:
+        raise AssertionError(f"config-4 C=8 gsc_rls launches {counts12r}, the path needs "
+                             f"{want12r}")
+    rls_args12 = (enh12r.wqH, enh12r.BmH, enh12r.wq_manifold, cfg12r.rls, cfg12r.pf_alpha,
+                  cfg12r.pf_type, cfg12r.pf_min_frames)
+    with torch.no_grad():
+        compare(f"config-4 C=8 gsc_rls path (build_pipeline) vs plain chain, first {B12}",
+                y12r[:B12], plain_chain12(x12[:B12], play12[:B12], rls_args12, "rls"), 3e-4)
+        del y12r
+        path12r_ms = time_ms(lambda: enh12r(x12, play12), 3)
+    log(f"  config-4 C=8 path (gsc_rls): {path12r_ms:.3f} ms "
+        f"({audio_s / (path12r_ms / 1e3):.1f} audio-s/s/GPU)")
+    del enh12r, x12, play12
+
     # least time on the card for the work of each timed call, from its shapes
     def rls_macs(Cx):  # K2's complex multiply-adds per (frame, utterance, bin) at Cx channels
         Bx = Cx - 1
@@ -1426,13 +1745,6 @@ def main() -> None:
     zel_flops = 8 * (3 * C + C * (C - 1) // 2)  # K7's per (frame, utterance, bin)
     rls_flops = 8 * scan_macs * Tf * B * F  # the scan's per (frame, utterance, bin) work
     fir_rows = B * C * Tf  # the round trip's analysis FIR: rows out, and (m-1)*R more in
-    def gj_bound(n):  # n_sys systems of n: R, r read once, x written once
-        # step k: n - k quotients of the columns right of the pivot (a
-        # complex product and two divisions, 8 flops each), and the other
-        # n - 1 rows' complex multiply-adds on those columns (8 each): in
-        # all 4 n (n + 1) + 4 (n - 1) n (n + 1) = 4 n^2 (n + 1) flops a system
-        return bound(8 * n_sys * (n * n + 2 * n), n_sys * 4 * n * n * (n + 1))
-
     bounds = {
         "analysis_tm": bound(4 * (B * C * T + rows * M + M * M + fb.N),
                              rows * fft_flops + fir_in),
@@ -1444,7 +1756,7 @@ def main() -> None:
         "wpe_stats": bound(4 * rows * M + 8 * B * C * F * (CP * CP + 2 * CP),
                            B * C * F * valid * (8 * CP * (CP + 1) // 2 + 2 * CP + 8 * CP),
                            B * C * F * valid * 8 * CP),
-        "gj_solve": gj_bound(CP),
+        "gj_solve": gj_bound(CP, n_sys),
         "wpe_resid": bound(8 * rows * M + 8 * B * C * F * CP, 8 * CP * B * C * F * valid),
     }
     rows5 = Tf * B5 * C
@@ -1506,9 +1818,11 @@ def main() -> None:
                       "distant_speech_recognition_tpu/models/adaptive_gsc.py:169 "
                       "(the LMS step's silence gate in the XLA scan; no TPU kernel)"),
     }
-    by_path = {"flagship": counts, "config4": counts4, "fixed_weight": counts_fw,
-               "fixed_weight_split": counts_split, "config5": counts5, "filterbank": counts_fb,
-               "config3": counts3} | {f"{bf}_none": c for bf, c in counts_none.items()}
+    by_path = {"flagship": counts, "config4": counts4, "config4_block_kalman": counts4bk,
+               "fixed_weight": counts_fw, "fixed_weight_split": counts_split,
+               "config5": counts5, "filterbank": counts_fb, "config3": counts3,
+               "config4_c8": counts12, "config4_c8_rls": counts12r} | {
+                   f"{bf}_none": c for bf, c in counts_none.items()}
     # the RLS kernels at config 3's 8 channels (phase 11)
     c8 = {"gsc_rls_zelinski": (k2_8_ms, k2_bound(C3)), "gsc_mono": (k4_8_ms, k4_bound(C3))}
     for name, (ms_, (b_ms, b_by)) in c8.items():
@@ -1546,13 +1860,19 @@ def main() -> None:
             row["none_ms"] = lms_none_ms
         if name == "wpe_stats":  # "ms" is the later EM iteration's, with filters
             row["first_iteration_ms"] = stats_first_ms
+        if name in wide8:  # K9-K12 at config 4's 8 channels (C*P = 40; phase 12)
+            row["c8"] = wide8[name]
         if name == "aec_scan":  # "ms" is NLMS's, the path's
             row["kalman_ms"], row["kalman_plain_ms"] = kalman_ms
+            row["block_kalman_ms"], row["block_kalman_plain_ms"] = block_kalman_ms
             row["launch"] = aec_shapes[f"B={B} C={C} nlms"]
         if name == "gj_solve":  # "ms" is n = C*P = 20's, the path's
-            b24 = gj_bound(C * (P + 1))
+            b24 = gj_bound(C * (P + 1), n_sys)
             row["n24"] = {"ms": gj24_ms[0], "plain_ms": gj24_ms[1], "library_ms": gj24_ms[2],
                           "bound_ms": b24[0], "bound_by": b24[1]}
+            b40 = gj_bound(40, n_sys40)
+            row["n40"] = {"ms": gj40_ms[0], "plain_ms": gj40_ms[1], "library_ms": gj40_ms[2],
+                          "bound_ms": b40[0], "bound_by": b40[1]}
         rows_json.append(row)
     log(f"script time {time.perf_counter() - t_script:.1f} s")
     log(json.dumps({"kernels": rows_json}))

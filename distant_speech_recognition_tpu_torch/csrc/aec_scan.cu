@@ -1,14 +1,20 @@
-// Subband echo canceller scan (NLMS or scalar Kalman), one recursion over frames.
+// Subband echo canceller scan (NLMS, scalar Kalman or one-tap block Kalman),
+// one recursion over frames.
 //
 // Replaces the Pallas TPU kernel ops/pallas_aec.py aec_scan_pallas
 // (_make_kernel / _call) of distant_speech_recognition_tpu, and computes what
-// models/aec.nlms_aec / kalman_aec compute on the unpacked spectrum, per
-// (utterance, channel, bin):
+// models/aec.nlms_aec / kalman_aec / block_kalman_aec (sampleN = 1) compute
+// on the unpacked spectrum, per (utterance, channel, bin):
 //   E = A - R V
 //   nlms:   R <- R - eps |V|^2/(delta + |A|^2) (R - A/V)          if |V|^2 > thr
 //   kalman: sv' = beta sv + (1-beta)|E|^2, K' = K + sigma2,
 //           R <- R + conj(V) E K'/(|V|^2 K' + sv'), K <- (1 - K'|V|^2/(..)) K'
 //                                                                  if |V|^2 > thr
+//   with sv and K starting at sigma2; the one-tap block Kalman is the same
+//   recursion (its G = K' conj(V)/(Re(V K' conj(V)) + sv') is the gain
+//   above) with sv starting at sigmau2 and K at sigmak2: the Kalman kernel
+//   with another initial K.  K stays real here, where the plain block Kalman
+//   carries it complex with an imaginary part of rounding.
 // A [Tf, B, C, M] and V [Tf, B, M] (one far-end reference for every channel)
 // in the packed lanes [Re(0..M/2) | Im(1..M/2-1)]; E has A's layout.
 //
@@ -169,7 +175,7 @@ __device__ __forceinline__ void kalman_update(KalmanState& st, const Frame& x, f
 template <bool KALMAN>
 __global__ void __launch_bounds__(THREADS, 2)
 aec_scan_kernel(const float* __restrict__ A, const float* __restrict__ V, float* __restrict__ E,
-                int Tf, int B, int C, int M, int cg, float p1, float p2, float thr) {
+                int Tf, int B, int C, int M, int cg, float p1, float p2, float k0, float thr) {
   extern __shared__ __align__(16) float ring[];
   // probe: kernel start
   const int F = M / 2 + 1;
@@ -222,7 +228,7 @@ aec_scan_kernel(const float* __restrict__ A, const float* __restrict__ V, float*
     }
   };
 
-  KalmanState ks{0.f, 0.f, p2, p2};  // NLMS keeps its filter in Rr, Ri
+  KalmanState ks{0.f, 0.f, p2, k0};  // NLMS keeps its filter in Rr, Ri
 #pragma unroll
   for (int st = 0; st < DG; ++st)
     if (st < nsteps) fetch(st);
@@ -337,13 +343,13 @@ cudaError_t plan(int B, int C, int M, Plan* out) {
 
 template <bool KALMAN>
 int launch(const float* A, const float* V, float* E, int Tf, int B, int C, int M, float p1,
-           float p2, float thr, cudaStream_t stream) {
+           float p2, float k0, float thr, cudaStream_t stream) {
   Plan p;
   const cudaError_t err = plan<KALMAN>(B, C, M, &p);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (p.cg == 0) return DSR_ERR_ARGS;
   aec_scan_kernel<KALMAN><<<B * (C / p.cg), p.threads, p.bytes, stream>>>(
-      A, V, E, Tf, B, C, M, p.cg, p1, p2, thr);
+      A, V, E, Tf, B, C, M, p.cg, p1, p2, k0, thr);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -375,8 +381,17 @@ bool args_ok(int Tf, int B, int C, int M) {
 extern "C" int dsr_aec_scan(const float* A, const float* V, float* E, int Tf, int B, int C, int M,
                             int kalman, float p1, float p2, float thr, cudaStream_t stream) {
   if (!args_ok(Tf, B, C, M)) return DSR_ERR_ARGS;
-  return kalman ? launch<true>(A, V, E, Tf, B, C, M, p1, p2, thr, stream)
-                : launch<false>(A, V, E, Tf, B, C, M, p1, p2, thr, stream);
+  return kalman ? launch<true>(A, V, E, Tf, B, C, M, p1, p2, p2, thr, stream)
+                : launch<false>(A, V, E, Tf, B, C, M, p1, p2, p2, thr, stream);
+}
+
+// The one-tap block Kalman: the Kalman kernel with sv starting at sigmau2
+// and K at sigmak2
+extern "C" int dsr_aec_scan_block_kalman(const float* A, const float* V, float* E, int Tf, int B,
+                                         int C, int M, float beta, float sigmau2, float sigmak2,
+                                         float thr, cudaStream_t stream) {
+  if (!args_ok(Tf, B, C, M)) return DSR_ERR_ARGS;
+  return launch<true>(A, V, E, Tf, B, C, M, beta, sigmau2, sigmak2, thr, stream);
 }
 
 extern "C" int dsr_aec_scan_shape(int B, int C, int M, int kalman, int* blocks, int* threads,

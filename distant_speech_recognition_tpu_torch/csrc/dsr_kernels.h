@@ -152,7 +152,14 @@ int dsr_polyphase_fir(const float* S, const float* h, float* v, int N, int T, in
 int dsr_aec_scan(const float* A, const float* V, float* E, int Tf, int B, int C, int M,
                  int kalman, float p1, float p2, float thr, cudaStream_t stream);
 
-// the launch that dsr_aec_scan takes for (B, C, M) and its kind: blocks,
+// the one-tap block Kalman canceller: the Kalman recursion with its
+// observation noise starting at sigmau2 and its state variance at sigmak2
+int dsr_aec_scan_block_kalman(const float* A, const float* V, float* E, int Tf, int B, int C,
+                              int M, float beta, float sigmau2, float sigmak2, float thr,
+                              cudaStream_t stream);
+
+// the launch that dsr_aec_scan takes for (B, C, M) and its kind (the block
+// Kalman entry: kalman = 1's): blocks,
 // threads a block, channels a block, dynamic shared memory, the kernel's
 // registers a thread and blocks per SM
 int dsr_aec_scan_shape(int B, int C, int M, int kalman, int* blocks, int* threads, int* cg,
@@ -173,7 +180,7 @@ int dsr_wpe_stats_occupancy(int C, int P, int lowerN, int* blocks_per_sm, int* s
 int dsr_wpe_resid_occupancy(int C, int P, int lowerN, int M, int* blocks_per_sm,
                             int* smem_bytes, int* threads);
 
-// R, r, x: interleaved complex64
+// R, r, x: interleaved complex64; n <= 40
 int dsr_gj_solve(const float* R, const float* r, float* x, int N, int n, cudaStream_t stream);
 
 #ifdef __cplusplus

@@ -34,6 +34,27 @@
 //     coalesced row a system.
 // The arithmetic is the first design's (a lane per column, factors by
 // shuffle), operation for operation, so x has the same bits.
+//
+// Systems of n = 32 .. 40 (C*P = 40 is BASELINE config 4 at 8 channels)
+// have more rows than a warp has lanes.  They run in a kernel of their own
+// (gj_solve_wide_kernel; the kernel above is left as it was, so n <= 31
+// keeps its bits): lane l holds row l whole, as above, and rows 32 .. 39 are
+// each split across four lanes by columns, cyclically (lane l holds columns
+// 4m + l % 4 of row 32 + l / 4, and that row's right-hand side).  Why this
+// split and not another:
+//   - two rows a lane (rows 32..39 on lanes 0..7) would hold 164 floats a
+//     lane at the first step and leave lanes 8..31 idle for half of every
+//     update: a warp issues the instructions of two rows either way;
+//   - two warps a system, one row a lane, would leave 24 of 64 lanes idle
+//     and need two named barriers a step;
+//   - the cyclic split gives every lane 1.25 rows of work at every step
+//     (the columns right of the pivot stay spread over the four lanes), at
+//     104 floats of rows a lane, for one pair of shuffles a step (the
+//     split row's factor, from the lane holding column k).
+// Each entry goes through the same operations, in the same order, as in the
+// kernel above.  The wide systems need 13 KB of shared memory each, so a
+// warp stages one: it loads its rows into registers, and only then stages
+// the next system into the same slot, which arrives while it eliminates.
 #include "dsr_device.h"
 #include "dsr_kernels.h"
 
@@ -43,7 +64,8 @@ using dsr::cf;
 using dsr::FastDivOps;
 using dsr::IeeeOps;
 
-constexpr int MAXN = 31;
+constexpr int MAXN = 31;   // the kernel of one row a lane
+constexpr int WIDE_MAXN = 40;  // the wide kernel's rows
 constexpr int WARPS = 4;  // warps a block, each solving systems of its own
 constexpr int THREADS = 32 * WARPS;
 // blocks an SM each width is compiled for (registers: 65536 / (128 x this));
@@ -211,6 +233,181 @@ gj_solve_kernel(const float* __restrict__ R, const float* __restrict__ r, cf* __
   // probe: kernel end
 }
 
+// Row width of the wide kernel, the columns of its split rows' quarters,
+// and its blocks an SM (registers: 65536 / (128 x this))
+constexpr int NWW = WIDE_MAXN;
+constexpr int QW = NWW / 4;
+constexpr int WIDE_MIN_BLOCKS = 3;
+
+// n = 32 .. 40: lane l holds row l (row[0 .. NWW-1], row[NWW] the
+// right-hand side) and columns 4m + l % 4 of row 32 + l / 4 (rq[m], its
+// right-hand side in rqr); rows and columns past n hold zeros
+__global__ void __launch_bounds__(THREADS, WIDE_MIN_BLOCKS)
+gj_solve_wide_kernel(const float* __restrict__ R, const float* __restrict__ r,
+                     cf* __restrict__ x, int N, int n) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  // probe (wide): kernel start
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int sub = lane & 3;        // this lane's quarter of its split row
+  const int i2 = 32 + (lane >> 2);  // its split row
+  const int sys_floats = 2 * n * (n + 1);  // [R | r] of one system (a multiple of 4)
+  // this warp's system slot, then its pivot row and quotients
+  float* slot = reinterpret_cast<float*>(smem) + warp * sys_floats;
+  cf* rowbuf = reinterpret_cast<cf*>(reinterpret_cast<float*>(smem) + WARPS * sys_floats) +
+               warp * 2 * (NWW + 2);
+  cf* qbuf = rowbuf + (NWW + 2);
+  const int gwarps = gridDim.x * WARPS;
+  const bool even = (n & 1) == 0;  // rows and systems then start on 16 bytes
+
+  auto fetch = [&](int s) {  // system s into the slot: R, then r
+    if (s < N) {
+      const float* srcR = R + (long long)s * 2 * n * n;
+      const float* srcr = r + (long long)s * 2 * n;
+      if (even) {  // 16 bytes a copy
+        for (int e = 4 * lane; e < 2 * n * n; e += 128) cp_async16(slot + e, srcR + e);
+        for (int e = 4 * lane; e < 2 * n; e += 128) cp_async16(slot + 2 * n * n + e, srcr + e);
+      } else {  // 8 bytes a copy
+        for (int e = 2 * lane; e < 2 * n * n; e += 64) cp_async8(slot + e, srcR + e);
+        for (int e = 2 * lane; e < 2 * n; e += 64) cp_async8(slot + 2 * n * n + e, srcr + e);
+      }
+    }
+    cp_commit();
+  };
+  int s = blockIdx.x * WARPS + warp;
+  fetch(s);
+  // probe (wide): set-up done
+  for (; s < N; s += gwarps) {  // uniform over the warp
+    cp_wait<0>();
+    __syncwarp();
+    // probe (wide): staged
+    cf row[NWW + 1], rq[QW], rqr;
+    {
+      const bool live = lane < n;
+      const float* Rs = slot + 2 * lane * n;
+      if (even) {
+#pragma unroll
+        for (int j = 0; j < NWW; j += 2) {
+          const float4 v = live && j < n ? *reinterpret_cast<const float4*>(Rs + 2 * j)
+                                         : make_float4(0.f, 0.f, 0.f, 0.f);
+          row[j] = cf{v.x, v.y};
+          row[j + 1] = cf{v.z, v.w};
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < NWW; ++j)
+          row[j] = live && j < n ? reinterpret_cast<const cf*>(Rs)[j] : cf{0.f, 0.f};
+      }
+      const cf* rhs = reinterpret_cast<const cf*>(slot + 2 * n * n);
+      row[NWW] = live ? rhs[lane] : cf{0.f, 0.f};
+      const bool live2 = i2 < n;
+      const cf* Rq = reinterpret_cast<const cf*>(slot + 2 * i2 * n);
+#pragma unroll
+      for (int m = 0; m < QW; ++m)
+        rq[m] = live2 && 4 * m + sub < n ? Rq[4 * m + sub] : cf{0.f, 0.f};
+      rqr = live2 ? rhs[i2] : cf{0.f, 0.f};
+    }
+    // every lane has its rows: the slot takes the next system while this
+    // one is eliminated
+    __syncwarp();
+    fetch(s + gwarps);
+    // probe (wide): loaded
+#pragma unroll
+    for (int k = 0; k < NWW; ++k) {
+      if (k >= n) break;  // uniform over the warp
+      // (the tests of k below fold away once the loop over k is unrolled)
+      const bool piv = k < 32 && lane == k;
+      const bool piv2 = k >= 32 && i2 == k;
+      if (piv) {  // the pivot row, columns k .. NWW, in pairs from an even column
+#pragma unroll
+        for (int j = 0; j < NWW; j += 2)
+          if (j + 1 >= k)
+            *reinterpret_cast<float4*>(rowbuf + j) = make_float4(row[j].r, row[j].i,
+                                                                 row[j + 1].r, row[j + 1].i);
+        rowbuf[NWW] = row[NWW];
+      }
+      if (piv2) {  // a split pivot row: each of its four lanes writes its columns
+#pragma unroll
+        for (int m = 0; m < QW; ++m)
+          if (4 * m + 3 >= k && 4 * m + sub >= k) rowbuf[4 * m + sub] = rq[m];
+        if (sub == 0) rowbuf[NWW] = rqr;
+      }
+      __syncwarp();
+      {
+        const cf p = rowbuf[k];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {  // columns k + 1 + lane and k + 33 + lane
+          const int c = k + 1 + 32 * h + lane;
+          if (c <= NWW) {
+            const cf a = rowbuf[c];
+            FastDivOps op;
+            cf q = gj_quotient(a, p, op);
+            if (!op.ok && (c < n || c == NWW)) {  // the zero columns n .. NWW-1 never reach x
+              IeeeOps iv;
+              q = gj_quotient(a, p, iv);
+            }
+            qbuf[c] = q;
+          }
+        }
+      }
+      __syncwarp();
+      // probe (wide): quotients
+      const cf f = row[k];
+      // the split row's factor: its column k, held by lane 4 (lane / 4) + k % 4
+      const int src = (lane & ~3) | (k & 3);
+      const cf f2 = {__shfl_sync(0xffffffffu, rq[k >> 2].r, src),
+                     __shfl_sync(0xffffffffu, rq[k >> 2].i, src)};
+      auto upd = [&](int j, cf q) { row[j] = piv ? q : gj_update(row[j], f, q); };
+#pragma unroll
+      for (int j = 0; j < NWW; j += 2) {
+        if (j > k) {
+          const float4 v = *reinterpret_cast<const float4*>(qbuf + j);
+          upd(j, cf{v.x, v.y});
+          upd(j + 1, cf{v.z, v.w});
+        } else if (j + 1 > k) {
+          upd(j + 1, qbuf[j + 1]);
+        }
+      }
+      const cf qr = qbuf[NWW];
+      upd(NWW, qr);
+#pragma unroll
+      for (int m = 0; m < QW; ++m) {
+        if (4 * m + 3 > k && 4 * m + sub > k) {
+          const cf q = qbuf[4 * m + sub];
+          rq[m] = piv2 ? q : gj_update(rq[m], f2, q);
+        }
+      }
+      rqr = piv2 ? qr : gj_update(rqr, f2, qr);
+      // probe (wide): updated
+    }
+    if (lane < n) x[(long long)s * n + lane] = row[NWW];
+    if (sub == 0 && i2 < n) x[(long long)s * n + i2] = rqr;
+    // probe (wide): stored
+  }
+  // probe (wide): kernel end
+}
+
+size_t smem_bytes_wide(int n) {
+  return sizeof(float) * WARPS * ((size_t)2 * n * (n + 1) + 2 * 2 * (NWW + 2));
+}
+
+int launch_wide(const float* R, const float* r, float* x, int N, int n, cudaStream_t stream) {
+  const size_t bytes = smem_bytes_wide(n);
+  cudaError_t err = cudaFuncSetAttribute(gj_solve_wide_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  int per_sm = 0, dev = 0, sms = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gj_solve_wide_kernel, THREADS,
+                                                        bytes);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return DSR_ERR_ARGS;
+  const int blocks = min((N + WARPS - 1) / WARPS, per_sm * sms);
+  gj_solve_wide_kernel<<<blocks, THREADS, bytes, stream>>>(R, r, reinterpret_cast<cf*>(x), N, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
 size_t smem_bytes(int n, int NW) {
   return sizeof(float) * WARPS * ((size_t)2 * 2 * n * (n + 1) + 2 * 2 * (NW + 2));
 }
@@ -237,7 +434,9 @@ int launch(const float* R, const float* r, float* x, int N, int n, cudaStream_t 
 
 extern "C" int dsr_gj_solve(const float* R, const float* r, float* x, int N, int n,
                             cudaStream_t stream) {
-  if (N <= 0 || n <= 0 || n > MAXN || (long long)N * n * n > 0x7fffffffLL / 2) return DSR_ERR_ARGS;
+  if (N <= 0 || n <= 0 || n > WIDE_MAXN || (long long)N * n * n > 0x7fffffffLL / 2)
+    return DSR_ERR_ARGS;
+  if (n > MAXN) return launch_wide(R, r, x, N, n, stream);
   if (n <= 4) return launch<4>(R, r, x, N, n, stream);
   if (n <= 8) return launch<8>(R, r, x, N, n, stream);
   if (n <= 12) return launch<12>(R, r, x, N, n, stream);

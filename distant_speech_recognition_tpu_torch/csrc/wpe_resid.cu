@@ -36,6 +36,17 @@
 //   - Where the frames from t - lowerN - P + 1 to t do not fit in one ring
 //     beside the lead (deep lags, many channels), the current frames and the
 //     lag frames run in two rings, and each frame is copied twice.
+//   - Past 24 taps a target (C*P up to 40: BASELINE config 4's default taps
+//     at 8 channels), two targets' conj(G) rows no longer fit a thread's
+//     registers (160 floats at C*P = 40, in blocks of 544 threads that leave
+//     120 registers a thread), and conj(G) of a whole utterance (330 KB at 8
+//     channels) does not fit shared memory.  These shapes run the "wide"
+//     instantiations: one target a thread (PM = 40 / C taps a channel in
+//     registers, 80 floats at most), and, where C x M/2 threads would pass
+//     512, the targets split into groups of a block each (two at C >= 5, M =
+//     256; the blocks of one chunk's groups are neighbours in the grid, so
+//     that the second can find the frames in L2); a block stores only its
+//     targets' rows.  The shapes up to 24 taps keep their instantiations as they were.
 // M is 128 or 256.
 #include <algorithm>
 
@@ -95,16 +106,28 @@ __device__ __forceinline__ void fence_async_shared() {
 }
 
 // targets a thread computes: two (each lag read from shared memory feeds
-// both), one at C = 1
-template <int C>
+// both), one at C = 1 and in the wide instantiations
+template <int C, bool WIDE>
 __host__ __device__ constexpr int targets() {
-  return C == 1 ? 1 : 2;
+  return C == 1 || WIDE ? 1 : 2;
 }
-// threads of a block: (target groups c0 < H) x (lanes k < MH), then one warp
-// for the real bins 0 and M/2
-template <int C, int MH>
+// blocks that split an utterance's targets: one, or in the wide
+// instantiations as many as keep a block's complex threads at 512
+template <int C, int MH, bool WIDE>
+__host__ __device__ constexpr int target_groups() {
+  return WIDE ? (C * MH + 511) / 512 : 1;
+}
+// targets a block computes
+template <int C, int MH, bool WIDE>
+__host__ __device__ constexpr int block_targets() {
+  return (C + target_groups<C, MH, WIDE>() - 1) / target_groups<C, MH, WIDE>();
+}
+// threads of a block: (threads c0 < H of a lane) x (lanes k < MH), then one
+// warp for the real bins 0 and M/2
+template <int C, int MH, bool WIDE>
 __host__ __device__ constexpr int block_threads() {
-  return MH * ((C + targets<C>() - 1) / targets<C>()) + 32;
+  constexpr int CG = block_targets<C, MH, WIDE>();
+  return MH * ((CG + targets<C, WIDE>() - 1) / targets<C, WIDE>()) + 32;
 }
 
 // C channels, MH = M/2 lanes, PM >= P lag slots per channel held in
@@ -113,15 +136,17 @@ __host__ __device__ constexpr int block_threads() {
 // the PM + STEP - 1 lag frames of a step's STEP outputs are consecutive
 // slots and lag offsets are immediates; an output's current frame sits in
 // slot CB + r % NC (one ring: CB = 0, NC = NL).
-template <int C, int MH, int PM>
-__global__ void __launch_bounds__(block_threads<C, MH>())
+template <int C, int MH, int PM, bool WIDE>
+__global__ void __launch_bounds__(block_threads<C, MH, WIDE>())
 wpe_resid_kernel(const float* __restrict__ Yp, const cf* __restrict__ G, float* __restrict__ out,
                  int Tf, int B, int P, int lowerN, int NL, int CB, int NC) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int STEP = step_frames<C, MH>();
   constexpr int DG = lead_steps<C, MH>();
-  constexpr int TT = targets<C>();
-  constexpr int H = (C + TT - 1) / TT;  // a thread's targets are c0 (and c0 + H)
+  constexpr int TT = targets<C, WIDE>();
+  constexpr int NG = target_groups<C, MH, WIDE>();
+  constexpr int CG = block_targets<C, MH, WIDE>();  // C unless WIDE
+  constexpr int H = (CG + TT - 1) / TT;  // a thread's targets are c0 (and c0 + H)
   constexpr int M = 2 * MH;
   constexpr int F = MH + 1;
   constexpr int CM = C * M;       // one frame of the utterance
@@ -132,21 +157,23 @@ wpe_resid_kernel(const float* __restrict__ Yp, const cf* __restrict__ G, float* 
   float* outs = ring + (size_t)NS * CM;           // [2][STEP][C][M]
 
   const int tid = threadIdx.x;
-  constexpr int nthr = block_threads<C, MH>();
+  constexpr int nthr = block_threads<C, MH, WIDE>();
+  // this block's targets: cbase .. cbase + CG - 1 (all C unless WIDE)
+  const int cbase = NG == 1 ? 0 : (blockIdx.x % NG) * CG;
   // complex bins: lanes k and MH + k (Re and Im of bin k, 1 <= k < MH)
-  const bool cplx = tid < MH * H && tid % MH > 0;
+  const int c0 = cbase + tid / MH;
+  const bool cplx = tid < MH * H && tid % MH > 0 && (NG == 1 || c0 < C);
   const int k = tid % MH;
-  const int c0 = tid / MH;
   const int c1 = c0 + H;
   const bool two = cplx && TT == 2 && c1 < C;
   // real bins: lane rl of target rc, rl = 0 (bin 0) or MH (bin M/2)
   const int rq = tid - MH * H;
-  const bool real = rq >= 0 && rq < 2 * C;
-  const int rc = real ? rq % C : 0;
-  const int rl = rq >= C ? MH : 0;
+  const bool real = rq >= 0 && rq < 2 * CG && (NG == 1 || cbase + rq % CG < C);
+  const int rc = real ? cbase + rq % CG : 0;
+  const int rl = rq >= CG ? MH : 0;
   const int lane = cplx ? k : rl;  // the lane whose lags this thread reads
   const int b = blockIdx.y;
-  const int t0 = blockIdx.x * TC;
+  const int t0 = (blockIdx.x / NG) * TC;
   const int nt = min(TC, Tf - t0);
   const size_t frame_stride = (size_t)B * CM;
   const float* Yb = Yp + (size_t)b * CM;
@@ -207,11 +234,15 @@ wpe_resid_kernel(const float* __restrict__ Yp, const cf* __restrict__ G, float* 
     }
     cp_commit();
   };
+  // the part of an output row this block computes: the whole row, or its
+  // targets' rows
+  const int obase = NG == 1 ? 0 : cbase * M;
+  const int ocount = NG == 1 ? CM : min(CG, C - cbase) * M;
   auto flush = [&](int g) {  // outputs of step g, one bulk copy a row (thread 0)
     if (tid == 0) {
       for (int s = 0; s < STEP && g * STEP + s < nt; ++s)
-        bulk_store(Ob + (size_t)(t0 + g * STEP + s) * frame_stride,
-                   outs + ((g & 1) * STEP + s) * CM, CM * (int)sizeof(float));
+        bulk_store(Ob + (size_t)(t0 + g * STEP + s) * frame_stride + obase,
+                   outs + ((g & 1) * STEP + s) * CM + obase, ocount * (int)sizeof(float));
       bulk_commit();
     }
   };
@@ -340,11 +371,11 @@ Plan plan(int C, int M, int P, int PM, int lowerN, int STEP, int DG) {
   return p;
 }
 
-template <int C, int MH, int PM>
+template <int C, int MH, int PM, bool WIDE>
 struct Launch {
-  static constexpr int threads = block_threads<C, MH>();
+  static constexpr int threads = block_threads<C, MH, WIDE>();
   static cudaError_t prepare(size_t bytes) {
-    return cudaFuncSetAttribute(wpe_resid_kernel<C, MH, PM>,
+    return cudaFuncSetAttribute(wpe_resid_kernel<C, MH, PM, WIDE>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   }
   static int run(const float* Yp, const float* G, float* out, int Tf, int B, int P, int lowerN,
@@ -353,8 +384,9 @@ struct Launch {
     if (p.bytes > 227 * 1024) return DSR_ERR_ARGS;
     cudaError_t err = prepare(p.bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((Tf + TC - 1) / TC, B);
-    wpe_resid_kernel<C, MH, PM><<<grid, threads, p.bytes, stream>>>(
+    // a chunk's target groups are neighbours in x
+    const dim3 grid((Tf + TC - 1) / TC * target_groups<C, MH, WIDE>(), B);
+    wpe_resid_kernel<C, MH, PM, WIDE><<<grid, threads, p.bytes, stream>>>(
         Yp, reinterpret_cast<const cf*>(G), out, Tf, B, P, lowerN, p.NL, p.CB, p.NC);
     return static_cast<int>(cudaGetLastError());
   }
@@ -365,21 +397,25 @@ struct Launch {
     if (p.bytes > 227 * 1024) return DSR_ERR_ARGS;
     cudaError_t err = prepare(p.bytes);
     if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, wpe_resid_kernel<C, MH, PM>,
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks,
+                                                          wpe_resid_kernel<C, MH, PM, WIDE>,
                                                           threads, p.bytes);
     return static_cast<int>(err);
   }
 };
 
 // (C, PM): the registers hold PM = 24 / C lag slots a channel, and 5 at C = 4;
-// M = 128 and 256
+// past 24 / C taps the wide instantiations, PM = 40 / C; M = 128 and 256
 #define DSR_SHAPES(X) \
   X(1, 24) X(2, 12) X(3, 8) X(4, 5) X(4, 6) X(5, 4) X(6, 4) X(7, 3) X(8, 3)
+#define DSR_WIDE_SHAPES(X) \
+  X(1, 40) X(2, 20) X(3, 13) X(4, 10) X(5, 8) X(6, 6) X(7, 5) X(8, 5)
 
-int slots(int C, int P) { return C == 4 && P <= 5 ? 5 : 24 / C; }
+bool wide(int C, int P) { return P > 24 / C; }
+int slots(int C, int P) { return wide(C, P) ? 40 / C : C == 4 && P <= 5 ? 5 : 24 / C; }
 
 bool args_ok(int Tf, int B, int C, int M, int P, int lowerN) {
-  return Tf > 0 && B > 0 && B <= 65535 && C > 0 && C <= 8 && P > 0 && P <= 24 / C &&
+  return Tf > 0 && B > 0 && B <= 65535 && C > 0 && C <= 8 && P > 0 && C * P <= 40 &&
          lowerN >= 0 && (M == 128 || M == 256);
 }
 
@@ -389,11 +425,17 @@ extern "C" int dsr_wpe_resid(const float* Yp, const float* G, float* out, int Tf
                              int M, int P, int lowerN, cudaStream_t stream) {
   if (!args_ok(Tf, B, C, M, P, lowerN)) return DSR_ERR_ARGS;
   const int PM = slots(C, P);
-#define DSR_CASE(c, pm)                                                              \
-  if (C == c && PM == pm)                                                            \
-    return M == 256 ? Launch<c, 128, pm>::run(Yp, G, out, Tf, B, P, lowerN, stream)  \
-                    : Launch<c, 64, pm>::run(Yp, G, out, Tf, B, P, lowerN, stream);
-  DSR_SHAPES(DSR_CASE)
+  const bool w = wide(C, P);
+#define DSR_CASE(c, pm, wd)                                                                  \
+  if (C == c && PM == pm && w == wd)                                                         \
+    return M == 256 ? Launch<c, 128, pm, wd>::run(Yp, G, out, Tf, B, P, lowerN, stream)      \
+                    : Launch<c, 64, pm, wd>::run(Yp, G, out, Tf, B, P, lowerN, stream);
+#define DSR_NARROW(c, pm) DSR_CASE(c, pm, false)
+#define DSR_WIDE(c, pm) DSR_CASE(c, pm, true)
+  DSR_SHAPES(DSR_NARROW)
+  DSR_WIDE_SHAPES(DSR_WIDE)
+#undef DSR_WIDE
+#undef DSR_NARROW
 #undef DSR_CASE
   return DSR_ERR_ARGS;
 }
@@ -402,13 +444,19 @@ extern "C" int dsr_wpe_resid_occupancy(int C, int P, int lowerN, int M, int* blo
                                        int* smem_bytes, int* threads) {
   if (!args_ok(1, 1, C, M, P, lowerN)) return DSR_ERR_ARGS;
   const int PM = slots(C, P);
-#define DSR_CASE(c, pm)                                                                   \
-  if (C == c && PM == pm)                                                                 \
-    return M == 256 ? Launch<c, 128, pm>::occupancy(P, lowerN, blocks_per_sm, smem_bytes, \
-                                                    threads)                              \
-                    : Launch<c, 64, pm>::occupancy(P, lowerN, blocks_per_sm, smem_bytes,  \
-                                                   threads);
-  DSR_SHAPES(DSR_CASE)
+  const bool w = wide(C, P);
+#define DSR_CASE(c, pm, wd)                                                                  \
+  if (C == c && PM == pm && w == wd)                                                         \
+    return M == 256 ? Launch<c, 128, pm, wd>::occupancy(P, lowerN, blocks_per_sm, smem_bytes, \
+                                                        threads)                             \
+                    : Launch<c, 64, pm, wd>::occupancy(P, lowerN, blocks_per_sm, smem_bytes,  \
+                                                       threads);
+#define DSR_NARROW(c, pm) DSR_CASE(c, pm, false)
+#define DSR_WIDE(c, pm) DSR_CASE(c, pm, true)
+  DSR_SHAPES(DSR_NARROW)
+  DSR_WIDE_SHAPES(DSR_WIDE)
+#undef DSR_WIDE
+#undef DSR_NARROW
 #undef DSR_CASE
   return DSR_ERR_ARGS;
 }

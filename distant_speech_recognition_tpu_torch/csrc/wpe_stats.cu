@@ -16,8 +16,10 @@
 // What bounds it on an H100: the accumulation, C * CP(CP+1)/2 complex
 // multiply-adds per (utterance, bin, frame): about 3.3e11 FP32 flops per call
 // at B=256 x 4 ch x 10 s with P=5, ~5 ms at the 67 TFLOP/s FP32 peak, against
-// 1.3 GB of input (0.4 ms): it is bound by FP32 arithmetic.  The JAX package
-// runs it at HIGHEST precision, so no TF32.
+// 1.3 GB of input (0.4 ms): it is bound by FP32 arithmetic.  At 8 channels
+// (CP = 40, BASELINE config 4's default taps) the accumulation grows to
+// ~2.2e12 flops a call, ~33 ms.  The JAX package runs it at HIGHEST
+// precision, so no TF32.
 //
 // Design.  A block takes FB consecutive systems (utterance, bin) of the
 // flattened B*F (so no bin group idles at the top of an utterance) and walks
@@ -78,10 +80,15 @@ struct cf {
 
 // Per tap slot j (lag j = a*P + dp): the offset a*FB*ROWS + S - lowerN - dp
 // of its frame-0 element in a staged chunk and in its FP64 copy (slots past
-// C*P read the zero channel C of the staged chunk)
-struct Lags {
-  int lag[6 * TILE];
+// C*P read the zero channel C of the staged chunk).  Up to six tiles a side
+// (C*P <= 24) the argument keeps the size it had before the wider tiles
+// were added; seven to ten tiles (C*P <= 40) take the longer one.
+template <int NJ>
+struct LagSlots {
+  int lag[NJ];
 };
+template <int NT>
+using Lags = LagSlots<(NT <= 6 ? 6 : 10) * TILE>;
 
 // acc += a * conj(b), one FMA per real product
 __device__ __forceinline__ void cmac_conj(cf& acc, cf a, cf b) {
@@ -114,7 +121,7 @@ template <int NT>
 __global__ void __launch_bounds__(MAX_THREADS)
 wpe_stats_kernel(const float* __restrict__ Yp, const cf* __restrict__ G, cf* __restrict__ R,
                  cf* __restrict__ r, int Tf, int B, int C, int M, int P, int lowerN, int has_g,
-                 int FB, const Lags lags) {
+                 int FB, const Lags<NT> lags) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int NJ = NT * TILE;
   constexpr int NTILES = NT * (NT + 1) / 2;
@@ -441,7 +448,7 @@ struct Launch {
     if (err != cudaSuccess) return static_cast<int>(err);
     const int CP = C * P, S = lowerN + P - 1;
     const int ROWS = (TC + S) | 1;
-    Lags lags;
+    Lags<NT> lags;
     for (int j = 0; j < NT * TILE; ++j) {
       // tap slots past CP read the zero channel C
       const int a = j < CP ? j / P : C, dp = j < CP ? j - (j / P) * P : 0;
@@ -468,11 +475,11 @@ struct Launch {
   }
 };
 
-#define DSR_TILES(X) X(1) X(2) X(3) X(4) X(5) X(6)
+#define DSR_TILES(X) X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10)
 
 bool args_ok(int Tf, int B, int C, int M, int P, int lowerN) {
   return Tf > 0 && B > 0 && C > 0 && C <= 8 && P > 0 && lowerN >= 0 && M >= 4 && M % 2 == 0 &&
-         C * P <= 6 * TILE && (long long)B * (M / 2 + 1) <= 0x7fffffffLL;
+         C * P <= 10 * TILE && (long long)B * (M / 2 + 1) <= 0x7fffffffLL;
 }
 
 }  // namespace

@@ -81,6 +81,7 @@ _SIGNATURES = {
     "dsr_gsc_mono_occupancy": [_I, _I, _I, _P, _P],
     "dsr_polyphase_fir": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "dsr_aec_scan": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P],
+    "dsr_aec_scan_block_kalman": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P],
     "dsr_aec_scan_shape": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "dsr_wpe_stats": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "dsr_wpe_resid": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],

@@ -17,7 +17,8 @@ module whose buffers live on the requested device, the card unless the
 caller asks for the CPU.  On a CUDA device its forward pass runs the CUDA
 kernels; on the CPU, their plain versions.  Ported, each with ``postfilter``
 "zelinski" or "none": ``beamformer="gsc_rls"`` and ``"gsc_lms"`` (BASELINE
-config 3) with ``aec`` in none | nlms | kalman and WPE on or off, and the
+config 3) with ``aec`` in none | nlms | kalman | block_kalman (one tap) and
+WPE on or off (C*P <= 40: BASELINE config 4 at 8 channels), and the
 fixed-weight beamformers ``ds``, ``sd_mvdr`` and ``lcmv`` (BASELINE configs
 1-2) without AEC or WPE.  The flagship chain (GSC-RLS + Zelinski without AEC
 and WPE) and the fixed-weight chains with Zelinski are each one kernel
@@ -82,11 +83,12 @@ class PipelineConfig:
     (unit_test/confs/*.json: beamformer{type}, postfilter{type,subtype,alpha}).
 
     Unlike the JAX package's config this one has no ``Nc`` (the ported chain
-    has one look direction constraint, always 1), no ``aec_taps`` (the block
-    Kalman canceller is not ported), no ``wpe_batch_chunk`` (a memory knob of
-    the JAX package's per-utterance vmap path, which the port does not have)
-    and no ``wpe_bf16_stats`` (the JAX package's bf16 WPE path fails its own
-    accuracy contract; the port runs WPE in float32 only)."""
+    has one look direction constraint, always 1), no ``wpe_batch_chunk`` (a
+    memory knob of the JAX package's per-utterance vmap path, which the port
+    does not have) and no ``wpe_bf16_stats`` (the JAX package's bf16 WPE path
+    fails its own accuracy contract; the port runs WPE in float32 only).
+    ``aec_taps`` is JAX's field; the port runs the block Kalman canceller at
+    one tap only, as JAX's time-major chain does."""
 
     fb: FilterbankParams = FilterbankParams()
     samplerate: float = 16000.0
@@ -99,10 +101,11 @@ class PipelineConfig:
     lms: GSCLMSConfig = GSCLMSConfig()
     rls: GSCRLSConfig = GSCRLSConfig()
     # full-chain extensions (BASELINE config 4: AEC -> WPE -> GSC -> postfilter)
-    aec: str = "none"  # none | nlms | kalman
-    aec_delta: float = 100.0  # nlms delta | kalman beta
-    aec_epsilon: float = 1.0e-4  # nlms epsilon | kalman sigma2
+    aec: str = "none"  # none | nlms | kalman | block_kalman
+    aec_delta: float = 100.0  # nlms delta | kalman beta | block_kalman beta
+    aec_epsilon: float = 1.0e-4  # nlms epsilon | (block_)kalman sigma2
     aec_threshold: float = 100.0
+    aec_taps: int = 1  # block_kalman sampleN; only 1 is ported (JAX's time-major chain)
     wpe: bool = False
     wpe_lower: int = 2
     wpe_upper: int = 6
@@ -112,8 +115,10 @@ class PipelineConfig:
 
 def _check_supported(cfg: PipelineConfig, n_chan: int | None = None) -> None:
     """Raise `NotImplementedError` for what the port does not run, on every
-    device; ``n_chan``, where known, is checked against the WPE kernels'
-    limits."""
+    device: the block Kalman canceller with more than one tap (the JAX
+    package leaves it off its time-major chain), and, with ``n_chan`` where
+    known, a WPE shape past the kernels' limits (C <= 8, C*P <= 40, wpe_lower
+    <= 32)."""
     if cfg.beamformer not in FIXED_WEIGHT + ADAPTIVE or cfg.postfilter not in POSTFILTERS:
         raise NotImplementedError(
             f"beamformer={cfg.beamformer!r} postfilter={cfg.postfilter!r} is not ported; "
@@ -125,7 +130,11 @@ def _check_supported(cfg: PipelineConfig, n_chan: int | None = None) -> None:
             "the fixed-weight beamformers run without AEC and WPE"
         )
     if cfg.aec != "none" and cfg.aec not in AEC_KINDS:
-        raise NotImplementedError(f"aec={cfg.aec!r} is not ported; only none | nlms | kalman")
+        raise NotImplementedError(f"aec={cfg.aec!r} is not ported; only none | "
+                                  + " | ".join(AEC_KINDS))
+    if cfg.aec == "block_kalman" and cfg.aec_taps != 1:
+        raise NotImplementedError(f"aec='block_kalman' with aec_taps={cfg.aec_taps} is not "
+                                  "ported; only one tap")
     if not cfg.wpe:
         return
     P = cfg.wpe_upper - cfg.wpe_lower + 1
@@ -268,6 +277,7 @@ class Enhancer(nn.Module):
         Yr = analysis_tm_fused(x, self.h, c.fb, **taps)  # [Tf, B, C, M]
         if play is not None:
             Vp = analysis_tm_fused(play.to(torch.float32)[:, None, :], self.h, c.fb, **taps)
+            # block_kalman: beta = aec_delta, sigmau2 = aec_epsilon (JAX's call)
             Yr = aec_scan(Yr, Vp, c.aec, c.aec_delta, c.aec_epsilon, c.aec_threshold)
         if c.wpe:
             Yr = wpe_multichannel_packed_tm(
@@ -319,13 +329,16 @@ def from_jax_params(params: dict, cfg: PipelineConfig, device="cuda") -> Enhance
     as numpy arrays: ``h``, ``g``, ``wqH``, ``wq_manifold`` and, for the
     adaptive GSCs, ``BmH``.  ``params["lms"]``, where given, holds the JAX
     configuration's `GSCLMSConfig` fields (``dataclasses.asdict``) and
-    replaces ``cfg.lms``."""
+    replaces ``cfg.lms``; ``params["aec_taps"]``, where given, replaces
+    ``cfg.aec_taps`` (JAX's `PipelineConfig` field of that name)."""
     need = {"h", "g", "wqH", "wq_manifold"} | ({"BmH"} if cfg.beamformer in ADAPTIVE else set())
     missing = need - set(params)
     if missing:
         raise KeyError(f"missing parameters: {sorted(missing)}")
     if "lms" in params:
         cfg = dataclasses.replace(cfg, lms=GSCLMSConfig(**params["lms"]))
+    if "aec_taps" in params:
+        cfg = dataclasses.replace(cfg, aec_taps=int(params["aec_taps"]))
     return Enhancer(
         cfg, params["h"], params["g"], params["wqH"], params.get("BmH"), params["wq_manifold"],
         device=device,

@@ -3,7 +3,11 @@
 Counterpart of the JAX package's ``ops/pallas_aec.py`` (``aec_scan_pallas``).
 For a CUDA tensor `aec_scan` launches ``csrc/aec_scan.cu`` or raises; for a
 CPU tensor it unpacks the lanes, runs the plain loops `models.aec.nlms_aec`
-/ `kalman_aec` (the specification the kernel is held to) and repacks.  The
+/ `kalman_aec` / `block_kalman_aec` (one tap; the specification the kernel
+is held to) and repacks.  The kernel runs the one-tap block Kalman as its
+Kalman recursion started from ``K = sigmak2``: with one tap the two
+recursions are the same, and the kernel keeps K real where the plain loop
+carries it complex (its imaginary part is rounding).  The
 kernel stages whole packed rows by 16-byte copies and takes a bin a thread,
 so it takes M a multiple of 4 up to `AEC_MAX_M` (the card pipelines run M =
 256); the plain loops take any even M.
@@ -13,12 +17,14 @@ from __future__ import annotations
 
 import torch
 
-from ..models.aec import kalman_aec, nlms_aec
+from ..models.aec import block_kalman_aec, kalman_aec, nlms_aec
 from .filterbank import pack_half, unpack_half
 
 __all__ = ["AEC_KINDS", "AEC_MAX_M", "aec_launch_shape", "aec_scan"]
 
-AEC_KINDS = ("nlms", "kalman")
+AEC_KINDS = ("nlms", "kalman", "block_kalman")
+# the block Kalman's initial state variance (JAX's default, which its pipeline keeps)
+SIGMAK2 = 5.0
 AEC_MAX_M = 1024
 
 
@@ -33,8 +39,10 @@ def aec_scan(
     """Echo-cancel packed time-major frames: mic ``Ap [Tf, B, C, M]``, far
     end ``Vp [Tf, B, M]`` or ``[Tf, B, 1, M]`` (one reference for every
     channel), float32, ``[Re(0..M/2) | Im(1..M/2-1)]`` lanes.  ``p1``/``p2``
-    are delta/epsilon for ``kind="nlms"`` and beta/sigma2 for
-    ``kind="kalman"``.  Returns the packed error frames ``[Tf, B, C, M]``."""
+    are delta/epsilon for ``kind="nlms"``, beta/sigma2 for ``kind="kalman"``
+    and beta/sigmau2 for ``kind="block_kalman"`` (one tap, its state
+    variance starting at `SIGMAK2`).  Returns the packed error frames ``[Tf,
+    B, C, M]``."""
     if kind not in AEC_KINDS:
         raise NotImplementedError(f"aec kind {kind!r} is not ported; only {AEC_KINDS}")
     if Ap.dim() != 4:
@@ -45,8 +53,11 @@ def aec_scan(
     if tuple(Vp.shape) != (Tf, B, M):
         raise ValueError(f"Vp must be [Tf, B, M] = {(Tf, B, M)}, got {tuple(Vp.shape)}")
     if Ap.device.type == "cpu":
-        fn = nlms_aec if kind == "nlms" else kalman_aec
-        E, _ = fn(unpack_half(Vp)[:, :, None, :], unpack_half(Ap), p1, p2, threshold)
+        V, A = unpack_half(Vp)[:, :, None, :], unpack_half(Ap)
+        if kind == "block_kalman":
+            E, _ = block_kalman_aec(V, A, 1, p1, p2, SIGMAK2, threshold)
+        else:
+            E, _ = (nlms_aec if kind == "nlms" else kalman_aec)(V, A, p1, p2, threshold)
         return pack_half(E)
     if Ap.device.type != "cuda":
         raise ValueError(f"aec_scan runs on cpu or cuda tensors, got {Ap.device}")
@@ -60,10 +71,14 @@ def aec_scan(
     check_cuda_tensor("Ap", Ap)
     check_cuda_tensor("Vp", Vp)
     out = torch.empty_like(Ap)
-    code = _build.library().dsr_aec_scan(
-        Ap.data_ptr(), Vp.data_ptr(), out.data_ptr(), Tf, B, C, M, int(kind == "kalman"),
-        p1, p2, threshold, stream_handle(Ap.device),
-    )
+    lib = _build.library()
+    args = (Ap.data_ptr(), Vp.data_ptr(), out.data_ptr(), Tf, B, C, M)
+    if kind == "block_kalman":
+        code = lib.dsr_aec_scan_block_kalman(*args, p1, p2, SIGMAK2, threshold,
+                                             stream_handle(Ap.device))
+    else:
+        code = lib.dsr_aec_scan(*args, int(kind == "kalman"), p1, p2, threshold,
+                                stream_handle(Ap.device))
     _build.check(code, "aec_scan")
     aec_scan.launches += 1
     return out
@@ -77,7 +92,7 @@ def aec_launch_shape(B: int, C: int, M: int, kind: str = "nlms") -> dict[str, in
     ``M`` lanes on the current card: blocks, threads a block, channels a
     block (``cg``; a block takes channels ``c0 .. c0 + cg - 1`` of one
     utterance), dynamic shared memory (bytes), registers a thread, blocks
-    per SM."""
+    per SM.  The block Kalman kind runs the Kalman kind's kernel."""
     import ctypes
 
     from ..kernels import _build
@@ -87,6 +102,6 @@ def aec_launch_shape(B: int, C: int, M: int, kind: str = "nlms") -> dict[str, in
     keys = ("blocks", "threads", "cg", "smem_bytes", "registers", "blocks_per_sm")
     vals = [ctypes.c_int() for _ in keys]
     code = _build.library().dsr_aec_scan_shape(
-        B, C, M, int(kind == "kalman"), *(ctypes.addressof(v) for v in vals))
+        B, C, M, int(kind != "nlms"), *(ctypes.addressof(v) for v in vals))
     _build.check(code, "aec_scan shape")
     return {k: v.value for k, v in zip(keys, vals)}

@@ -52,12 +52,13 @@ __all__ = [
 ]
 
 SUBBAND_FLOOR = 1.0e-3  # dereverberation.cc:144
-# What the three kernels take: C*P prediction taps per target (K10's 4x4
-# tiles, K11's registers; K12 solves n <= 31), up to 8 channels (K10's
-# threads per block, K11's register rows), and lowerN + P - 1 frames of lag
-# history in shared memory.  K11 takes M = 128 and 256 (its lane offsets are
-# compiled in); the card pipelines run M = 256.
-WPE_MAX_CP = 24
+# What the three kernels take: C*P <= 40 prediction taps per target (K10's
+# ten 4x4 tiles a side, K11's registers, K12's rows: BASELINE config 4's
+# default taps at 8 channels, P = 5), up to 8 channels (K10's threads per
+# block, K11's register rows), and lowerN + P - 1 frames of lag history in
+# shared memory.  K11 takes M = 128 and 256 (its lane offsets are compiled
+# in); the card pipelines run M = 256.
+WPE_MAX_CP = 40
 WPE_MAX_CHANNELS = 8
 WPE_MAX_LOWER = 32
 # utterances per step of the plain versions: bounds their lag tensors

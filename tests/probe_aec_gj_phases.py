@@ -12,7 +12,9 @@ and the store.  K12's: set-up, loading or staging the system, the pivot row
 and its quotients, the update of the other rows, and the store.  It runs
 that copy through this checkout's wrappers at the config-4 shape (K9: NLMS
 and Kalman, Tf = 1254, C = 4, M = 256, B = 256, 8 and 1; K12: B·C·F =
-132,096 systems of n = C·P = 20, and of n = 24) and prints each stage's
+132,096 systems of n = C·P = 20, and of n = 24; for this checkout's
+kernels also the block Kalman kind at B = 256 and C = 4 and 8, and K12's
+264,192 systems of n = 40, config 4 at 8 channels) and prints each stage's
 cycles (K9: per frame of thread 1, a complex bin; K12: per system of warp
 0's lane 0, mean over what it solved) beside the CUDA-event times of the
 instrumented and of the uninstrumented kernels, and, per kernel, the
@@ -140,6 +142,21 @@ DESIGNS = {
             item="      // probe: stored\n",
             start="  // probe: kernel start\n",
             end="  // probe: kernel end\n",
+            # the kernel of n = 32 .. 40 (rows 32 .. 39 split across four
+            # lanes), where the source has it: the same stages and counters
+            extra=(dict(
+                marks=(
+                    ("  // probe (wide): set-up done\n", 0, ""),
+                    ("    // probe (wide): staged\n", 1, ""),
+                    ("    // probe (wide): loaded\n", 1, ""),
+                    ("      // probe (wide): quotients\n", 2, ""),
+                    ("      // probe (wide): updated\n", 3, ""),
+                    ("    // probe (wide): stored\n", 4, ""),
+                ),
+                item="    // probe (wide): stored\n",
+                start="  // probe (wide): kernel start\n",
+                end="  // probe (wide): kernel end\n",
+            ),),
         ),
     },
 }
@@ -171,15 +188,24 @@ def instrument(src: str, name: str) -> tuple[str, str]:
              f"atomicAdd(&dsr_probe_acc_{t}[i_], (unsigned long long)dsr_probe_ph_{t}[i_]); "
              f"atomicAdd(&dsr_probe_acc_{t}[{NSLOT}], 1ull); "
              f"atomicAdd(&dsr_probe_acc_{t}[{NSLOT + 1}], (unsigned long long)dsr_probe_items_{t}); }}\n")
-    src = src.replace(d["end"], d["end"] + "@@FLUSH@@")
-    for anchor, slot, extra in d["marks"]:
-        code = extra + mark % slot
-        if anchor == d.get("item"):
-            code += f"if {who} ++dsr_probe_items_{t};\n"
-        src = src.replace(anchor, anchor + code)
-    src = src.replace(d["start"], d["start"] + init)
-    src = src.replace("@@FLUSH@@", flush)
+    parts = [d] + [e for e in d.get("extra", ())
+                   if all(src.count(a) == 1 for a in [a for a, _, _ in e["marks"]]
+                          + [e["start"], e["end"]])]
+    for part in parts:
+        src = src.replace(part["end"], part["end"] + "@@FLUSH@@")
+        for anchor, slot, extra in part["marks"]:
+            code = extra + mark % slot
+            if anchor == part.get("item"):
+                code += f"if {who} ++dsr_probe_items_{t};\n"
+            src = src.replace(anchor, anchor + code)
+        src = src.replace(part["start"], part["start"] + init)
+        src = src.replace("@@FLUSH@@", flush)
     src = src.replace('#include "dsr_kernels.h"\n', '#include "dsr_kernels.h"\n' + head, 1)
+    # the counters are static shared memory: K9's plan asks for the whole of
+    # a block's dynamic shared memory, which then no longer exists (its ring
+    # needs far less, so the plan is the same)
+    src = src.replace("constexpr size_t MAX_SMEM = 227 * 1024;",
+                      "constexpr size_t MAX_SMEM = 227 * 1024 - 1024;")
     src += (f'\nextern "C" int dsr_probe_{t}(unsigned long long* host) {{\n'
             f"  cudaError_t e = cudaMemcpyFromSymbol(host, dsr_probe_acc_{t}, "
             f"sizeof(dsr_probe_acc_{t}));\n"
@@ -448,6 +474,19 @@ def main() -> None:
         systems[n] = (R, r)
         measure(f"K12 N=132096 n={n}", "gj_solve.cu", lambda: gj_solve(R, r),
                 lambda acc: max(acc[NSLOT + 1], 1))
+    if not other:  # the shapes of config 4 at 8 channels, which checkouts before it refuse
+        A8, V8 = aec_inputs(rng, TF, 256, 8, M4, dev)
+        p1, p2 = KINDS["kalman"]
+        for Cb, Ab in ((C4, A[:, :, :C4].contiguous()), (8, A8)):
+            measure(f"K9 block_kalman Tf={TF} B=256 C={Cb} M={M4}", "aec_scan.cu",
+                    lambda: aec_scan(Ab, V if Cb == C4 else V8, "block_kalman", p1, p2, THR),
+                    lambda acc: max(acc[NSLOT], 1) * TF)
+        del A8, V8
+        torch.manual_seed(40)
+        R, r = gj_inputs(264192, 40, dev)
+        measure("K12 N=264192 n=40", "gj_solve.cu", lambda: gj_solve(R, r),
+                lambda acc: max(acc[NSLOT + 1], 1))
+        del R, r
     if other:
         same = {}
         _build._lib = own

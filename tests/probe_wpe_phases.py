@@ -8,10 +8,11 @@ cycles between consecutive marks, per stage; the sums of all blocks are added
 up in device memory and read back through a C function that the copy gains.
 It runs that copy through this checkout's wrappers at the config-4 shape (C = 4,
 P = 5, lowerN = 2, M = 256, Tf = 1254, 0.1-scale noise filters) with B = 256
-and B = 1, K10 with ``has_g`` false and true, and prints each stage's
-thousands of cycles per block (mean over blocks) beside the kernel's
-CUDA-event time and the registers, spills and shared memory that ptxas
-reports for the uninstrumented kernel.
+and B = 1, and, for this checkout's kernels, at 8 channels (C*P = 40,
+BASELINE config 4's default taps) with B = 256 and 1, K10 with ``has_g``
+false and true, and prints each stage's thousands of cycles per block (mean
+over blocks) beside the kernel's CUDA-event time and the registers, spills
+and shared memory that ptxas reports for the uninstrumented kernel.
 
 The marks are tied to the text of the kernels.  Two designs are known: the
 one written first (K10: one block per bin group, each chunk of frames staged,
@@ -22,7 +23,10 @@ weighed before the current one is accumulated; K11: blocks over frame chunks
 that stage whole packed rows D frames ahead).  ``--root DIR`` measures the
 kernels of another checkout of the repository (e.g. the parent commit
 unpacked with ``git archive``) with this checkout's wrappers; the kernels' C
-interface is the same.
+interface is the same.  With ``--root`` it also holds this checkout's
+uninstrumented K10 and K11 to that checkout's, bit for bit, at every shape
+that checkout takes among `OLD_SHAPES` (C*P <= 24: every instantiation of
+K11's, both EM iterations of K10's, deep delays and two rings).
 
     python3 tests/probe_wpe_phases.py [--root DIR]
 
@@ -51,6 +55,14 @@ from distant_speech_recognition_tpu_torch.kernels import _build  # noqa: E402
 from distant_speech_recognition_tpu_torch.ops.wpe_kernels import wpe_resid, wpe_stats  # noqa: E402
 
 C, P, LOWER, M, TF = 4, 5, 2, 256, 1254
+C8 = 8  # BASELINE config 4 at 8 channels: C*P = 40
+# (C, P, lowerN, M, B, Tf) held bit for bit against another checkout
+OLD_SHAPES = (
+    (4, 5, 2, 256, 16, 1254), (4, 5, 2, 256, 3, 90), (2, 3, 1, 128, 5, 90), (3, 7, 1, 128, 2, 90),
+    (3, 8, 2, 256, 2, 90), (8, 3, 2, 128, 2, 90), (8, 3, 32, 256, 2, 100), (8, 1, 32, 256, 2, 100),
+    (1, 24, 2, 128, 2, 90), (2, 12, 2, 256, 2, 90), (5, 4, 0, 256, 2, 70), (6, 4, 3, 256, 3, 90),
+    (7, 3, 2, 256, 2, 90), (4, 6, 32, 256, 2, 100), (4, 3, 2, 128, 1, 40), (4, 5, 2, 256, 2, 6),
+)
 NSLOT = 16
 HEAD = "  extern __shared__ __align__(16) unsigned char smem[];\n"
 # the end of the kernel, where the sums are flushed: the first design's
@@ -226,6 +238,56 @@ def report(lib, name: str, stages, label: str, run) -> None:
           + f"  (sum {kc.sum():.1f})")
 
 
+def load_plain(root: Path):
+    """``root``'s kernels as they are, built with its own build module."""
+    out = _build.BUILD_DIR / "wpe_phases_plain"
+    pkg = out / "distant_speech_recognition_tpu_torch"
+    if out.exists():
+        shutil.rmtree(out)
+    for sub in ("csrc", "kernels"):
+        shutil.copytree(root / "distant_speech_recognition_tpu_torch" / sub, pkg / sub,
+                        ignore=shutil.ignore_patterns("__pycache__"))
+    (pkg / "__init__.py").touch()
+    spec = importlib.util.spec_from_file_location("wpe_phases_plain_build",
+                                                  pkg / "kernels" / "_build.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.library()
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal to the bit (a signed zero or a NaN payload counts)."""
+    if a.is_complex():
+        a, b = torch.view_as_real(a), torch.view_as_real(b)
+    return torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def same_bits(own, other) -> None:
+    """This checkout's K10 and K11 against ``other``'s, at `OLD_SHAPES`."""
+    same = {}
+    for Cs, Ps, low, Ms, Bs, Tfs in OLD_SHAPES:
+        rng = np.random.default_rng(Cs * 100 + Ps + low)
+        Fs = Ms // 2 + 1
+        Yp = torch.from_numpy((rng.standard_normal((Tfs, Bs, Cs, Ms)) * 30)
+                              .astype(np.float32)).cuda()
+        G = torch.from_numpy((0.1 * (rng.standard_normal((Bs, Cs, Fs, Cs * Ps))
+                                     + 1j * rng.standard_normal((Bs, Cs, Fs, Cs * Ps))))
+                             .astype(np.complex64)).cuda()
+        tag = f"C={Cs} P={Ps} lowerN={low} M={Ms} B={Bs} Tf={Tfs}"
+        for name, run in [(f"K10 has_g={hg}", lambda hg=hg: wpe_stats(Yp, G, low, Ps, hg))
+                          for hg in (False, True)] + [("K11", lambda: wpe_resid(Yp, G, low))]:
+            outs = []
+            for lib_ in (other, own):
+                _build._lib = lib_
+                out = run()
+                outs.append(out if isinstance(out, tuple) else (out,))
+            same[f"{name} {tag}"] = all(bits_equal(a, b) for a, b in zip(*outs))
+    _build._lib = own
+    differ = [k for k, v in same.items() if not v]
+    print(f"this checkout equals the measured one bit for bit in {len(same) - len(differ)} of "
+          f"{len(same)} cases; differs in: {', '.join(differ) or 'none'}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit(__doc__)
@@ -236,7 +298,8 @@ def main() -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip())
     print(f"kernels of {root}")
-    _build.library()
+    own = _build.library()
+    other = root != REPO
     ptxas_report(root)
     lib, designs = build(root)
     _build._lib = lib
@@ -256,6 +319,26 @@ def main() -> None:
                            lambda: wpe_stats(Yb, G[:B], LOWER, P, has_g))
             else:
                 report(lib, name, stages, f"  B={B}", lambda: wpe_resid(Yb, G[:B], LOWER))
+    if not other:  # the 8-channel shape, which checkouts before it refuse
+        Y8 = torch.from_numpy((rng.standard_normal((TF, 256, C8, M)) * 30)
+                              .astype(np.float32)).cuda()
+        G8 = torch.from_numpy((0.1 * (rng.standard_normal((256, C8, F, C8 * P))
+                                      + 1j * rng.standard_normal((256, C8, F, C8 * P))))
+                              .astype(np.complex64)).cuda()
+        for name, (design, stages) in designs.items():
+            print(f"{name} at C = {C8}, C*P = {C8 * P}:")
+            for B in (256, 1):
+                Yb = Y8[:, :B].contiguous()
+                if name == "wpe_stats.cu":
+                    for has_g in (False, True):
+                        report(lib, name, stages, f"  B={B} has_g={has_g}",
+                               lambda: wpe_stats(Yb, G8[:B], LOWER, P, has_g))
+                else:
+                    report(lib, name, stages, f"  B={B}", lambda: wpe_resid(Yb, G8[:B], LOWER))
+        del Y8, G8
+    _build._lib = own
+    if other:
+        same_bits(own, load_plain(root))
 
 
 if __name__ == "__main__":

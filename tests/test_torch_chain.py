@@ -115,11 +115,13 @@ def test_play_is_required_exactly_with_aec(case):
         _build(case)(x, play[:, :1000])
 
 
-@pytest.mark.parametrize("kw", [dict(aec="block_kalman"), dict(aec="dtd_block_kalman"),
-                                dict(wpe_upper=10), dict(wpe_lower=40, wpe_upper=42)])
+@pytest.mark.parametrize("kw", [dict(aec="block_kalman", aec_taps=2),
+                                dict(aec="dtd_block_kalman"), dict(wpe_upper=12),
+                                dict(wpe_lower=40, wpe_upper=42)])
 def test_unported_chains_raise_on_every_device(case, kw):
-    """An AEC the port lacks, or a WPE shape past the kernels' limits (C*P
-    <= 24, wpe_lower <= 32), is refused at build time, also on the CPU."""
+    """An AEC the port lacks (the block Kalman with more than one tap), or a
+    WPE shape past the kernels' limits (C*P <= 40, wpe_lower <= 32), is
+    refused at build time, also on the CPU."""
     with pytest.raises(NotImplementedError):
         _build(case, **kw)
 

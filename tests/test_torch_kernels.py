@@ -49,6 +49,14 @@ to the plain `gsc_lms` / `gsc_rls`; and the `Enhancer` with ``gsc_lms`` (alone, 
 = 8, and after the echo canceller and WPE) and with ``postfilter="none"`` to
 the same module on the CPU.  `FastDivOps`, the division the LMS scan, K9 and
 K12 rest on, is held to the card's IEEE division over edge operands.
+BASELINE config 4 at 8 channels widens the WPE kernels to C*P = 40: K10 at
+seven to ten tiles a side (C*P = 28 to 40, C = 1..8, deep delays), K11 past
+24 taps a target (one target a thread, target groups at C >= 5 on M = 256,
+two rings) and K12 at n = 32..40 (rows 32..39 split across four lanes; more
+systems than warps, zero pivots), and the config-4 `Enhancer` with the LMS
+GSC runs at C = 8; the one-tap block Kalman canceller (the Kalman kernel
+from another initial state) is held to its plain loop, which carries its
+state variance complex, alone and in the config-4 chain.
 """
 
 import numpy as np
@@ -384,6 +392,11 @@ def _packed(rng, Tf, B, C, M, scale=100.0):
         ("nlms", 100.0, 1e-4, 8, 256, 2),
         ("kalman", 0.95, 1e-3, 8, 128, 1),
         ("nlms", 100.0, 1e-4, 4, 128, 1),
+        # the one-tap block Kalman: the Kalman kernel started from K = sigmak2,
+        # against the plain loop that carries K complex
+        ("block_kalman", 0.95, 1e-3, 4, 256, 3),
+        ("block_kalman", 0.95, 1e-3, 8, 256, 2),
+        ("block_kalman", 0.95, 1e-3, 3, 128, 1),
     ],
 )
 def test_aec_kernel_matches_plain(dev, kind, p1, p2, C, M, B):
@@ -403,7 +416,8 @@ def test_aec_kernel_matches_plain(dev, kind, p1, p2, C, M, B):
     _close(got, ref, 1e-4)
 
 
-@pytest.mark.parametrize("kind,p1,p2", [("nlms", 100.0, 1e-4), ("kalman", 0.95, 1e-3)])
+@pytest.mark.parametrize("kind,p1,p2", [("nlms", 100.0, 1e-4), ("kalman", 0.95, 1e-3),
+                                       ("block_kalman", 0.95, 1e-3)])
 @pytest.mark.parametrize("B,C", [(40, 8), (132, 6)])
 def test_aec_kernel_channel_groups(dev, kind, p1, p2, B, C):
     """Enough utterances that the plan gives a block several channels and an
@@ -429,7 +443,8 @@ def test_aec_kernel_channel_groups(dev, kind, p1, p2, B, C):
     _close(got, ref, 1e-4)
 
 
-@pytest.mark.parametrize("kind,p1,p2", [("nlms", 100.0, 1e-4), ("kalman", 0.95, 1e-3)])
+@pytest.mark.parametrize("kind,p1,p2", [("nlms", 100.0, 1e-4), ("kalman", 0.95, 1e-3),
+                                       ("block_kalman", 0.95, 1e-3)])
 @pytest.mark.parametrize("Tf,B,C,M", [(1, 2, 4, 256), (3, 1, 2, 256), (23, 3, 4, 256),
                                       (37, 2, 1, 128), (38, 1, 8, 128)])
 def test_aec_kernel_frame_counts(dev, kind, p1, p2, Tf, B, C, M):
@@ -497,6 +512,16 @@ def _old(*args):
         pytest.param(8, 3, 2, 128, 2, True, 90, id="C8-P3"),
         pytest.param(8, 1, 32, 256, 2, True, 100, id="C8-P1-lowerN32-fewer-systems"),
         pytest.param(4, 5, 2, 256, 2, True, 1254, id="config4-Tf1254"),
+        # past C*P = 24: seven to ten 4x4 tiles a side, one system a block at
+        # C = 8 (440 threads)
+        pytest.param(4, 7, 2, 256, 2, True, 90, id="CP28"),
+        pytest.param(8, 4, 2, 256, 2, True, 90, id="C8-P4-CP32"),
+        pytest.param(8, 5, 2, 256, 2, False, 90, id="C8-P5-CP40-first-iteration"),
+        pytest.param(8, 5, 2, 256, 2, True, 130, id="C8-P5-CP40"),
+        pytest.param(8, 5, 32, 128, 1, True, 100, id="C8-P5-lowerN32"),
+        pytest.param(5, 8, 2, 128, 2, True, 90, id="C5-P8"),
+        pytest.param(3, 13, 1, 128, 2, True, 90, id="C3-P13-CP39"),
+        pytest.param(1, 40, 2, 128, 3, True, 90, id="C1-P40"),
     ],
 )
 def test_wpe_stats_kernel_matches_plain(dev, C, P, lowerN, M, B, has_g, Tf):
@@ -545,6 +570,19 @@ def test_wpe_stats_kernel_repeats_to_the_bit(dev, has_g):
         pytest.param(4, 6, 2, 256, 2, 90, id="C4-P6"),
         pytest.param(4, 6, 32, 256, 2, 100, id="C4-P6-lowerN32-two-rings"),
         pytest.param(4, 5, 2, 256, 2, 1254, id="config4-Tf1254"),
+        # past 24 taps a target: one target a thread, and at C >= 5, M = 256
+        # two blocks an utterance's chunk (a ragged second group at C = 5, 7)
+        pytest.param(8, 5, 2, 256, 2, 300, id="C8-P5"),
+        pytest.param(8, 5, 2, 128, 2, 90, id="C8-P5-M128"),
+        pytest.param(8, 4, 32, 256, 2, 100, id="C8-P4-lowerN32-two-rings"),
+        pytest.param(5, 8, 2, 256, 2, 90, id="C5-P8"),
+        pytest.param(7, 5, 2, 256, 2, 90, id="C7-P5"),
+        pytest.param(6, 6, 3, 256, 2, 90, id="C6-P6"),
+        pytest.param(4, 10, 2, 256, 2, 90, id="C4-P10"),
+        pytest.param(4, 7, 32, 256, 1, 100, id="C4-P7-lowerN32-two-rings"),
+        pytest.param(3, 13, 1, 128, 2, 90, id="C3-P13"),
+        pytest.param(2, 20, 2, 256, 2, 90, id="C2-P20"),
+        pytest.param(1, 40, 2, 128, 2, 90, id="C1-P40"),
     ],
 )
 def test_wpe_resid_kernel_matches_plain(dev, C, P, lowerN, M, B, Tf):
@@ -565,7 +603,12 @@ def test_wpe_resid_kernel_matches_plain(dev, C, P, lowerN, M, B, Tf):
                                  # blocks of 4 warps an SM; at n = 31, 3 by shared
                                  # memory): every warp solves several, staging the
                                  # next into its second slot
-                                 (20, 16901), (5, 16901), (31, 3301)])
+                                 (20, 16901), (5, 16901), (31, 3301),
+                                 # n = 32 .. 40: rows 32 .. 39 split across four lanes
+                                 # each, one system a warp's slot; more systems than
+                                 # warps at n = 33 and 40
+                                 (32, 7), (33, 16901), (36, 5), (39, 9), (40, 1001),
+                                 (40, 16901)])
 def test_gj_solve_kernel_matches_plain(dev, n, N):
     """Diagonally loaded Hermitian positive-definite systems, as WPE builds them."""
     rng = np.random.default_rng(n * N)
@@ -582,7 +625,7 @@ def test_gj_solve_kernel_matches_plain(dev, n, N):
     _close_per_system(got, ref, 1e-4, 1)
 
 
-@pytest.mark.parametrize("n", [1, 6, 20, 24, 31])
+@pytest.mark.parametrize("n", [1, 6, 20, 24, 31, 33, 40])
 def test_gj_solve_kernel_zero_pivot(dev, n):
     """A zero pivot divides by 1, as the plain version does: R's first
     diagonal entry set to zero in every third system."""
@@ -667,13 +710,15 @@ def test_wrappers_raise_on_bad_cuda_input(dev):
     G = torch.zeros((2, 4, 129, 20), dtype=torch.complex64, device=dev)
     with pytest.raises(ValueError, match="CUDA"):
         wpe_stats(A, G.cpu(), 2, 5)
+    with pytest.raises(RuntimeError, match="shape outside"):  # C*P = 44 > 40
+        wpe_stats(A, torch.zeros((2, 4, 129, 44), dtype=torch.complex64, device=dev), 2, 11)
     with pytest.raises(RuntimeError, match="shape outside"):
-        wpe_stats(A, torch.zeros((2, 4, 129, 28), dtype=torch.complex64, device=dev), 2, 7)
+        wpe_resid(A, torch.zeros((2, 4, 129, 44), dtype=torch.complex64, device=dev), 2)
     with pytest.raises(ValueError, match="complex64"):
         wpe_resid(A, G.to(torch.complex128), 2)
-    R = torch.zeros((5, 32, 32), dtype=torch.complex64, device=dev)
-    with pytest.raises(RuntimeError, match="shape outside"):
-        gj_solve(R, torch.zeros((5, 32), dtype=torch.complex64, device=dev))
+    R = torch.zeros((5, 41, 41), dtype=torch.complex64, device=dev)
+    with pytest.raises(RuntimeError, match="shape outside"):  # n = 41 > 40
+        gj_solve(R, torch.zeros((5, 41), dtype=torch.complex64, device=dev))
     assert set(kernels.launch_counts().values()) == {0}
 
 
@@ -1242,12 +1287,20 @@ def test_lms_and_no_postfilter_pipelines_match_plain(dev, C, bf, pf, launches):
     _close(got, ref, 3e-4)
 
 
-@pytest.mark.parametrize("aec", ["nlms", "kalman"])
-def test_config4_lms_pipeline_matches_plain(dev, aec):
+@pytest.mark.parametrize("aec,C", [
+    pytest.param("nlms", 4, id="nlms"), pytest.param("kalman", 4, id="kalman"),
+    # BASELINE config 4 at 8 channels: the default taps give C*P = 40
+    pytest.param("nlms", 8, id="nlms-C8"), pytest.param("block_kalman", 8, id="block_kalman-C8"),
+    pytest.param("block_kalman", 4, id="block_kalman"),
+])
+def test_config4_lms_pipeline_matches_plain(dev, aec, C):
     """Config 4's chain with the LMS GSC: AEC -> WPE -> LMS scan, on the card
-    against the same module on the CPU, with every kernel's launch count."""
-    cpu, gpu, x = _pipe_case(4, 9000, seed=11, beamformer="gsc_lms", postfilter="zelinski",
-                             aec=aec, wpe=True)
+    against the same module on the CPU, with every kernel's launch count.
+    The block Kalman runs with the Kalman values of the JAX package's tests
+    (beta = 0.95, sigmau2 = 1e-3)."""
+    p = dict(aec_delta=0.95, aec_epsilon=1e-3) if aec == "block_kalman" else {}
+    cpu, gpu, x = _pipe_case(C, 9000, seed=11, beamformer="gsc_lms", postfilter="zelinski",
+                             aec=aec, wpe=True, **p)
     play = torch.from_numpy((np.random.default_rng(12).standard_normal((3, 9000)) * 1500)
                             .astype(np.float32))
     with torch.no_grad():
