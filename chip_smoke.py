@@ -102,7 +102,22 @@ Phases (each raises on failure; the script then exits non-zero):
      batched torch.matmul, K12: torch.linalg.solve), of the path, its peak
      memory and a profile of three forwards; then (12d) the same input
      through the gsc_rls route (K2 at 8 channels): launch counts, its first
-     32 utterances against its plain chain, its time.
+     32 utterances against its plain chain, its time;
+ 13. the McCowan, Lefkimmiatis and APAB postfilters (one kernel, no TPU
+     counterpart): the kernel against its plain version at B=8 x 2 s for
+     each kind, REAL and ABS mode, C = 2, 4 and 8, given the beamformer's
+     output and forming wqH X itself (1e-4); at B=256 x 4 ch x 10 s each
+     kind against its plain version and its CUDA-event times (output given
+     and formed), and McCowan's at 8 channels; then five paths through
+     build_pipeline() with the default device, each with its launch counts
+     (exactly the route's kernels), its first 32 utterances against the
+     plain chain (3e-4), its time, audio-s/s and peak memory:
+     gsc-rls-mccowan-b256 (K1, K2 without its gain, the postfilter kernel,
+     K3), ds-lefkimmiatis-b256, sdmvdr-apab-b256 (K1, the kernel forming
+     wqH X, K3), gsc-lms-mccowan-c8-b256 (8 channels: K1, the LMS gate pass
+     and scan, the postfilter, K3) and ds-config4-b32 (D&S + Zelinski
+     behind the NLMS canceller and WPE: K1 twice, K9, K10 and K12 twice,
+     K11, K7, K3), the first two also profiled.
 Phase 2 also prints K2/K6's launch (blocks, threads, frames a chunk, shared
 memory, registers, blocks per SM) at B = 256, 132, 64 and 1 (C = 4) and at
 B = 256, C = 8; phase 5 also times K2 on the first 64 utterances and on the
@@ -128,7 +143,7 @@ both Zelinski modes, pf_min_frames 0 and 2), and the steered scan against
 its plain version with eight different steerings and, given one steering for
 all, against the flagship scan bit for bit.
 The line before the last two is a JSON object with one entry per kernel
-("launches" counts the runs of all six paths, "launches_by_path" each
+("launches" counts the runs of all the paths, "launches_by_path" each
 path's, one forward each; K4, K5 and K8 also carry their error against the
 split kernels, K1, K3 and K8 the time of torch.fft over the same rows as a
 second yardstick, "fft_ms", K1 its dense-product route's time at M = 256,
@@ -139,7 +154,9 @@ include its gate pass, which has a row of its own, "lms_gates"); K4 its time
 and bound at 8 channels, "c8"; K9 its Kalman form's time,
 "kalman_ms", and its block Kalman form's, "block_kalman_ms"; K12 its time,
 bound and library time at n = 24 and 40, "n24" and "n40"; K9-K12 their
-forms at config 4's 8 channels, "c8"); the line before the last is the card's name and
+forms at config 4's 8 channels, "c8"; the postfilter kernel its times by
+kind, "by_kind", at 8 channels, "c8", and phase 13's paths, "paths"); the
+line before the last is the card's name and
 power limit; the last line is {"ok": true, "device": {...}}.  Imports
 nothing of JAX.
 """
@@ -235,7 +252,13 @@ def main() -> None:
     from distant_speech_recognition_tpu_torch.models.beamforming import (
         apply_weights,
         array_manifold,
+        diffuse_noise_coherence,
         frame_energy_half,
+        superdirective_weights,
+    )
+    from distant_speech_recognition_tpu_torch.models.coherence_postfilter import (
+        coherence_postfilter,
+        coherence_postfilter_plain,
     )
     # the packed WPE path's loading (with its default constants) and
     # apply-time tap truncation, between the kernels held below
@@ -265,6 +288,7 @@ def main() -> None:
         PipelineConfig,
         build_pipeline,
     )
+    from distant_speech_recognition_tpu_torch.models.postfilter import coherence_constants
     from distant_speech_recognition_tpu_torch.models.steered import (
         build_steered_pipeline,
         steering_weights,
@@ -1717,6 +1741,153 @@ def main() -> None:
         f"({audio_s / (path12r_ms / 1e3):.1f} audio-s/s/GPU)")
     del enh12r, x12, play12
 
+    # -- 13. the McCowan, Lefkimmiatis and APAB postfilters ------------------------
+    kinds13 = (("mccowan", 1), ("mccowan", 2), ("lefkimmiatis", 1), ("lefkimmiatis", 2),
+               ("apab", 1))
+
+    def pf_setup(C_):
+        """SD-MVDR weights, the manifold and the diffuse coherence of the
+        bench.py array widened to ``C_`` mics."""
+        mpos_ = np.c_[np.arange(C_) * 50.0, np.zeros((C_, 2))]
+        delays_ = geometry.calc_la_delays(mpos_[:, :1], azimuth=np.pi / 3)
+        return (superdirective_weights(mpos_, delays_, M, float(FS)).to(dev),
+                array_manifold(M, float(FS), delays_).to(dev),
+                diffuse_noise_coherence(mpos_, M, float(FS)))
+
+    def pf_consts(kind, pf_type, vs_, Gamma_):
+        c_ = coherence_constants(kind, Gamma_, vs_.cpu(), pf_type)
+        return None if c_ is None else c_.to(dev)
+
+    log("== 13. coherence postfilter kernel (McCowan, Lefkimmiatis, APAB) vs plain torch on the "
+        "card (B=8, 2 s; SD-MVDR output given, and formed in the kernel)")
+    for C_ in (2, 4, 8):
+        wqH_, vs_, Gamma_ = pf_setup(C_)
+        with torch.no_grad():
+            Yr_ = analysis_tm_fused(torch.from_numpy(signal(rng, (8, C_, 2 * FS))).to(dev),
+                                    enh.h, fb, A=enh.A, hr=enh.hr)
+            Yp_ = pack_half(apply_weights(wqH_, unpack_half(Yr_).movedim(-2, -1)))
+            for kind, pf_type in kinds13:
+                a_ = (wqH_, vs_, kind, pf_consts(kind, pf_type, vs_, Gamma_), 0.6, pf_type, 2)
+                ref_ = coherence_postfilter_plain(Yr_, Yp_, *a_)
+                name_ = f"coherence_postfilter {kind} {'real' if pf_type == 1 else 'abs'} C={C_}"
+                compare(name_, coherence_postfilter(Yr_, Yp_, *a_), ref_, 1e-4,
+                        "coherence_postfilter")
+                compare(name_ + " fixed weights", coherence_postfilter(Yr_, None, *a_),
+                        coherence_postfilter_plain(Yr_, None, *a_), 1e-4, "coherence_postfilter")
+        del Yr_, Yp_, ref_
+
+    # the kernel alone at the flagship shape, the beamformer output given
+    log(f"== 13b. coherence postfilter kernel at B={B} x {C} ch x {secs} s")
+    x13 = torch.from_numpy(signal(rng, (B, C, T))).to(dev)
+    pf13 = {}  # kind -> kernel ms, plain ms, fixed-weight form ms
+    wqH13, vs13, Gamma13 = pf_setup(C)
+    with torch.no_grad():
+        Yr13 = analysis_tm_fused(x13, enh.h, fb, A=enh.A, hr=enh.hr)
+        Yp13 = pack_half(apply_weights(wqH13, unpack_half(Yr13).movedim(-2, -1)))
+        for kind in ("mccowan", "lefkimmiatis", "apab"):
+            a_ = (wqH13, vs13, kind, pf_consts(kind, 1, vs13, Gamma13), cfg.pf_alpha, 1, 2)
+            ref_, plain_ms_ = timed(lambda: coherence_postfilter_plain(Yr13, Yp13, *a_))
+            compare(f"coherence_postfilter {kind} at B={B}", coherence_postfilter(Yr13, Yp13, *a_),
+                    ref_, 1e-4, "coherence_postfilter")
+            del ref_
+            pf13[kind] = (time_ms(lambda: coherence_postfilter(Yr13, Yp13, *a_), 5), plain_ms_,
+                          time_ms(lambda: coherence_postfilter(Yr13, None, *a_), 5))
+            log(f"  {kind}: kernel {pf13[kind][0]:.3f} ms (Y given)   {pf13[kind][2]:.3f} ms (Y "
+                f"formed)   plain {plain_ms_:.3f} ms   ({smi_line()})")
+        del Yr13, Yp13
+        # McCowan at 8 channels (gsc-lms-mccowan-c8-b256's shape), Y given
+        x13_8 = torch.from_numpy(signal(rng, (B, C3, T))).to(dev)
+        wqH13, vs13, Gamma13 = pf_setup(C3)
+        Yr13 = analysis_tm_fused(x13_8, enh.h, fb, A=enh.A, hr=enh.hr)
+        Yp13 = pack_half(apply_weights(wqH13, unpack_half(Yr13).movedim(-2, -1)))
+        a_ = (wqH13, vs13, "mccowan", pf_consts("mccowan", 1, vs13, Gamma13), cfg.pf_alpha, 1, 2)
+        pf13_c8_ms = time_ms(lambda: coherence_postfilter(Yr13, Yp13, *a_), 5)
+        log(f"  mccowan at {C3} channels: kernel {pf13_c8_ms:.3f} ms (Y given)")
+        del Yr13, Yp13
+
+    # the paths: K1 -> [K9 -> WPE] -> beamformer -> postfilter -> K3, each with
+    # its launch counts, time, peak memory and its first 32 utterances against
+    # the plain chain
+    B13 = min(32, B)
+
+    def plain_chain13(enh_, cfg_, x_, play_=None):
+        """The plain chain of a pipeline: analysis, [NLMS AEC, WPE],
+        the plain beamformer (a GSC's scan without its gain), the plain
+        postfilter, synthesis."""
+        Yr_ = plain_analysis(x_)
+        if play_ is not None:
+            Yr_ = plain_wpe(plain_aec(Yr_, plain_analysis(play_[:, None, :])[:, :, 0, :]))
+        w_ = (enh_.wqH, enh_.wq_manifold)
+        if cfg_.beamformer in FIXED_WEIGHT:
+            Yp_ = None
+        else:
+            lms_ = cfg_.beamformer == "gsc_lms"
+            Yp_ = gsc_postfilter_fused(Yr_, None, enh_.wqH, enh_.BmH, enh_.wq_manifold,
+                                       "lms" if lms_ else "rls", cfg_.lms if lms_ else cfg_.rls,
+                                       cfg_.pf_alpha, cfg_.pf_type, NO_POSTFILTER, True)
+        if cfg_.postfilter == "zelinski":
+            Yp_ = zelinski_apply_plain(Yr_, *w_, cfg_.pf_alpha, cfg_.pf_type, cfg_.pf_min_frames)
+        else:
+            Yp_ = coherence_postfilter_plain(Yr_, Yp_, *w_, cfg_.postfilter, enh_.pf_consts,
+                                             cfg_.pf_alpha, cfg_.pf_type, cfg_.pf_min_frames)
+        return plain_synthesis(Yp_)
+
+    play13 = torch.from_numpy(signal(rng, (B13, T))).to(dev)
+    paths13 = (
+        ("gsc-rls-mccowan-b256", dict(beamformer="gsc_rls", postfilter="mccowan"), C, B,
+         {"gsc_rls_zelinski": 1}),
+        ("ds-lefkimmiatis-b256", dict(beamformer="ds", postfilter="lefkimmiatis"), C, B, {}),
+        ("sdmvdr-apab-b256", dict(beamformer="sd_mvdr", postfilter="apab"), C, B, {}),
+        ("gsc-lms-mccowan-c8-b256", dict(beamformer="gsc_lms", postfilter="mccowan"), C3, B,
+         {"lms_gates": 1, "gsc_lms_zelinski": 1}),
+        ("ds-config4-b32", dict(beamformer="ds", postfilter="zelinski", aec="nlms", wpe=True,
+                                wpe_iterations=2), C, B13,
+         {"analysis_tm": 2, "aec_scan": 1, "wpe_stats": 2, "gj_solve": 2, "wpe_resid": 1,
+          "zelinski_apply": 1}),
+    )
+    path13, counts13 = {}, {}
+    for name13, kw13, C_, B_, extra in paths13:
+        cfg13 = dataclasses.replace(cfg, **kw13)
+        mpos_ = mpos3 if C_ == C3 else mpos
+        enh13 = build_pipeline(cfg13, mpos_, delays3 if C_ == C3 else delays, h, g)
+        xin = (x13_8 if C_ == C3 else x13)[:B_]
+        args13 = (xin,) + ((play13[:B_],) if cfg13.aec != "none" else ())
+        log(f"== 13c. {name13}: build_pipeline(beamformer={cfg13.beamformer!r}, "
+            f"postfilter={cfg13.postfilter!r}, aec={cfg13.aec!r}, wpe={cfg13.wpe}) on the card, "
+            f"B={B_} x {C_} ch x {secs} s")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        with torch.no_grad():
+            y13 = enh13(*args13)
+        torch.cuda.synchronize()
+        c13 = kernels.launch_counts()
+        peak13 = torch.cuda.max_memory_allocated() / 1e9
+        want = dict.fromkeys(c13, 0) | {"analysis_tm": 1, "synthesis_tm": 1}
+        want |= {"coherence_postfilter": 1} if cfg13.postfilter != "zelinski" else {}
+        want |= extra
+        log(f"  launches {c13}")
+        if c13 != want:
+            raise AssertionError(f"{name13} launches {c13}, the path needs {want}")
+        if tuple(y13.shape) != (B_, T_out) or not torch.isfinite(y13).all():
+            raise AssertionError(f"{name13} output {tuple(y13.shape)} is not finite {(B_, T_out)}")
+        counts13[name13] = c13
+        with torch.no_grad():
+            ref13 = plain_chain13(enh13, cfg13, xin[:B13], *args13[1:])
+            err13 = compare(f"{name13} (build_pipeline) vs plain chain, first {B13}", y13[:B13],
+                            ref13, 3e-4)
+            del y13, ref13
+            ms13 = time_ms(lambda: enh13(*args13), 3)
+        path13[name13] = dict(ms=ms13, audio_s_per_s=B_ * secs / (ms13 / 1e3), peak_gb=peak13,
+                              max_abs_err=err13, launches=c13)
+        log(f"  {name13}: {ms13:.3f} ms ({B_ * secs / (ms13 / 1e3):.1f} audio-s/s/GPU), peak "
+            f"device memory of one forward {peak13:.2f} GB   ({smi_line()})")
+        if name13 in ("gsc-rls-mccowan-b256", "ds-lefkimmiatis-b256"):
+            log(f"  torch.profiler over 3 back-to-back {name13} forwards")
+            profile_path(lambda: enh13(*args13))
+        del enh13
+    del x13, x13_8, play13
+
     # least time on the card for the work of each timed call, from its shapes
     def rls_macs(Cx):  # K2's complex multiply-adds per (frame, utterance, bin) at Cx channels
         Bx = Cx - 1
@@ -1732,6 +1903,21 @@ def main() -> None:
         return bound(4 * (B * Cx * T + B * T_out + 2 * M * M + 2 * fb.N) + 8 * F * Cx * (1 + Cx),
                      (rows_x + Tf * B) * fft_flops + 2 * fb.m * M * rows_x + fir_out
                      + 8 * rls_macs(Cx) * Tf * B * F)
+
+    def pf_flops(kind, Cx):
+        """The coherence postfilter's flops a (frame, utterance, bin): the
+        aligned snapshot and its powers (9 a channel), the pair terms of both
+        parts of the cross product with the constants (14 a pair; the
+        Lefkimmiatis noise series 8 more), the smoothing and the gain (~16);
+        APAB's reference sum and gain instead of the pairs."""
+        NPx = Cx * (Cx - 1) // 2
+        per_pair = {"mccowan": 14, "lefkimmiatis": 22, "apab": 0}[kind]
+        return 9 * Cx + per_pair * NPx + (4 * Cx + 8 if kind == "apab" else 16)
+
+    def pf_bound(kind, Cx=C, given=True):
+        """The coherence postfilter's least time at B x Cx ch: X (and the
+        beamformer output where it is given) read, the output written."""
+        return bound(4 * Tf * B * M * (Cx + (2 if given else 1)), pf_flops(kind, Cx) * Tf * B * F)
 
     CP = C * P
     valid = Tf - lower  # frames that carry WPE weight
@@ -1784,6 +1970,10 @@ def main() -> None:
         "gsc_mono": k4_bound(C),
         "gsc_analysis": bound(4 * (B * C * T + Tf * B * M + M * M + fb.N) + 8 * F * C * (2 + Bc),
                               rows * fft_flops + fir_in + rls_flops),
+        # X and the beamformer output in, the output out (the constants and
+        # weights are a few hundred KB); flops of one (frame, utterance,
+        # bin) in `pf_flops`
+        "coherence_postfilter": pf_bound("mccowan"),
         # the reversed windows in, the FIR rows out
         "polyphase_fir": bound(4 * ((2 * fir_rows + B * C * (fb.m - 1) * fb.R) * M + fb.N),
                                2 * fb.m * M * fir_rows),
@@ -1817,12 +2007,18 @@ def main() -> None:
         "lms_gates": ("gsc_lms_zelinski.cu",
                       "distant_speech_recognition_tpu/models/adaptive_gsc.py:169 "
                       "(the LMS step's silence gate in the XLA scan; no TPU kernel)"),
+        "coherence_postfilter": (
+            "coherence_postfilter.cu",
+            "distant_speech_recognition_tpu/models/postfilter.py:178/:223/:287 "
+            "(XLA scans of mccowan / lefkimmiatis / apab_postfilter; no TPU kernel)"),
     }
+    times["coherence_postfilter"] = pf13["mccowan"][:2]  # McCowan REAL, Y given: gsc-rls-mccowan's
+    library["coherence_postfilter"] = None
     by_path = {"flagship": counts, "config4": counts4, "config4_block_kalman": counts4bk,
                "fixed_weight": counts_fw, "fixed_weight_split": counts_split,
                "config5": counts5, "filterbank": counts_fb, "config3": counts3,
                "config4_c8": counts12, "config4_c8_rls": counts12r} | {
-                   f"{bf}_none": c for bf, c in counts_none.items()}
+                   f"{bf}_none": c for bf, c in counts_none.items()} | counts13
     # the RLS kernels at config 3's 8 channels (phase 11)
     c8 = {"gsc_rls_zelinski": (k2_8_ms, k2_bound(C3)), "gsc_mono": (k4_8_ms, k4_bound(C3))}
     for name, (ms_, (b_ms, b_by)) in c8.items():
@@ -1866,6 +2062,15 @@ def main() -> None:
             row["kalman_ms"], row["kalman_plain_ms"] = kalman_ms
             row["block_kalman_ms"], row["block_kalman_plain_ms"] = block_kalman_ms
             row["launch"] = aec_shapes[f"B={B} C={C} nlms"]
+        if name == "coherence_postfilter":  # "ms" is McCowan's in REAL mode, Y given
+            row["by_kind"] = {
+                k_: {"ms": v[0], "plain_ms": v[1], "fixed_weight_ms": v[2],
+                     "bound_ms": pf_bound(k_)[0], "bound_by": pf_bound(k_)[1],
+                     "fixed_weight_bound_ms": pf_bound(k_, given=False)[0]}
+                for k_, v in pf13.items()}
+            row["c8"] = {"ms": pf13_c8_ms, "bound_ms": pf_bound("mccowan", C3)[0],
+                         "bound_by": pf_bound("mccowan", C3)[1]}
+            row["paths"] = path13
         if name == "gj_solve":  # "ms" is n = C*P = 20's, the path's
             b24 = gj_bound(C * (P + 1), n_sys)
             row["n24"] = {"ms": gj24_ms[0], "plain_ms": gj24_ms[1], "library_ms": gj24_ms[2],

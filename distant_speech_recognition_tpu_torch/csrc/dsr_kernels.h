@@ -106,6 +106,16 @@ int dsr_zelinski_apply(const float* Yp, const float* wq, const float* ta, float*
                        float pf_gain, float spectral_floor, int real_mode, int pf_min_frames,
                        cudaStream_t stream);
 
+// the McCowan (kind 0 real part, 1 modulus), Lefkimmiatis (2, 3) and APAB (4)
+// postfilters (no TPU kernel: the JAX package's XLA scans) on X [Tf, B, C, M]
+// and the beamformer output Yp [Tf, B, M], or, where Yp is null, Y = wqH X
+// formed in the kernel; wq, ta: interleaved complex64 [F, C]; k: the per-bin
+// constants [K, F] (null for APAB); pf_norm = 2 / (C (C-1))
+int dsr_coherence_postfilter(const float* Xp, const float* Yp, const float* wq, const float* ta,
+                             const float* k, float* out, int Tf, int B, int C, int M, int kind,
+                             float pf_alpha, float one_minus_pf_alpha, float pf_norm,
+                             float spectral_floor, int pf_min_frames, cudaStream_t stream);
+
 // wq, ta: interleaved complex64 [F, C]; tw: as for dsr_analysis_tm; out
 // [B, T_out * D]; rows: the caller's analysis rows per frame tile, refused
 // unless the kernel's own

@@ -15,6 +15,10 @@ path went through the kernels:
 - K4 `models.fused_scan.analysis_gsc_synthesis` and K5
   `models.fused_scan.analysis_gsc_rls_zelinski` (``csrc/gsc_mono.cu``);
 - K7 `models.fixed_weight.zelinski_apply` (``csrc/zelinski_apply.cu``);
+- the McCowan, Lefkimmiatis and APAB postfilters
+  `models.coherence_postfilter.coherence_postfilter`
+  (``csrc/coherence_postfilter.cu``; it replaces no TPU kernel: the JAX
+  package runs them in XLA);
 - K8 `models.fixed_weight.analysis_fw_synthesis` (``csrc/fw_mono.cu``);
 - K9 `ops.aec_kernels.aec_scan` (``csrc/aec_scan.cu``);
 - K10 `ops.wpe_kernels.wpe_stats`, K11 `ops.wpe_kernels.wpe_resid`, K12
@@ -33,6 +37,7 @@ __all__ = [
 
 
 def _wrappers():
+    from ..models.coherence_postfilter import coherence_postfilter
     from ..models.fixed_weight import analysis_fw_synthesis, zelinski_apply
     from ..models.fused_scan import (
         analysis_gsc_rls_zelinski,
@@ -62,6 +67,7 @@ def _wrappers():
         "polyphase_fir": polyphase_fir,
         "gsc_lms_zelinski": gsc_lms_zelinski,
         "lms_gates": lms_gates,
+        "coherence_postfilter": coherence_postfilter,
     }
 
 

@@ -29,7 +29,7 @@ SOURCES = (
     "analysis_tm.cu", "gsc_rls_zelinski.cu", "synthesis_tm.cu",
     "aec_scan.cu", "wpe_stats.cu", "wpe_resid.cu", "gj_solve.cu",
     "zelinski_apply.cu", "fw_mono.cu", "gsc_mono.cu", "polyphase_fir.cu", "gsc_lms_zelinski.cu",
-    "fastdiv_check.cu",
+    "coherence_postfilter.cu", "fastdiv_check.cu",
 )
 HEADERS = ("dsr_kernels.h", "dsr_device.h", "dsr_fft.h", "gsc_step.h", "gsc_scan.h")
 NVCC_FLAGS = (
@@ -66,6 +66,9 @@ _SIGNATURES = {
     "dsr_gsc_lms_zelinski_shape": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     "dsr_fastdiv_check": [_P, _P, _P, _P, _I, _I, _P],
     "dsr_zelinski_apply": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I, _P],
+    "dsr_coherence_postfilter": [
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P,
+    ],
     "dsr_fw_mono": [
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
         _F, _F, _F, _F, _I, _I, _P,

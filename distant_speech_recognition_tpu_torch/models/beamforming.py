@@ -27,6 +27,7 @@ __all__ = [
     "delay_and_sum_weights",
     "lcmv_weights",
     "diffuse_noise_coherence",
+    "noise_coherence_gain",
     "mvdr_weights",
     "superdirective_weights",
 ]
@@ -153,6 +154,22 @@ def diffuse_noise_coherence(mpos, fftlen: int, samplerate: float,
     freqs = np.arange(F) * samplerate / float(fftlen)
     gamma = np.sinc(2.0 * freqs[:, None, None] * d[None] / sspeed)
     return torch.from_numpy(gamma.astype(np.float32)).to(torch.complex64)
+
+
+def noise_coherence_gain(Gamma: torch.Tensor, vs: torch.Tensor,
+                         threshold: float = 1.0e-8) -> torch.Tensor:
+    """``Lambda = d^H Gamma^+ d`` per bin, complex ``[..., F]``, for the
+    coherence ``Gamma [..., F, C, C]`` and the manifold ``d = vs [..., F,
+    C]``: the array's gain against that noise field, which scales the
+    Lefkimmiatis postfilter's noise PSD (postfilter.cc:1098-1161).  The
+    pseudo-inverse is `_pinv_hermitian`'s, with the reference's absolute
+    ``threshold``; the JAX package drops eigenvalues by that threshold
+    alone, the port also at its relative rounding floor, which parts the
+    two only where ``Gamma`` is near singular (low bins of a small array,
+    not the bins the postfilter reads Lambda at)."""
+    invR = _pinv_hermitian(Gamma, threshold)
+    tmp = torch.einsum("...ji,...j->...i", torch.conj(invR), vs)
+    return torch.sum(torch.conj(tmp) * vs, dim=-1)
 
 
 def mvdr_weights(R: torch.Tensor, vs: torch.Tensor, dthreshold: float = 1.0e-8) -> torch.Tensor:

@@ -1,6 +1,6 @@
-"""End-to-end enhancement pipelines: analysis -> [AEC] -> [WPE] -> adaptive
-GSC (RLS or LMS) [+ Zelinski] -> synthesis, and analysis -> fixed weights [+
-Zelinski] -> synthesis.
+"""End-to-end enhancement pipelines: analysis -> [AEC] -> [WPE] ->
+beamformer (adaptive GSC, RLS or LMS, or fixed weights) -> [postfilter] ->
+synthesis.
 
 The flagship chain of the reference's canonical pull graph
 (unit_test/test_online_beamforming.py:82-159: SampleFeature ->
@@ -15,21 +15,24 @@ channel, aec.cc:41-81 -> dereverberation.cc:214-275).
 out-of-loop ``wrapper_weights_calculator`` does, and returns an `Enhancer`
 module whose buffers live on the requested device, the card unless the
 caller asks for the CPU.  On a CUDA device its forward pass runs the CUDA
-kernels; on the CPU, their plain versions.  Ported, each with ``postfilter``
-"zelinski" or "none": ``beamformer="gsc_rls"`` and ``"gsc_lms"`` (BASELINE
-config 3) with ``aec`` in none | nlms | kalman | block_kalman (one tap) and
-WPE on or off (C*P <= 40: BASELINE config 4 at 8 channels), and the
-fixed-weight beamformers ``ds``, ``sd_mvdr`` and ``lcmv`` (BASELINE configs
-1-2) without AEC or WPE.  The flagship chain (GSC-RLS + Zelinski without AEC
-and WPE) and the fixed-weight chains with Zelinski are each one kernel
-(`fused_scan.analysis_gsc_synthesis`, `fixed_weight.analysis_fw_synthesis`)
-where its frame tiles take the shape (`fused_scan.gsc_mono_supported`,
-`fixed_weight.fw_mono_supported`), else the analysis, beamformer and
-synthesis kernels in a row: the adaptive beamformers through their scan
-kernels (`fused_scan.gsc_rls_zelinski`, `gsc_lms_zelinski`; without the
-postfilter the scan's gain is never applied), the fixed weights through
-K7 with Zelinski or a plain product ``wqH X`` without (XLA's
-`apply_weights` in the JAX package).
+kernels; on the CPU, their plain versions.  Ported: ``beamformer`` in
+gsc_rls | gsc_lms (BASELINE config 3) | ds | sd_mvdr | lcmv (BASELINE configs
+1-2), ``postfilter`` in none | zelinski | mccowan | lefkimmiatis | apab,
+``aec`` in none | nlms | kalman | block_kalman (one tap) and WPE on or off
+(C*P <= 40: BASELINE config 4 at 8 channels), in every combination.  The
+flagship chain (GSC-RLS + Zelinski without AEC and WPE) and the
+fixed-weight chains with Zelinski and without AEC and WPE are each one
+kernel (`fused_scan.analysis_gsc_synthesis`,
+`fixed_weight.analysis_fw_synthesis`) where its frame tiles take the shape
+(`fused_scan.gsc_mono_supported`, `fixed_weight.fw_mono_supported`), else
+the analysis, [echo canceller, WPE,] beamformer and synthesis kernels in a
+row: the adaptive beamformers through their scan kernels
+(`fused_scan.gsc_rls_zelinski`, `gsc_lms_zelinski`; with any postfilter
+but Zelinski the scan's gain is never applied), the fixed weights through
+K7 with Zelinski or a plain product ``wqH X`` without a postfilter (XLA's
+`apply_weights` in the JAX package); the McCowan, Lefkimmiatis and APAB
+postfilters through `coherence_postfilter.coherence_postfilter`, given the
+scan's output or, behind fixed weights, forming ``wqH X`` itself.
 """
 
 from __future__ import annotations
@@ -56,6 +59,7 @@ from ..ops.wpe_kernels import WPE_MAX_CHANNELS, WPE_MAX_CP, WPE_MAX_LOWER, wpe_s
 from . import beamforming as bf
 from .adaptive_gsc import GSCLMSConfig, GSCRLSConfig, gsc_weights
 from .dereverberation import wpe_multichannel_packed_tm
+from .coherence_postfilter import coherence_postfilter
 from .fixed_weight import analysis_fw_synthesis, fw_mono_supported, zelinski_apply
 from .fused_scan import (
     NO_POSTFILTER,
@@ -64,17 +68,19 @@ from .fused_scan import (
     gsc_mono_supported,
     gsc_rls_zelinski,
 )
-from .postfilter import PostFilterType
+from .postfilter import COHERENCE_POSTFILTERS, PostFilterType, coherence_constants
 
 __all__ = ["PipelineConfig", "Enhancer", "build_pipeline", "from_jax_params", "FIXED_WEIGHT",
-           "check_card_shapes"]
+           "POSTFILTERS", "check_card_shapes"]
 
 # beamformers whose weights are fixed at build time (BASELINE configs 1-2)
 FIXED_WEIGHT = ("ds", "sd_mvdr", "lcmv")
 # adaptive GSCs: quiescent weights and a blocking matrix at build time, the
 # active weights adapted per frame (BASELINE configs 3-5)
 ADAPTIVE = ("gsc_lms", "gsc_rls")
-POSTFILTERS = ("none", "zelinski")
+POSTFILTERS = ("none", "zelinski") + COHERENCE_POSTFILTERS
+# the postfilters that read the noise coherence Gamma
+GAMMA_POSTFILTERS = ("mccowan", "lefkimmiatis")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,7 +99,7 @@ class PipelineConfig:
     fb: FilterbankParams = FilterbankParams()
     samplerate: float = 16000.0
     beamformer: str = "ds"  # ds | sd_mvdr | lcmv | gsc_lms | gsc_rls
-    postfilter: str = "none"  # none | zelinski
+    postfilter: str = "none"  # none | zelinski | mccowan | lefkimmiatis | apab
     pf_alpha: float = 0.6
     pf_type: int = PostFilterType.ZELINSKI1_REAL
     pf_min_frames: int = 0
@@ -115,19 +121,14 @@ class PipelineConfig:
 
 def _check_supported(cfg: PipelineConfig, n_chan: int | None = None) -> None:
     """Raise `NotImplementedError` for what the port does not run, on every
-    device: the block Kalman canceller with more than one tap (the JAX
-    package leaves it off its time-major chain), and, with ``n_chan`` where
-    known, a WPE shape past the kernels' limits (C <= 8, C*P <= 40, wpe_lower
-    <= 32)."""
+    device: a beamformer or postfilter it does not have, the block Kalman
+    canceller with more than one tap (the JAX package leaves it off its
+    time-major chain), and, with ``n_chan`` where known, a WPE shape past
+    the kernels' limits (C <= 8, C*P <= 40, wpe_lower <= 32)."""
     if cfg.beamformer not in FIXED_WEIGHT + ADAPTIVE or cfg.postfilter not in POSTFILTERS:
         raise NotImplementedError(
             f"beamformer={cfg.beamformer!r} postfilter={cfg.postfilter!r} is not ported; "
             f"only beamformer in {FIXED_WEIGHT + ADAPTIVE} with postfilter in {POSTFILTERS}"
-        )
-    if cfg.beamformer in FIXED_WEIGHT and (cfg.aec != "none" or cfg.wpe):
-        raise NotImplementedError(
-            f"beamformer={cfg.beamformer!r} with aec={cfg.aec!r} wpe={cfg.wpe} is not ported; "
-            "the fixed-weight beamformers run without AEC and WPE"
         )
     if cfg.aec != "none" and cfg.aec not in AEC_KINDS:
         raise NotImplementedError(f"aec={cfg.aec!r} is not ported; only none | "
@@ -191,10 +192,15 @@ class Enhancer(nn.Module):
     baked in); complex64 weights
     ``wqH [F, C]``, for the adaptive GSCs ``BmH [F, C-1, C]`` (None for the
     fixed-weight beamformers, which have no blocking matrix), and the
-    postfilter alignment manifold ``wq_manifold [F, C]``.
+    postfilter alignment manifold ``wq_manifold [F, C]``; for the McCowan
+    and Lefkimmiatis postfilters (and only for them) the real noise
+    coherence ``Gamma [F, C, C]`` (complex64) and the per-bin constants the
+    postfilter reads it through, ``pf_consts [K, F]``
+    (`postfilter.coherence_constants`).
     """
 
-    def __init__(self, cfg: PipelineConfig, h, g, wqH, BmH, wq_manifold, device="cuda"):
+    def __init__(self, cfg: PipelineConfig, h, g, wqH, BmH, wq_manifold, Gamma=None,
+                 device="cuda"):
         super().__init__()
         _check_supported(cfg)
         check_card_shapes(cfg.fb, wqH.shape[-1], torch.device(device).type)
@@ -236,7 +242,36 @@ class Enhancer(nn.Module):
             raise NotImplementedError(
                 f"BmH {tuple(self.BmH.shape)}: only one constraint (Nc=1, BmH [F, C-1, C]) is ported"
             )
+        if (Gamma is None) == (cfg.postfilter in GAMMA_POSTFILTERS):
+            raise ValueError(f"postfilter={cfg.postfilter!r}: the noise coherence Gamma is "
+                             f"required exactly for {GAMMA_POSTFILTERS}")
+        self.register_buffer("Gamma", None if Gamma is None else cplx(Gamma))
+        if self.Gamma is not None and self.Gamma.shape != (F, C, C):
+            raise ValueError(f"Gamma must be {(F, C, C)}, got {tuple(self.Gamma.shape)}")
+        consts = None
+        if self.Gamma is not None:  # computed once, on the host
+            consts = coherence_constants(cfg.postfilter, self.Gamma.cpu(),
+                                         self.wq_manifold.cpu(), cfg.pf_type).to(dev)
+        self.register_buffer("pf_consts", consts)
         _check_supported(cfg, C)
+
+    def _subbands(self, x: torch.Tensor, play: torch.Tensor | None) -> torch.Tensor:
+        """The packed time-major snapshots ``[Tf, B, C, M]`` the beamformer
+        reads: the analysis bank, then the echo canceller where there is a far
+        end and WPE where configured."""
+        c = self.cfg
+        taps = dict(A=self.A, hr=self.hr)
+        Yr = analysis_tm_fused(x, self.h, c.fb, **taps)
+        if play is not None:
+            Vp = analysis_tm_fused(play.to(torch.float32)[:, None, :], self.h, c.fb, **taps)
+            # block_kalman: beta = aec_delta, sigmau2 = aec_epsilon (JAX's call)
+            Yr = aec_scan(Yr, Vp, c.aec, c.aec_delta, c.aec_epsilon, c.aec_threshold)
+        if c.wpe:
+            Yr = wpe_multichannel_packed_tm(
+                Yr, c.wpe_lower, c.wpe_upper, c.wpe_iterations,
+                band_width=c.wpe_band_width, samplerate=c.samplerate,
+            )
+        return Yr
 
     def forward(self, x: torch.Tensor, play: torch.Tensor | None = None) -> torch.Tensor:
         if x.dim() != 3:
@@ -257,35 +292,33 @@ class Enhancer(nn.Module):
         taps = dict(A=self.A, hr=self.hr)
         synth = dict(S=self.S, gf=self.gf)
         zelinski = c.postfilter == "zelinski"
+        coherence = c.postfilter in COHERENCE_POSTFILTERS
         pf = (c.pf_alpha, c.pf_type, c.pf_min_frames if zelinski else NO_POSTFILTER)
-        if c.beamformer in FIXED_WEIGHT:
-            if zelinski and fw_mono_supported(c.fb, C):
-                return analysis_fw_synthesis(x, self.h, self.g, c.fb, self.wqH, self.wq_manifold,
-                                             *pf, **taps, **synth)
-            Yr = analysis_tm_fused(x, self.h, c.fb, **taps)
-            if zelinski:
-                Yp = zelinski_apply(Yr, self.wqH, self.wq_manifold, *pf)
-            else:  # wqH X, a plain product (XLA's in the JAX package)
-                Yp = pack_half(bf.apply_weights(self.wqH, unpack_half(Yr).movedim(-2, -1)))
-            return synthesis_tm_fused(Yp, self.g, c.fb, **synth)
+        bare = play is None and not c.wpe  # no echo canceller, no WPE
+        fixed = c.beamformer in FIXED_WEIGHT
         lms = c.beamformer == "gsc_lms"
         gsc = (self.wqH, self.BmH, self.wq_manifold, c.lms if lms else c.rls, *pf)
-        if (not lms and zelinski and play is None and not c.wpe
-                and gsc_mono_supported(c.fb, C)):
+        if fixed and zelinski and bare and fw_mono_supported(c.fb, C):
+            return analysis_fw_synthesis(x, self.h, self.g, c.fb, self.wqH, self.wq_manifold,
+                                         *pf, **taps, **synth)
+        if c.beamformer == "gsc_rls" and zelinski and bare and gsc_mono_supported(c.fb, C):
             # the flagship chain in one kernel, as the JAX package runs it
             return analysis_gsc_synthesis(x, self.h, self.g, c.fb, *gsc, **taps, **synth)
-        Yr = analysis_tm_fused(x, self.h, c.fb, **taps)  # [Tf, B, C, M]
-        if play is not None:
-            Vp = analysis_tm_fused(play.to(torch.float32)[:, None, :], self.h, c.fb, **taps)
-            # block_kalman: beta = aec_delta, sigmau2 = aec_epsilon (JAX's call)
-            Yr = aec_scan(Yr, Vp, c.aec, c.aec_delta, c.aec_epsilon, c.aec_threshold)
-        if c.wpe:
-            Yr = wpe_multichannel_packed_tm(
-                Yr, c.wpe_lower, c.wpe_upper, c.wpe_iterations,
-                band_width=c.wpe_band_width, samplerate=c.samplerate,
-            )
-        scan = gsc_lms_zelinski if lms else gsc_rls_zelinski
-        return synthesis_tm_fused(scan(Yr, *gsc), self.g, c.fb, **synth)
+        Yr = self._subbands(x, play)  # [Tf, B, C, M]
+        if fixed and zelinski:
+            Yp = zelinski_apply(Yr, self.wqH, self.wq_manifold, *pf)
+        elif fixed and coherence:  # the kernel forms wqH X itself
+            Yp = coherence_postfilter(Yr, None, self.wqH, self.wq_manifold, c.postfilter,
+                                      self.pf_consts, c.pf_alpha, c.pf_type, c.pf_min_frames)
+        elif fixed:  # wqH X, a plain product (XLA's in the JAX package)
+            Yp = pack_half(bf.apply_weights(self.wqH, unpack_half(Yr).movedim(-2, -1)))
+        else:
+            Yp = (gsc_lms_zelinski if lms else gsc_rls_zelinski)(Yr, *gsc)
+            if coherence:
+                Yp = coherence_postfilter(Yr, Yp, self.wqH, self.wq_manifold, c.postfilter,
+                                          self.pf_consts, c.pf_alpha, c.pf_type,
+                                          c.pf_min_frames)
+        return synthesis_tm_fused(Yp, self.g, c.fb, **synth)
 
 
 def build_pipeline(cfg: PipelineConfig, mpos, delays, h, g, noise_delays=None,
@@ -298,7 +331,10 @@ def build_pipeline(cfg: PipelineConfig, mpos, delays, h, g, noise_delays=None,
     ``cfg.sd_mu``; LCMV with the target's manifold and one null per entry of
     ``noise_delays`` (a list of per-channel delays).  The postfilter's
     alignment manifold is ``vs`` itself, not the conjugated apply weights
-    (the C++ ``ta_``, beamformer.cc:960-965).  ``device`` is where the
+    (the C++ ``ta_``, beamformer.cc:960-965); the McCowan and Lefkimmiatis
+    postfilters read the diffuse noise coherence of ``mpos``
+    (`beamforming.diffuse_noise_coherence`, as JAX computes it for them).
+    ``device`` is where the
     buffers live and the forward pass runs; without a card the default
     raises `RuntimeError`, so CPU callers pass ``"cpu"``; on the card a
     shape its kernels cannot take raises `NotImplementedError`
@@ -321,17 +357,21 @@ def build_pipeline(cfg: PipelineConfig, mpos, delays, h, g, noise_delays=None,
         gains = np.zeros(1 + len(njs))
         gains[0] = 1.0
         wqH = bf.lcmv_weights(torch.stack([vs] + njs, dim=1), gains)
-    return Enhancer(cfg, h, g, wqH, BmH, vs, device=dev)
+    Gamma = bf.diffuse_noise_coherence(mpos, M, fs) if cfg.postfilter in GAMMA_POSTFILTERS else None
+    return Enhancer(cfg, h, g, wqH, BmH, vs, Gamma, device=dev)
 
 
 def from_jax_params(params: dict, cfg: PipelineConfig, device="cuda") -> Enhancer:
     """The same `Enhancer` from parameters computed by the JAX package, given
-    as numpy arrays: ``h``, ``g``, ``wqH``, ``wq_manifold`` and, for the
-    adaptive GSCs, ``BmH``.  ``params["lms"]``, where given, holds the JAX
+    as numpy arrays: ``h``, ``g``, ``wqH``, ``wq_manifold``, for the
+    adaptive GSCs ``BmH`` and for the McCowan and Lefkimmiatis postfilters
+    the noise coherence ``Gamma`` (JAX's, so that no clamp of its entries
+    parts on rounding).  ``params["lms"]``, where given, holds the JAX
     configuration's `GSCLMSConfig` fields (``dataclasses.asdict``) and
     replaces ``cfg.lms``; ``params["aec_taps"]``, where given, replaces
     ``cfg.aec_taps`` (JAX's `PipelineConfig` field of that name)."""
-    need = {"h", "g", "wqH", "wq_manifold"} | ({"BmH"} if cfg.beamformer in ADAPTIVE else set())
+    need = ({"h", "g", "wqH", "wq_manifold"} | ({"BmH"} if cfg.beamformer in ADAPTIVE else set())
+            | ({"Gamma"} if cfg.postfilter in GAMMA_POSTFILTERS else set()))
     missing = need - set(params)
     if missing:
         raise KeyError(f"missing parameters: {sorted(missing)}")
@@ -341,5 +381,5 @@ def from_jax_params(params: dict, cfg: PipelineConfig, device="cuda") -> Enhance
         cfg = dataclasses.replace(cfg, aec_taps=int(params["aec_taps"]))
     return Enhancer(
         cfg, params["h"], params["g"], params["wqH"], params.get("BmH"), params["wq_manifold"],
-        device=device,
+        params.get("Gamma") if cfg.postfilter in GAMMA_POSTFILTERS else None, device=device,
     )

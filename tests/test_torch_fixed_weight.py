@@ -180,15 +180,31 @@ def test_one_kernel_chain_shape_limits():
     assert not t_fw.fw_mono_supported(fb, 9)
 
 
-@pytest.mark.parametrize("kw", [dict(aec="nlms"), dict(wpe=True), dict(postfilter="apab"),
-                                dict(postfilter="mccowan")])
+@pytest.mark.parametrize("kw", [dict(aec="block_kalman", aec_taps=2), dict(wpe=True, wpe_upper=12),
+                                dict(postfilter="wiener"), dict(aec="dtd_block_kalman")])
 def test_unported_fixed_weight_configurations_raise(kw):
-    """Fixed weights with AEC or WPE, or with a postfilter other than
-    Zelinski or none, are refused at build time on every device (the JAX
-    package runs them on XLA only)."""
+    """What the port still does not run is refused at build time on every
+    device: the block Kalman canceller with more than one tap, WPE past C*P
+    = 40 (here 4 x 11), a postfilter or echo canceller it does not have."""
     with pytest.raises(NotImplementedError):
         t_pipe.build_pipeline(_port_cfg("sd_mvdr", **kw), MPOS, DELAYS, np.zeros(1024),
                               np.zeros(1024), device="cpu")
+
+
+@pytest.mark.parametrize("kw", [dict(aec="nlms"), dict(wpe=True), dict(postfilter="apab"),
+                                dict(postfilter="mccowan")])
+def test_fixed_weights_with_aec_wpe_or_coherence_postfilters_run(case, kw):
+    """Fixed weights behind the echo canceller or WPE, and with the APAB or
+    McCowan postfilter, build and run on the CPU (held to JAX in
+    tests/test_torch_postfilter_chain.py): finite output of the plain
+    chain's length."""
+    enh = t_pipe.build_pipeline(_port_cfg("sd_mvdr", **kw), MPOS, DELAYS, case["h"], case["g"],
+                                device="cpu")
+    x = torch.from_numpy(case["x"][:1, :, :2000])
+    play = torch.from_numpy(case["x"][:1, 0, :2000]) if enh.cfg.aec != "none" else None
+    with torch.no_grad():
+        y = enh(x, play)
+    assert y.shape[0] == 1 and y.shape[1] > 0 and torch.isfinite(y).all()
 
 
 def test_fixed_weight_parameters_are_checked(case):

@@ -56,7 +56,11 @@ two rings) and K12 at n = 32..40 (rows 32..39 split across four lanes; more
 systems than warps, zero pivots), and the config-4 `Enhancer` with the LMS
 GSC runs at C = 8; the one-tap block Kalman canceller (the Kalman kernel
 from another initial state) is held to its plain loop, which carries its
-state variance complex, alone and in the config-4 chain.
+state variance complex, alone and in the config-4 chain.  The McCowan,
+Lefkimmiatis and APAB postfilter kernel (no TPU counterpart) is held to its
+plain version at 1e-4 (its pair sums divide by 1 - Rc, up to 100) at C = 2,
+4 and 8, both modes, given the beamformer's output or forming wqH X itself,
+with a silent utterance that gives NaN where the plain version does.
 """
 
 import numpy as np
@@ -77,6 +81,7 @@ from distant_speech_recognition_tpu_torch.models.adaptive_gsc import (
     lms_silence_gates,
 )
 from distant_speech_recognition_tpu_torch.models.beamforming import (
+    apply_weights,
     array_manifold,
     frame_energy_half,
     superdirective_weights,
@@ -1453,3 +1458,85 @@ def test_fast_div_has_ieee_bits_where_it_vouches(dev, scale_exp):
     bad = ok & ~same
     assert not bad.any(), (a[bad.cpu().numpy()][:5], b[bad.cpu().numpy()][:5])
     assert ok[-(1 << 16):].float().mean().item() > 0.99
+
+
+def _coherent_packed(rng, Tf, B, C, vs, snr_db=0.0):
+    """Packed frames ``[Tf, B, C, 256]`` of a source steered by ``vs`` plus
+    white sensor noise ``snr_db`` down, so that the coherence postfilters'
+    gains fall between their floor and 1 (on white noise alone they sit at
+    the floor)."""
+    F = vs.shape[0]
+    s = (rng.standard_normal((Tf, B, F, 1)) + 1j * rng.standard_normal((Tf, B, F, 1))) * 100.0
+    n = (rng.standard_normal((Tf, B, F, C)) + 1j * rng.standard_normal((Tf, B, F, C))) * 100.0
+    X = s * vs.numpy() * C + n * 10 ** (-snr_db / 20)
+    return pack_half(torch.from_numpy(X.astype(np.complex64)).movedim(-1, -2))
+
+
+def _coherence_case(C, kind, pf_type, Tf=43, B=3):
+    """Frames with utterance 1 digitally silent, SD-MVDR weights, the
+    alignment manifold, the constants of the diffuse field and the plain
+    beamformer's packed output."""
+    from distant_speech_recognition_tpu_torch.models.beamforming import diffuse_noise_coherence
+    from distant_speech_recognition_tpu_torch.models.postfilter import coherence_constants
+
+    rng = np.random.default_rng(100 * C + pf_type + len(kind))
+    wqH, vs = _fixed_weights(C)
+    Yr = _coherent_packed(rng, Tf, B, C, vs)
+    Yr[:, 1] = 0.0
+    mpos = np.c_[np.arange(C) * 50.0, np.zeros((C, 2))]
+    consts = coherence_constants(kind, diffuse_noise_coherence(mpos, 256, FS), vs, pf_type)
+    Yp = pack_half(apply_weights(wqH, unpack_half(Yr).movedim(-2, -1)))
+    return Yr, Yp, wqH, vs, consts
+
+
+def _close_nan(got, ref, budget):
+    """`_close` where ``ref`` is finite, and NaN exactly where ``ref`` is:
+    McCowan and Lefkimmiatis, like the JAX functions, give 0 / 0 on a
+    silent bin."""
+    got = got.cpu()
+    assert torch.equal(torch.isnan(got), torch.isnan(ref))
+    fin = ~torch.isnan(ref)
+    _close(got[fin], ref[fin], budget)
+
+
+@pytest.mark.parametrize("kind,pf_type", [("mccowan", 1), ("mccowan", 2), ("lefkimmiatis", 1),
+                                          ("lefkimmiatis", 2), ("apab", 1)])
+@pytest.mark.parametrize("C", [2, 4, 8])
+def test_coherence_postfilter_kernel_matches_plain(dev, kind, pf_type, C):
+    """The McCowan / Lefkimmiatis / APAB kernel given the beamformer's output
+    against its plain version: 1e-4 x max|ref| (the pair sums divide by 1 -
+    Rc, up to 100 at the low bins, which scales their rounding a hundredfold
+    over Zelinski's; K7's budget is 3e-5).  Tf = 43 frames (groups of 4),
+    pf_min_frames 2; the silent utterance gives NaN from frame 3 on for
+    McCowan and Lefkimmiatis, 0 for APAB."""
+    from distant_speech_recognition_tpu_torch.models.coherence_postfilter import (
+        coherence_postfilter,
+    )
+
+    Yr, Yp, wqH, vs, consts = _coherence_case(C, kind, pf_type)
+    args = (kind, consts, 0.6, pf_type, 2)
+    ref = coherence_postfilter(Yr, Yp, wqH, vs, *args)
+    before = coherence_postfilter.launches
+    got = coherence_postfilter(Yr.to(dev), Yp.to(dev), wqH.to(dev), vs.to(dev),
+                               kind, None if consts is None else consts.to(dev), *args[2:])
+    assert coherence_postfilter.launches == before + 1
+    _close_nan(got, ref, 1e-4)
+    assert torch.isnan(ref[3:, 1]).all() == (kind != "apab")
+
+
+@pytest.mark.parametrize("kind,pf_type", [("mccowan", 2), ("lefkimmiatis", 1), ("apab", 1)])
+@pytest.mark.parametrize("C", [2, 4, 8])
+def test_coherence_postfilter_forms_fixed_weight_output(dev, kind, pf_type, C):
+    """Given no beamformer output, the kernel forms wqH X itself (as K7
+    does): against the same kernel given the plain product, 1e-5 x max|ref|
+    (the two products round apart), and against the plain version."""
+    from distant_speech_recognition_tpu_torch.models.coherence_postfilter import (
+        coherence_postfilter,
+    )
+
+    Yr, Yp, wqH, vs, consts = _coherence_case(C, kind, pf_type, Tf=38, B=5)
+    d = (None if consts is None else consts.to(dev), 0.6, pf_type, 0)
+    formed = coherence_postfilter(Yr.to(dev), None, wqH.to(dev), vs.to(dev), kind, *d)
+    given = coherence_postfilter(Yr.to(dev), Yp.to(dev), wqH.to(dev), vs.to(dev), kind, *d)
+    _close_nan(formed, given.cpu(), 1e-5)
+    _close_nan(formed, coherence_postfilter(Yr, None, wqH, vs, kind, consts, *d[1:]), 1e-4)

@@ -106,14 +106,31 @@ def test_cuda_device_raises_without_a_card(case):
                               device="cuda")
 
 
-@pytest.mark.parametrize("kw", [dict(beamformer="ds", aec="nlms"),
-                                dict(beamformer="gsc_lms", postfilter="lefkimmiatis"),
-                                dict(postfilter="mccowan"),
-                                dict(beamformer="ds", postfilter="none", wpe=True)])
+@pytest.mark.parametrize("kw", [dict(aec="block_kalman", aec_taps=2),
+                                dict(postfilter="wiener"),
+                                dict(aec="information_filter"),
+                                dict(wpe=True, wpe_lower=33, wpe_upper=33)])
 def test_unported_configurations_raise(case, kw):
     with pytest.raises(NotImplementedError):
         t_pipe.build_pipeline(_port_cfg(**kw), case["mpos"], case["delays"], case["h"], case["g"],
                               device="cpu")
+
+
+@pytest.mark.parametrize("kw", [dict(beamformer="ds", aec="nlms"),
+                                dict(beamformer="gsc_lms", postfilter="lefkimmiatis"),
+                                dict(postfilter="mccowan"),
+                                dict(beamformer="ds", postfilter="none", wpe=True)])
+def test_postfilters_and_fixed_weight_chains_run(case, kw):
+    """Configurations the port refused before it ran every postfilter and
+    fixed weights behind the echo canceller and WPE: they build and run on
+    the CPU (held to JAX in tests/test_torch_postfilter_chain.py)."""
+    enh = t_pipe.build_pipeline(_port_cfg(**kw), case["mpos"], case["delays"], case["h"],
+                                case["g"], device="cpu")
+    x = torch.from_numpy(case["x"][:1, :, :2000])
+    play = torch.from_numpy(case["x"][:1, 0, :2000]) if enh.cfg.aec != "none" else None
+    with torch.no_grad():
+        y = enh(x, play)
+    assert y.shape[0] == 1 and y.shape[1] > 0 and torch.isfinite(y).all()
 
 
 def test_more_than_one_constraint_raises(case):
