@@ -36,17 +36,35 @@
 //   - Where the frames from t - lowerN - P + 1 to t do not fit in one ring
 //     beside the lead (deep lags, many channels), the current frames and the
 //     lag frames run in two rings, and each frame is copied twice.
-//   - Past 24 taps a target (C*P up to 40: BASELINE config 4's default taps
-//     at 8 channels), two targets' conj(G) rows no longer fit a thread's
-//     registers (160 floats at C*P = 40, in blocks of 544 threads that leave
-//     120 registers a thread), and conj(G) of a whole utterance (330 KB at 8
-//     channels) does not fit shared memory.  These shapes run the "wide"
-//     instantiations: one target a thread (PM = 40 / C taps a channel in
-//     registers, 80 floats at most), and, where C x M/2 threads would pass
-//     512, the targets split into groups of a block each (two at C >= 5, M =
-//     256; the blocks of one chunk's groups are neighbours in the grid, so
-//     that the second can find the frames in L2); a block stores only its
-//     targets' rows.  The shapes up to 24 taps keep their instantiations as they were.
+//
+// C*P > 24 (up to 40: BASELINE config 4's default taps at 8 channels) runs
+// in a kernel of its own, wpe_resid_wide_kernel; the kernel above keeps the
+// shapes up to 24 taps as it was.  There conj(G) of two targets no longer
+// fits a thread's registers, so a lag value read from shared memory would
+// feed one target only, and a whole frame of 8 channels (8 KB) leaves room
+// for few frames in a ring.  At (8, 5) the FP32 operations (~1.3 ms) come
+// close to the bytes (1.6 ms), so the design has to issue little besides
+// its FMAs.  Per (utterance, bin) the residual is a [C x CP] by [CP x T]
+// product whose lag matrix is Toeplitz in t, and the wide kernel tiles it:
+//   - a block takes one utterance, a group of 32 bins and a chunk of TC
+//     frames: grid (chunks x groups, B), the chunks of a group neighbours in
+//     x, so that the later ones find the group's conj(G) in L2;
+//   - it stages only its group's lanes of each frame (C x 64 floats, 2 KB at
+//     8 channels), every thread copying 16 bytes of every second frame, into
+//     a ring of slots one step of WSTEP = 8 frames ahead (one barrier a
+//     step), the first slots repeated past its end as above;
+//   - warp c computes target c, lane l bin 32 grp + l, with conj(G[c, bin])
+//     in registers (PM = 40 / C taps a channel, zeros past P), 16 warps an
+//     SM; each lag value read from shared memory feeds the up to 8 frames of
+//     the step that use it (a 1 x 8 tile of the product a thread: 1,280 FMAs
+//     and 192 lag loads a step at (8, 5)), the CP terms of an output in the
+//     order of the kernel above, so the same bits;
+//   - outputs leave from registers, 128 contiguous bytes a warp a row;
+//   - bin 0 (DC, real) runs in the same path as lane 0 of group 0, with
+//     conj(G) = (Re G, 0): its imaginary term adds an exact zero; the
+//     Nyquist bin M/2 (real) is computed after each step by lanes 0 .. 7 of
+//     each warp of group 0, a frame each, its coefficients from shared
+//     memory (a slot is C x 64 + 4 floats, so those lanes read distinct banks).
 // M is 128 or 256.
 #include <algorithm>
 
@@ -106,28 +124,16 @@ __device__ __forceinline__ void fence_async_shared() {
 }
 
 // targets a thread computes: two (each lag read from shared memory feeds
-// both), one at C = 1 and in the wide instantiations
-template <int C, bool WIDE>
+// both), one at C = 1
+template <int C>
 __host__ __device__ constexpr int targets() {
-  return C == 1 || WIDE ? 1 : 2;
+  return C == 1 ? 1 : 2;
 }
-// blocks that split an utterance's targets: one, or in the wide
-// instantiations as many as keep a block's complex threads at 512
-template <int C, int MH, bool WIDE>
-__host__ __device__ constexpr int target_groups() {
-  return WIDE ? (C * MH + 511) / 512 : 1;
-}
-// targets a block computes
-template <int C, int MH, bool WIDE>
-__host__ __device__ constexpr int block_targets() {
-  return (C + target_groups<C, MH, WIDE>() - 1) / target_groups<C, MH, WIDE>();
-}
-// threads of a block: (threads c0 < H of a lane) x (lanes k < MH), then one
-// warp for the real bins 0 and M/2
-template <int C, int MH, bool WIDE>
+// threads of a block: (target groups c0 < H) x (lanes k < MH), then one warp
+// for the real bins 0 and M/2
+template <int C, int MH>
 __host__ __device__ constexpr int block_threads() {
-  constexpr int CG = block_targets<C, MH, WIDE>();
-  return MH * ((CG + targets<C, WIDE>() - 1) / targets<C, WIDE>()) + 32;
+  return MH * ((C + targets<C>() - 1) / targets<C>()) + 32;
 }
 
 // C channels, MH = M/2 lanes, PM >= P lag slots per channel held in
@@ -136,17 +142,15 @@ __host__ __device__ constexpr int block_threads() {
 // the PM + STEP - 1 lag frames of a step's STEP outputs are consecutive
 // slots and lag offsets are immediates; an output's current frame sits in
 // slot CB + r % NC (one ring: CB = 0, NC = NL).
-template <int C, int MH, int PM, bool WIDE>
-__global__ void __launch_bounds__(block_threads<C, MH, WIDE>())
+template <int C, int MH, int PM>
+__global__ void __launch_bounds__(block_threads<C, MH>())
 wpe_resid_kernel(const float* __restrict__ Yp, const cf* __restrict__ G, float* __restrict__ out,
                  int Tf, int B, int P, int lowerN, int NL, int CB, int NC) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int STEP = step_frames<C, MH>();
   constexpr int DG = lead_steps<C, MH>();
-  constexpr int TT = targets<C, WIDE>();
-  constexpr int NG = target_groups<C, MH, WIDE>();
-  constexpr int CG = block_targets<C, MH, WIDE>();  // C unless WIDE
-  constexpr int H = (CG + TT - 1) / TT;  // a thread's targets are c0 (and c0 + H)
+  constexpr int TT = targets<C>();
+  constexpr int H = (C + TT - 1) / TT;  // a thread's targets are c0 (and c0 + H)
   constexpr int M = 2 * MH;
   constexpr int F = MH + 1;
   constexpr int CM = C * M;       // one frame of the utterance
@@ -157,23 +161,21 @@ wpe_resid_kernel(const float* __restrict__ Yp, const cf* __restrict__ G, float* 
   float* outs = ring + (size_t)NS * CM;           // [2][STEP][C][M]
 
   const int tid = threadIdx.x;
-  constexpr int nthr = block_threads<C, MH, WIDE>();
-  // this block's targets: cbase .. cbase + CG - 1 (all C unless WIDE)
-  const int cbase = NG == 1 ? 0 : (blockIdx.x % NG) * CG;
+  constexpr int nthr = block_threads<C, MH>();
   // complex bins: lanes k and MH + k (Re and Im of bin k, 1 <= k < MH)
-  const int c0 = cbase + tid / MH;
-  const bool cplx = tid < MH * H && tid % MH > 0 && (NG == 1 || c0 < C);
+  const bool cplx = tid < MH * H && tid % MH > 0;
   const int k = tid % MH;
+  const int c0 = tid / MH;
   const int c1 = c0 + H;
   const bool two = cplx && TT == 2 && c1 < C;
   // real bins: lane rl of target rc, rl = 0 (bin 0) or MH (bin M/2)
   const int rq = tid - MH * H;
-  const bool real = rq >= 0 && rq < 2 * CG && (NG == 1 || cbase + rq % CG < C);
-  const int rc = real ? cbase + rq % CG : 0;
-  const int rl = rq >= CG ? MH : 0;
+  const bool real = rq >= 0 && rq < 2 * C;
+  const int rc = real ? rq % C : 0;
+  const int rl = rq >= C ? MH : 0;
   const int lane = cplx ? k : rl;  // the lane whose lags this thread reads
   const int b = blockIdx.y;
-  const int t0 = (blockIdx.x / NG) * TC;
+  const int t0 = blockIdx.x * TC;
   const int nt = min(TC, Tf - t0);
   const size_t frame_stride = (size_t)B * CM;
   const float* Yb = Yp + (size_t)b * CM;
@@ -234,15 +236,11 @@ wpe_resid_kernel(const float* __restrict__ Yp, const cf* __restrict__ G, float* 
     }
     cp_commit();
   };
-  // the part of an output row this block computes: the whole row, or its
-  // targets' rows
-  const int obase = NG == 1 ? 0 : cbase * M;
-  const int ocount = NG == 1 ? CM : min(CG, C - cbase) * M;
   auto flush = [&](int g) {  // outputs of step g, one bulk copy a row (thread 0)
     if (tid == 0) {
       for (int s = 0; s < STEP && g * STEP + s < nt; ++s)
-        bulk_store(Ob + (size_t)(t0 + g * STEP + s) * frame_stride + obase,
-                   outs + ((g & 1) * STEP + s) * CM + obase, ocount * (int)sizeof(float));
+        bulk_store(Ob + (size_t)(t0 + g * STEP + s) * frame_stride,
+                   outs + ((g & 1) * STEP + s) * CM, CM * (int)sizeof(float));
       bulk_commit();
     }
   };
@@ -371,11 +369,11 @@ Plan plan(int C, int M, int P, int PM, int lowerN, int STEP, int DG) {
   return p;
 }
 
-template <int C, int MH, int PM, bool WIDE>
+template <int C, int MH, int PM>
 struct Launch {
-  static constexpr int threads = block_threads<C, MH, WIDE>();
+  static constexpr int threads = block_threads<C, MH>();
   static cudaError_t prepare(size_t bytes) {
-    return cudaFuncSetAttribute(wpe_resid_kernel<C, MH, PM, WIDE>,
+    return cudaFuncSetAttribute(wpe_resid_kernel<C, MH, PM>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   }
   static int run(const float* Yp, const float* G, float* out, int Tf, int B, int P, int lowerN,
@@ -384,9 +382,8 @@ struct Launch {
     if (p.bytes > 227 * 1024) return DSR_ERR_ARGS;
     cudaError_t err = prepare(p.bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    // a chunk's target groups are neighbours in x
-    const dim3 grid((Tf + TC - 1) / TC * target_groups<C, MH, WIDE>(), B);
-    wpe_resid_kernel<C, MH, PM, WIDE><<<grid, threads, p.bytes, stream>>>(
+    const dim3 grid((Tf + TC - 1) / TC, B);
+    wpe_resid_kernel<C, MH, PM><<<grid, threads, p.bytes, stream>>>(
         Yp, reinterpret_cast<const cf*>(G), out, Tf, B, P, lowerN, p.NL, p.CB, p.NC);
     return static_cast<int>(cudaGetLastError());
   }
@@ -397,15 +394,221 @@ struct Launch {
     if (p.bytes > 227 * 1024) return DSR_ERR_ARGS;
     cudaError_t err = prepare(p.bytes);
     if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks,
-                                                          wpe_resid_kernel<C, MH, PM, WIDE>,
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, wpe_resid_kernel<C, MH, PM>,
                                                           threads, p.bytes);
     return static_cast<int>(err);
   }
 };
 
+// ---- C*P > 24 ----
+constexpr int WSTEP = 8;  // output frames a step of the wide kernel
+constexpr int WPAD = 4;   // floats past a slot's C x 64: consecutive slots start on distinct banks
+
+// blocks an SM each channel count is compiled for: 16 warps an SM where C
+// divides 16 (128 registers a thread)
+template <int C>
+__host__ __device__ constexpr int wide_min_blocks() {
+  return C >= 8 ? 2 : 16 / C;
+}
+
+// C channels, MH = M/2 lanes, PM >= P lag slots per channel held in
+// registers.  Frame r of the block (absolute t0 - S + r) sits in slot r % NL,
+// and again in slot NL + r % NL when r % NL < PM + WSTEP - 2 (one ring: the
+// current frames are its slots too).
+template <int C, int MH, int PM>
+__global__ void __launch_bounds__(32 * C, wide_min_blocks<C>())
+wpe_resid_wide_kernel(const float* __restrict__ Yp, const cf* __restrict__ G,
+                      float* __restrict__ out, int Tf, int B, int P, int lowerN, int NL) {
+  extern __shared__ __align__(16) unsigned char smem_w[];
+  // probe (wide): kernel start
+  constexpr int M = 2 * MH;
+  constexpr int F = MH + 1;
+  constexpr int CM = C * M;          // one frame of the utterance
+  constexpr int SL = C * 64 + WPAD;  // one slot: [a][Re of 32 bins | Im of 32 bins], the pad
+  constexpr int MIR = PM + WSTEP - 2;  // slots repeated past the end of the ring
+  constexpr int CPM = C * PM;
+  const int CP = C * P;
+  const int S = lowerN + P - 1;  // deepest lag
+  const int NS = NL + MIR;
+  float* ring = reinterpret_cast<float*>(smem_w);  // [NS][SL]
+  float* gnyq = ring + (size_t)NS * SL;            // Re G of bin M/2: [C][CPM] (group 0)
+
+  const int tid = threadIdx.x;
+  const int c = tid >> 5;  // target
+  const int lane = tid & 31;
+  const int nch = (Tf + TC - 1) / TC;
+  const int grp = blockIdx.x / nch;
+  const int t0 = (blockIdx.x - grp * nch) * TC;
+  const int k = 32 * grp + lane;  // bin (0: DC)
+  const int b = blockIdx.y;
+  const int nt = min(TC, Tf - t0);
+  const size_t frame_stride = (size_t)B * CM;
+  const float* Yb = Yp + (size_t)b * CM + 32 * grp;  // this group's lanes of each row
+  float* Oc = out + (size_t)b * CM + c * M;          // target c's row
+
+  // conj(G) of (c, bin k) at slot a*PM + dp; (Re G, 0) at the DC bin
+  cf g[CPM];
+  {
+    const cf* Gk = G + (((size_t)b * C + c) * F + k) * CP;
+#pragma unroll
+    for (int a = 0; a < C; ++a)
+#pragma unroll
+      for (int dp = 0; dp < PM; ++dp) {
+        cf v = {0.f, 0.f};
+        if (dp < P) {
+          v = Gk[a * P + dp];
+          v.i = k == 0 ? 0.f : -v.i;
+        }
+        g[a * PM + dp] = v;
+      }
+  }
+  if (grp == 0)
+    for (int i = tid; i < C * CPM; i += 32 * C) {
+      const int cc = i / CPM, a = (i % CPM) / PM, dp = i % PM;
+      gnyq[i] = dp < P ? G[(((size_t)b * C + cc) * F + MH) * CP + a * P + dp].r : 0.f;
+    }
+
+  // A frame's lanes of this group are 16 C pieces of 16 bytes; thread tid
+  // copies piece tid % 16C of every second frame, from frame tid / 16C on
+  // (channel a, half, piece of 8), zeros before t = 0
+  const int cpiece = tid % (16 * C), cfirst = tid / (16 * C);
+  const int src_off = (cpiece >> 4) * M + ((cpiece >> 3) & 1) * MH + (cpiece & 7) * 4;
+  const int dst_off = (cpiece >> 4) * 64 + ((cpiece >> 3) & 1) * 32 + (cpiece & 7) * 4;
+  auto fetch = [&](int st) {  // the frames that outputs of step st are the first to need
+    const int r0 = st == 0 ? 0 : S + st * WSTEP;
+    const int r1 = min(S + st * WSTEP + WSTEP, S + nt);
+    int sl = (r0 + cfirst) % NL;
+    for (int r = r0 + cfirst; r < r1; r += 2) {
+      const int t = t0 - S + r;
+      const float* src = Yb + (size_t)max(t, 0) * frame_stride + src_off;
+      float* dst = ring + (size_t)sl * SL + dst_off;
+      cp_async16(dst, src, t >= 0);
+      if (sl < MIR) cp_async16(dst + (size_t)NL * SL, src, t >= 0);
+      sl = sl + 2 >= NL ? sl + 2 - NL : sl + 2;
+    }
+    cp_commit();
+  };
+
+  const int nsteps = (nt + WSTEP - 1) / WSTEP;
+  // slots hold zeros until their first copy: the padded taps dp >= P read them
+  if (P < PM)
+    for (int idx = tid; idx < NS * SL; idx += 32 * C) ring[idx] = 0.f;
+  __syncthreads();
+  fetch(0);
+  int sl = (S - lowerN) % NL;  // slot of lag dp = 0 of the step's first output
+  int sc = S % NL;             // slot of its current frame
+  // probe (wide): set-up done
+  for (int st = 0; st < nsteps; ++st) {
+    cp_wait<0>();
+    __syncthreads();
+    // probe (wide): frame staged
+    fetch(st + 1);
+    // probe (wide): copies started
+    // outputs st*WSTEP + fr: lag dp of frame fr is slot lb + fr - dp, read
+    // here as m = dp + WSTEP - 1 - fr slots below lb + WSTEP - 1, so each lag
+    // value is read once for all the frames that use it; slots past the P
+    // taps (g = 0) hold earlier frames or zeros
+    const int lb = sl < PM - 1 ? sl + NL : sl;
+    {
+      const float* L = ring + (size_t)(lb + WSTEP - 1) * SL + lane;
+      float a0[WSTEP] = {}, a1[WSTEP] = {};  // [frame]: Re and Im of the residual's prediction
+#pragma unroll
+      for (int m = 0; m < PM + WSTEP - 1; ++m) {
+#pragma unroll
+        for (int a = 0; a < C; ++a) {
+          const float x0 = L[a * 64 - m * SL], x1 = L[a * 64 + 32 - m * SL];
+#pragma unroll
+          for (int fr = 0; fr < WSTEP; ++fr) {
+            const int dp = m - (WSTEP - 1 - fr);
+            if (dp >= 0 && dp < PM) {
+              const cf ga = g[a * PM + dp];
+              a0[fr] = fmaf(ga.r, x0, a0[fr]);
+              a0[fr] = fmaf(-ga.i, x1, a0[fr]);
+              a1[fr] = fmaf(ga.r, x1, a1[fr]);
+              a1[fr] = fmaf(ga.i, x0, a1[fr]);
+            }
+          }
+        }
+      }
+      float* o = Oc + (size_t)(t0 + st * WSTEP) * frame_stride + k;
+#pragma unroll
+      for (int fr = 0; fr < WSTEP; ++fr, o += frame_stride) {
+        const int i = st * WSTEP + fr;
+        if (i < nt) {
+          const int scf = sc + fr >= NL ? sc + fr - NL : sc + fr;
+          const float* cur = ring + (size_t)scf * SL + c * 64 + lane;
+          const bool pr = t0 + i >= lowerN;
+          o[0] = cur[0] - (pr ? a0[fr] : 0.f);
+          if (k > 0) o[MH] = cur[32] - (pr ? a1[fr] : 0.f);  // lane M/2 of bin 0 is the Nyquist bin
+        }
+      }
+    }
+    // probe (wide): predicted
+    if (grp == 0 && lane < WSTEP) {  // the Nyquist bin of target c, frame lane of the step
+      const int fr = lane;
+      const float* Ln = ring + (size_t)(lb + fr) * SL + 32;
+      float a0 = 0.f;
+#pragma unroll
+      for (int dp = 0; dp < PM; ++dp)
+#pragma unroll
+        for (int a = 0; a < C; ++a)
+          a0 = fmaf(gnyq[c * CPM + a * PM + dp], Ln[a * 64 - dp * SL], a0);
+      const int i = st * WSTEP + fr;
+      if (i < nt) {
+        const int scf = sc + fr >= NL ? sc + fr - NL : sc + fr;
+        Oc[(size_t)(t0 + i) * frame_stride + MH] =
+            ring[(size_t)scf * SL + c * 64 + 32] - (t0 + i >= lowerN ? a0 : 0.f);
+      }
+    }
+    // probe (wide): nyquist
+    sl = sl + WSTEP >= NL ? sl + WSTEP - NL : sl + WSTEP;
+    sc = sc + WSTEP >= NL ? sc + WSTEP - NL : sc + WSTEP;
+  }
+  // probe (wide): kernel end
+}
+
+// ring slots of a wide launch (one ring, one step ahead), and its shared memory
+int wide_slots(int P, int PM, int lowerN) {
+  return std::max(lowerN + P - 1 + 2 * WSTEP, PM + WSTEP);
+}
+size_t wide_bytes(int C, int PM, int NL) {
+  return sizeof(float) * ((size_t)(NL + PM + WSTEP - 2) * (C * 64 + WPAD) + (size_t)C * C * PM);
+}
+
+template <int C, int MH, int PM>
+struct WideLaunch {
+  static constexpr int threads = 32 * C;
+  static cudaError_t prepare(size_t bytes) {
+    return cudaFuncSetAttribute(wpe_resid_wide_kernel<C, MH, PM>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  }
+  static int run(const float* Yp, const float* G, float* out, int Tf, int B, int P, int lowerN,
+                 cudaStream_t stream) {
+    const int NL = wide_slots(P, PM, lowerN);
+    const size_t bytes = wide_bytes(C, PM, NL);
+    if (bytes > 227 * 1024) return DSR_ERR_ARGS;
+    cudaError_t err = prepare(bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid((Tf + TC - 1) / TC * (MH / 32), B);
+    wpe_resid_wide_kernel<C, MH, PM><<<grid, threads, bytes, stream>>>(
+        Yp, reinterpret_cast<const cf*>(G), out, Tf, B, P, lowerN, NL);
+    return static_cast<int>(cudaGetLastError());
+  }
+  static int occupancy(int P, int lowerN, int* blocks, int* smem_bytes, int* nthreads) {
+    const size_t bytes = wide_bytes(C, PM, wide_slots(P, PM, lowerN));
+    *smem_bytes = (int)bytes;
+    *nthreads = threads;
+    if (bytes > 227 * 1024) return DSR_ERR_ARGS;
+    cudaError_t err = prepare(bytes);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          blocks, wpe_resid_wide_kernel<C, MH, PM>, threads, bytes);
+    return static_cast<int>(err);
+  }
+};
+
 // (C, PM): the registers hold PM = 24 / C lag slots a channel, and 5 at C = 4;
-// past 24 / C taps the wide instantiations, PM = 40 / C; M = 128 and 256
+// past 24 / C taps the wide kernel, PM = 40 / C; M = 128 and 256
 #define DSR_SHAPES(X) \
   X(1, 24) X(2, 12) X(3, 8) X(4, 5) X(4, 6) X(5, 4) X(6, 4) X(7, 3) X(8, 3)
 #define DSR_WIDE_SHAPES(X) \
@@ -426,14 +629,17 @@ extern "C" int dsr_wpe_resid(const float* Yp, const float* G, float* out, int Tf
   if (!args_ok(Tf, B, C, M, P, lowerN)) return DSR_ERR_ARGS;
   const int PM = slots(C, P);
   const bool w = wide(C, P);
-#define DSR_CASE(c, pm, wd)                                                                  \
-  if (C == c && PM == pm && w == wd)                                                         \
-    return M == 256 ? Launch<c, 128, pm, wd>::run(Yp, G, out, Tf, B, P, lowerN, stream)      \
-                    : Launch<c, 64, pm, wd>::run(Yp, G, out, Tf, B, P, lowerN, stream);
-#define DSR_NARROW(c, pm) DSR_CASE(c, pm, false)
-#define DSR_WIDE(c, pm) DSR_CASE(c, pm, true)
-  DSR_SHAPES(DSR_NARROW)
-  DSR_WIDE_SHAPES(DSR_WIDE)
+#define DSR_CASE(c, pm, L)                                                          \
+  if (C == c && PM == pm)                                                           \
+    return M == 256 ? L<c, 128, pm>::run(Yp, G, out, Tf, B, P, lowerN, stream)      \
+                    : L<c, 64, pm>::run(Yp, G, out, Tf, B, P, lowerN, stream);
+#define DSR_NARROW(c, pm) DSR_CASE(c, pm, Launch)
+#define DSR_WIDE(c, pm) DSR_CASE(c, pm, WideLaunch)
+  if (w) {
+    DSR_WIDE_SHAPES(DSR_WIDE)
+  } else {
+    DSR_SHAPES(DSR_NARROW)
+  }
 #undef DSR_WIDE
 #undef DSR_NARROW
 #undef DSR_CASE
@@ -445,16 +651,17 @@ extern "C" int dsr_wpe_resid_occupancy(int C, int P, int lowerN, int M, int* blo
   if (!args_ok(1, 1, C, M, P, lowerN)) return DSR_ERR_ARGS;
   const int PM = slots(C, P);
   const bool w = wide(C, P);
-#define DSR_CASE(c, pm, wd)                                                                  \
-  if (C == c && PM == pm && w == wd)                                                         \
-    return M == 256 ? Launch<c, 128, pm, wd>::occupancy(P, lowerN, blocks_per_sm, smem_bytes, \
-                                                        threads)                             \
-                    : Launch<c, 64, pm, wd>::occupancy(P, lowerN, blocks_per_sm, smem_bytes,  \
-                                                       threads);
-#define DSR_NARROW(c, pm) DSR_CASE(c, pm, false)
-#define DSR_WIDE(c, pm) DSR_CASE(c, pm, true)
-  DSR_SHAPES(DSR_NARROW)
-  DSR_WIDE_SHAPES(DSR_WIDE)
+#define DSR_CASE(c, pm, L)                                                                 \
+  if (C == c && PM == pm)                                                                  \
+    return M == 256 ? L<c, 128, pm>::occupancy(P, lowerN, blocks_per_sm, smem_bytes, threads) \
+                    : L<c, 64, pm>::occupancy(P, lowerN, blocks_per_sm, smem_bytes, threads);
+#define DSR_NARROW(c, pm) DSR_CASE(c, pm, Launch)
+#define DSR_WIDE(c, pm) DSR_CASE(c, pm, WideLaunch)
+  if (w) {
+    DSR_WIDE_SHAPES(DSR_WIDE)
+  } else {
+    DSR_SHAPES(DSR_NARROW)
+  }
 #undef DSR_WIDE
 #undef DSR_NARROW
 #undef DSR_CASE

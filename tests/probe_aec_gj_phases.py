@@ -30,16 +30,24 @@ over (utterance, channel group), frames staged into a shared-memory ring by
 frames computed before its recursion, E written by bulk copies from a
 store warp; K12: a lane per row, each warp staging its next system into
 shared memory by ``cp.async`` while it solves the current one, the pivot
-row and its quotients broadcast through shared memory).
+row and its quotients broadcast through shared memory).  K12's kernel of
+n = 32 .. 40 (rows 32 .. 39 split across four lanes) carries marks of the
+same names.
 ``--root DIR`` measures the kernels of another checkout of the repository
 (e.g. the parent commit unpacked with ``git archive``) with this checkout's
 wrappers (the C interface is the same), times both in the same call
-(other, this, this, other), and holds this checkout's uninstrumented
-kernels to that checkout's, bit for bit.  ``--write-case PATH`` stores the
-cases of ``tests/test_torch_kernels.py::test_aec_gj_kernels_equal_stored_outputs``
-from the measured checkout's kernels.
+(other, this, this, other; K12 at n = 40 and K9's block Kalman where that
+checkout takes them), and holds this checkout's uninstrumented kernels to
+that checkout's, bit for bit (K12 also at n = 32 .. 40 where it takes
+them).  ``--write-case PATH`` stores the cases of
+``tests/test_torch_kernels.py::test_aec_gj_kernels_equal_stored_outputs``
+from the measured checkout's kernels, ``--write-wide-case PATH`` the K12
+cases of ``test_wpe_wide_kernels_equal_stored_outputs`` (n = 33 with a zero
+first pivot, and 40; the K11 cases of that file come from
+``tests/probe_wpe_phases.py --write-wide-case``).
 
     python3 tests/probe_aec_gj_phases.py [--root DIR] [--write-case PATH]
+        [--write-wide-case PATH]
 
 Needs an NVIDIA GPU and nvcc; imports nothing of JAX.
 """
@@ -327,6 +335,9 @@ AEC_CASES = (("n256", "nlms", 17, 2, 2, 256), ("k256", "kalman", 17, 2, 2, 256),
              ("n128", "nlms", 23, 1, 3, 128), ("k128", "kalman", 23, 1, 3, 128))
 # the stored K12 cases: (n, systems); system 0 of n = 6 has a zero first pivot
 GJ_CASES = ((6, 37), (20, 9), (24, 9), (31, 3))
+# the stored cases of the kernel of n = 32 .. 40, from hash noise: (n,
+# systems, seed); system 0 of n = 33 has a zero first pivot
+GJ_WIDE_CASES = ((33, 11, 33), (40, 7, 40))
 
 
 def aec_case_input(tag: str, Tf: int, B: int, C: int, M: int):
@@ -373,6 +384,48 @@ def write_case(path: Path) -> None:
     print(f"wrote {path} ({path.stat().st_size} bytes): " + ", ".join(sorted(z)))
 
 
+def hash_systems(N: int, n: int, seed: int):
+    """`hpd_systems` from `hash_noise` (float64 products, rounded once)."""
+    h = hash_noise((4, N, n, 3 * n), seed).astype(np.float64)
+    L = h[0] + 1j * h[1]
+    R = np.einsum("npt,nqt->npq", L, L.conj())
+    R += (np.abs(np.diagonal(R, axis1=1, axis2=2)).max(-1) * 0.01)[:, None, None] * np.eye(n)
+    r = (h[2, :, :, 0] + 1j * h[3, :, :, 0]) * 0.01
+    return R.astype(np.complex64), r.astype(np.complex64)
+
+
+def update_npz(path: Path, z: dict) -> None:
+    """Write ``z`` into the npz at ``path``, keeping its other entries."""
+    old = dict(np.load(path)) if path.exists() else {}
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(path, **(old | z))
+    print(f"wrote {path} ({path.stat().st_size} bytes): " + ", ".join(sorted(z)))
+
+
+def write_wide_case(path: Path) -> None:
+    """Store the K12 cases of n = 33 and 40 from the kernels now loaded."""
+    dev = torch.device("cuda", 0)
+    z = {}
+    for n, N, seed in GJ_WIDE_CASES:
+        R, r = hash_systems(N, n, seed)
+        if n == 33:
+            R[0, 0, 0] = 0
+        x = gj_solve(torch.from_numpy(R).to(dev), torch.from_numpy(r).to(dev))
+        z[f"gj{n}_R"], z[f"gj{n}_r"], z[f"gj{n}_x"] = R, r, x.cpu().numpy()
+    update_npz(path, z)
+
+
+def takes(fn) -> bool:
+    """Whether the kernels now loaded take the call (an older checkout
+    refuses the shapes of config 4 at 8 channels)."""
+    try:
+        fn()
+    except (RuntimeError, AttributeError):  # a refused shape, or an entry it lacks
+        return False
+    torch.cuda.synchronize()
+    return True
+
+
 def aec_inputs(rng, Tf, B, C, M, dev):
     """Packed frames at 100 x standard normal, with zero far-end bins and a
     stretch 60 dB down (the gate closes there)."""
@@ -408,6 +461,8 @@ def main() -> None:
                     help="checkout whose kernels are measured (default: this one)")
     ap.add_argument("--write-case", type=Path, default=None,
                     help="store the K9 / K12 cases from the measured kernels here")
+    ap.add_argument("--write-wide-case", type=Path, default=None,
+                    help="store K12's cases of n = 33 and 40 from the measured kernels here")
     args = ap.parse_args()
     root = args.root.resolve()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -424,9 +479,16 @@ def main() -> None:
     lib, designs = load_copy(root, "marked", True)
     print("designs: " + ", ".join(f"{k} {v}" for k, v in designs.items()))
     dev = torch.device("cuda", 0)
+    _build._lib = plain_lib
     if args.write_case is not None:
-        _build._lib = plain_lib
         write_case(args.write_case)
+    if args.write_wide_case is not None:
+        write_wide_case(args.write_wide_case)
+    # the shapes of config 4 at 8 channels, which checkouts before it refuse
+    wide = takes(lambda: gj_solve(*gj_inputs(1, 40, dev)))
+    block_kalman = takes(lambda: aec_scan(*aec_inputs(np.random.default_rng(1), 3, 1, 1, M4, dev),
+                                          "block_kalman", *KINDS["kalman"], THR))
+    print(f"the measured checkout takes n = 40: {wide}, the block Kalman kind: {block_kalman}")
 
     def measure(label, name, fn, per):
         """CUDA-event times (the measured checkout's kernel; with --root this
@@ -474,7 +536,7 @@ def main() -> None:
         systems[n] = (R, r)
         measure(f"K12 N=132096 n={n}", "gj_solve.cu", lambda: gj_solve(R, r),
                 lambda acc: max(acc[NSLOT + 1], 1))
-    if not other:  # the shapes of config 4 at 8 channels, which checkouts before it refuse
+    if block_kalman:
         A8, V8 = aec_inputs(rng, TF, 256, 8, M4, dev)
         p1, p2 = KINDS["kalman"]
         for Cb, Ab in ((C4, A[:, :, :C4].contiguous()), (8, A8)):
@@ -482,6 +544,7 @@ def main() -> None:
                     lambda: aec_scan(Ab, V if Cb == C4 else V8, "block_kalman", p1, p2, THR),
                     lambda acc: max(acc[NSLOT], 1) * TF)
         del A8, V8
+    if wide:
         torch.manual_seed(40)
         R, r = gj_inputs(264192, 40, dev)
         measure("K12 N=264192 n=40", "gj_solve.cu", lambda: gj_solve(R, r),
@@ -499,7 +562,11 @@ def main() -> None:
         for n, N in ((1, 1000), (4, 333), (5, 77), (6, 37), (19, 100), (20, 1001), (21, 5),
                      (24, 64), (25, 9), (31, 3), (31, 40),
                      # several systems a warp
-                     (5, 16901), (20, 16901), (31, 3301)):
+                     (5, 16901), (20, 16901), (31, 3301),
+                     # the kernel of n = 32 .. 40: systems left partial in a
+                     # block, several a warp, odd n (8-byte copies)
+                     *(((32, 7), (33, 77), (36, 5), (39, 9), (40, 1001), (33, 16901),
+                        (40, 16901)) if wide else ())):
             R, r = gj_inputs(N, n, dev)
             R[0, 0, 0] = 0  # a zero first pivot: the divisor taken as 1
             outs = []

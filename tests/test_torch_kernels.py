@@ -23,8 +23,10 @@ against the plain chain; 2e-5
 for the strided FIR (K13), which rounds like its plain version.  K2 and K6
 are also held bit for bit to outputs their kernels gave on an H100 before
 their per-frame step moved into ``csrc/gsc_step.h``
-(``tests/data/gsc_scan_case.npz``), and K9 and K12 to outputs of their first
-designs (``tests/data/aec_gj_case.npz``).  The shapes reach
+(``tests/data/gsc_scan_case.npz``), K9 and K12 to outputs of their first
+designs (``tests/data/aec_gj_case.npz``), and K11 and K12 past 24 taps a
+target to outputs of their first designs for those shapes
+(``tests/data/wpe_wide_case.npz``).  The shapes reach
 past the flagship's and config 4's: partial last blocks, other delay modes,
 decimations and channel counts, every constraint option, gates that close,
 far-end bins that are zero, other WPE delays, tap counts and band limits,
@@ -575,8 +577,10 @@ def test_wpe_stats_kernel_repeats_to_the_bit(dev, has_g):
         pytest.param(4, 6, 2, 256, 2, 90, id="C4-P6"),
         pytest.param(4, 6, 32, 256, 2, 100, id="C4-P6-lowerN32-two-rings"),
         pytest.param(4, 5, 2, 256, 2, 1254, id="config4-Tf1254"),
-        # past 24 taps a target: one target a thread, and at C >= 5, M = 256
-        # two blocks an utterance's chunk (a ragged second group at C = 5, 7)
+        # past 24 taps a target, the wide kernel: a warp a target, blocks of
+        # 32 bins (four groups at M = 256, two at 128; the DC bin in lane 0
+        # of the first, the Nyquist bin after each step), 8 frames a step
+        # (the ids keep the names of the earlier design's cases)
         pytest.param(8, 5, 2, 256, 2, 300, id="C8-P5"),
         pytest.param(8, 5, 2, 128, 2, 90, id="C8-P5-M128"),
         pytest.param(8, 4, 32, 256, 2, 100, id="C8-P4-lowerN32-two-rings"),
@@ -588,6 +592,20 @@ def test_wpe_stats_kernel_repeats_to_the_bit(dev, has_g):
         pytest.param(3, 13, 1, 128, 2, 90, id="C3-P13"),
         pytest.param(2, 20, 2, 256, 2, 90, id="C2-P20"),
         pytest.param(1, 40, 2, 128, 2, 90, id="C1-P40"),
+        # its edges: frame counts within one step, within the lag history
+        # and no multiple of a step; three chunks of frames, the last ragged;
+        # no delay; one utterance; taps past P (zeros) at C = 3 and 2; M = 256
+        # at one channel; the config-4 shape over 10 s
+        pytest.param(8, 5, 2, 256, 1, 1, id="wide-Tf1"),
+        pytest.param(8, 5, 2, 256, 2, 7, id="wide-Tf7-within-a-step"),
+        pytest.param(8, 5, 32, 256, 2, 20, id="wide-Tf20-within-history"),
+        pytest.param(8, 5, 2, 256, 2, 531, id="wide-Tf531-three-chunks"),
+        pytest.param(8, 5, 0, 256, 3, 261, id="wide-lowerN0"),
+        pytest.param(8, 4, 0, 128, 1, 45, id="wide-C8-P4-M128-B1"),
+        pytest.param(3, 9, 2, 256, 2, 90, id="wide-C3-P9-padded-taps"),
+        pytest.param(2, 13, 3, 128, 2, 90, id="wide-C2-P13-padded-taps"),
+        pytest.param(1, 40, 32, 256, 1, 70, id="wide-C1-P40-M256-lowerN32"),
+        pytest.param(8, 5, 2, 256, 1, 1254, id="wide-config4-c8-Tf1254"),
     ],
 )
 def test_wpe_resid_kernel_matches_plain(dev, C, P, lowerN, M, B, Tf):
@@ -613,7 +631,12 @@ def test_wpe_resid_kernel_matches_plain(dev, C, P, lowerN, M, B, Tf):
                                  # each, one system a warp's slot; more systems than
                                  # warps at n = 33 and 40
                                  (32, 7), (33, 16901), (36, 5), (39, 9), (40, 1001),
-                                 (40, 16901)])
+                                 (40, 16901),
+                                 # its edges: one system, blocks of 4 warps left
+                                 # partial, just below and above the 1584 warps the
+                                 # card holds at 3 blocks an SM, odd n (8-byte copies)
+                                 (40, 1), (37, 3), (34, 1583), (40, 1585), (35, 11),
+                                 (38, 3169)])
 def test_gj_solve_kernel_matches_plain(dev, n, N):
     """Diagonally loaded Hermitian positive-definite systems, as WPE builds them."""
     rng = np.random.default_rng(n * N)
@@ -630,7 +653,7 @@ def test_gj_solve_kernel_matches_plain(dev, n, N):
     _close_per_system(got, ref, 1e-4, 1)
 
 
-@pytest.mark.parametrize("n", [1, 6, 20, 24, 31, 33, 40])
+@pytest.mark.parametrize("n", [1, 6, 20, 24, 31, 33, 40, 32, 39])
 def test_gj_solve_kernel_zero_pivot(dev, n):
     """A zero pivot divides by 1, as the plain version does: R's first
     diagonal entry set to zero in every third system."""
@@ -1023,6 +1046,36 @@ def test_aec_gj_kernels_equal_stored_outputs(dev, case):
     p1, p2 = (100.0, 1e-4) if kind == "nlms" else (0.95, 1e-3)
     got = aec_scan(torch.from_numpy(A).to(dev), torch.from_numpy(V).to(dev), kind, p1, p2, 100.0)
     assert torch.equal(got.cpu().view(torch.int32), torch.from_numpy(z[f"{case}_E"]).view(torch.int32))
+
+
+@pytest.mark.parametrize("case", ["gj33", "gj40", "r8x5", "r8x4", "r1x40"])
+def test_wpe_wide_kernels_equal_stored_outputs(dev, case):
+    """K12 at n = 33 (system 0 with a zero first pivot) and 40, and K11 at
+    (C, P) = (8, 5) with M = 256, (8, 4) with lowerN = 32 and (1, 40) with M
+    = 128, give, bit for bit, the outputs stored from their first designs for
+    C*P > 24 (K12: rows 32 .. 39 split across four lanes, two __syncwarp a
+    step; K11: one target a thread, an utterance's frames a block) by
+    ``tests/probe_aec_gj_phases.py --write-wide-case`` and
+    ``tests/probe_wpe_phases.py --write-wide-case``
+    (``tests/data/wpe_wide_case.npz``, inputs from hash noise)."""
+    z = np.load(Path(__file__).parent / "data" / "wpe_wide_case.npz")
+    if case.startswith("gj"):
+        got = gj_solve(torch.from_numpy(z[f"{case}_R"]).to(dev),
+                       torch.from_numpy(z[f"{case}_r"]).to(dev))
+        want = torch.from_numpy(z[f"{case}_x"])
+        assert torch.equal(torch.view_as_real(got.cpu()).view(torch.int32),
+                           torch.view_as_real(want).view(torch.int32))
+        return
+    C, P, lowerN, M, B, Tf, seed = {"r8x5": (8, 5, 2, 256, 1, 30, 1100),
+                                    "r8x4": (8, 4, 32, 256, 1, 30, 1200),
+                                    "r1x40": (1, 40, 2, 128, 2, 30, 1300)}[case]
+    F = M // 2 + 1
+    Yp = _hash_noise((Tf, B, C, M), seed)
+    G = (_hash_noise((B, C, F, C * P), seed + 1) * np.float32(1e-3)
+         + 1j * (_hash_noise((B, C, F, C * P), seed + 2) * np.float32(1e-3)))
+    got = wpe_resid(torch.from_numpy(Yp).to(dev), torch.from_numpy(G.astype(np.complex64)).to(dev),
+                    lowerN).cpu()
+    assert torch.equal(got.view(torch.int32), torch.from_numpy(z[f"{case}_out"]).view(torch.int32))
 
 
 def _gsc_args(C, pf_type, pf_min_frames, min_frames=8):
