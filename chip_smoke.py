@@ -117,7 +117,32 @@ Phases (each raises on failure; the script then exits non-zero):
      wqH X, K3), gsc-lms-mccowan-c8-b256 (8 channels: K1, the LMS gate pass
      and scan, the postfilter, K3) and ds-config4-b32 (D&S + Zelinski
      behind the NLMS canceller and WPE: K1 twice, K9, K10 and K12 twice,
-     K11, K7, K3), the first two also profiled.
+     K11, K7, K3), the first two also profiled;
+ 14. the filterbank sizes M = 64, 128 and 512 (the one-kernel chains K4/K8
+     take M = 256 only, so the split routes run): config1-m64-b256
+     (BASELINE config 1: 2-channel D&S without a postfilter at M = 64,
+     B=256 x 10 s: K1, the plain product wqH X, K3), flagship-m128-b256 and
+     flagship-m512-b256 (GSC-RLS + Zelinski, 4 ch: K1, K2, K3) through
+     build_pipeline() with the default device, each with its launch counts
+     (exactly the route's kernels), its first 32 utterances against the
+     plain chain (3e-4), its time, audio-s/s/GPU, peak memory and a profile
+     of three forwards, config 1 also with K1 and K3 timed beside their
+     bounds, plain versions, torch.fft and GEMM over the same rows; at each
+     of the three sizes every kernel of the paths timed at B=256 x 4 ch x 10
+     s (the LMS scan at 8 ch) beside its bound: K1 and K3 (with plain,
+     torch.fft and GEMM times), K2, K6 (one steering per utterance), K11 at
+     (4, 5) (with one batched torch.matmul) and the LMS scan with its gate
+     pass (the plain scans timed on the first 32 utterances); then the
+     other paths at B=8 x 10 s: config3-m512 (8 ch, LMS), ds-zelinski-m512
+     (K7), gsc-rls-mccowan-m64 (the postfilter kernel), config4-m64 and
+     config4-m512 (NLMS AEC, WPE: K9, K10, K12, K11 at the new M) with their
+     launch counts and the plain chain, and config5-m512 (SRP-PHAT DOA ->
+     K6) with the DOA equal to the plain chain's.
+Phase 3 also runs, at B=8 (phase 3z), K1 and K3 at M = 64, 128 and 512 on
+noise, on pure tones at bins 0, 1, M/4, M/2 - 1 and M/2 and on impulse
+trains, K11 at M = 64 and 512 at (4, 5) and (8, 5), and at M = 512 K2, K6,
+the LMS scan and its gate pass, K7, the postfilter kernel, K9 and K10
+against their plain versions.
 Phase 2 also prints K2/K6's launch (blocks, threads, frames a chunk, shared
 memory, registers, blocks per SM) at B = 256, 132, 64 and 1 (C = 4) and at
 B = 256, C = 8; phase 5 also times K2 on the first 64 utterances and on the
@@ -127,8 +152,7 @@ C = 2..8, and K10's and K11's blocks per SM, threads and shared memory at the
 config-4 shape, at C*P = 24 with lowerN = 32 and at C*P = 40 (C = 8, lowerN 2
 and 32; the compiler's registers and spills are in its report above them).  Phase 6c times K10 in both of the
 path's calls (the first EM iteration has no filters and no FP64 residual).
-Phase 3 also holds, at B=8: K1 at M = 128 and 512 (its dense-product
-route); K1, K3, K4/K5 and K8 (whose DFTs are FFTs) on pure tones at bins 0,
+Phase 3 also holds, at B=8: K1, K3, K4/K5 and K8 (whose DFTs are FFTs) on pure tones at bins 0,
 1, 64, 127 and 128 and on impulse trains, one case per bin (K4 against the
 plain chain with sensor noise 20 dB down added, as config 5's inputs); K4
 against K1 -> K2 -> K3 and the plain chain and K5 against K1 -> K2 (bit for
@@ -155,7 +179,9 @@ and bound at 8 channels, "c8"; K9 its Kalman form's time,
 "kalman_ms", and its block Kalman form's, "block_kalman_ms"; K12 its time,
 bound and library time at n = 24 and 40, "n24" and "n40"; K9-K12 their
 forms at config 4's 8 channels, "c8"; the postfilter kernel its times by
-kind, "by_kind", at 8 channels, "c8", and phase 13's paths, "paths"); the
+kind, "by_kind", at 8 channels, "c8", and phase 13's paths, "paths"; K1,
+K3, K2, K6, the LMS scan and K11 their times, bounds, plain, torch.fft or
+library times and launches at M = 64, 128 and 512, "by_M"); the
 line before the last is the card's name and
 power limit; the last line is {"ok": true, "device": {...}}.  Imports
 nothing of JAX.
@@ -293,6 +319,7 @@ def main() -> None:
         build_steered_pipeline,
         steering_weights,
     )
+    from distant_speech_recognition_tpu_torch.ops import dft
     from distant_speech_recognition_tpu_torch.ops.aec_kernels import aec_launch_shape, aec_scan
     from distant_speech_recognition_tpu_torch.ops.filterbank import (
         FilterbankParams,
@@ -521,13 +548,6 @@ def main() -> None:
     Yr_ref = plain_analysis(xs)
     compare("analysis_tm", analysis_tm_fused(xs, enh.h, fb, A=enh.A), Yr_ref, 2e-5,
             "analysis_tm")
-    # K1 at the other M it takes, on its dense-product route
-    for M_, m_ in ((128, 3), (512, 4)):
-        fb_ = FilterbankParams(M=M_, m=m_, r=1, delay_compensation_type=2)
-        h_ = torch.from_numpy(rng.standard_normal(fb_.N, dtype=np.float32) / np.float32(16.0))
-        h_ = h_.to(dev)
-        compare(f"analysis_tm M={M_} (dense-product route)", analysis_tm_fused(xs, h_, fb_),
-                analysis_half_real_tm(xs, h_, fb_, packed=True), 2e-5, "analysis_tm")
     Yp_ref = plain_scan(Yr_ref)
     compare("gsc_rls_zelinski", gsc_rls_zelinski(Yr_ref, *scan_args), Yp_ref, 2e-4,
             "gsc_rls_zelinski")
@@ -792,7 +812,109 @@ def main() -> None:
     compare("analysis_polyphase vs analysis", Ys, analysis(xs, enh.h, fb), 2e-5, "polyphase_fir")
     compare("synthesis_polyphase vs synthesis", synthesis_polyphase(Ys, enh.g, fb),
             synthesis(Ys, enh.g, fb), 2e-5, "polyphase_fir")
-    del xs, Yr_ref, Ys, S_, h_
+    del Ys, S_, h_
+
+    # the other filterbank sizes: K1 and K3 on noise, on pure tones at bins
+    # 0, 1, M/4, M/2 - 1 and M/2 and on impulse trains (one impulse an
+    # M-sample block), at M = 64, 128 and 512; at M = 512 (F = 257) the
+    # scans K2, K6 (8 steerings) and LMS with its gate pass, K7 and the
+    # postfilter kernel, K9 and K10; K11 at M = 64 and 512, at (4, 5) and (8, 5)
+    log("== 3z. kernels at M = 64, 128 and 512 vs plain torch on the card (B=8, 2 s)")
+    for M_ in (64, 128, 512):
+        fb_ = FilterbankParams(M=M_, m=4, r=1, delay_compensation_type=2)
+        h_, g_ = (torch.as_tensor(a, dtype=torch.float32).to(dev) for a in load_pair(M_, 4, 1))
+        F_ = M_ // 2 + 1
+        Yr_ = analysis_half_real_tm(xs, h_, fb_, packed=True)
+        compare(f"analysis_tm M={M_}", analysis_tm_fused(xs, h_, fb_), Yr_, 2e-5, "analysis_tm")
+        Yn_ = torch.from_numpy(signal(rng, (150, 8, M_)) / np.float32(15.0)).to(dev)
+        compare(f"synthesis_tm M={M_}", synthesis_tm_fused(Yn_, g_, fb_),
+                synthesis_half_real_tm(Yn_, g_, fb_), 2e-5, "synthesis_tm")
+        A_ = dft.analysis_matrix_packed(M_).astype(np.float64)
+        t_ = np.arange(150)[:, None, None]
+        amp_ = 100.0 / (1.0 + np.arange(8))[None, :, None]
+        for f_ in (0, 1, M_ // 4, M_ // 2 - 1, M_ // 2, None):
+            if f_ is None:  # impulses
+                Yt_ = A_[(37 * t_[:, 0, 0] + 5) % M_][:, None, :] * amp_
+                blocks_ = np.arange(0, 2 * FS, M_)
+                xt_ = np.zeros((8, C, 2 * FS))
+                for c in range(C):
+                    pos_ = blocks_ + (37 * (blocks_ // M_) + 11 * c) % M_
+                    xt_[:, c, pos_[pos_ < 2 * FS]] = 1500.0
+                tag_ = "impulses"
+            else:
+                Yt_ = np.zeros((150, 8, M_))
+                Yt_[..., f_:f_ + 1] = amp_ * np.cos(0.7 * t_ + 0.3)
+                if 0 < f_ < M_ // 2:
+                    Yt_[..., M_ // 2 + f_:M_ // 2 + f_ + 1] = amp_ * np.sin(0.7 * t_ + 0.3)
+                xt_ = np.stack([1500.0 * np.cos(2 * np.pi * f_ * (n_t - 2 * c) / M_ + 0.4)
+                                for c in range(C)])[None].repeat(8, 0)
+                tag_ = f"bin {f_}"
+            xt_ *= (1.0 / (1.0 + np.arange(8)))[:, None, None]
+            Yt_ = torch.from_numpy(Yt_.astype(np.float32)).to(dev)
+            xt_ = torch.from_numpy(xt_.astype(np.float32)).to(dev)
+            compare(f"analysis_tm M={M_}, {tag_}", analysis_tm_fused(xt_, h_, fb_),
+                    analysis_half_real_tm(xt_, h_, fb_, packed=True), 2e-5, "analysis_tm")
+            compare(f"synthesis_tm M={M_}, {tag_}", synthesis_tm_fused(Yt_, g_, fb_),
+                    synthesis_half_real_tm(Yt_, g_, fb_), 2e-5, "synthesis_tm")
+        if M_ in (64, 512):  # K11 at (4, 5), narrow, and (8, 5), the wide kernel
+            for C_, P_ in ((4, 5), (8, 5)):
+                Yw_ = torch.from_numpy(signal(rng, (Tf_s, 8, C_, M_)) / np.float32(50.0)).to(dev)
+                Gw_ = torch.from_numpy((0.1 * (rng.standard_normal((8, C_, F_, C_ * P_))
+                                               + 1j * rng.standard_normal((8, C_, F_, C_ * P_)))
+                                        ).astype(np.complex64)).to(dev)
+                compare(f"wpe_resid M={M_} C={C_} P={P_}", wpe_resid(Yw_, Gw_, lower),
+                        pack_half(resid_plain(frames(Yw_), Gw_, lower).permute(2, 0, 1, 3)),
+                        1e-5, "wpe_resid")
+            del Yw_, Gw_
+        if M_ != 512:
+            continue
+        d_ = geometry.calc_la_delays(mpos[:, :1], azimuth=np.pi / 3)
+        wq_, bm_ = gsc_weights(M_, float(FS), d_, 1)
+        vs_ = array_manifold(M_, float(FS), d_)
+        w_ = (wq_.to(dev), bm_.to(dev), vs_.to(dev))
+        rls_ = GSCRLSConfig(min_frames=8)
+        compare("gsc_rls_zelinski M=512", gsc_rls_zelinski(Yr_, *w_, rls_, 0.6, 1, 2),
+                gsc_postfilter_fused(Yr_, None, *w_, "rls", rls_, 0.6, 1, 2, True), 2e-4,
+                "gsc_rls_zelinski")
+        vs8_ = array_manifold(M_, float(FS), torch.tensor(d8, dtype=torch.float32, device=dev))
+        st8_ = steering_weights(vs8_)
+        compare("gsc_rls_zelinski_steered M=512, 8 steerings",
+                gsc_rls_zelinski_steered(Yr_, *st8_, rls_, 0.6, 1, 2),
+                gsc_postfilter_fused(Yr_, None, *st8_, "rls", rls_, 0.6, 1, 2, True), 2e-4,
+                "gsc_rls_zelinski_steered")
+        lms_ = GSCLMSConfig(min_frames=6, slowdown_after=7)
+        compare("gsc_lms_zelinski M=512", gsc_lms_zelinski(Yr_, *w_, lms_, 0.6, 2, 0),
+                gsc_postfilter_fused(Yr_, None, *w_, "lms", lms_, 0.6, 2, 0, True), 2e-4,
+                "gsc_lms_zelinski")
+        gates_ = lms_gates(Yr_, lms_)
+        if not torch.equal(gates_, lms_silence_gates(Yr_, lms_)):
+            raise AssertionError("lms_gates at M=512 differs from the plain gates")
+        log(f"  lms_gates M=512: equal to the plain gates, flag for flag "
+            f"({int(gates_.sum().item())} of {gates_.numel()} open)")
+        wf_ = (vs_.conj().resolve_conj().to(dev), vs_.to(dev))
+        compare("zelinski_apply M=512", zelinski_apply(Yr_, *wf_, 0.6, 1, 2),
+                zelinski_apply_plain(Yr_, *wf_, 0.6, 1, 2), 3e-5, "zelinski_apply")
+        Gam_ = diffuse_noise_coherence(mpos, M_, float(FS))
+        pc_ = coherence_constants("mccowan", Gam_, vs_, 1).to(dev)
+        Yb_ = pack_half(apply_weights(wf_[0], unpack_half(Yr_).movedim(-2, -1)))
+        compare("coherence_postfilter mccowan M=512",
+                coherence_postfilter(Yr_, Yb_, *wf_, "mccowan", pc_, 0.6, 1, 2),
+                coherence_postfilter_plain(Yr_, Yb_, *wf_, "mccowan", pc_, 0.6, 1, 2), 1e-4,
+                "coherence_postfilter")
+        Vs_ = analysis_half_real_tm(torch.from_numpy(signal(rng, (8, 1, 2 * FS))).to(dev), h_,
+                                    fb_, packed=True)[:, :, 0, :]
+        compare("aec_scan nlms M=512", aec_scan(Yr_, Vs_, "nlms", cfg4.aec_delta,
+                                                cfg4.aec_epsilon, cfg4.aec_threshold),
+                plain_aec(Yr_, Vs_), 1e-4, "aec_scan")
+        Gn_ = torch.from_numpy((0.1 * (rng.standard_normal((8, C, F_, C * P))
+                                       + 1j * rng.standard_normal((8, C, F_, C * P)))
+                                ).astype(np.complex64)).to(dev)
+        Rs_, rs_ = stats_plain(frames(Yr_), Gn_, lower, P, True)
+        Rk_, rk_ = wpe_stats(Yr_, Gn_, lower, P, has_g=True)
+        compare("wpe_stats R M=512", Rk_, Rs_, 2e-4, "wpe_stats", lead=3)
+        compare("wpe_stats r M=512", rk_, rs_, 2e-4, "wpe_stats", lead=3)
+        del Vs_, Gn_, Rs_, rs_, Rk_, rk_, Yb_, vs8_, st8_
+    del xs, Yr_ref, Yr_, Yn_, Yt_, xt_, A_
 
     # -- 4. flagship path at real size ----------------------------------------
     B, secs = 256, 10
@@ -1810,27 +1932,72 @@ def main() -> None:
     # the plain chain
     B13 = min(32, B)
 
-    def plain_chain13(enh_, cfg_, x_, play_=None):
-        """The plain chain of a pipeline: analysis, [NLMS AEC, WPE],
-        the plain beamformer (a GSC's scan without its gain), the plain
-        postfilter, synthesis."""
-        Yr_ = plain_analysis(x_)
+    def plain_chain_of(enh_, x_, play_=None):
+        """The plain chain of a pipeline at its own filterbank: analysis,
+        [NLMS AEC, WPE], the plain beamformer (fixed weights: wqH X, or K7's
+        plain version with Zelinski; a GSC's scan with or without its gain),
+        the plain coherence postfilter, synthesis."""
+        c_, fb_ = enh_.cfg, enh_.cfg.fb
+        Yr_ = analysis_half_real_tm(x_, enh_.h, fb_, packed=True, A=enh_.A)
         if play_ is not None:
-            Yr_ = plain_wpe(plain_aec(Yr_, plain_analysis(play_[:, None, :])[:, :, 0, :]))
+            Vp_ = analysis_half_real_tm(play_[:, None, :], enh_.h, fb_, packed=True, A=enh_.A)
+            Yr_ = plain_wpe(plain_aec(Yr_, Vp_[:, :, 0, :]))
+        zel = c_.postfilter == "zelinski"
         w_ = (enh_.wqH, enh_.wq_manifold)
-        if cfg_.beamformer in FIXED_WEIGHT:
+        if c_.beamformer in FIXED_WEIGHT:
             Yp_ = None
+            if zel:
+                Yp_ = zelinski_apply_plain(Yr_, *w_, c_.pf_alpha, c_.pf_type, c_.pf_min_frames)
+            elif c_.postfilter == "none":
+                Yp_ = pack_half(apply_weights(enh_.wqH, unpack_half(Yr_).movedim(-2, -1)))
         else:
-            lms_ = cfg_.beamformer == "gsc_lms"
+            lms_ = c_.beamformer == "gsc_lms"
             Yp_ = gsc_postfilter_fused(Yr_, None, enh_.wqH, enh_.BmH, enh_.wq_manifold,
-                                       "lms" if lms_ else "rls", cfg_.lms if lms_ else cfg_.rls,
-                                       cfg_.pf_alpha, cfg_.pf_type, NO_POSTFILTER, True)
-        if cfg_.postfilter == "zelinski":
-            Yp_ = zelinski_apply_plain(Yr_, *w_, cfg_.pf_alpha, cfg_.pf_type, cfg_.pf_min_frames)
-        else:
-            Yp_ = coherence_postfilter_plain(Yr_, Yp_, *w_, cfg_.postfilter, enh_.pf_consts,
-                                             cfg_.pf_alpha, cfg_.pf_type, cfg_.pf_min_frames)
-        return plain_synthesis(Yp_)
+                                       "lms" if lms_ else "rls", c_.lms if lms_ else c_.rls,
+                                       c_.pf_alpha, c_.pf_type,
+                                       c_.pf_min_frames if zel else NO_POSTFILTER, True)
+        if c_.postfilter not in ("zelinski", "none"):
+            Yp_ = coherence_postfilter_plain(Yr_, Yp_, *w_, c_.postfilter, enh_.pf_consts,
+                                             c_.pf_alpha, c_.pf_type, c_.pf_min_frames)
+        return synthesis_half_real_tm(Yp_, enh_.g, fb_, S=enh_.S)
+
+    def check_path(name_, enh_, args_, want_, prof=False):
+        """One path through build_pipeline's module: its launches around one
+        forward (exactly ``want_``, nothing else), its first 32 utterances
+        against the plain chain (3e-4), its CUDA-event time, audio-s/s/GPU
+        and peak memory, and with ``prof`` a profile of three forwards."""
+        B_, secs_ = args_[0].shape[0], args_[0].shape[-1] / FS
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        with torch.no_grad():
+            y_ = enh_(*args_)
+        torch.cuda.synchronize()
+        c_ = kernels.launch_counts()
+        peak_ = torch.cuda.max_memory_allocated() / 1e9
+        want = dict.fromkeys(c_, 0) | want_
+        log(f"  {name_} launches {c_}")
+        if c_ != want:
+            raise AssertionError(f"{name_} launches {c_}, the path needs {want}")
+        T_ = args_[0].shape[-1]
+        fb_ = enh_.cfg.fb
+        T_out_ = (num_analysis_frames(fb_, T_) - fb_.synthesis_delay) * fb_.D
+        if tuple(y_.shape) != (B_, T_out_) or not torch.isfinite(y_).all():
+            raise AssertionError(f"{name_} output {tuple(y_.shape)} is not finite {(B_, T_out_)}")
+        n_ = min(32, B_)
+        with torch.no_grad():
+            ref_ = plain_chain_of(enh_, *(a[:n_] for a in args_))
+            err_ = compare(f"{name_} (build_pipeline) vs plain chain, first {n_}", y_[:n_], ref_,
+                           3e-4)
+            del y_, ref_
+            ms_ = time_ms(lambda: enh_(*args_), 3)
+        log(f"  {name_}: {ms_:.3f} ms ({B_ * secs_ / (ms_ / 1e3):.1f} audio-s/s/GPU), peak device "
+            f"memory of one forward {peak_:.2f} GB   ({smi_line()})")
+        if prof:
+            log(f"  torch.profiler over 3 back-to-back {name_} forwards")
+            profile_path(lambda: enh_(*args_))
+        return dict(ms=ms_, audio_s_per_s=B_ * secs_ / (ms_ / 1e3), peak_gb=peak_,
+                    max_abs_err=err_, launches=c_)
 
     play13 = torch.from_numpy(signal(rng, (B13, T))).to(dev)
     paths13 = (
@@ -1855,36 +2022,11 @@ def main() -> None:
         log(f"== 13c. {name13}: build_pipeline(beamformer={cfg13.beamformer!r}, "
             f"postfilter={cfg13.postfilter!r}, aec={cfg13.aec!r}, wpe={cfg13.wpe}) on the card, "
             f"B={B_} x {C_} ch x {secs} s")
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        kernels.reset_launch_counts()
-        with torch.no_grad():
-            y13 = enh13(*args13)
-        torch.cuda.synchronize()
-        c13 = kernels.launch_counts()
-        peak13 = torch.cuda.max_memory_allocated() / 1e9
-        want = dict.fromkeys(c13, 0) | {"analysis_tm": 1, "synthesis_tm": 1}
-        want |= {"coherence_postfilter": 1} if cfg13.postfilter != "zelinski" else {}
-        want |= extra
-        log(f"  launches {c13}")
-        if c13 != want:
-            raise AssertionError(f"{name13} launches {c13}, the path needs {want}")
-        if tuple(y13.shape) != (B_, T_out) or not torch.isfinite(y13).all():
-            raise AssertionError(f"{name13} output {tuple(y13.shape)} is not finite {(B_, T_out)}")
-        counts13[name13] = c13
-        with torch.no_grad():
-            ref13 = plain_chain13(enh13, cfg13, xin[:B13], *args13[1:])
-            err13 = compare(f"{name13} (build_pipeline) vs plain chain, first {B13}", y13[:B13],
-                            ref13, 3e-4)
-            del y13, ref13
-            ms13 = time_ms(lambda: enh13(*args13), 3)
-        path13[name13] = dict(ms=ms13, audio_s_per_s=B_ * secs / (ms13 / 1e3), peak_gb=peak13,
-                              max_abs_err=err13, launches=c13)
-        log(f"  {name13}: {ms13:.3f} ms ({B_ * secs / (ms13 / 1e3):.1f} audio-s/s/GPU), peak "
-            f"device memory of one forward {peak13:.2f} GB   ({smi_line()})")
-        if name13 in ("gsc-rls-mccowan-b256", "ds-lefkimmiatis-b256"):
-            log(f"  torch.profiler over 3 back-to-back {name13} forwards")
-            profile_path(lambda: enh13(*args13))
+        want13 = {"analysis_tm": 1, "synthesis_tm": 1} | extra | (
+            {"coherence_postfilter": 1} if cfg13.postfilter != "zelinski" else {})
+        path13[name13] = check_path(name13, enh13, args13, want13,
+                                    prof=name13 in ("gsc-rls-mccowan-b256", "ds-lefkimmiatis-b256"))
+        counts13[name13] = path13[name13]["launches"]
         del enh13
     del x13, x13_8, play13
 
@@ -1893,6 +2035,281 @@ def main() -> None:
         Bx = Cx - 1
         return (Bx * Cx + Cx + 3 * Bx * Bx + 8 * Bx + Bx * (Bx - 1) // 2 + 2 * Cx
                 + Cx * (Cx - 1) // 2)
+
+    # -- 14. the filterbanks at M = 64, 128 and 512 ---------------------------------
+    # the least times of phase 14's calls at filterbank fb_, B_ utterances, C_
+    # channels: the formulas of the M = 256 rows below, at that M
+    def fft_flops_at(M_):
+        return 2.5 * M_ * np.log2(M_)
+
+    def k1_bound_at(fb_, B_, C_, T_):
+        rows_ = num_analysis_frames(fb_, T_) * B_ * C_
+        return bound(4 * (B_ * C_ * T_ + rows_ * fb_.M + fb_.M * fb_.M + fb_.N),
+                     rows_ * fft_flops_at(fb_.M) + 2 * fb_.m * fb_.M * rows_)
+
+    def k3_bound_at(fb_, B_, Tf_):
+        T_out_ = (Tf_ - fb_.synthesis_delay) * fb_.D
+        return bound(4 * (Tf_ * B_ * fb_.M + B_ * T_out_ + fb_.M * fb_.M + fb_.N),
+                     Tf_ * B_ * fft_flops_at(fb_.M) + 2 * fb_.m * fb_.M * (T_out_ // fb_.D) * B_)
+
+    def k2_bound_at(M_, Tf_, B_, Cx):
+        F_ = M_ // 2 + 1
+        return bound(4 * (Tf_ * B_ * Cx * M_ + Tf_ * B_ * M_) + 8 * F_ * Cx * (1 + Cx),
+                     8 * rls_macs(Cx) * Tf_ * B_ * F_)
+
+    def k6_bound_at(M_, Tf_, B_, Cx):
+        F_ = M_ // 2 + 1
+        return bound(4 * (Tf_ * B_ * Cx * M_ + Tf_ * B_ * M_) + 8 * B_ * F_ * Cx * (1 + Cx),
+                     8 * rls_macs(Cx) * Tf_ * B_ * F_)
+
+    def lms_bound_at(M_, Tf_, B_, Cx):
+        F_, Bx = M_ // 2 + 1, Cx - 1
+        macs = Bx * Cx + Cx + 2 * Cx + Cx * (Cx - 1) // 2 + Cx + 5 * Bx
+        return bound(4 * (Tf_ * B_ * Cx * M_ + Tf_ * B_ * M_) + 8 * F_ * Cx * (2 + Bx),
+                     8 * macs * Tf_ * B_ * F_)
+
+    def k11_bound_at(M_, Tf_, B_, Cx, P_):
+        F_, CP_ = M_ // 2 + 1, Cx * P_
+        return bound(8 * Tf_ * B_ * Cx * M_ + 8 * B_ * Cx * F_ * CP_,
+                     8 * CP_ * B_ * Cx * F_ * (Tf_ - lower))
+
+    def kernel_row(name_, ms_, b_, **extra):
+        """A by_M entry: its time beside its least time, logged."""
+        log(f"  {name_}: kernel {ms_:.3f} ms   bound {b_[0]:.3f} ms ({b_[1]}), "
+            f"{100 * b_[0] / ms_:.1f}% of it   "
+            + "   ".join(f"{k} {v:.3f} ms" for k, v in extra.items() if v is not None))
+        return dict(ms=ms_, bound_ms=b_[0], bound_by=b_[1], **extra)
+
+    log(f"== 14. the filterbank sizes M = 64, 128 and 512 (B={B} x {secs} s; K4/K8 take "
+        "M = 256 only, so the split routes run)")
+    by_M = {k: {} for k in ("analysis_tm", "synthesis_tm", "gsc_rls_zelinski",
+                            "gsc_rls_zelinski_steered", "gsc_lms_zelinski", "wpe_resid")}
+    cells14, counts14 = {}, {}
+    x14 = torch.from_numpy(signal(rng, (B, C, T))).to(dev)
+    x14_8 = torch.from_numpy(signal(rng, (B, C3, T))).to(dev)
+    n32 = 32
+    # BASELINE config 1 (config1-m64-b256): 2-channel D&S at M = 64, no
+    # postfilter: K1, the plain product wqH X, K3
+    fb1 = FilterbankParams(M=64, m=4, r=1)
+    cfg1 = PipelineConfig(fb=fb1, samplerate=float(FS), beamformer="ds", postfilter="none")
+    mpos1 = mpos[:2]
+    delays1 = geometry.calc_la_delays(mpos1[:, :1], azimuth=np.pi / 3)
+    h1, g1 = load_pair(64, 4, 1)
+    enh1 = build_pipeline(cfg1, mpos1, delays1, h1, g1)
+    x1 = x14[:, :2].contiguous()
+    log(f"== 14a. config1-m64-b256: {cfg1.beamformer} + {cfg1.postfilter}, M=64 m=4 r=1, "
+        f"B={B} x 2 ch x {secs} s")
+    cells14["config1-m64-b256"] = check_path("config1-m64-b256", enh1, (x1,),
+                                             {"analysis_tm": 1, "synthesis_tm": 1}, prof=True)
+    counts14["config1-m64-b256"] = cells14["config1-m64-b256"]["launches"]
+    with torch.no_grad():
+        Tf1 = num_analysis_frames(fb1, T)
+        Yr1 = analysis_tm_fused(x1, enh1.h, fb1, hr=enh1.hr)
+        Yp1 = pack_half(apply_weights(enh1.wqH, unpack_half(Yr1).movedim(-2, -1)))
+        W1 = torch.randn((Tf1 * B * 2, 64), device=dev)
+        cell_k = {
+            "analysis_tm": kernel_row(
+                "analysis_tm M=64 C=2", time_ms(lambda: analysis_tm_fused(x1, enh1.h, fb1,
+                                                                          hr=enh1.hr), 5),
+                k1_bound_at(fb1, B, 2, T),
+                plain_ms=time_ms(lambda: analysis_half_real_tm(x1, enh1.h, fb1, packed=True,
+                                                               A=enh1.A), 1),
+                fft_ms=time_ms(lambda: torch.fft.rfft(W1, dim=-1), 5),
+                library_ms=time_ms(lambda: torch.matmul(W1, enh1.A), 5)),
+            "wqH X (torch)": time_ms(lambda: pack_half(apply_weights(
+                enh1.wqH, unpack_half(Yr1).movedim(-2, -1))), 3),
+            "synthesis_tm": kernel_row(
+                "synthesis_tm M=64", time_ms(lambda: synthesis_tm_fused(Yp1, enh1.g, fb1,
+                                                                        gf=enh1.gf), 5),
+                k3_bound_at(fb1, B, Tf1),
+                plain_ms=time_ms(lambda: synthesis_half_real_tm(Yp1, enh1.g, fb1, S=enh1.S), 1),
+                fft_ms=time_ms(lambda: torch.fft.irfft(unpack_half(Yp1.reshape(-1, 64)), n=64,
+                                                       dim=-1), 5),
+                library_ms=time_ms(lambda: torch.matmul(Yp1.reshape(-1, 64), enh1.S), 5)),
+        }
+        log(f"  wqH X (plain torch, XLA's in the JAX package): {cell_k['wqH X (torch)']:.3f} ms")
+        cells14["config1-m64-b256"]["kernels"] = cell_k
+        del Yr1, Yp1, W1, x1, enh1
+
+    # the flagship at M = 128 and 512 (flagship-m128-b256, flagship-m512-b256:
+    # K1, K2, K3), and every kernel of phase 14's paths timed at B=256 x 4 ch
+    # x 10 s (LMS: 8 ch) at M = 64, 128 and 512
+    ang_ = np.deg2rad(np.linspace(10.0, 350.0, B))
+    for M_ in (64, 128, 512):
+        fb_ = FilterbankParams(M=M_, m=4, r=1, delay_compensation_type=2)
+        h_, g_ = load_pair(M_, 4, 1)
+        cfgM = dataclasses.replace(cfg, fb=fb_)
+        enhM = build_pipeline(cfgM, mpos, delays, h_, g_)
+        name_ = f"flagship-m{M_}-b256"
+        if M_ != 64:
+            log(f"== 14b. {name_}: gsc_rls + zelinski, M={M_} m=4 r=1, B={B} x {C} ch x {secs} s")
+            cells14[name_] = check_path(name_, enhM, (x14,),
+                                        {"analysis_tm": 1, "gsc_rls_zelinski": 1,
+                                         "synthesis_tm": 1}, prof=True)
+            counts14[name_] = cells14[name_]["launches"]
+        log(f"== 14c. the kernels at M={M_}, B={B} x {C} ch x {secs} s (LMS: {C3} ch; plain "
+            f"scans timed on the first {n32} utterances at M = 512)")
+        TfM = num_analysis_frames(fb_, T)
+        F_ = M_ // 2 + 1
+
+        def plain_b32(fn):
+            """The plain scan's time on the first 32 utterances, at M = 512
+            only: its Python loop over frames takes ~20 s at M = 128 and
+            ~40 s at 64 (2,508 and 5,016 frames)."""
+            return timed(fn)[1] if M_ == 512 else None
+
+        sargs = (enhM.wqH, enhM.BmH, enhM.wq_manifold, cfgM.rls, cfgM.pf_alpha, cfgM.pf_type,
+                 cfgM.pf_min_frames)
+        with torch.no_grad():
+            YrM = analysis_tm_fused(x14, enhM.h, fb_, hr=enhM.hr)
+            W_ = torch.randn((TfM * B * C, M_), device=dev)
+            by_M["analysis_tm"][M_] = kernel_row(
+                f"analysis_tm M={M_}",
+                time_ms(lambda: analysis_tm_fused(x14, enhM.h, fb_, hr=enhM.hr), 5),
+                k1_bound_at(fb_, B, C, T),
+                plain_ms=time_ms(lambda: analysis_half_real_tm(x14, enhM.h, fb_, packed=True,
+                                                               A=enhM.A), 1),
+                fft_ms=time_ms(lambda: torch.fft.rfft(W_, dim=-1), 5),
+                library_ms=time_ms(lambda: torch.matmul(W_, enhM.A), 5))
+            del W_
+            YpM = gsc_rls_zelinski(YrM, *sargs)
+            by_M["gsc_rls_zelinski"][M_] = kernel_row(
+                f"gsc_rls_zelinski M={M_}", time_ms(lambda: gsc_rls_zelinski(YrM, *sargs), 3),
+                k2_bound_at(M_, TfM, B, C),
+                plain_ms_b32=plain_b32(lambda: gsc_postfilter_fused(
+                    YrM[:, :n32], None, *sargs[:3], "rls", *sargs[3:], True)),
+                library_ms=None)
+            by_M["synthesis_tm"][M_] = kernel_row(
+                f"synthesis_tm M={M_}",
+                time_ms(lambda: synthesis_tm_fused(YpM, enhM.g, fb_, gf=enhM.gf), 5),
+                k3_bound_at(fb_, B, TfM),
+                plain_ms=time_ms(lambda: synthesis_half_real_tm(YpM, enhM.g, fb_, S=enhM.S), 1),
+                fft_ms=time_ms(lambda: torch.fft.irfft(unpack_half(YpM.reshape(-1, M_)), n=M_,
+                                                       dim=-1), 5),
+                library_ms=time_ms(lambda: torch.matmul(YpM.reshape(-1, M_), enhM.S), 5))
+            del YpM
+            # K6: one steering per utterance, B directions on the circular array
+            dM = np.stack([geometry.calc_ca_delays(mpos5, az, np.pi / 2) for az in ang_])
+            stM = steering_weights(array_manifold(M_, float(FS), torch.tensor(
+                dM, dtype=torch.float32, device=dev)))
+            by_M["gsc_rls_zelinski_steered"][M_] = kernel_row(
+                f"gsc_rls_zelinski_steered M={M_}",
+                time_ms(lambda: gsc_rls_zelinski_steered(YrM, *stM, *sargs[3:]), 3),
+                k6_bound_at(M_, TfM, B, C),
+                plain_ms_b32=plain_b32(lambda: gsc_postfilter_fused(
+                    YrM[:, :n32], None, *(t[:n32] for t in stM), "rls", *sargs[3:], True)),
+                library_ms=None)
+            del stM
+            # K11 at config 4's (4, 5) with filters of 0.1-scale noise
+            GM = torch.from_numpy((0.1 * (rng.standard_normal((B, C, F_, C * P))
+                                          + 1j * rng.standard_normal((B, C, F_, C * P)))
+                                   ).astype(np.complex64)).to(dev)
+            Xc = frames(YrM[:, :16])
+            Lg = torch.stack([torch.nn.functional.pad(Xc, (0, 0, lower + dp, 0))[:, :, :TfM]
+                              for dp in range(P)], dim=-1)  # [16, C, Tf, F, P]
+            Lg = Lg.permute(0, 3, 1, 4, 2).reshape(16, F_, C * P, TfM)
+            G16 = GM[:16].conj()[:, :, :, None, :].resolve_conj()
+            by_M["wpe_resid"][M_] = kernel_row(
+                f"wpe_resid M={M_} (C, P) = ({C}, {P})",
+                time_ms(lambda: wpe_resid(YrM, GM, lower), 5), k11_bound_at(M_, TfM, B, C, P),
+                plain_ms_b32=timed(lambda: resid_plain(frames(YrM[:, :n32]), GM[:n32],
+                                                       lower))[1],
+                library_ms=time_ms(lambda: torch.matmul(G16, Lg[:, None]), 3) * B / 16)
+            del GM, Xc, Lg, G16, YrM
+            # the LMS scan (with its gate pass) at 8 channels
+            wq8, bm8 = gsc_weights(M_, float(FS), delays3, 1)
+            w8 = (wq8.to(dev), bm8.to(dev), array_manifold(M_, float(FS), delays3).to(dev),
+                  cfg.lms, cfg.pf_alpha, cfg.pf_type, cfg.pf_min_frames)
+            Yr8 = analysis_tm_fused(x14_8, enhM.h, fb_, hr=enhM.hr)
+            by_M["gsc_lms_zelinski"][M_] = kernel_row(
+                f"gsc_lms_zelinski M={M_} C={C3} (gate pass included)",
+                time_ms(lambda: gsc_lms_zelinski(Yr8, *w8), 3), lms_bound_at(M_, TfM, B, C3),
+                plain_ms_b32=plain_b32(lambda: gsc_postfilter_fused(
+                    Yr8[:, :n32], None, *w8[:3], "lms", *w8[3:], True)),
+                library_ms=None)
+            del Yr8, w8
+        del enhM
+
+    # the other paths at M = 64 and 512, B = 8 x 2 s: launch counts and the
+    # plain chain
+    T14 = min(2 * FS, T)
+    x14s = x14[:8, :, :T14].contiguous()
+    play14 = torch.from_numpy(signal(rng, (8, T14))).to(dev)
+    x14s_8 = x14_8[:8, :, :T14].contiguous()
+    paths14 = (
+        ("config3-m512-b8", 512, dict(beamformer="gsc_lms", postfilter="zelinski"), C3,
+         {"analysis_tm": 1, "lms_gates": 1, "gsc_lms_zelinski": 1, "synthesis_tm": 1}),
+        ("ds-zelinski-m512-b8", 512, dict(beamformer="ds", postfilter="zelinski"), C,
+         {"analysis_tm": 1, "zelinski_apply": 1, "synthesis_tm": 1}),
+        ("gsc-rls-mccowan-m64-b8", 64, dict(beamformer="gsc_rls", postfilter="mccowan"), C,
+         {"analysis_tm": 1, "gsc_rls_zelinski": 1, "coherence_postfilter": 1,
+          "synthesis_tm": 1}),
+        ("config4-m64-b8", 64, dict(aec="nlms", wpe=True, wpe_iterations=2), C,
+         {"analysis_tm": 2, "aec_scan": 1, "wpe_stats": 2, "gj_solve": 2, "wpe_resid": 1,
+          "gsc_rls_zelinski": 1, "synthesis_tm": 1}),
+        ("config4-m512-b8", 512, dict(aec="nlms", wpe=True, wpe_iterations=2), C,
+         {"analysis_tm": 2, "aec_scan": 1, "wpe_stats": 2, "gj_solve": 2, "wpe_resid": 1,
+          "gsc_rls_zelinski": 1, "synthesis_tm": 1}),
+    )
+    for name_, M_, kw_, C_, want_ in paths14:
+        fb_ = FilterbankParams(M=M_, m=4, r=1, delay_compensation_type=2)
+        h_, g_ = load_pair(M_, 4, 1)
+        cfg_ = dataclasses.replace(cfg, fb=fb_, **kw_)
+        enh_ = build_pipeline(cfg_, mpos3 if C_ == C3 else mpos, delays3 if C_ == C3 else delays,
+                              h_, g_)
+        args_ = ((x14s_8 if C_ == C3 else x14s),) + ((play14,) if cfg_.aec != "none" else ())
+        log(f"== 14d. {name_}: build_pipeline(beamformer={cfg_.beamformer!r}, "
+            f"postfilter={cfg_.postfilter!r}, aec={cfg_.aec!r}, wpe={cfg_.wpe}), M={M_}, "
+            f"8 x {C_} ch x 2 s")
+        cells14[name_] = check_path(name_, enh_, args_, want_)
+        counts14[name_] = cells14[name_]["launches"]
+        del enh_
+    # config 5 at M = 512: SRP-PHAT DOA -> steered GSC-RLS + Zelinski, one
+    # source per utterance at a grid direction plus sensor noise 20 dB down
+    fb_ = FilterbankParams(M=512, m=4, r=1, delay_compensation_type=2)
+    h_, g_ = load_pair(512, 4, 1)
+    cfg_ = dataclasses.replace(cfg, fb=fb_)
+    enh_ = build_steered_pipeline(cfg_, mpos5, h_, g_, [np.pi / 2], phis5)
+    placed_ = (11 * np.arange(8)) % len(phis5)
+    src_ = signal(rng, (8, T14 + 64))
+    x5_ = 0.1 * signal(rng, (8, C, T14))
+    for b, gi in enumerate(placed_):
+        d = geometry.calc_ca_delays(mpos5, phis5[gi], np.pi / 2)
+        for c in range(C):
+            off = 8 - int(round(float(d[c]) * FS))
+            x5_[b, c] += src_[b, off:off + T14]
+    x5_ = torch.from_numpy(x5_).to(dev)
+    log(f"== 14d. config5-m512-b8: build_steered_pipeline(), M=512, 8 x {C} ch x 2 s")
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        y_, doa_ = enh_(x5_)
+    torch.cuda.synchronize()
+    c_ = kernels.launch_counts()
+    log(f"  config5-m512-b8 launches {c_}")
+    want = dict.fromkeys(c_, 0) | {"analysis_tm": 1, "gsc_rls_zelinski_steered": 1,
+                                   "synthesis_tm": 1}
+    if c_ != want:
+        raise AssertionError(f"config5-m512-b8 launches {c_}, the path needs {want}")
+    with torch.no_grad():
+        Yr_ = analysis_half_real_tm(x5_, enh_.h, fb_, packed=True, A=enh_.A)
+        gidx_, steer_ = enh_.steer(Yr_)
+        ref_ = synthesis_half_real_tm(gsc_postfilter_fused(
+            Yr_, None, *steer_, "rls", cfg_.rls, cfg_.pf_alpha, cfg_.pf_type, cfg_.pf_min_frames,
+            True), enh_.g, fb_, S=enh_.S)
+        if not torch.equal(doa_, enh_.grid[gidx_]):
+            raise AssertionError("config5-m512-b8 DOA differs from the plain chain's")
+        n_placed = (doa_[:, 1].cpu() == torch.tensor(phis5[placed_], dtype=torch.float32)).sum()
+        log(f"  DOA equal to the plain chain's; at the placed direction: {n_placed.item()} of 8")
+        err_ = compare("config5-m512-b8 (build_steered_pipeline) vs plain chain", y_, ref_, 3e-4)
+        ms_ = time_ms(lambda: enh_(x5_), 3)
+    cells14["config5-m512-b8"] = dict(ms=ms_, audio_s_per_s=8 * 2 / (ms_ / 1e3),
+                                      max_abs_err=err_, launches=c_)
+    counts14["config5-m512-b8"] = c_
+    log(f"  config5-m512-b8: {ms_:.3f} ms ({8 * 2 / (ms_ / 1e3):.1f} audio-s/s/GPU)")
+    del enh_, x5_, src_, y_, ref_, Yr_, x14, x14_8, x14s, x14s_8, play14
+    for name_, cell_ in cells14.items():
+        log(f"  phase 14 {name_}: {cell_['ms']:.3f} ms, {cell_['audio_s_per_s']:.1f} "
+            f"audio-s/s/GPU, {cell_['max_abs_err']:.3g} max abs error against the plain chain")
 
     def k2_bound(Cx):  # Cx channels in, one out, the weights read once
         return bound(4 * (Tf * B * Cx * M + Tf * B * M) + 8 * F * Cx * (1 + Cx),
@@ -2013,12 +2430,15 @@ def main() -> None:
             "(XLA scans of mccowan / lefkimmiatis / apab_postfilter; no TPU kernel)"),
     }
     times["coherence_postfilter"] = pf13["mccowan"][:2]  # McCowan REAL, Y given: gsc-rls-mccowan's
+    log("  phase 14's paths: " + json.dumps({k: {k2: v2 for k2, v2 in v.items()
+                                                if k2 != "launches"}
+                                            for k, v in cells14.items()}))
     library["coherence_postfilter"] = None
     by_path = {"flagship": counts, "config4": counts4, "config4_block_kalman": counts4bk,
                "fixed_weight": counts_fw, "fixed_weight_split": counts_split,
                "config5": counts5, "filterbank": counts_fb, "config3": counts3,
                "config4_c8": counts12, "config4_c8_rls": counts12r} | {
-                   f"{bf}_none": c for bf, c in counts_none.items()} | counts13
+                   f"{bf}_none": c for bf, c in counts_none.items()} | counts13 | counts14
     # the RLS kernels at config 3's 8 channels (phase 11)
     c8 = {"gsc_rls_zelinski": (k2_8_ms, k2_bound(C3)), "gsc_mono": (k4_8_ms, k4_bound(C3))}
     for name, (ms_, (b_ms, b_by)) in c8.items():
@@ -2042,6 +2462,10 @@ def main() -> None:
             row["max_abs_err_vs_split"] = results[name + "_vs_split"]
         if name in fft_ms:
             row["fft_ms"] = fft_ms[name]
+        if name in by_M:  # phase 14: the kernel at M = 64, 128 and 512, B=256 x 10 s
+            row["by_M"] = {str(M_): e | {"launches": sum(
+                c[name] for p_, c in counts14.items() if f"-m{M_}-" in p_)}
+                for M_, e in by_M[name].items()}
         if name == "analysis_tm":
             row["dense_route_ms"] = dense_route_ms
         if name in scan_ms:  # the scans: times at other batches, and K2/K6's launch at each

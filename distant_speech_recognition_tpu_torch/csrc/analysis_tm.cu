@@ -16,29 +16,33 @@
 // spectra out at B=256 x 4 ch x 10 s (0.59 ms at 3.35 TB/s); done by FFT,
 // each 256-point row needs ~5k flops plus the FIR's 2*m*M, 9 GFLOP in all.
 //
-// M = 256 (every pipeline on the card): the product with A is an FFT in
-// shared memory (csrc/dsr_fft.h).  A block of 256 threads owns a tile of
-// 64 rows, K = 64 / Cg frames of Cg consecutive signals (the channels of one
-// utterance, Cg = the channel count), laid out and paired in the FFT exactly
-// as the one-kernel chains K4/K5 and K8 lay out theirs, so K1 -> K2 equals
-// K5 to the bit.  It
-//   1. forms the rows' FIR sums from x (dsr::fft::analysis_fir_tile; at the
-//      flagship's m = 4, R = 2 each sample of x is loaded once per chunk of
-//      8 frames and reused from registers by the taps) in the FFT's input
-//      layout with the (n+1) phase as an index shift;
+// M in {64, 128, 256, 512} (every pipeline on the card): the product with A
+// is an FFT in shared memory (csrc/dsr_fft.h, one plan for every such M).
+// A block of 256 threads owns a tile of ROWS = 64 * 256 / M rows (256, 128,
+// 64, 32: ~70 KB of rows at every M), K = ROWS / Cg frames of Cg consecutive
+// signals (the channels of one utterance, Cg = the channel count); at M =
+// 256 laid out and paired in the FFT exactly as the one-kernel chains K4/K5
+// and K8 lay out theirs, so K1 -> K2 equals K5 to the bit.  It
+//   1. forms the rows' FIR sums from x (dsr::fft::analysis_fir_tile; at
+//      m = 4, R = 2 each sample of x is loaded once per chunk of 8 frames and
+//      reused from registers by the taps; below M = 256 the 256 / M threads
+//      of an element share its rows) in the FFT's input layout with the (n+1)
+//      phase as an index shift;
 //   2. runs the FFT in place, two rows per complex FFT;
 //   3. splits each row's bins off its pair (dsr::fft::split_bin) and writes
-//      them as whole 1 KB packed rows [Re(0..M/2) | Im(1..M/2-1)] of out.
-// ~70 KB of shared memory and up to 128 registers: two blocks per SM, so
-// one block's loads of x and stores of out overlap the other's FFT (three
-// blocks at 80 registers spilled and were slower).  Plain IEEE FP32.
+//      them as whole packed rows [Re(0..M/2) | Im(1..M/2-1)] of out (256 / M
+//      rows at a time below M = 256, a row in two halves at 512).
+// Up to 128 registers: two blocks per SM, so one block's loads of x and
+// stores of out overlap the other's FFT (three blocks at 80 registers
+// spilled and were slower, M = 256).  Plain IEEE FP32.
 //
-// Other M (M % 128 == 0; no pipeline takes it on the card, the tests do):
-// a tiled SGEMM against A whose left operand is never stored: each
-// 128-frame x 8-column tile of w is formed in shared memory from x
-// (dsr::analysis_fir) and consumed at once; a block owns 128 frames of one
-// signal and 128 output columns, 256 threads each hold an 8x8 register tile.
-// It does 2*M*M flops per row (168 GFLOP at the flagship's shape).
+// The dense-product route (dsr_analysis_tm_dense, M % 128 == 0) is no
+// pipeline's: it stays as a yardstick (chip_smoke.py phase 5).  A tiled
+// SGEMM against A whose left operand is never stored: each 128-frame x
+// 8-column tile of w is formed in shared memory from x (dsr::analysis_fir)
+// and consumed at once; a block owns 128 frames of one signal and 128 output
+// columns, 256 threads each hold an 8x8 register tile.  It does 2*M*M flops
+// per row (168 GFLOP at the flagship's shape).
 #include "dsr_device.h"
 #include "dsr_fft.h"
 #include "dsr_kernels.h"
@@ -47,62 +51,92 @@
 
 namespace {
 
-using dsr::fft::LD;
-
 constexpr int THREADS = 256;
 
-// ---- M = 256: FIR rows + shared-memory FFT --------------------------------
+// ---- M in {64, 128, 256, 512}: FIR rows + shared-memory FFT -----------------
 
-constexpr int M_FFT = dsr::fft::N;
-constexpr int ROWS = 64;  // rows per tile: K = ROWS / Cg frames x Cg signals
-constexpr size_t FFT_SMEM_BYTES = sizeof(float) * (2 * M_FFT + (size_t)ROWS * LD);
+// rows per tile: K = ROWS / Cg frames x Cg signals, ~70 KB at every M
+template <int M>
+__host__ __device__ constexpr int tile_rows() {
+  return 64 * 256 / M;
+}
+template <int M>
+__host__ __device__ constexpr size_t fft_smem_bytes() {
+  return sizeof(float) * (dsr::fft::Shape<M>::TWF + (size_t)tile_rows<M>() * dsr::fft::ld<M>());
+}
 
-template <int C>
+template <int M, int C>
 __global__ void __launch_bounds__(THREADS, 2)
 analysis_fft_kernel(const float* __restrict__ x, const float* __restrict__ hr,
                     const float* __restrict__ tw, float* __restrict__ out, int BC, int T, int Tf,
                     int m, int D, int shift) {
+  constexpr int ROWS = tile_rows<M>();
   constexpr int K = ROWS / C;
   extern __shared__ __align__(16) float smem[];
-  float* tc = smem;
-  float* ts = tc + M_FFT;
-  float* P = ts + M_FFT;
+  float* tws = smem;
+  float* P = smem + dsr::fft::Shape<M>::TWF;
 
   const int t0 = blockIdx.x * K;
   const int g = blockIdx.y;  // signals g*C .. g*C + C-1
-  dsr::fft::stage_twiddles(smem, tw);
-  const dsr::fft::Consts kc = dsr::fft::consts(tw);
-  dsr::fft::analysis_fir_tile<ROWS, C, THREADS, 8>(P, x + (size_t)g * C * T, hr, t0, Tf, T, m,
-                                                    D, shift);
+  dsr::fft::stage_twiddles<M>(smem, tw);
+  const dsr::fft::Consts kc = dsr::fft::consts<M>(tw);
+  dsr::fft::analysis_fir_tile<M, ROWS, C, THREADS, 8>(P, x + (size_t)g * C * T, hr, t0, Tf, T,
+                                                       m, D, shift);
   __syncthreads();
-  dsr::fft::fft_rows<false, THREADS>(P, ROWS / 2, tc, ts, kc, threadIdx.x);
+  dsr::fft::fft_rows<M, false, THREADS>(P, ROWS / 2, tws, kc, threadIdx.x);
   __syncthreads();
 
-  // lane l of a packed row: Re(bin l) for l < F, Im(bin l - (F - 1)) after
-  constexpr int F = M_FFT / 2 + 1;
-  const int l = threadIdx.x;
-  const int f = l < F ? l : l - (F - 1);
+  // lane l of a packed row: Re(bin l) for l < F, Im(bin l - (F - 1)) after;
+  // LANES threads a row, GROUPS rows at a time, LP lanes a thread
+  constexpr int F = M / 2 + 1;
+  constexpr int LANES = M < THREADS ? M : THREADS;
+  constexpr int GROUPS = THREADS / LANES;
+  constexpr int LP = M / LANES;
+  const int l0 = GROUPS == 1 ? (int)threadIdx.x : (int)(threadIdx.x % LANES);
+  int fl[LP];  // the bin of lane l0 + j LANES
+#pragma unroll
+  for (int j = 0; j < LP; ++j) {
+    const int l = l0 + LANES * j;
+    fl[j] = l < F ? l : l - (F - 1);
+  }
 #pragma unroll 4
-  for (int r = 0; r < K * C; ++r) {
+  for (int r = GROUPS == 1 ? 0 : (int)(threadIdx.x / LANES); r < K * C; r += GROUPS) {
     const int t = t0 + r / C;
     if (t >= Tf) break;
-    const dsr::cf X = dsr::fft::split_bin(P, r, f);
-    out[((size_t)t * BC + (size_t)g * C + r % C) * M_FFT + l] = l < F ? X.r : X.i;
+#pragma unroll
+    for (int j = 0; j < LP; ++j) {
+      const int l = l0 + LANES * j;
+      const dsr::cf X = dsr::fft::split_bin<M>(P, r, fl[j]);
+      out[((size_t)t * BC + (size_t)g * C + r % C) * M + l] = l < F ? X.r : X.i;
+    }
   }
 }
 
-template <int C>
+template <int M, int C>
 int launch_fft(const float* x, const float* hr, const float* tw, float* out, int G, int T, int Tf,
                int m, int D, int shift, cudaStream_t stream) {
-  constexpr int K = ROWS / C;
-  cudaError_t err = cudaFuncSetAttribute(analysis_fft_kernel<C>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)FFT_SMEM_BYTES);
+  constexpr int K = tile_rows<M>() / C;
+  constexpr size_t bytes = fft_smem_bytes<M>();
+  cudaError_t err = cudaFuncSetAttribute(analysis_fft_kernel<M, C>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Tf + K - 1) / K, G);
-  analysis_fft_kernel<C><<<grid, THREADS, FFT_SMEM_BYTES, stream>>>(x, hr, tw, out, G * C, T, Tf,
-                                                                    m, D, shift);
+  analysis_fft_kernel<M, C><<<grid, THREADS, bytes, stream>>>(x, hr, tw, out, G * C, T, Tf, m, D,
+                                                              shift);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int M>
+int launch_fft_c(const float* x, const float* hr, const float* tw, float* out, int G, int Cg,
+                 int T, int Tf, int m, int D, int shift, cudaStream_t stream) {
+  switch (Cg) {
+#define DSR_CASE(n) \
+    case n: return launch_fft<M, n>(x, hr, tw, out, G, T, Tf, m, D, shift, stream);
+    DSR_CASE(1) DSR_CASE(2) DSR_CASE(3) DSR_CASE(4) DSR_CASE(5) DSR_CASE(6) DSR_CASE(7)
+    DSR_CASE(8)
+#undef DSR_CASE
+    default: return DSR_ERR_ARGS;
+  }
 }
 
 // ---- other M: FIR tiles + dense DFT product ---------------------------------
@@ -197,22 +231,16 @@ extern "C" int dsr_analysis_tm_dense(const float* x, const float* hr, const floa
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int dsr_analysis_tm(const float* x, const float* hr, const float* tw, const float* A,
-                               float* out, int G, int Cg, int T, int Tf, int M, int m, int D,
-                               int shift, cudaStream_t stream) {
-  if (M != M_FFT) {
-    const long long BC = (long long)G * Cg;
-    if (G <= 0 || Cg <= 0 || BC > 65535) return DSR_ERR_ARGS;
-    return dsr_analysis_tm_dense(x, hr, A, out, (int)BC, T, Tf, M, m, D, shift, stream);
-  }
+extern "C" int dsr_analysis_tm(const float* x, const float* hr, const float* tw, float* out,
+                               int G, int Cg, int T, int Tf, int M, int m, int D, int shift,
+                               cudaStream_t stream) {
   if (G <= 0 || G > 65535 || T <= 0 || Tf <= 0 || m <= 0 || D <= 0 || M % D != 0)
     return DSR_ERR_ARGS;
-  switch (Cg) {
-#define DSR_CASE(n) \
-    case n: return launch_fft<n>(x, hr, tw, out, G, T, Tf, m, D, shift, stream);
-    DSR_CASE(1) DSR_CASE(2) DSR_CASE(3) DSR_CASE(4) DSR_CASE(5) DSR_CASE(6) DSR_CASE(7)
-    DSR_CASE(8)
-#undef DSR_CASE
+  switch (M) {
+    case 64: return launch_fft_c<64>(x, hr, tw, out, G, Cg, T, Tf, m, D, shift, stream);
+    case 128: return launch_fft_c<128>(x, hr, tw, out, G, Cg, T, Tf, m, D, shift, stream);
+    case 256: return launch_fft_c<256>(x, hr, tw, out, G, Cg, T, Tf, m, D, shift, stream);
+    case 512: return launch_fft_c<512>(x, hr, tw, out, G, Cg, T, Tf, m, D, shift, stream);
     default: return DSR_ERR_ARGS;
   }
 }

@@ -1,36 +1,49 @@
-// The 256-point DFTs of the filterbank kernels as FFTs in shared memory
-// (K1 analysis_tm.cu, K3 synthesis_tm.cu, K4/K5 gsc_mono.cu, K8
-// fw_mono.cu), and the analysis FIR rows that K1, K4/K5 and K8 transform
-// (`analysis_fir_tile`: one function, so all three form the same sums in the
-// same order and pair the same rows in their FFTs).
+// The N-point DFTs of the filterbank kernels as FFTs in shared memory, N in
+// {64, 128, 256, 512} (K1 analysis_tm.cu and K3 synthesis_tm.cu at every
+// such N; K4/K5 gsc_mono.cu and K8 fw_mono.cu at N = 256), and the analysis
+// FIR rows that K1, K4/K5 and K8 transform (`analysis_fir_tile`: one
+// function, so all three form the same sums in the same order and pair the
+// same rows in their FFTs).
 //
 // What they compute (ops/dft.py):
-//   - analysis: the packed row Y[f] = e^{-2 pi i f/M} fft(w)[f], f = 0..M/2,
+//   - analysis: the packed row Y[f] = e^{-2 pi i f/N} fft(w)[f], f = 0..N/2,
 //     of a real FIR row w (`analysis_matrix_packed`).  The phase is an index
-//     shift of the input: w[n] is stored as element (n + 1) mod M.
-//   - synthesis: c = M irfft(conj(Y)) of a packed row Y
+//     shift of the input: w[n] is stored as element (n + 1) mod N.
+//   - synthesis: c = N irfft(conj(Y)) of a packed row Y
 //     (`synthesis_half_matrix_packed`), which is the forward FFT of Y's
 //     Hermitian extension; the per-segment sample reversal
 //     (`segment_reversal_perm`) is an index map where c is read.
-// Both are the same forward 256-point complex FFT, run on two real rows at
+// Both are the same forward N-point complex FFT, run on two real rows at
 // once: the rows (2q, 2q+1) of a buffer hold the real and imaginary parts of
 // one complex row (two-for-one), and `split_bin` / `put_pair_bin` convert
 // between the pair and its two real rows' spectra.
 //
-// Stage plan (tests/test_torch_fft_plan.py follows it on the CPU): the 256
-// elements of a row are a 16 x 16 matrix of cells; element n sits in cell
-// (n % 16, n / 16) before the FFT (layout T) and X[k] in cell (k / 16, k % 16)
-// after it (natural layout).  Pass 1: thread g takes cell row g (n = 16 n1 +
-// g), a 16-point DFT over n1 (radix 4 x 4, in registers), times the twiddle
-// W256^(g k1), back into cells (g, k1).  Pass 2: thread g takes cell column
-// g (k1 = g), a 16-point DFT over the rows into cells (k2, g): X[g + 16 k2].
-// A pair's 16 threads are one half warp, so the passes synchronise with
-// __syncwarp only.  Cells are XOR-swizzled (cell (r, c) at 16 r + (c ^ r))
-// and rows are LD = 264 floats apart, so the half warps of a warp (two pairs,
-// rows 2 LD apart, 16 banks) and every pass, split and FIR store touch 32
-// distinct banks.  Twiddles come from the host's float64 table rounded to
-// float32 (dft.fft_twiddles), never from __sinf/__cosf; plain IEEE FP32,
-// with the complex products' FMAs written out (`twiddle`).
+// Stage plan (`Shape<N>`; tests/test_torch_fft_plan.py follows it on the
+// CPU at every N).  N <= 256 is a four-step plan on R x Q cells (8 x 8, 8 x
+// 16, 16 x 16): element n sits in cell (n % R, n / R) before the FFT (layout
+// T) and X[k] in cell (k / Q, k % Q) after it (natural layout).  Pass 1:
+// thread g of a pair takes cell row g (n = R n1 + g), a Q-point DFT over n1
+// in registers, times the twiddle W_N^(g k1), back into cells (g, k1).  Pass
+// 2: cell column k1 (TP = R threads a pair take the Q columns in turn), an
+// R-point DFT over the rows into cells (k2, k1): X[k1 + Q k2].  The 8- and
+// 16-point DFTs are radix 4 x 2 and 4 x 4 in registers.  N = 512 is two
+// 256-point sub-rows, SUB floats apart (the even elements in sub-row 0, the
+// odd ones in sub-row 1), each run through the 16 x 16 plan by one half warp,
+// and a radix-2 pass: X[k] = E[k] + W512^k O[k], X[k + 256] = E[k] - W512^k
+// O[k] in place (X[k] in sub-row k / 256, the 256-point natural cell of k %
+// 256).  A pair's TP threads (8, 8, 16, 32) share one warp, so the passes
+// synchronise with __syncwarp only.  Cells are XOR-swizzled (cell (r, c)
+// at Q r + (c ^ r), r < R <= Q) and rows are LD floats apart (N + 4; 264 at
+// 256; 528 at 512, SUB = 272), so that the four, four, two and one pairs of
+// a warp touch 32 distinct banks in every pass and twiddle read (the test
+// checks it).  Cell and element indices are shifts and masks: a signed
+// division or remainder by a power of two costs a sign correction each
+// time, in the FFT's inner loops.  Twiddles come from the host's float64 table
+// of the same N rounded to float32 (dft.fft_twiddles), never from
+// __sinf/__cosf; plain IEEE FP32, with the complex products' FMAs written
+// out (`twiddle`).  At N = 256 the plan, the arithmetic and its order are
+// those K4/K5 and K8 were built with, so they keep their bits
+// (tests/probe_filterbank_bits.py, the stored filterbank case).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -40,22 +53,56 @@
 namespace dsr {
 namespace fft {
 
-constexpr int N = 256;
-constexpr int LD = 264;  // floats per row in shared memory
+__host__ __device__ constexpr int ilog2(int n) { return n <= 1 ? 0 : 1 + ilog2(n / 2); }
 
-__device__ __forceinline__ int cell(int r, int c) { return 16 * r + (c ^ r); }
+template <int N>
+struct Shape {
+  static_assert(N == 64 || N == 128 || N == 256 || N == 512, "FFT sizes 64..512");
+  static constexpr bool SPLIT2 = N == 512;         // two sub-rows and a radix-2 pass
+  static constexpr int NS = SPLIT2 ? N / 2 : N;    // points of a four-step (sub-)row
+  static constexpr int R = NS == 256 ? 16 : 8;     // cell rows: pass 1's DFTs, threads
+  static constexpr int Q = NS / R;                 // cell columns: pass 2's DFTs
+  static constexpr int TP = SPLIT2 ? 32 : R;       // threads a pair
+  static constexpr int SUB = SPLIT2 ? NS + 16 : 0; // floats from sub-row 0 to sub-row 1
+  static constexpr int LD = SPLIT2 ? SUB + NS : N == 256 ? 264 : N + 4;  // floats a row
+  static constexpr int TWF = 2 * N;  // twiddle floats in shared memory (`stage_twiddles`)
+  static constexpr int LR = ilog2(R), LQ = ilog2(Q), LTP = ilog2(TP);
+};
+
+template <int N>
+__host__ __device__ constexpr int ld() {
+  return Shape<N>::LD;
+}
+
+// cell (r, c), r < R <= Q; index arithmetic in shifts and masks (as
+// divisions of a signed index, each costs a sign correction)
+template <int N>
+__device__ __forceinline__ int cell(int r, int c) {
+  return Shape<N>::Q * r + (c ^ r);
+}
 // element n of a row before the FFT (layout T) and after it (natural)
-__device__ __forceinline__ int tpos(int n) { return cell(n & 15, n >> 4); }
-__device__ __forceinline__ int npos(int n) { return cell(n >> 4, n & 15); }
+template <int N>
+__device__ __forceinline__ int tpos(int n) {
+  using S = Shape<N>;
+  if constexpr (S::SPLIT2) return (n & 1) * S::SUB + tpos<S::NS>(n >> 1);
+  else return cell<N>(n & (S::R - 1), n >> S::LR);
+}
+template <int N>
+__device__ __forceinline__ int npos(int n) {
+  using S = Shape<N>;
+  if constexpr (S::SPLIT2) return (n >> ilog2(S::NS)) * S::SUB + npos<S::NS>(n & (S::NS - 1));
+  else return cell<N>(n >> S::LQ, n & (S::Q - 1));
+}
 
-// cos(pi/8), sin(pi/8), sqrt(1/2): the radix-16 butterflies' own twiddles,
-// read from the host's table
+// cos(pi/8), sin(pi/8), sqrt(1/2): the radix-8 and radix-16 butterflies' own
+// twiddles, read from the host's table of N
 struct Consts {
   float c1, s1, r;
 };
 
+template <int N>
 __device__ __forceinline__ Consts consts(const float* __restrict__ tw) {
-  return {__ldg(tw + 16), -__ldg(tw + N + 16), __ldg(tw + 32)};
+  return {__ldg(tw + N / 16), -__ldg(tw + N + N / 16), __ldg(tw + N / 8)};
 }
 
 // 16-byte asynchronous copy global -> shared; src_bytes = 0 writes zeros
@@ -70,16 +117,23 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// pass 1's twiddles W256^(g k1) from the table [2][N] (cos, -sin of
-// 2 pi e / N) into shared memory in the order [2][k1][g], so that the 16
-// threads of a pair read 16 consecutive floats (the table's own order puts
-// up to four of them in one bank); the caller synchronises the block before
-// the first pass
+// The twiddles from the table tw [2][N] (cos, -sin of 2 pi e / N) into the
+// TWF floats at sm: pass 1's W_NS^(g k1) in the order [2][k1][g], so that
+// the threads of a pair read consecutive floats (the table's own order puts
+// up to four of them in one bank); at N = 512 (NS = 256) read as W512^(2 g
+// k1), then the radix-2 pass's W512^k, k < 256, [2][k].  The caller
+// synchronises the block before the first pass.
+template <int N>
 __device__ __forceinline__ void stage_twiddles(float* sm, const float* __restrict__ tw) {
-  for (int i = threadIdx.x; i < N; i += blockDim.x) {
-    const int e = (i & 15) * (i >> 4);
+  using S = Shape<N>;
+  for (int i = threadIdx.x; i < S::NS; i += blockDim.x) {
+    const int e = (i & (S::R - 1)) * (i >> S::LR) * (N / S::NS);
     sm[i] = __ldg(tw + e);
-    sm[N + i] = __ldg(tw + N + e);
+    sm[S::NS + i] = __ldg(tw + N + e);
+    if constexpr (S::SPLIT2) {
+      sm[2 * S::NS + i] = __ldg(tw + i);
+      sm[3 * S::NS + i] = __ldg(tw + N + i);
+    }
   }
 }
 
@@ -135,11 +189,47 @@ __device__ __forceinline__ void dft16(float (&r)[16], float (&i)[16], const Cons
          r[4 * l1 + 3], i[4 * l1 + 3]);
 }
 
-__host__ __device__ constexpr int reg16(int k) { return 4 * (k & 3) + (k >> 2); }
+// V[k] = sum_n v[n] W8^(n k) in place; V[k] ends at register index
+// 2 (k % 4) + k / 4 (`reg8`).  n = 2 m1 + m2, k = l1 + 4 l2.
+__device__ __forceinline__ void dft8(float (&r)[8], float (&i)[8], const Consts& k) {
+#pragma unroll
+  for (int m2 = 0; m2 < 2; ++m2)
+    dft4(r[m2], i[m2], r[2 + m2], i[2 + m2], r[4 + m2], i[4 + m2], r[6 + m2], i[6 + m2]);
+  // index 2 l1 + 1 holds the odd DFT's output l1: times W8^l1
+  twiddle(r[3], i[3], k.r, -k.r);   // W^1
+  {                                 // W^2 = -i
+    const float t = r[5];
+    r[5] = i[5];
+    i[5] = -t;
+  }
+  twiddle(r[7], i[7], -k.r, -k.r);  // W^3
+#pragma unroll
+  for (int l1 = 0; l1 < 4; ++l1) {
+    const float tr = r[2 * l1 + 1], ti = i[2 * l1 + 1];
+    r[2 * l1 + 1] = r[2 * l1] - tr;
+    i[2 * l1 + 1] = i[2 * l1] - ti;
+    r[2 * l1] = r[2 * l1] + tr;
+    i[2 * l1] = i[2 * l1] + ti;
+  }
+}
+
+template <int L>
+__device__ __forceinline__ void dft(float (&r)[L], float (&i)[L], const Consts& k) {
+  static_assert(L == 8 || L == 16, "8- and 16-point DFTs");
+  if constexpr (L == 16) dft16(r, i, k);
+  else dft8(r, i, k);
+}
+
+// register index of V[k] after dft<L>
+template <int L>
+__host__ __device__ constexpr int reg(int k) {
+  return L == 16 ? 4 * (k & 3) + (k >> 2) : 2 * (k & 3) + (k >> 2);
+}
 
 // Z[k] of the complex row a + i b formed from two packed rows a, b
 // ([Re(0..N/2) | Im(1..N/2-1)], raw lanes): the Hermitian extensions of the
 // two half spectra, the second times i
+template <int N>
 __device__ __forceinline__ void packed_pair_z(const float* a, const float* b, int k, float& zr,
                                               float& zi) {
   if (k == 0 || k == N / 2) {
@@ -163,12 +253,13 @@ __device__ __forceinline__ void packed_pair_z(const float* a, const float* b, in
 // with x zero outside [0, T) (`dsr::analysis_fir`'s sum, taps in order,
 // fmaf), rows past K*C and frames past Tf zero.  The taps are outer and
 // unrolled, so the thread keeps up to 32 loads of x in flight.
-template <int ROWS, int C>
+template <int N, int ROWS, int C>
 __device__ __forceinline__ void analysis_fir_rows8(float* P, int r0, const float* __restrict__ xb,
                                                    const float* __restrict__ hr, int t0, int Tf,
                                                    int T, int m, int D, int shift, int k,
                                                    int pos) {
   constexpr int K = ROWS / C;
+  constexpr int LD = ld<N>();
   const int fj = k / D;
   const int fi = k - fj * D;
   float acc[8];
@@ -193,35 +284,52 @@ __device__ __forceinline__ void analysis_fir_rows8(float* P, int r0, const float
   for (int rr = 0; rr < 8; ++rr) P[(r0 + rr) * LD + pos] = acc[rr];
 }
 
+// Threads of a block of THREADS on the N elements of a row: element k to
+// thread k mod THREADS (PASSES elements a thread) when N >= THREADS; else
+// element tid mod N, and the GROUPS = THREADS / N threads of an element share
+// its rows (group `group()`).  `element(pass)`: this thread's element.
+template <int N, int THREADS>
+struct FirSplit {
+  static constexpr int EL = N < THREADS ? N : THREADS;
+  static constexpr int GROUPS = THREADS / EL;
+  static constexpr int PASSES = (N + THREADS - 1) / THREADS;
+  __device__ static int group() { return GROUPS == 1 ? 0 : (int)(threadIdx.x / EL); }
+  __device__ static int element(int pass) {
+    return (GROUPS == 1 ? (int)threadIdx.x : (int)(threadIdx.x % EL)) + pass * THREADS;
+  }
+};
+
 // The analysis FIR rows of one frame tile at fixed m = MT and R = RT, by
-// every thread of a block of THREADS (element k to thread k mod THREADS):
-// `analysis_fir_rows8`'s sums, term for term, with each sample of x loaded
-// once per chunk of FR = min(CHUNK, K) frames of one signal instead of once
-// per (frame, tap).  Frame f of a chunk reads its tap `tap` at sample f +
-// (MT-1-tap)*RT of the chunk's FR + (MT-1)*RT consecutive frames, all held
-// in registers.
-template <int ROWS, int C, int THREADS, int CHUNK, int MT, int RT>
+// every thread of a block of THREADS (`FirSplit`): `analysis_fir_rows8`'s
+// sums, term for term, with each sample of x loaded once per chunk of FR =
+// min(CHUNK, K) frames of one signal instead of once per (frame, tap).
+// Frame f of a chunk reads its tap `tap` at sample f + (MT-1-tap)*RT of the
+// chunk's FR + (MT-1)*RT consecutive frames, all held in registers.  The
+// chunks of a signal go to an element's GROUPS threads in turn.
+template <int N, int ROWS, int C, int THREADS, int CHUNK, int MT, int RT>
 __device__ __forceinline__ void analysis_fir_tile_fixed(float* P, const float* __restrict__ xb,
                                                         const float* __restrict__ hr, int t0,
                                                         int Tf, int T, int shift) {
+  using SP = FirSplit<N, THREADS>;
+  constexpr int LD = ld<N>();
   constexpr int K = ROWS / C;
   constexpr int D = N / RT;
   constexpr int FR = K < CHUNK ? K : CHUNK;  // frames per chunk
   constexpr int NV = FR + (MT - 1) * RT;     // samples a chunk reads per element
-  constexpr int PASSES = (N + THREADS - 1) / THREADS;
+  const int gi = SP::group();
 #pragma unroll
-  for (int pass = 0; pass < PASSES; ++pass) {
-    const int k = threadIdx.x + pass * THREADS;
-    if (PASSES * THREADS > N && k >= N) break;
+  for (int pass = 0; pass < SP::PASSES; ++pass) {
+    const int k = SP::element(pass);
+    if (SP::PASSES * THREADS > N && k >= N) break;
     const int fj = k / D;
     const int fi = k - fj * D;
-    const int pos = tpos((k + 1) & (N - 1));
+    const int pos = tpos<N>((k + 1) & (N - 1));
     float hv[MT];
 #pragma unroll
     for (int tap = 0; tap < MT; ++tap) hv[tap] = __ldg(hr + tap * N + k);
     for (int c = 0; c < C; ++c) {
       const float* xr = xb + (size_t)c * T;
-      for (int f0 = 0; f0 < K; f0 += FR) {
+      for (int f0 = FR * gi; f0 < K; f0 += FR * SP::GROUPS) {
         const long long s0 = (long long)(t0 + f0 + shift + fj) * D + fi;
         float xs[NV];
 #pragma unroll
@@ -241,84 +349,147 @@ __device__ __forceinline__ void analysis_fir_tile_fixed(float* P, const float* _
         }
       }
     }
-    for (int r = K * C; r < ROWS; ++r) P[r * LD + pos] = 0.f;  // zero partners
+    for (int r = K * C + gi; r < ROWS; r += SP::GROUPS) P[r * LD + pos] = 0.f;  // zero partners
   }
 }
 
 // The analysis FIR rows of one frame tile (`analysis_fir_rows8` for every
-// eight rows), by every thread of a block of THREADS: element k goes to
-// thread k mod THREADS, in layout T with the (n+1) phase as an index shift.
-// The flagship's m = 4, R = 2 takes `analysis_fir_tile_fixed` (the same
-// sums, each sample of x loaded once per chunk of CHUNK frames).
-template <int ROWS, int C, int THREADS, int CHUNK>
+// eight rows), by every thread of a block of THREADS (`FirSplit`: an
+// element's GROUPS threads take its eights of rows in turn), in layout T
+// with the (n+1) phase as an index shift.  The flagship's m = 4, R = 2
+// takes `analysis_fir_tile_fixed` (the same sums, each sample of x loaded
+// once per chunk of CHUNK frames).
+template <int N, int ROWS, int C, int THREADS, int CHUNK>
 __device__ __forceinline__ void analysis_fir_tile(float* P, const float* __restrict__ xb,
                                                   const float* __restrict__ hr, int t0, int Tf,
                                                   int T, int m, int D, int shift) {
+  using SP = FirSplit<N, THREADS>;
   if (m == 4 && 2 * D == N) {
-    analysis_fir_tile_fixed<ROWS, C, THREADS, CHUNK, 4, 2>(P, xb, hr, t0, Tf, T, shift);
+    analysis_fir_tile_fixed<N, ROWS, C, THREADS, CHUNK, 4, 2>(P, xb, hr, t0, Tf, T, shift);
     return;
   }
-  constexpr int PASSES = (N + THREADS - 1) / THREADS;
+  const int gi = SP::group();
 #pragma unroll
-  for (int pass = 0; pass < PASSES; ++pass) {
-    const int k = threadIdx.x + pass * THREADS;
-    if (PASSES * THREADS > N && k >= N) break;
-    const int pos = tpos((k + 1) & (N - 1));
-    for (int r0 = 0; r0 < ROWS; r0 += 8)
-      analysis_fir_rows8<ROWS, C>(P, r0, xb, hr, t0, Tf, T, m, D, shift, k, pos);
+  for (int pass = 0; pass < SP::PASSES; ++pass) {
+    const int k = SP::element(pass);
+    if (SP::PASSES * THREADS > N && k >= N) break;
+    const int pos = tpos<N>((k + 1) & (N - 1));
+    for (int r0 = 8 * gi; r0 < ROWS; r0 += 8 * SP::GROUPS)
+      analysis_fir_rows8<N, ROWS, C>(P, r0, xb, hr, t0, Tf, T, m, D, shift, k, pos);
   }
 }
 
-// In-place forward FFT of `pairs` row pairs, pair q = rows (2q, 2q+1) of
-// `rows` (re, im), by the NT threads tid = 0..NT-1 of a warp-aligned set
-// (16 per pair).  Input in layout T, or, with FROM_PACKED, two packed half
-// spectra per pair in raw lanes (`packed_pair_z`); output in natural layout.
-template <bool FROM_PACKED, int NT>
-__device__ __forceinline__ void fft_rows(float* rows, int pairs, const float* tc, const float* ts,
+// Pass 1 of the four-step plan of NS points on cell row g of one (sub-)row
+// (sre, sim): the Q values of the row (from layout T, or, with FROM_PACKED,
+// Z[(g + R n1) * STEP + H] of the pair's packed lanes at (re, im)), a
+// Q-point DFT, the twiddles W_NS^(g k1) from tc/ts ([k1][g]), back into the
+// row's cells.  The pair's packed lanes are all read before any cell is
+// written (__syncwarp between).
+template <int NS, int N, bool FROM_PACKED, int STEP>
+__device__ __forceinline__ void pass1(float* sre, float* sim, const float* re, const float* im,
+                                      int g, int H, const float* tc, const float* ts,
+                                      const Consts& kc, bool on) {
+  using S = Shape<NS>;
+  constexpr int R = S::R, Q = S::Q;
+  float vr[Q], vi[Q];
+  if (on) {
+#pragma unroll
+    for (int n1 = 0; n1 < Q; ++n1) {
+      if (FROM_PACKED) {
+        packed_pair_z<N>(re, im, (g + R * n1) * STEP + H, vr[n1], vi[n1]);
+      } else {
+        vr[n1] = sre[cell<NS>(g, n1)];
+        vi[n1] = sim[cell<NS>(g, n1)];
+      }
+    }
+  }
+  if (FROM_PACKED) __syncwarp();  // the pair's packed lanes are read before any cell is written
+  if (on) {
+    dft<Q>(vr, vi, kc);
+    sre[cell<NS>(g, 0)] = vr[0];
+    sim[cell<NS>(g, 0)] = vi[0];
+#pragma unroll
+    for (int k1 = 1; k1 < Q; ++k1) {
+      float xr = vr[reg<Q>(k1)], xi = vi[reg<Q>(k1)];
+      twiddle(xr, xi, tc[R * k1 + g], ts[R * k1 + g]);
+      sre[cell<NS>(g, k1)] = xr;
+      sim[cell<NS>(g, k1)] = xi;
+    }
+  }
+}
+
+// Pass 2 of the four-step plan on cell column c: an R-point DFT over the
+// rows, in place
+template <int NS>
+__device__ __forceinline__ void pass2(float* sre, float* sim, int c, const Consts& kc) {
+  constexpr int R = Shape<NS>::R;
+  float vr[R], vi[R];
+#pragma unroll
+  for (int n2 = 0; n2 < R; ++n2) {
+    vr[n2] = sre[cell<NS>(n2, c)];
+    vi[n2] = sim[cell<NS>(n2, c)];
+  }
+  dft<R>(vr, vi, kc);
+#pragma unroll
+  for (int k2 = 0; k2 < R; ++k2) {
+    sre[cell<NS>(k2, c)] = vr[reg<R>(k2)];
+    sim[cell<NS>(k2, c)] = vi[reg<R>(k2)];
+  }
+}
+
+// In-place forward N-point FFT of `pairs` row pairs, pair q = rows (2q,
+// 2q+1) of `rows` (re, im), by the NT threads tid = 0..NT-1 of a
+// warp-aligned set (TP per pair), with the twiddles `stage_twiddles` put at
+// `tws`.  Input in layout T, or, with FROM_PACKED, two packed half spectra
+// per pair in raw lanes (`packed_pair_z`); output in natural layout.
+template <int N, bool FROM_PACKED, int NT>
+__device__ __forceinline__ void fft_rows(float* rows, int pairs, const float* tws,
                                          const Consts& kc, int tid) {
-  const int g = tid & 15;
-  for (int q0 = 0; q0 < pairs; q0 += NT / 16) {
-    const int q = q0 + (tid >> 4);
+  using S = Shape<N>;
+  constexpr int LD = S::LD, NS = S::NS, TP = S::TP;
+  const float* tc = tws;
+  const float* ts = tws + NS;
+  const int g = tid & (TP - 1);
+  for (int q0 = 0; q0 < pairs; q0 += NT / TP) {
+    const int q = q0 + (tid >> S::LTP);
     const bool on = q < pairs;
     float* re = rows + (size_t)(2 * q) * LD;
     float* im = re + LD;
-    float vr[16], vi[16];
-    if (on) {
-#pragma unroll
-      for (int n1 = 0; n1 < 16; ++n1) {
-        if (FROM_PACKED) {
-          packed_pair_z(re, im, g + 16 * n1, vr[n1], vi[n1]);
+    if constexpr (!S::SPLIT2) {
+      pass1<N, N, FROM_PACKED, 1>(re, im, re, im, g, 0, tc, ts, kc, on);
+      __syncwarp();
+      if (on) {
+        if constexpr (S::Q == TP) {
+          pass2<N>(re, im, g, kc);
         } else {
-          vr[n1] = re[cell(g, n1)];
-          vi[n1] = im[cell(g, n1)];
+#pragma unroll
+          for (int b = 0; b < S::Q / TP; ++b) pass2<N>(re, im, g + TP * b, kc);
         }
       }
-    }
-    if (FROM_PACKED) __syncwarp();  // the pair's packed lanes are read before any cell is written
-    if (on) {
-      dft16(vr, vi, kc);
-      re[cell(g, 0)] = vr[0];
-      im[cell(g, 0)] = vi[0];
-#pragma unroll
-      for (int k1 = 1; k1 < 16; ++k1) {
-        float xr = vr[reg16(k1)], xi = vi[reg16(k1)];
-        twiddle(xr, xi, tc[16 * k1 + g], ts[16 * k1 + g]);
-        re[cell(g, k1)] = xr;
-        im[cell(g, k1)] = xi;
-      }
-    }
-    __syncwarp();
-    if (on) {
-#pragma unroll
-      for (int n2 = 0; n2 < 16; ++n2) {
-        vr[n2] = re[cell(n2, g)];
-        vi[n2] = im[cell(n2, g)];
-      }
-      dft16(vr, vi, kc);
-#pragma unroll
-      for (int k2 = 0; k2 < 16; ++k2) {
-        re[cell(k2, g)] = vr[reg16(k2)];
-        im[cell(k2, g)] = vi[reg16(k2)];
+    } else {
+      // half warp h runs the 256-point plan on sub-row h (elements 2 j + h)
+      const int h = (tid >> 4) & 1;
+      float* sre = re + h * S::SUB;
+      float* sim = im + h * S::SUB;
+      pass1<NS, N, FROM_PACKED, 2>(sre, sim, re, im, g & 15, h, tc, ts, kc, on);
+      __syncwarp();
+      if (on) pass2<NS>(sre, sim, g & 15, kc);
+      __syncwarp();
+      // radix 2: X[k] = E[k] + W^k O[k] into E's cell, X[k + NS] = E[k] - W^k O[k] into O's
+      if (on) {
+        const float* cc = tws + 2 * NS;
+        const float* cs = tws + 3 * NS;
+#pragma unroll 4
+        for (int k = tid & 31; k < NS; k += 32) {
+          const int p = npos<NS>(k);
+          const float er = re[p], ei = im[p];
+          float orr = re[S::SUB + p], oi = im[S::SUB + p];
+          twiddle(orr, oi, cc[k], cs[k]);
+          re[p] = er + orr;
+          im[p] = ei + oi;
+          re[S::SUB + p] = er - orr;
+          im[S::SUB + p] = ei - oi;
+        }
       }
     }
   }
@@ -328,10 +499,11 @@ __device__ __forceinline__ void fft_rows(float* rows, int pairs, const float* tc
 // layout): the two-for-one split, X = (Z[f] + conj(Z[-f])) / 2 for the even
 // row and (Z[f] - conj(Z[-f])) / 2i for the odd one.  DC and Nyquist come
 // out real.
+template <int N>
 __device__ __forceinline__ cf split_bin(const float* rows, int r, int f) {
-  const float* re = rows + (size_t)(r & ~1) * LD;
-  const float* im = re + LD;
-  const int a = npos(f), b = npos((N - f) & (N - 1));
+  const float* re = rows + (size_t)(r & ~1) * ld<N>();
+  const float* im = re + ld<N>();
+  const int a = npos<N>(f), b = npos<N>((N - f) & (N - 1));
   if (r & 1) return {0.5f * (im[a] + im[b]), 0.5f * (re[b] - re[a])};
   return {0.5f * (re[a] + re[b]), 0.5f * (im[a] - im[b])};
 }
@@ -339,17 +511,18 @@ __device__ __forceinline__ cf split_bin(const float* rows, int r, int f) {
 // Bins f and N - f of the pair row (layout T) whose FFT gives the synthesis
 // rows of the half spectra A (row 2q) and B (row 2q+1); the Im parts of DC
 // and Nyquist are dropped, as the packed layout drops them.
+template <int N>
 __device__ __forceinline__ void put_pair_bin(float* row, int f, cf A, cf B) {
-  float* im = row + LD;
+  float* im = row + ld<N>();
   if (f == 0 || f == N / 2) {
-    row[tpos(f)] = A.r;
-    im[tpos(f)] = B.r;
+    row[tpos<N>(f)] = A.r;
+    im[tpos<N>(f)] = B.r;
     return;
   }
-  row[tpos(f)] = A.r - B.i;
-  im[tpos(f)] = A.i + B.r;
-  row[tpos(N - f)] = A.r + B.i;
-  im[tpos(N - f)] = B.r - A.i;
+  row[tpos<N>(f)] = A.r - B.i;
+  im[tpos<N>(f)] = A.i + B.r;
+  row[tpos<N>(N - f)] = A.r + B.i;
+  im[tpos<N>(N - f)] = B.r - A.i;
 }
 
 // The synthesis FIR + overlap-add of local output frames ul = 0..nfr-1,
@@ -362,11 +535,12 @@ __device__ __forceinline__ void put_pair_bin(float* row, int f, cf A, cf B) {
 // 0..nt-1 take (column i, group of S consecutive frames) items in turn:
 // each tap is loaded once per S samples and each sample costs one shared
 // load and one FMA per tap.
-template <int S>
+template <int N, int S>
 __device__ __forceinline__ void synthesis_frames(const float* __restrict__ gf, const float* cs,
                                                  int m, int R, int D, int nfr, int u_first,
                                                  int T_out, float* __restrict__ ob, int tid,
                                                  int nt) {
+  constexpr int LD = ld<N>();
   const int items = (nfr + S - 1) / S * D;
   for (int idx = tid; idx < items; idx += nt) {
     const int i = idx % D;
@@ -376,7 +550,7 @@ __device__ __forceinline__ void synthesis_frames(const float* __restrict__ gf, c
     for (int s = 0; s < S; ++s) o[s] = 0.f;
     for (int j = 0; j < R; ++j) {
       const int col = (R - 1 - j) * D + i;
-      const int p = npos((R - 1 - j) * D + (D - 1 - i));
+      const int p = npos<N>((R - 1 - j) * D + (D - 1 - i));
       float sj[S];
 #pragma unroll
       for (int s = 0; s < S; ++s) sj[s] = 0.f;

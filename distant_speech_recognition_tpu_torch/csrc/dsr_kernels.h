@@ -17,23 +17,26 @@ extern "C" {
 
 const char* dsr_error_string(int code);
 
-// x: G groups of Cg signals [G * Cg, T]; tw: the FFT twiddle table [2, M]
-// (cos, -sin of 2 pi e / M), ops/dft.fft_twiddles, read at M = 256 (the
-// FFT route, 1 <= Cg <= 8); A: the packed DFT matrix [M, M], read at other M
-// (M % 128 == 0, the dense-product route); the other pointer may be null
-int dsr_analysis_tm(const float* x, const float* hr, const float* tw, const float* A, float* out,
-                    int G, int Cg, int T, int Tf, int M, int m, int D, int shift,
-                    cudaStream_t stream);
+// x: G groups of Cg signals [G * Cg, T], 1 <= Cg <= 8; tw: the FFT
+// twiddle table [2, M] (cos, -sin of 2 pi e / M), ops/dft.fft_twiddles;
+// M in {64, 128, 256, 512} (the shared-memory FFT of dsr_fft.h)
+int dsr_analysis_tm(const float* x, const float* hr, const float* tw, float* out, int G, int Cg,
+                    int T, int Tf, int M, int m, int D, int shift, cudaStream_t stream);
 
-// the dense-product route of dsr_analysis_tm at any M % 128 == 0, on BC
-// signals: what dsr_analysis_tm runs at M != 256, and a yardstick at M = 256
+// K1's dense-product route at any M % 128 == 0, on BC signals: no
+// pipeline's, a yardstick beside the FFT route
 int dsr_analysis_tm_dense(const float* x, const float* hr, const float* A, float* out, int BC,
                           int T, int Tf, int M, int m, int D, int shift, cudaStream_t stream);
 
 // tw: as for dsr_analysis_tm
+// M in {64, 128, 256, 512}; m*R - 1 halo rows within the tile of
+// dsr_synthesis_tm_rows(M) rows
 int dsr_synthesis_tm(const float* Yp, const float* tw, const float* gf, float* out,
                      int T_in, int B, int M, int m, int R, int D, int pd, int T_out,
                      cudaStream_t stream);
+
+// the rows of K3's tile at M (output frames + halo), 0 for an M it refuses
+int dsr_synthesis_tm_rows(int M);
 
 int dsr_gsc_rls_zelinski(const float* Yp, const float* wq, const float* bm,
                          const float* ta, float* out, int Tf, int B, int C, int Bc,

@@ -47,9 +47,8 @@
 namespace {
 
 using namespace dsr;
-using fft::LD;
-
-constexpr int M_ = fft::N;  // subbands (the kernel is built for M = 256)
+constexpr int M_ = 256;  // subbands (the kernel is built for M = 256)
+constexpr int LD = fft::ld<M_>();
 constexpr int ROWS = 64;    // analysis rows per tile: K frames x C channels, K = ROWS / C
 constexpr int THREADS = 256;
 
@@ -96,16 +95,16 @@ fw_mono_kernel(const float* __restrict__ x, const float* __restrict__ hr,
   cf phi_pair = {0.f, 0.f};
   float phi_diag = 0.f;
 
-  fft::stage_twiddles(smem, tw);
-  const fft::Consts kc = fft::consts(tw);
+  fft::stage_twiddles<M_>(smem, tw);
+  const fft::Consts kc = fft::consts<M_>(tw);
   for (int idx = tid; idx < halo * LD; idx += THREADS) cw[idx] = 0.f;
 
   for (int t0 = 0; t0 < Tf; t0 += K) {
     // 1. analysis FIR rows: row tk*C + c, element n at (n + 1) mod M
-    fft::analysis_fir_tile<ROWS, C, THREADS, 16>(P, xb, hr, t0, Tf, T, m, D, shift);
+    fft::analysis_fir_tile<M_, ROWS, C, THREADS, 16>(P, xb, hr, t0, Tf, T, m, D, shift);
     __syncthreads();
     // 2. analysis FFT, rows (2q, 2q+1) as one complex row
-    fft::fft_rows<false, THREADS>(P, ROWS / 2, tc, ts, kc, tid);
+    fft::fft_rows<M_, false, THREADS>(P, ROWS / 2, tc, kc, tid);
     __syncthreads();
 
     // 3. fixed weights + Zelinski, one thread per bin, frames in order;
@@ -118,29 +117,29 @@ fw_mono_kernel(const float* __restrict__ x, const float* __restrict__ hr,
         if (t < Tf) {
           cf X[C];
 #pragma unroll
-          for (int c = 0; c < C; ++c) X[c] = fft::split_bin(P, tk * C + c, f);
+          for (int c = 0; c < C; ++c) X[c] = fft::split_bin<M_>(P, tk * C + c, f);
 #pragma unroll
           for (int c = 0; c < C; ++c) Y = cadd(Y, cmul(wqc[c], X[c]));
           const float W = zelinski_gain<C>(phi_pair, phi_diag, tac, X, t, p);
           if (t > p.min_frames) Y = cscale(Y, W);
         }
         if (tk & 1) {
-          fft::put_pair_bin(cw + (halo + tk - 1) * LD, f, Ya, Y);
+          fft::put_pair_bin<M_>(cw + (halo + tk - 1) * LD, f, Ya, Y);
         } else {
           Ya = Y;
-          if (tk == K - 1) fft::put_pair_bin(cw + (halo + tk) * LD, f, Ya, {0.f, 0.f});
+          if (tk == K - 1) fft::put_pair_bin<M_>(cw + (halo + tk) * LD, f, Ya, {0.f, 0.f});
         }
       }
     }
     __syncthreads();
 
     // 4. synthesis FFT of the window's new rows
-    fft::fft_rows<false, THREADS>(cw + halo * LD, KP, tc, ts, kc, tid);
+    fft::fft_rows<M_, false, THREADS>(cw + halo * LD, KP, tc, kc, tid);
     __syncthreads();
 
     // 5. FIR + overlap-add: output frame u = t0 - pd + ul reads window rows
     //    ul - j + (m-1-k)*R + (R-1), i.e. c[u + pd - j - k*R]
-    fft::synthesis_frames<4>(gf, cw, m, R, D, K, t0 - pd, T_out, ob, tid, THREADS);
+    fft::synthesis_frames<M_, 4>(gf, cw, m, R, D, K, t0 - pd, T_out, ob, tid, THREADS);
     __syncthreads();
     // the next tile's halo: this window's last halo rows (K >= halo: no overlap)
     for (int idx = tid; idx < halo * LD; idx += THREADS) cw[idx] = cw[K * LD + idx];

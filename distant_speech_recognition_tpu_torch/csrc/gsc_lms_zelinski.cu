@@ -114,7 +114,7 @@ __global__ void __launch_bounds__(GATE_THREADS)
       const float* x = Yp + ((size_t)(t0 + tt) * B + b) * C * M;
       float s = 0.f;
 #pragma unroll
-      for (int g = 0; g < 8; ++g) {  // F <= 256
+      for (int g = 0; g < 9; ++g) {  // F <= 257
         const int bin = g * 32 + lane;
         if (bin < F) {
           const float im = bin >= 1 && bin <= F - 2 ? __ldg(x + F + bin - 1) : 0.f;

@@ -60,9 +60,8 @@
 namespace {
 
 using namespace dsr;
-using fft::LD;
-
-constexpr int M_ = fft::N;  // subbands (the kernel is built for M = 256)
+constexpr int M_ = 256;  // subbands (the kernel is built for M = 256)
+constexpr int LD = fft::ld<M_>();
 constexpr int F_ = M_ / 2 + 1;
 constexpr int ROWS = 64;    // analysis rows per tile: K frames x C channels, K = ROWS / C
 constexpr int THREADS = 256;
@@ -153,16 +152,16 @@ gsc_mono_kernel(const float* __restrict__ x, const float* __restrict__ hr,
   GscState<BC> S = gsc_start<BC>(p);
   GscFrontState fs = {{0.f, 0.f}, 0.f, p.delta};
 
-  fft::stage_twiddles(smem, tw);
-  const fft::Consts kc = fft::consts(tw);
+  fft::stage_twiddles<M_>(smem, tw);
+  const fft::Consts kc = fft::consts<M_>(tw);
   __syncthreads();
 
   for (int t0 = 0; t0 < Tf; t0 += K) {
     // 1. analysis FIR rows: row tk*C + c, element n at (n + 1) mod M
-    fft::analysis_fir_tile<ROWS, C, THREADS, 16>(P, xb, hr, t0, Tf, T, m, D, shift);
+    fft::analysis_fir_tile<M_, ROWS, C, THREADS, 16>(P, xb, hr, t0, Tf, T, m, D, shift);
     __syncthreads();
     // 2. analysis FFT, rows (2q, 2q+1) as one complex row
-    fft::fft_rows<false, THREADS>(P, ROWS / 2, tc, ts, kc, tid);
+    fft::fft_rows<M_, false, THREADS>(P, ROWS / 2, tc, kc, tid);
     __syncthreads();
 
     // 3. GSC-RLS + Zelinski by the scan warps, frames in order (t is the
@@ -176,7 +175,7 @@ gsc_mono_kernel(const float* __restrict__ x, const float* __restrict__ hr,
         if (t < Tf) {
           cf X[C];
 #pragma unroll
-          for (int c = 0; c < C; ++c) X[c] = fft::split_bin(P, tk * C + c, fc);
+          for (int c = 0; c < C; ++c) X[c] = fft::split_bin<M_>(P, tk * C + c, fc);
           // reference-channel frame energy of this utterance (all bins)
           const float e = owns_bin ? ew * cabs2(X[0]) : 0.f;
           const float energy_t =
@@ -202,10 +201,10 @@ gsc_mono_kernel(const float* __restrict__ x, const float* __restrict__ hr,
         }
         if (SYNTH && owns_bin) {
           if (tk & 1) {
-            fft::put_pair_bin(cw + (halo + tk - 1) * LD, f, Ya, Y);
+            fft::put_pair_bin<M_>(cw + (halo + tk - 1) * LD, f, Ya, Y);
           } else {
             Ya = Y;
-            if (tk == K - 1) fft::put_pair_bin(cw + (halo + tk) * LD, f, Ya, {0.f, 0.f});
+            if (tk == K - 1) fft::put_pair_bin<M_>(cw + (halo + tk) * LD, f, Ya, {0.f, 0.f});
           }
         }
       }
@@ -213,11 +212,11 @@ gsc_mono_kernel(const float* __restrict__ x, const float* __restrict__ hr,
     __syncthreads();
     if constexpr (SYNTH) {
       // 4. synthesis FFT of the window's new rows
-      fft::fft_rows<false, THREADS>(cw + halo * LD, KP, tc, ts, kc, tid);
+      fft::fft_rows<M_, false, THREADS>(cw + halo * LD, KP, tc, kc, tid);
       __syncthreads();
       // 5. FIR + overlap-add: output frame u = t0 - pd + ul reads window rows
       //    ul - j + (m-1-k)*R + (R-1), i.e. c[u + pd - j - k*R]
-      fft::synthesis_frames<4>(gf, cw, m, R, D, K, t0 - pd, T_out, ob, tid, THREADS);
+      fft::synthesis_frames<M_, 4>(gf, cw, m, R, D, K, t0 - pd, T_out, ob, tid, THREADS);
       __syncthreads();
       // the next tile's halo: this window's last halo rows (K >= halo: no overlap)
       for (int idx = tid; idx < halo * LD; idx += THREADS) cw[idx] = cw[K * LD + idx];

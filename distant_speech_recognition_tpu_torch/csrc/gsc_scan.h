@@ -171,7 +171,7 @@ __device__ __forceinline__ void chunk_energies_ng(const Blk& k, const Plan& pl, 
 
 __device__ __forceinline__ void chunk_energies(const Blk& k, const Plan& pl, const float* R,
                                                float* en, int nk) {
-  switch (pl.NG) {  // F <= 256: at most 8 groups
+  switch (pl.NG) {  // F <= 257: at most 9 groups
     case 1: chunk_energies_ng<1>(k, pl, R, en, nk); break;
     case 2: chunk_energies_ng<2>(k, pl, R, en, nk); break;
     case 3: chunk_energies_ng<3>(k, pl, R, en, nk); break;
@@ -179,7 +179,8 @@ __device__ __forceinline__ void chunk_energies(const Blk& k, const Plan& pl, con
     case 5: chunk_energies_ng<5>(k, pl, R, en, nk); break;
     case 6: chunk_energies_ng<6>(k, pl, R, en, nk); break;
     case 7: chunk_energies_ng<7>(k, pl, R, en, nk); break;
-    default: chunk_energies_ng<8>(k, pl, R, en, nk); break;
+    case 8: chunk_energies_ng<8>(k, pl, R, en, nk); break;
+    default: chunk_energies_ng<9>(k, pl, R, en, nk); break;
   }
   __syncthreads();
   // probe: energies done
@@ -205,9 +206,9 @@ cudaError_t sm_count(int* sms) {
   return err;
 }
 
-// one thread per bin, at most 256 bins (M <= 510)
+// one thread per bin, at most 257 bins (M <= 512)
 bool args_ok(int Tf, int B, int C, int Bc, int M) {
-  return Tf > 0 && B > 0 && M >= 4 && M % 2 == 0 && M / 2 + 1 <= 256 && C >= 2 && C <= 8 &&
+  return Tf > 0 && B > 0 && M >= 4 && M % 2 == 0 && M / 2 + 1 <= 257 && C >= 2 && C <= 8 &&
          Bc == C - 1 && (long long)B * (M / 2 + 1) <= 0x7fffffffLL;
 }
 

@@ -65,7 +65,10 @@
 //     Nyquist bin M/2 (real) is computed after each step by lanes 0 .. 7 of
 //     each warp of group 0, a frame each, its coefficients from shared
 //     memory (a slot is C x 64 + 4 floats, so those lanes read distinct banks).
-// M is 128 or 256.
+// M is 64, 128, 256 or 512 (lane offsets compiled in).  At M = 512 a narrow
+// block of C >= 5 channels would take 800 threads (1,056 at C >= 7, more
+// than a block may have), and 80 registers a thread spill its filters: those
+// shapes run in the wide kernel.
 #include <algorithm>
 
 #include "dsr_kernels.h"
@@ -78,13 +81,15 @@ constexpr size_t ONE_RING_MAX = 160 * 1024;  // shared memory of a block that ke
 // output frames of a step (one barrier a step) and steps of frames staged
 // ahead of the one computed: 4 and 2 up to 4 KB frames, 2 and 1 above, so
 // that the rings of 8 channels x 256 lanes fit in shared memory
+__host__ __device__ constexpr int step_frames(int C, int MH) { return C * MH <= 512 ? 4 : 2; }
+__host__ __device__ constexpr int lead_steps(int C, int MH) { return C * MH <= 512 ? 2 : 1; }
 template <int C, int MH>
 __host__ __device__ constexpr int step_frames() {
-  return C * MH <= 512 ? 4 : 2;
+  return step_frames(C, MH);
 }
 template <int C, int MH>
 __host__ __device__ constexpr int lead_steps() {
-  return C * MH <= 512 ? 2 : 1;
+  return lead_steps(C, MH);
 }
 
 struct cf {
@@ -608,18 +613,72 @@ struct WideLaunch {
 };
 
 // (C, PM): the registers hold PM = 24 / C lag slots a channel, and 5 at C = 4;
-// past 24 / C taps the wide kernel, PM = 40 / C; M = 128 and 256
+// past 24 / C taps the wide kernel, PM = 40 / C
 #define DSR_SHAPES(X) \
   X(1, 24) X(2, 12) X(3, 8) X(4, 5) X(4, 6) X(5, 4) X(6, 4) X(7, 3) X(8, 3)
 #define DSR_WIDE_SHAPES(X) \
   X(1, 40) X(2, 20) X(3, 13) X(4, 10) X(5, 8) X(6, 6) X(7, 5) X(8, 5)
 
-bool wide(int C, int P) { return P > 24 / C; }
-int slots(int C, int P) { return wide(C, P) ? 40 / C : C == 4 && P <= 5 ? 5 : 24 / C; }
+// threads of a narrow block (`block_threads`), and its lag slots a channel
+int narrow_threads(int C, int MH) {
+  const int TT = C == 1 ? 1 : 2;
+  return MH * ((C + TT - 1) / TT) + 32;
+}
+int narrow_slots(int C, int P) { return C == 4 && P <= 5 ? 5 : 24 / C; }
+// the wide kernel takes (C, P, lowerN) past 24 / C taps, and where a narrow
+// block would take more than 544 threads (the most at M <= 256; C >= 5 at
+// M = 512) or 227 KB
+constexpr int NARROW_MAX_THREADS = 544;
+bool wide(int C, int P, int lowerN, int MH) {
+  if (P > 24 / C || narrow_threads(C, MH) > NARROW_MAX_THREADS) return true;
+  return plan(C, 2 * MH, P, narrow_slots(C, P), lowerN, step_frames(C, MH), lead_steps(C, MH))
+             .bytes > 227 * 1024;
+}
+int slots(int C, int P, int lowerN, int MH) {
+  return wide(C, P, lowerN, MH) ? 40 / C : narrow_slots(C, P);
+}
 
 bool args_ok(int Tf, int B, int C, int M, int P, int lowerN) {
   return Tf > 0 && B > 0 && B <= 65535 && C > 0 && C <= 8 && P > 0 && C * P <= 40 &&
-         lowerN >= 0 && (M == 128 || M == 256);
+         lowerN >= 0 && (M == 64 || M == 128 || M == 256 || M == 512);
+}
+
+// the launch of (C, P) at MH = M/2 lanes, or its occupancy (blocks, smem,
+// threads non-null)
+template <int MH>
+int dispatch(const float* Yp, const float* G, float* out, int Tf, int B, int C, int P, int lowerN,
+             cudaStream_t stream, int* blocks, int* smem, int* threads) {
+  const int PM = slots(C, P, lowerN, MH);
+#define DSR_CASE(c, pm, L)                                                          \
+  if (C == c && PM == pm)                                                           \
+    return blocks ? L<c, MH, pm>::occupancy(P, lowerN, blocks, smem, threads)       \
+                  : L<c, MH, pm>::run(Yp, G, out, Tf, B, P, lowerN, stream);
+#define DSR_NARROW(c, pm)                                   \
+  if constexpr (block_threads<c, MH>() <= NARROW_MAX_THREADS) { \
+    DSR_CASE(c, pm, Launch)                                 \
+  }
+#define DSR_WIDE(c, pm) DSR_CASE(c, pm, WideLaunch)
+  if (wide(C, P, lowerN, MH)) {
+    DSR_WIDE_SHAPES(DSR_WIDE)
+  } else {
+    DSR_SHAPES(DSR_NARROW)
+  }
+#undef DSR_WIDE
+#undef DSR_NARROW
+#undef DSR_CASE
+  return DSR_ERR_ARGS;
+}
+
+int dispatch_m(const float* Yp, const float* G, float* out, int Tf, int B, int C, int M, int P,
+               int lowerN, cudaStream_t stream, int* blocks, int* smem, int* threads) {
+  switch (M) {
+    case 64: return dispatch<32>(Yp, G, out, Tf, B, C, P, lowerN, stream, blocks, smem, threads);
+    case 128: return dispatch<64>(Yp, G, out, Tf, B, C, P, lowerN, stream, blocks, smem, threads);
+    case 256:
+      return dispatch<128>(Yp, G, out, Tf, B, C, P, lowerN, stream, blocks, smem, threads);
+    default:
+      return dispatch<256>(Yp, G, out, Tf, B, C, P, lowerN, stream, blocks, smem, threads);
+  }
 }
 
 }  // namespace
@@ -627,43 +686,12 @@ bool args_ok(int Tf, int B, int C, int M, int P, int lowerN) {
 extern "C" int dsr_wpe_resid(const float* Yp, const float* G, float* out, int Tf, int B, int C,
                              int M, int P, int lowerN, cudaStream_t stream) {
   if (!args_ok(Tf, B, C, M, P, lowerN)) return DSR_ERR_ARGS;
-  const int PM = slots(C, P);
-  const bool w = wide(C, P);
-#define DSR_CASE(c, pm, L)                                                          \
-  if (C == c && PM == pm)                                                           \
-    return M == 256 ? L<c, 128, pm>::run(Yp, G, out, Tf, B, P, lowerN, stream)      \
-                    : L<c, 64, pm>::run(Yp, G, out, Tf, B, P, lowerN, stream);
-#define DSR_NARROW(c, pm) DSR_CASE(c, pm, Launch)
-#define DSR_WIDE(c, pm) DSR_CASE(c, pm, WideLaunch)
-  if (w) {
-    DSR_WIDE_SHAPES(DSR_WIDE)
-  } else {
-    DSR_SHAPES(DSR_NARROW)
-  }
-#undef DSR_WIDE
-#undef DSR_NARROW
-#undef DSR_CASE
-  return DSR_ERR_ARGS;
+  return dispatch_m(Yp, G, out, Tf, B, C, M, P, lowerN, stream, nullptr, nullptr, nullptr);
 }
 
 extern "C" int dsr_wpe_resid_occupancy(int C, int P, int lowerN, int M, int* blocks_per_sm,
                                        int* smem_bytes, int* threads) {
   if (!args_ok(1, 1, C, M, P, lowerN)) return DSR_ERR_ARGS;
-  const int PM = slots(C, P);
-  const bool w = wide(C, P);
-#define DSR_CASE(c, pm, L)                                                                 \
-  if (C == c && PM == pm)                                                                  \
-    return M == 256 ? L<c, 128, pm>::occupancy(P, lowerN, blocks_per_sm, smem_bytes, threads) \
-                    : L<c, 64, pm>::occupancy(P, lowerN, blocks_per_sm, smem_bytes, threads);
-#define DSR_NARROW(c, pm) DSR_CASE(c, pm, Launch)
-#define DSR_WIDE(c, pm) DSR_CASE(c, pm, WideLaunch)
-  if (w) {
-    DSR_WIDE_SHAPES(DSR_WIDE)
-  } else {
-    DSR_SHAPES(DSR_NARROW)
-  }
-#undef DSR_WIDE
-#undef DSR_NARROW
-#undef DSR_CASE
-  return DSR_ERR_ARGS;
+  return dispatch_m(nullptr, nullptr, nullptr, 1, 1, C, M, P, lowerN, nullptr, blocks_per_sm,
+                    smem_bytes, threads);
 }

@@ -45,9 +45,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "dsr_analysis_tm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "dsr_analysis_tm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "dsr_analysis_tm_dense": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "dsr_synthesis_tm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "dsr_synthesis_tm_rows": [_I],
     "dsr_gsc_rls_zelinski": [
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
         _F, _F, _F, _F, _F, _F, _F, _F, _I, _F, _F, _I, _F, _F, _F, _F, _I, _I, _P,

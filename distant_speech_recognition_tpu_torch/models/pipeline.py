@@ -44,7 +44,7 @@ import torch
 from torch import nn
 
 from ..ops.aec_kernels import AEC_KINDS, aec_scan
-from ..ops.dft import FFT_M
+from ..ops.dft import FFT_SIZES
 from ..ops.filterbank import (
     FilterbankParams,
     analysis_matrix_tensor,
@@ -54,7 +54,12 @@ from ..ops.filterbank import (
     synthesis_taps,
     unpack_half,
 )
-from ..ops.filterbank_kernels import analysis_tm_fused, prototype_taps, synthesis_tm_fused
+from ..ops.filterbank_kernels import (
+    analysis_tm_fused,
+    prototype_taps,
+    synthesis_tile_rows,
+    synthesis_tm_fused,
+)
 from ..ops.wpe_kernels import WPE_MAX_CHANNELS, WPE_MAX_CP, WPE_MAX_LOWER, wpe_supported
 from . import beamforming as bf
 from .adaptive_gsc import GSCLMSConfig, GSCRLSConfig, gsc_weights
@@ -149,11 +154,11 @@ def _check_supported(cfg: PipelineConfig, n_chan: int | None = None) -> None:
 
 
 # the shapes the card's kernels take: the filterbank kernels do their DFTs
-# with the shared-memory FFT of csrc/dsr_fft.h, built for M = 256; the
-# synthesis kernel (K3) holds the m*R - 1 halo rows in a 64-row tile; the
+# with the shared-memory FFT of csrc/dsr_fft.h, built for M in FFT_SIZES
+# (64, 128, 256, 512); the synthesis kernel (K3) holds the m*R - 1 halo rows
+# in its tile of `synthesis_tile_rows(M)` rows (256, 128, 64, 40); the
 # beamformer kernels are built for 2 <= C <= 8
-CARD_M = FFT_M
-CARD_SYNTHESIS_ROWS = 64
+CARD_M = FFT_SIZES
 CARD_CHANNELS = (2, 8)
 
 
@@ -165,10 +170,13 @@ def check_card_shapes(fb: FilterbankParams, n_chan: int, device_type: str) -> No
     if device_type != "cuda":
         return
     lo, hi = CARD_CHANNELS
-    if fb.M != CARD_M or fb.m * fb.R > CARD_SYNTHESIS_ROWS or not lo <= n_chan <= hi:
+    if (fb.M not in CARD_M or fb.m * fb.R > synthesis_tile_rows(fb.M)
+            or not lo <= n_chan <= hi):
+        rows = ", ".join(f"{synthesis_tile_rows(M)} at M={M}" for M in CARD_M)
         raise NotImplementedError(
             f"M={fb.M}, m*R={fb.m * fb.R}, C={n_chan} is not ported to the card: its kernels take "
-            f"M={CARD_M}, m*R <= {CARD_SYNTHESIS_ROWS} and {lo} <= C <= {hi}; run on the CPU"
+            f"M in {CARD_M}, m*R up to K3's tile rows ({rows}) and {lo} <= C <= {hi}; run on "
+            "the CPU"
         )
 
 

@@ -10,7 +10,7 @@ recursions are the same, and the kernel keeps K real where the plain loop
 carries it complex (its imaginary part is rounding).  The
 kernel stages whole packed rows by 16-byte copies and takes a bin a thread,
 so it takes M a multiple of 4 up to `AEC_MAX_M` (the card pipelines run M =
-256); the plain loops take any even M.
+64 to 512); the plain loops take any even M.
 """
 
 from __future__ import annotations

@@ -15,8 +15,8 @@ matrices, which also fold in the filterbank's modulation conventions:
 The packed layout ``[Re(0..M/2) | Im(1..M/2-1)]`` drops the two imaginary
 parts that are structurally zero (Im of DC and Nyquist), so both matrices
 are square ``[M, M]``.  The CUDA filterbank kernels compute the same two
-functions as FFTs (``csrc/dsr_fft.h``, M = `FFT_M`) from the twiddle table
-`fft_twiddles`.  Arrays returned here are cached and read-only.
+functions as FFTs (``csrc/dsr_fft.h``, M in `FFT_SIZES`) from the twiddle
+table `fft_twiddles`.  Arrays returned here are cached and read-only.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ from functools import lru_cache
 import numpy as np
 
 __all__ = [
-    "FFT_M",
+    "FFT_SIZES",
     "analysis_matrix",
     "analysis_matrix_packed",
     "synthesis_half_matrix",
@@ -36,8 +36,8 @@ __all__ = [
 ]
 
 
-# the transform size the CUDA kernels' FFT (csrc/dsr_fft.h) is built for
-FFT_M = 256
+# the transform sizes of the CUDA kernels' shared-memory FFT (csrc/dsr_fft.h)
+FFT_SIZES = (64, 128, 256, 512)
 
 
 def _frozen(a: np.ndarray) -> np.ndarray:

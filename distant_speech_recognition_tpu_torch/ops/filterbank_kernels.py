@@ -24,7 +24,6 @@ from .filterbank import (
     _analysis_with,
     _synthesis_with,
     analysis_half_real_tm,
-    analysis_matrix_tensor,
     analysis_taps,
     num_analysis_frames,
     polyphase_fir_plain,
@@ -37,6 +36,7 @@ __all__ = [
     "fft_twiddles_tensor",
     "analysis_tm_fused",
     "synthesis_tm_fused",
+    "synthesis_tile_rows",
     "polyphase_fir",
     "polyphase_fir_plain",
     "analysis_polyphase",
@@ -74,9 +74,9 @@ def analysis_tm_fused(
     to `ops.filterbank.analysis_half_real_tm(packed=True)`.  ``A`` may hold
     the plain version's `filterbank.analysis_matrix_tensor(M, True, ...)`
     and ``hr`` the kernel's taps `filterbank.analysis_taps(h)` already on
-    ``x``'s device.  At M = 256 the kernel does its DFT as an FFT from
-    `fft_twiddles_tensor` and never reads ``A``; at other M (M % 128 == 0,
-    which no pipeline runs on the card) it multiplies by ``A``.  Its tiles
+    ``x``'s device.  The kernel takes M in `dft.FFT_SIZES` (64, 128, 256,
+    512; other M raise `NotImplementedError` on a CUDA tensor), does its DFT
+    as an FFT from `fft_twiddles_tensor` and never reads ``A``.  Its tiles
     hold ``x.shape[-2]`` signals (the channels of an utterance) when that is
     at most 8, as the one-kernel chains' tiles do, else one."""
     if x.device.type == "cpu":
@@ -87,6 +87,9 @@ def analysis_tm_fused(
 
     p = params
     M, m, D = p.M, p.m, p.D
+    if M not in dft.FFT_SIZES:
+        raise NotImplementedError(f"analysis_tm_fused on the card takes M in {dft.FFT_SIZES}, "
+                                  f"got M={M}")
     if hr is None:
         hr = prototype_taps(analysis_taps, h, p, x.device)
     x = x.contiguous()
@@ -97,18 +100,11 @@ def analysis_tm_fused(
     Tf = num_analysis_frames(p, T)
     check_cuda_tensor("x", x)
     check_cuda_tensor("hr", hr, (m, M))
-    if M == dft.FFT_M:
-        tw, A = fft_twiddles_tensor(M, x.device), None
-    else:
-        tw = None
-        if A is None:
-            A = analysis_matrix_tensor(M, True, x.device)
-        check_cuda_tensor("A", A, (M, M))
+    tw = fft_twiddles_tensor(M, x.device)
     out = torch.empty((Tf,) + tuple(lead) + (M,), dtype=torch.float32, device=x.device)
     lib = _build.library()
     code = lib.dsr_analysis_tm(
-        x.data_ptr(), hr.data_ptr(), None if tw is None else tw.data_ptr(),
-        None if A is None else A.data_ptr(), out.data_ptr(),
+        x.data_ptr(), hr.data_ptr(), tw.data_ptr(), out.data_ptr(),
         BC // Cg, Cg, T, Tf, M, m, D, p.laN - (m * p.R - 1), stream_handle(x.device),
     )
     _build.check(code, "analysis_tm")
@@ -117,6 +113,14 @@ def analysis_tm_fused(
 
 
 analysis_tm_fused.launches = 0
+
+
+def synthesis_tile_rows(M: int) -> int:
+    """The rows of K3's tile at M in `dft.FFT_SIZES` (``csrc/synthesis_tm.cu``
+    `tile_rows`, read back by the card test): output frames plus the m*R - 1
+    halo rows, so K3 takes m*R <= this.  ~70 KB of shared memory at M <= 256,
+    88 KB at 512."""
+    return {64: 256, 128: 128, 256: 64, 512: 40}[M]
 
 
 def synthesis_tm_fused(
@@ -131,8 +135,9 @@ def synthesis_tm_fused(
     `ops.filterbank.synthesis_half_real_tm`.  ``S`` may hold the plain
     version's `filterbank.synthesis_matrix_tensor` and ``gf`` the taps
     `filterbank.synthesis_taps(g)` already on ``Yp``'s device; the kernel
-    does the DFT as an FFT from `fft_twiddles_tensor` and never reads
-    ``S``."""
+    takes M in `dft.FFT_SIZES` with m*R <= `synthesis_tile_rows(M)` (other
+    shapes raise `NotImplementedError` on a CUDA tensor), does the DFT as
+    an FFT from `fft_twiddles_tensor` and never reads ``S``."""
     if Yp.device.type == "cpu":
         return synthesis_half_real_tm(Yp, g, params, S=S)
     if Yp.device.type != "cuda":
@@ -141,6 +146,10 @@ def synthesis_tm_fused(
 
     p = params
     M, m, R, D = p.M, p.m, p.R, p.D
+    if M not in dft.FFT_SIZES or m * R > synthesis_tile_rows(M):
+        raise NotImplementedError(
+            f"synthesis_tm_fused on the card takes M in {dft.FFT_SIZES} and m*R up to K3's "
+            f"tile rows (`synthesis_tile_rows`), got M={M}, m*R={m * R}")
     pd = p.synthesis_delay
     T_in = Yp.shape[0]
     T_out = T_in - pd

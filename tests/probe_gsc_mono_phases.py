@@ -55,10 +55,11 @@ STAGES = ("analysis FIR", "analysis FFT", "frames: barrier after the tile", "syn
           "frames: weights + step", "frames: window writes")
 # the marks inside the frame loop: (text they follow, stage)
 FRAME_MARKS = (
-    ("X[c] = fft::split_bin(P, tk * C + c, fc);\n", 6),
+    ("X[c] = fft::split_bin<M_>(P, tk * C + c, fc);\n", 6),
     ("block_sum<BAR_SCAN>(e, red[t & 1], lane, warp, nwarps) / (float)M_;\n", 7),
     ("tac, X, energy_t, t, p);\n", 8),
-    ("fft::put_pair_bin(cw + (halo + tk) * LD, f, Ya, {0.f, 0.f});\n          }\n        }\n", 9),
+    ("fft::put_pair_bin<M_>(cw + (halo + tk) * LD, f, Ya, {0.f, 0.f});\n"
+     "          }\n        }\n", 9),
 )
 STORE = ("if (SYNTH && tid == 0) for (int i = 0; i < 10; ++i) "
          "out[(size_t)b * T_out * D + i] = (float)ph[i];")

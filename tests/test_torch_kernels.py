@@ -35,8 +35,20 @@ modes, pf_min_frames 0 and 2, digitally silent utterances and frame counts
 that are no multiple of the kernels' frame groups and tiles.  K1 (at M =
 256), K3, K4/K5 and K8, whose DFTs are FFTs (``csrc/dsr_fft.h``), also take
 pure tones at bins 0, 1, 64, 127 and 128 and impulse trains, one case per
-bin; K1 also keeps its M = 128 and 512 cases on its dense-product route and
-takes tiles of 1 to 8 signals.  The LMS scan (two lanes a bin, no TPU
+bin; K1 also takes tiles of 1 to 8 signals.  At M = 64, 128 and 512 (the
+FFT plans of 8 x 8, 8 x 16 and 2 x 16 x 16 cells) K1 and K3 are held to
+their plain versions on noise, pure tones at bins 0, 1, M/4, M/2 - 1 and
+M/2 and impulse trains (2e-5), K3 at the largest halo its tile takes; K2,
+K6, the LMS scan and its gate pass at M = 512 (F = 257, nine groups of 32
+bins) to their plain loops (2e-4); K7, K9, K10, K11 (narrow, and (8, 5) and
+(8, 3) in the wide kernel) and the postfilter kernel at M = 64 and 512; and
+the card pipelines at those sizes (BASELINE config 1 at M = 64, the
+flagship at 128 and 512, configs 3-5, D&S + Zelinski and McCowan) to the
+same modules on the CPU with exactly their routes' launches.  K1, K3,
+K4/K5 and K8 at M = 256 give, bit for bit, the outputs stored from their
+kernels before the FFT plan took other sizes
+(``tests/data/filterbank_case_m256.npz``, ``tests/probe_filterbank_bits.py
+--root``).  The LMS scan (two lanes a bin, no TPU
 counterpart) is held to its plain loop at 2e-4, K2's budget, at C = 2..8, M
 = 256, 40 and 32, B = 1, 3, 5, 33, 64 and 256 (blocks and lane pairs across
 utterance boundaries), frame counts around its ring of staged frames and
@@ -185,12 +197,24 @@ def _delays(C, azimuth=np.pi / 3):
         (256, 4, 1, 0, 4096, (2, 3)),
         (256, 4, 1, 1, 777, (2, 3)),
         (256, 2, 2, 2, 3001, (2, 3)),
-        (512, 4, 1, 2, 6000, (2, 3)),  # other M: the dense-product route
+        (512, 4, 1, 2, 6000, (2, 3)),  # other M: the FFT plans of 512 and 128
         (128, 3, 0, 2, 1000, (2, 3)),
         (256, 4, 1, 2, 5000, (2, 8)),  # tiles of 8 frames x 8 channels
         (256, 4, 1, 2, 3000, (3, 1)),  # one signal per tile (the far end)
         (256, 4, 3, 2, 4000, (5,)),
         (256, 4, 1, 2, 2000, (2, 12)),  # more signals than a tile groups
+        # M = 64, 128 and 512: tiles of 256 / 128 / 32 rows, 1 to 8 signals
+        # a tile, the FIR of m = 4, R = 2 and the general one, partial tiles
+        (64, 4, 1, 2, 5000, (2, 2)),  # BASELINE config 1
+        (64, 4, 1, 2, 3001, (3, 1)),
+        (64, 2, 3, 0, 4000, (2, 8)),
+        (64, 4, 1, 1, 777, (1, 5)),
+        (128, 4, 1, 2, 5000, (2, 4)),
+        (128, 4, 2, 2, 3000, (2, 7)),
+        (512, 4, 1, 2, 7000, (2, 8)),
+        (512, 4, 1, 0, 5000, (2, 1)),
+        (512, 3, 2, 1, 6000, (1, 3)),
+        (512, 4, 1, 2, 3000, (2, 12)),
     ],
 )
 def test_analysis_kernel_matches_plain(dev, M, m, r, dct, T, lead):
@@ -347,6 +371,8 @@ def test_scan_kernels_around_a_chunk_of_frames(dev, C):
         (dict(regularization_param=0.0), 2, 0, 256),
         (dict(min_frames=0, alpha2=0.5, max_wa_l2norm=1.0), 2, 5, 256),
         (dict(), 1, 2, 64),  # F=33: a block with idle lanes
+        (dict(), 1, 2, 512),  # F=257: nine groups of 32 bins, the last with one
+        (dict(constraint_option=0), 2, 0, 512),
     ],
 )
 def test_scan_kernel_matches_plain_options(dev, cfg_kw, pf_type, pf_min_frames, M):
@@ -404,6 +430,11 @@ def _packed(rng, Tf, B, C, M, scale=100.0):
         ("block_kalman", 0.95, 1e-3, 4, 256, 3),
         ("block_kalman", 0.95, 1e-3, 8, 256, 2),
         ("block_kalman", 0.95, 1e-3, 3, 128, 1),
+        # M = 64 and 512
+        ("nlms", 100.0, 1e-4, 2, 64, 3),
+        ("nlms", 100.0, 1e-4, 4, 512, 2),
+        ("kalman", 0.95, 1e-3, 8, 512, 1),
+        ("block_kalman", 0.95, 1e-3, 4, 512, 2),
     ],
 )
 def test_aec_kernel_matches_plain(dev, kind, p1, p2, C, M, B):
@@ -529,6 +560,10 @@ def _old(*args):
         pytest.param(5, 8, 2, 128, 2, True, 90, id="C5-P8"),
         pytest.param(3, 13, 1, 128, 2, True, 90, id="C3-P13-CP39"),
         pytest.param(1, 40, 2, 128, 3, True, 90, id="C1-P40"),
+        # M = 64 and 512 (the kernel takes any even M)
+        pytest.param(4, 5, 2, 64, 2, True, 90, id="M64"),
+        pytest.param(4, 5, 2, 512, 2, True, 90, id="M512"),
+        pytest.param(8, 5, 2, 512, 1, False, 90, id="C8-P5-M512-first-iteration"),
     ],
 )
 def test_wpe_stats_kernel_matches_plain(dev, C, P, lowerN, M, B, has_g, Tf):
@@ -606,6 +641,21 @@ def test_wpe_stats_kernel_repeats_to_the_bit(dev, has_g):
         pytest.param(2, 13, 3, 128, 2, 90, id="wide-C2-P13-padded-taps"),
         pytest.param(1, 40, 32, 256, 1, 70, id="wide-C1-P40-M256-lowerN32"),
         pytest.param(8, 5, 2, 256, 1, 1254, id="wide-config4-c8-Tf1254"),
+        # M = 64 and 512: narrow (32 and 256 lanes), the wide kernel at one
+        # and eight groups of 32 bins, and at M = 512 the narrow shapes of 5
+        # to 8 channels (a block would take 800 or 1,056 threads) in the wide
+        # kernel
+        pytest.param(4, 5, 2, 64, 2, 90, id="M64"),
+        pytest.param(1, 24, 2, 64, 2, 90, id="C1-P24-M64"),
+        pytest.param(8, 3, 32, 64, 2, 100, id="C8-P3-lowerN32-M64"),
+        pytest.param(8, 5, 2, 64, 2, 90, id="wide-C8-P5-M64"),
+        pytest.param(4, 5, 2, 512, 2, 90, id="M512"),
+        pytest.param(4, 6, 32, 512, 2, 100, id="C4-P6-lowerN32-two-rings-M512"),
+        pytest.param(6, 4, 3, 512, 2, 90, id="C6-P4-M512-in-the-wide-kernel"),
+        pytest.param(5, 4, 1, 512, 2, 90, id="C5-P4-M512-in-the-wide-kernel"),
+        pytest.param(8, 3, 2, 512, 2, 90, id="C8-P3-M512-in-the-wide-kernel"),
+        pytest.param(7, 3, 2, 512, 1, 45, id="C7-P3-M512-in-the-wide-kernel"),
+        pytest.param(8, 5, 2, 512, 2, 300, id="wide-C8-P5-M512"),
     ],
 )
 def test_wpe_resid_kernel_matches_plain(dev, C, P, lowerN, M, B, Tf):
@@ -719,9 +769,9 @@ def test_wrappers_raise_on_bad_cuda_input(dev):
         analysis_tm_fused(x.double(), h, p)
     with pytest.raises(ValueError, match="CUDA"):
         analysis_tm_fused(x, h, p, hr=torch.zeros((4, 256)))
-    with pytest.raises(ValueError, match="CUDA"):  # the dense-product route reads A
-        analysis_tm_fused(x, torch.zeros(512, device=dev), FilterbankParams(M=128),
-                          A=torch.zeros((128, 128)))
+    with pytest.raises(NotImplementedError, match="M=1024"):  # no FFT plan, no other route
+        analysis_tm_fused(x, torch.zeros(4096, device=dev), FilterbankParams(M=1024),
+                          A=torch.zeros((1024, 1024)))
     with pytest.raises(ValueError, match="float32"):
         synthesis_tm_fused(torch.zeros((10, 1, 256), device=dev, dtype=torch.float64), h, p)
     Yp, wqH, BmH, vs = _scan_case(4, 256, seed=0, Tf=4)
@@ -750,11 +800,11 @@ def test_wrappers_raise_on_bad_cuda_input(dev):
     assert set(kernels.launch_counts().values()) == {0}
 
 
-def _fixed_weights(C):
+def _fixed_weights(C, M=256):
     """SD-MVDR weights and the alignment manifold of a linear 50 mm array."""
     mpos = np.c_[np.arange(C) * 50.0, np.zeros((C, 2))]
-    return (superdirective_weights(mpos, _delays(C), 256, FS),
-            array_manifold(256, FS, _delays(C)))
+    return (superdirective_weights(mpos, _delays(C), M, FS),
+            array_manifold(M, FS, _delays(C)))
 
 
 @pytest.mark.parametrize("C,pf_type,pf_min_frames", [
@@ -1275,7 +1325,9 @@ LMS_CARD = dict(min_frames=6, slowdown_after=7)
     # the gate pass's tiles of 2048 frames
     (2, 32, 2, 2100, 5e-7),
     # F = 21: blocks of 64 bins over three utterances and a part
-    (4, 40, 3, 30, 5e-7)])
+    (4, 40, 3, 30, 5e-7),
+    # F = 257 (M = 512) and F = 33 (M = 64)
+    (2, 512, 3, 40, 5e-7), (8, 512, 3, 40, 5e-7), (4, 512, 2, 30, 100.0), (3, 64, 5, 40, 5e-7)])
 def test_lms_scan_kernel_matches_plain(dev, C, M, B, Tf, cap):
     """The LMS scan against its plain loop, both Zelinski modes, and the
     gain applied from the first frames on, at the last frame only or never;
@@ -1387,7 +1439,8 @@ def test_lms_wrapper_raises_on_bad_cuda_input(dev):
 
 
 @pytest.mark.parametrize("C,M,B,Tf", [(4, 256, 3, 40), (8, 256, 257, 23), (2, 32, 2, 2100),
-                                      (3, 32, 5, 4200), (8, 40, 1, 7)])
+                                      (3, 32, 5, 4200), (8, 40, 1, 7), (8, 512, 3, 40),
+                                      (2, 64, 4, 40)])
 def test_lms_gates_kernel_matches_plain(dev, C, M, B, Tf):
     """The gate pass against `adaptive_gsc.lms_silence_gates`, flag for
     flag, across its tiles of 2048 frames and with silent frames; one launch
@@ -1514,7 +1567,7 @@ def test_fast_div_has_ieee_bits_where_it_vouches(dev, scale_exp):
 
 
 def _coherent_packed(rng, Tf, B, C, vs, snr_db=0.0):
-    """Packed frames ``[Tf, B, C, 256]`` of a source steered by ``vs`` plus
+    """Packed frames ``[Tf, B, C, M]`` of a source steered by ``vs`` plus
     white sensor noise ``snr_db`` down, so that the coherence postfilters'
     gains fall between their floor and 1 (on white noise alone they sit at
     the floor)."""
@@ -1525,7 +1578,7 @@ def _coherent_packed(rng, Tf, B, C, vs, snr_db=0.0):
     return pack_half(torch.from_numpy(X.astype(np.complex64)).movedim(-1, -2))
 
 
-def _coherence_case(C, kind, pf_type, Tf=43, B=3):
+def _coherence_case(C, kind, pf_type, Tf=43, B=3, M=256):
     """Frames with utterance 1 digitally silent, SD-MVDR weights, the
     alignment manifold, the constants of the diffuse field and the plain
     beamformer's packed output."""
@@ -1533,11 +1586,11 @@ def _coherence_case(C, kind, pf_type, Tf=43, B=3):
     from distant_speech_recognition_tpu_torch.models.postfilter import coherence_constants
 
     rng = np.random.default_rng(100 * C + pf_type + len(kind))
-    wqH, vs = _fixed_weights(C)
+    wqH, vs = _fixed_weights(C, M)
     Yr = _coherent_packed(rng, Tf, B, C, vs)
     Yr[:, 1] = 0.0
     mpos = np.c_[np.arange(C) * 50.0, np.zeros((C, 2))]
-    consts = coherence_constants(kind, diffuse_noise_coherence(mpos, 256, FS), vs, pf_type)
+    consts = coherence_constants(kind, diffuse_noise_coherence(mpos, M, FS), vs, pf_type)
     Yp = pack_half(apply_weights(wqH, unpack_half(Yr).movedim(-2, -1)))
     return Yr, Yp, wqH, vs, consts
 
@@ -1593,3 +1646,277 @@ def test_coherence_postfilter_forms_fixed_weight_output(dev, kind, pf_type, C):
     given = coherence_postfilter(Yr.to(dev), Yp.to(dev), wqH.to(dev), vs.to(dev), kind, *d)
     _close_nan(formed, given.cpu(), 1e-5)
     _close_nan(formed, coherence_postfilter(Yr, None, wqH, vs, kind, consts, *d[1:]), 1e-4)
+
+
+# ---- the filterbank sizes M = 64, 128 and 512 ------------------------------
+
+SIZES = (64, 128, 512)
+SIZE_TONES = ("bin0", "bin1", "binM/4", "binM/2-1", "binM/2", "impulses")
+
+
+def _tone_bin(case, M):
+    return {"bin0": 0, "bin1": 1, "binM/4": M // 4, "binM/2-1": M // 2 - 1, "binM/2": M // 2}[case]
+
+
+def _spectrum_at(M, case, T_in, B):
+    """`_tone_spectrum` at M: packed frames [T_in, B, M] holding one bin
+    whose phase turns from frame to frame, or the spectra of single
+    impulses at a position that moves by 37 per frame."""
+    t = np.arange(T_in)[:, None, None]
+    amp = 100.0 / (1.0 + np.arange(B))[None, :, None]
+    if case == "impulses":
+        A = np.asarray(analysis_matrix_packed_np(M), np.float64)
+        return torch.from_numpy((A[(37 * np.arange(T_in) + 5) % M][:, None, :] * amp)
+                                .astype(np.float32))
+    Yp = np.zeros((T_in, B, M), np.float64)
+    f = _tone_bin(case, M)
+    Yp[..., f:f + 1] = amp * np.cos(0.7 * t + 0.3)
+    if 0 < f < M // 2:
+        Yp[..., M // 2 + f:M // 2 + f + 1] = amp * np.sin(0.7 * t + 0.3)
+    return torch.from_numpy(Yp.astype(np.float32))
+
+
+def _signal_at(M, case, C, T, B=2):
+    """`_tone_signal` at M: a cosine at the centre of one bin (each channel
+    2 samples later), or one impulse per M-sample block."""
+    n = np.arange(T)
+    x = np.zeros((B, C, T), np.float64)
+    for c in range(C):
+        if case == "impulses":
+            blocks = np.arange(0, T, M)
+            pos = blocks + (37 * (blocks // M) + 11 * c) % M
+            x[:, c, pos[pos < T]] = 1500.0
+        else:
+            x[:, c] = 1500.0 * np.cos(2 * np.pi * _tone_bin(case, M) * (n - 2 * c) / M + 0.4)
+    x[1] *= 0.25
+    return torch.from_numpy(x.astype(np.float32))
+
+
+@pytest.mark.parametrize("M", SIZES)
+@pytest.mark.parametrize("case", SIZE_TONES)
+def test_filterbank_kernels_other_sizes_tones_and_impulses(dev, M, case):
+    """K1 and K3 at M = 64, 128 and 512 one bin at a time (and impulses):
+    a wrong twiddle, cell, split, packing or segment-reversal index of
+    their FFT plan fails on a named bin."""
+    p = FilterbankParams(M=M, m=4, r=1, delay_compensation_type=2)
+    h, g = load_pair(M, 4, 1)
+    x = _signal_at(M, case, 4, 20 * M)
+    ref = analysis_half_real_tm(x, h, p, packed=True)
+    _close(analysis_tm_fused(x.to(dev), torch.as_tensor(h).to(dev), p), ref, 2e-5)
+    Yp = _spectrum_at(M, case, 150, 2)
+    ref = synthesis_half_real_tm(Yp, g, p)
+    _close(synthesis_tm_fused(Yp.to(dev), torch.as_tensor(g).to(dev), p), ref, 2e-5)
+
+
+@pytest.mark.parametrize(
+    "M,m,r,dct,T_in,lead",
+    [
+        (64, 4, 1, 2, 700, (3,)),  # BASELINE config 1; tiles of 256 rows
+        (64, 4, 5, 2, 300, (2,)),  # m*R = 128 of 256 rows
+        (64, 8, 5, 1, 400, (1,)),  # m*R = 256: the largest halo the tile takes
+        (128, 4, 1, 2, 400, (2, 2)),
+        (128, 3, 2, 0, 131, (2,)),
+        (512, 4, 1, 2, 150, (3,)),  # tiles of 40 rows
+        (512, 4, 0, 2, 77, (2,)),
+        (512, 5, 3, 2, 120, (1,)),  # m*R = 40: the largest halo the tile takes
+        (512, 2, 2, 1, 41, (2,)),
+    ],
+)
+def test_synthesis_kernel_other_sizes(dev, M, m, r, dct, T_in, lead):
+    p = FilterbankParams(M=M, m=m, r=r, delay_compensation_type=dct)
+    rng = np.random.default_rng(T_in + M)
+    Yp = torch.from_numpy((rng.standard_normal((T_in,) + lead + (M,)) * 100).astype(np.float32))
+    g = rng.standard_normal(p.N).astype(np.float32) / np.sqrt(p.N)
+    ref = synthesis_half_real_tm(Yp, g, p)
+    before = synthesis_tm_fused.launches
+    got = synthesis_tm_fused(Yp.to(dev), torch.from_numpy(g).to(dev), p)
+    assert synthesis_tm_fused.launches == before + 1
+    _close(got, ref, 2e-5)
+
+
+def test_synthesis_tile_rows_are_the_kernels(dev):
+    """`synthesis_tile_rows` (what `check_card_shapes` reads) is the tile
+    K3 is built with at each M: its C entry refuses m*R = rows + 1 (a halo
+    of the whole tile) and every other M (m*R = rows runs in
+    `test_synthesis_kernel_other_sizes`); the wrappers raise
+    `NotImplementedError` past those limits before any launch."""
+    from distant_speech_recognition_tpu_torch.kernels import _build
+    from distant_speech_recognition_tpu_torch.ops.filterbank_kernels import synthesis_tile_rows
+
+    lib = _build.library()
+    for M in (32, 1024, 2048, 96):
+        assert lib.dsr_synthesis_tm_rows(M) == 0
+    tw = torch.zeros(1, device=dev)
+    for M in (64, 128, 256, 512):
+        rows = synthesis_tile_rows(M)
+        assert lib.dsr_synthesis_tm_rows(M) == rows
+        out = torch.empty(M, device=dev)
+        args = lambda m, R, T_in: (tw.data_ptr(), tw.data_ptr(), tw.data_ptr(), out.data_ptr(),
+                                   T_in, 1, M, m, R, M // R, 0, T_in, None)
+        assert lib.dsr_synthesis_tm(*args(rows + 1, 1, 1)) != 0  # halo rows: the whole tile
+    kernels.reset_launch_counts()
+    x = torch.zeros((1, 2, 4096), device=dev)
+    with pytest.raises(NotImplementedError, match="M=1024"):
+        analysis_tm_fused(x, torch.zeros(4096, device=dev), FilterbankParams(M=1024, m=4, r=1))
+    with pytest.raises(NotImplementedError, match="m\\*R=64"):
+        synthesis_tm_fused(torch.zeros((40, 1, 512), device=dev), torch.zeros(2048, device=dev),
+                           FilterbankParams(M=512, m=4, r=4))
+    assert set(kernels.launch_counts().values()) == {0}
+
+
+@pytest.mark.parametrize("C", [2, 8])
+def test_steered_scan_at_257_bins(dev, C):
+    """K6 at M = 512 (F = 257) against its plain version, and with one
+    steering for all equal to K2 bit for bit."""
+    Yp, wqH, BmH, vs = _scan_case(C, 512, seed=60 + C, B=3)
+    cfg = GSCRLSConfig(min_frames=8)
+    d = np.stack([geometry.calc_la_delays(np.c_[np.arange(C) * 50.0][:, :1], azimuth=az)
+                  for az in (0.4, 1.3, 2.5)]).astype(np.float32)
+    per_utt = steering_weights(array_manifold(512, FS, torch.from_numpy(d)))
+    ref = gsc_rls_zelinski_steered(Yp, *per_utt, cfg, 0.6, 1, 2)
+    Yd = Yp.to(dev)
+    _close(gsc_rls_zelinski_steered(Yd, *(w.to(dev) for w in per_utt), cfg, 0.6, 1, 2), ref, 2e-4)
+    shared = [w.to(dev) for w in (wqH, BmH, vs)]
+    rows = [w.expand((3,) + w.shape) for w in shared]
+    assert torch.equal(gsc_rls_zelinski_steered(Yd, *rows, cfg, 0.6, 2, 0),
+                       gsc_rls_zelinski(Yd, *shared, cfg, 0.6, 2, 0))
+
+
+@pytest.mark.parametrize("M", [64, 512])
+@pytest.mark.parametrize("C", [2, 8])
+def test_fixed_weight_and_postfilter_kernels_at_other_sizes(dev, M, C):
+    """K7 (3e-5) and the McCowan postfilter kernel, given the beamformer's
+    output and forming wqH X (1e-4), at M = 64 and 512."""
+    from distant_speech_recognition_tpu_torch.models.coherence_postfilter import (
+        coherence_postfilter,
+    )
+
+    rng = np.random.default_rng(M + C)
+    Yp = _packed(rng, 43, 3, C, M)
+    Yp[:, 1] = 0.0
+    wqH, vs = _fixed_weights(C, M)
+    ref = zelinski_apply(Yp, wqH, vs, 0.6, 1, 2)
+    _close(zelinski_apply(Yp.to(dev), wqH.to(dev), vs.to(dev), 0.6, 1, 2), ref, 3e-5)
+    Yr, Yb, wqH, vs, consts = _coherence_case(C, "mccowan", 2, M=M)
+    for given in (Yb, None):
+        ref = coherence_postfilter(Yr, given, wqH, vs, "mccowan", consts, 0.6, 2, 2)
+        got = coherence_postfilter(Yr.to(dev), None if given is None else given.to(dev),
+                                   wqH.to(dev), vs.to(dev), "mccowan", consts.to(dev), 0.6, 2, 2)
+        _close_nan(got, ref, 1e-4)
+
+
+# the card pipelines at the other sizes: name -> (M, C, configuration
+# fields, launches of one forward)
+SIZE_PIPES = {
+    "config1-m64": (64, 2, dict(beamformer="ds", postfilter="none"),
+                    dict(analysis_tm=1, synthesis_tm=1)),
+    "flagship-m128": (128, 4, dict(beamformer="gsc_rls", postfilter="zelinski"),
+                      dict(analysis_tm=1, gsc_rls_zelinski=1, synthesis_tm=1)),
+    "flagship-m512": (512, 4, dict(beamformer="gsc_rls", postfilter="zelinski"),
+                      dict(analysis_tm=1, gsc_rls_zelinski=1, synthesis_tm=1)),
+    "config3-m512": (512, 8, dict(beamformer="gsc_lms", postfilter="zelinski"),
+                     dict(analysis_tm=1, lms_gates=1, gsc_lms_zelinski=1, synthesis_tm=1)),
+    "ds-zelinski-m512": (512, 4, dict(beamformer="ds", postfilter="zelinski"),
+                         dict(analysis_tm=1, zelinski_apply=1, synthesis_tm=1)),
+    "mccowan-m64": (64, 4, dict(beamformer="gsc_rls", postfilter="mccowan"),
+                    dict(analysis_tm=1, gsc_rls_zelinski=1, coherence_postfilter=1,
+                         synthesis_tm=1)),
+    "config4-m64": (64, 4, dict(beamformer="gsc_rls", postfilter="zelinski", aec="nlms",
+                                wpe=True, wpe_iterations=2),
+                    dict(analysis_tm=2, aec_scan=1, wpe_stats=2, gj_solve=2, wpe_resid=1,
+                         gsc_rls_zelinski=1, synthesis_tm=1)),
+    "config4-m512": (512, 4, dict(beamformer="gsc_rls", postfilter="zelinski", aec="nlms",
+                                  wpe=True, wpe_iterations=2),
+                     dict(analysis_tm=2, aec_scan=1, wpe_stats=2, gj_solve=2, wpe_resid=1,
+                          gsc_rls_zelinski=1, synthesis_tm=1)),
+}
+
+
+@pytest.mark.parametrize("name", list(SIZE_PIPES))
+def test_pipelines_at_other_sizes_match_plain(dev, name):
+    """`build_pipeline` with the default device at M = 64, 128 and 512
+    (the one-kernel chains K4/K8 take M = 256 only, so the split routes run)
+    against the same module on the CPU (3e-4), with exactly the route's
+    launches."""
+    M, C, kw, launches = SIZE_PIPES[name]
+    fb = FilterbankParams(M=M, m=4, r=1, delay_compensation_type=2)
+    cfg = PipelineConfig(fb=fb, samplerate=FS, pf_min_frames=2, rls=GSCRLSConfig(min_frames=4),
+                         lms=GSCLMSConfig(min_frames=4, slowdown_after=8), **kw)
+    rng = np.random.default_rng(M + C)
+    h = rng.standard_normal(fb.N).astype(np.float32) / 32
+    g = rng.standard_normal(fb.N).astype(np.float32) / 32
+    mpos = np.c_[np.arange(C) * 50.0, np.zeros((C, 2))]
+    x = torch.from_numpy((rng.standard_normal((2, C, 40 * M)) * 1500).astype(np.float32))
+    args = (x,)
+    if cfg.aec != "none":
+        args += (torch.from_numpy((rng.standard_normal((2, 40 * M)) * 1500).astype(np.float32)),)
+    cpu = build_pipeline(cfg, mpos, _delays(C), h, g, device="cpu")
+    gpu = build_pipeline(cfg, mpos, _delays(C), h, g)
+    with torch.no_grad():
+        ref = cpu(*args)
+        kernels.reset_launch_counts()
+        got = gpu(*(a.to(dev) for a in args))
+    assert kernels.launch_counts() == _only(**launches)
+    _close(got, ref, 3e-4)
+
+
+def test_steered_pipeline_at_512_matches_plain(dev):
+    """Config 5 at M = 512: K1, K6, K3 once each, the DOA equal to the CPU
+    module's and the placed directions found."""
+    fb = FilterbankParams(M=512, m=4, r=1, delay_compensation_type=2)
+    cfg = PipelineConfig(fb=fb, samplerate=FS, beamformer="gsc_rls", postfilter="zelinski",
+                         pf_min_frames=2, rls=GSCRLSConfig(min_frames=4))
+    rng = np.random.default_rng(512)
+    h, g = load_pair(512, 4, 1)
+    ang = 2 * np.pi * np.arange(4) / 4
+    mpos = np.c_[100.0 * np.cos(ang), 100.0 * np.sin(ang), np.zeros(4)]
+    phis = np.deg2rad(np.arange(0.0, 360.0, 30.0))
+    placed = [2, 5, 9]
+    T = 16000
+    src = rng.standard_normal((3, T + 64)).astype(np.float32) * 1500
+    x = rng.standard_normal((3, 4, T)).astype(np.float32) * 150
+    for b, gi in enumerate(placed):
+        d = geometry.calc_ca_delays(mpos, phis[gi], np.pi / 2)
+        for c in range(4):
+            off = 8 - int(round(float(d[c]) * FS))
+            x[b, c] += src[b, off:off + T]
+    x = torch.from_numpy(x)
+    cpu = build_steered_pipeline(cfg, mpos, h, g, [np.pi / 2], phis, device="cpu")
+    gpu = build_steered_pipeline(cfg, mpos, h, g, [np.pi / 2], phis)
+    with torch.no_grad():
+        ref, doa_ref = cpu(x)
+        kernels.reset_launch_counts()
+        got, doa = gpu(x.to(dev))
+    assert kernels.launch_counts() == _only(analysis_tm=1, gsc_rls_zelinski_steered=1,
+                                            synthesis_tm=1)
+    assert torch.equal(doa.cpu(), doa_ref)
+    assert torch.equal(doa_ref[:, 1], torch.tensor(phis[placed], dtype=torch.float32))
+    _close(got, ref, 3e-4)
+
+
+FILTERBANK_STORED = ("k1_c4", "k1_c3_r2", "k3", "k3_r2", "k4_c2", "k4_c4", "k5_c4", "k8_c4")
+
+
+@pytest.mark.parametrize("tag", FILTERBANK_STORED)
+def test_filterbank_kernels_equal_stored_outputs(dev, tag):
+    """K1, K3, K4/K5 and K8 at M = 256 give, bit for bit, the outputs their
+    kernels gave before the FFT plan took M = 64, 128 and 512
+    (``filterbank_case_m256.npz``, from ``tests/probe_filterbank_bits.py
+    --root`` of that checkout with ``--write-case``; its cases and inputs are
+    the probe's)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "probe_filterbank_bits", Path(__file__).parent / "probe_filterbank_bits.py")
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    z = np.load(Path(__file__).parent / "data" / "filterbank_case_m256.npz")
+    _, kernel, B, n, kw = next(c for c in probe.CASES if c[0] == tag)
+    fb = FilterbankParams(**{"M": 256, "m": 4, **kw})
+    w = None
+    if kernel in ("K4", "K5", "K8"):
+        w = [torch.from_numpy(z[f"{tag}_{k}"]).to(dev) for k in ("wqH", "BmH", "vs")]
+    h, g = (torch.from_numpy(z[k]).to(dev) for k in ("h", "g"))
+    inp = torch.from_numpy(probe.case_input(tag, kernel, B, n)).to(dev)
+    got = probe.run(probe._build.library(), kernel, inp, fb, h, g, w)
+    assert torch.equal(got.cpu(), torch.from_numpy(z[f"{tag}_out"]))

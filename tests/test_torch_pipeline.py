@@ -152,40 +152,48 @@ def test_input_on_another_device_or_shape_raises(case):
         enh(torch.zeros(1, C + 1, T))
 
 
-@pytest.mark.parametrize("M", [64, 128])
-def test_card_refuses_other_filterbanks_at_build(M):
-    """The card's filterbank kernels take M = 256 only: a pipeline for the
-    card with M = 64 or 128 raises at construction (`check_card_shapes`,
-    decided from the configuration, so no card is needed to see it), while
-    the same pipeline builds and runs on the CPU."""
+@pytest.mark.parametrize("M,C_", [(1024, C), (32, C), (96, C), (256, 9)])
+def test_card_refuses_other_filterbanks_at_build(M, C_):
+    """The card's filterbank kernels take M in {64, 128, 256, 512} and its
+    beamformer kernels 2 <= C <= 8: a pipeline for the card with M = 1024,
+    32, a size that is no power of two, or 9 channels raises at
+    construction (`check_card_shapes`, decided from the configuration, so
+    no card is needed to see it), while the same pipeline builds and runs on
+    the CPU."""
     fb = FilterbankParams(M=M, m=4, r=1, delay_compensation_type=2)
-    with pytest.raises(NotImplementedError, match=f"M={M}"):
-        t_pipe.check_card_shapes(fb, C, "cuda")
-    t_pipe.check_card_shapes(fb, C, "cpu")
+    what = f"M={M}" if C_ == C else f"C={C_}"
+    with pytest.raises(NotImplementedError, match=what):
+        t_pipe.check_card_shapes(fb, C_, "cuda")
+    t_pipe.check_card_shapes(fb, C_, "cpu")
     cfg = _port_cfg(fb=fb)
-    mpos = np.c_[np.arange(C) * 50.0, np.zeros((C, 2))]
+    mpos = np.c_[np.arange(C_) * 50.0, np.zeros((C_, 2))]
     delays = geometry.calc_la_delays(mpos[:, :1], azimuth=np.pi / 3)
     rng = np.random.default_rng(M)
     h, g = (rng.standard_normal(fb.N).astype(np.float32) / 16 for _ in range(2))
-    with pytest.raises(NotImplementedError, match=f"M={M}"):
+    with pytest.raises(NotImplementedError, match=what):
         t_pipe.build_pipeline(cfg, mpos, delays, h, g, device="cuda")
     cpu = t_pipe.build_pipeline(cfg, mpos, delays, h, g, device="cpu")
-    with pytest.raises(NotImplementedError, match=f"M={M}"):
+    with pytest.raises(NotImplementedError, match=what):
         t_pipe.Enhancer(cfg, h, g, cpu.wqH, cpu.BmH, cpu.wq_manifold, device="cuda")
-    x = torch.from_numpy((rng.standard_normal((1, C, 2000)) * 1500).astype(np.float32))
+    x = torch.from_numpy((rng.standard_normal((1, C_, 2000)) * 1500).astype(np.float32))
     with torch.no_grad():
         assert torch.isfinite(cpu(x)).all()
 
 
 def test_card_shape_limits():
-    """What `check_card_shapes` lets through to the card: M = 256, K3's
-    64-row tile holding the m*R - 1 halo rows, 2 <= C <= 8."""
+    """What `check_card_shapes` lets through to the card: M in {64, 128,
+    256, 512}, K3's tile (256, 128, 64, 40 rows) holding the m*R - 1 halo
+    rows, 2 <= C <= 8."""
     ok = [(FilterbankParams(M=256, m=4, r=1), c) for c in range(2, 9)]
     ok += [(FilterbankParams(M=256, m=4, r=4), 4), (FilterbankParams(M=256, m=2, r=5), 8)]
+    ok += [(FilterbankParams(M=M, m=4, r=1), c) for M in (64, 128, 512) for c in (2, 4, 8)]
+    ok += [(FilterbankParams(M=64, m=4, r=5), 2), (FilterbankParams(M=512, m=5, r=3), 4)]
     for fb, c in ok:
         t_pipe.check_card_shapes(fb, c, "cuda")
-    bad = [(FilterbankParams(M=512, m=4, r=1), 4), (FilterbankParams(M=256, m=8, r=4), 4),
-           (FilterbankParams(M=256, m=4, r=1), 1), (FilterbankParams(M=256, m=4, r=1), 9)]
+    bad = [(FilterbankParams(M=1024, m=4, r=1), 4), (FilterbankParams(M=2048, m=4, r=1), 4),
+           (FilterbankParams(M=32, m=4, r=1), 4), (FilterbankParams(M=256, m=8, r=4), 4),
+           (FilterbankParams(M=512, m=4, r=4), 4), (FilterbankParams(M=256, m=4, r=1), 1),
+           (FilterbankParams(M=256, m=4, r=1), 9), (FilterbankParams(M=512, m=4, r=1), 9)]
     for fb, c in bad:
         with pytest.raises(NotImplementedError):
             t_pipe.check_card_shapes(fb, c, "cuda")
