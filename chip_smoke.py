@@ -137,7 +137,20 @@ Phases (each raises on failure; the script then exits non-zero):
      (K7), gsc-rls-mccowan-m64 (the postfilter kernel), config4-m64 and
      config4-m512 (NLMS AEC, WPE: K9, K10, K12, K11 at the new M) with their
      launch counts and the plain chain, and config5-m512 (SRP-PHAT DOA ->
-     K6) with the DOA equal to the plain chain's.
+     K6) with the DOA equal to the plain chain's;
+ 15. the steered routes at config 5's shape (B=64 x 4 ch x 10 s, one
+     placed source per utterance, the 72-point grid) through
+     build_steered_pipeline() with the default device: steered-ds-zelinski-
+     b64 and steered-ds-none-b64 (K1, K7 with one steering per utterance,
+     K3), steered-lms-zelinski-b64 and steered-lms-none-b64 (K1, the LMS
+     gate pass, the LMS scan with one steering per utterance, K3),
+     steered-rls-none-b64 (K1, K6 without its gain, K3) and steered-dsbla-b64
+     (GSC-RLS + Zelinski behind the DSBLA DOA protocol: K1, K6, K3), each
+     with its launch counts (exactly the route's kernels), its DOA equal to
+     the plain chain's, its first 16 utterances against the plain chain
+     (3e-4), CUDA-event times of the path, its DOA stage and its beamformer
+     stage, audio-s/s/GPU and peak memory; the two per-utterance kernels
+     timed alone at that shape beside their bounds and plain loops.
 Phase 3 also runs, at B=8 (phase 3z), K1 and K3 at M = 64, 128 and 512 on
 noise, on pure tones at bins 0, 1, M/4, M/2 - 1 and M/2 and on impulse
 trains, K11 at M = 64 and 512 at (4, 5) and (8, 5), and at M = 512 K2, K6,
@@ -163,9 +176,12 @@ K13 against its plain version at M in {8, 128, 256}, m in {2, 4}, R in
 fixed-weight Zelinski kernel against its plain version and the one-kernel
 fixed-weight chain against the chain of
 split kernels and against the plain chain (D&S, SD-MVDR and LCMV weights,
-both Zelinski modes, pf_min_frames 0 and 2), and the steered scan against
+both Zelinski modes, pf_min_frames 0 and 2), the steered scan against
 its plain version with eight different steerings and, given one steering for
-all, against the flagship scan bit for bit.
+all, against the flagship scan bit for bit, and likewise K7 and the LMS scan
+with one steering per utterance (C = 2, 4 and 8, both Zelinski modes, the
+gain from frame 1, 3 or never) against their plain versions (3e-5, 2e-4)
+and, given one steering for all, against K7 and the LMS scan bit for bit.
 The line before the last two is a JSON object with one entry per kernel
 ("launches" counts the runs of all the paths, "launches_by_path" each
 path's, one forward each; K4, K5 and K8 also carry their error against the
@@ -181,7 +197,9 @@ bound and library time at n = 24 and 40, "n24" and "n40"; K9-K12 their
 forms at config 4's 8 channels, "c8"; the postfilter kernel its times by
 kind, "by_kind", at 8 channels, "c8", and phase 13's paths, "paths"; K1,
 K3, K2, K6, the LMS scan and K11 their times, bounds, plain, torch.fft or
-library times and launches at M = 64, 128 and 512, "by_M"); the
+library times and launches at M = 64, 128 and 512, "by_M"; the per-utterance
+K7 and LMS scan their plain loops' utterances, "plain_ms_utterances", and
+the LMS scan's row phase 15's paths, "steered_paths"); the
 line before the last is the card's name and
 power limit; the last line is {"ok": true, "device": {...}}.  Imports
 nothing of JAX.
@@ -297,12 +315,14 @@ def main() -> None:
         analysis_fw_synthesis,
         zelinski_apply,
         zelinski_apply_plain,
+        zelinski_apply_steered,
     )
     from distant_speech_recognition_tpu_torch.models.fused_scan import (
         NO_POSTFILTER,
         analysis_gsc_rls_zelinski,
         analysis_gsc_synthesis,
         gsc_lms_zelinski,
+        gsc_lms_zelinski_steered,
         gsc_rls_zelinski,
         gsc_rls_zelinski_steered,
         lms_gates,
@@ -754,6 +774,47 @@ def main() -> None:
     if not same:
         raise AssertionError("the steered scan with identical rows differs from the flagship scan")
     del vs8, steer8, rows
+
+    # one steering per utterance for the D&S and the GSC-LMS (eight
+    # directions of a circular 100 mm array of C_ mics, C_ = 2, 4, 8): the
+    # steered K7 and LMS scan against their plain versions, both Zelinski
+    # modes, the gain from frame 1, 3 or never, on packed noise with silent
+    # opening frames (the LMS gate shut) and an LMS norm cap that fires; one
+    # steering for all: each is its shared-weight kernel bit for bit
+    lms_p3 = GSCLMSConfig(min_frames=6, slowdown_after=7, max_wa_l2norm=5e-7)
+    rng_st = np.random.default_rng(SEED + 3)  # the later phases' inputs stay as they were
+    for C_ in (2, 4, 8):
+        angC = 2 * np.pi * np.arange(C_) / C_
+        mposC = np.c_[100.0 * np.cos(angC), 100.0 * np.sin(angC), np.zeros(C_)]
+        dC = np.stack([geometry.calc_ca_delays(mposC, az, np.pi / 2)
+                       for az in np.deg2rad(10.0 + 45.0 * np.arange(8))])
+        wC = steering_weights(array_manifold(M, float(FS), torch.tensor(
+            dC, dtype=torch.float32, device=dev)))
+        one = [w[:1].expand_as(w) for w in wC]
+        YC = torch.from_numpy(rng_st.standard_normal((60, 8, C_, M), dtype=np.float32)
+                              * np.float32(100.0)).to(dev)
+        YC[:3] *= 1e-6
+        for pf_type in (1, 2):
+            for pf_min in (0, 2, NO_POSTFILTER):
+                a = (cfg.pf_alpha, pf_type, pf_min)
+                tag = f"C={C_}, pf_type {pf_type}, pf_min_frames {pf_min}"
+                compare(f"zelinski_apply_steered, 8 steerings, {tag}",
+                        zelinski_apply_steered(YC, wC[0], wC[2], *a),
+                        zelinski_apply_plain(YC, wC[0], wC[2], *a), 3e-5,
+                        "zelinski_apply_steered")
+                compare(f"gsc_lms_zelinski_steered, 8 steerings, {tag}",
+                        gsc_lms_zelinski_steered(YC, *wC, lms_p3, *a),
+                        gsc_postfilter_fused(YC, None, *wC, "lms", lms_p3, *a, True), 2e-4,
+                        "gsc_lms_zelinski_steered")
+                if not (torch.equal(zelinski_apply_steered(YC, one[0], one[2], *a),
+                                    zelinski_apply(YC, wC[0][0], wC[2][0], *a))
+                        and torch.equal(gsc_lms_zelinski_steered(YC, *one, lms_p3, *a),
+                                        gsc_lms_zelinski(YC, *(w[0] for w in wC), lms_p3, *a))):
+                    raise AssertionError(f"a steered kernel given one steering for all differs "
+                                         f"from its shared-weight kernel ({tag})")
+        log(f"  zelinski_apply_steered / gsc_lms_zelinski_steered, one steering for all, C={C_}: "
+            f"bit-identical to zelinski_apply / gsc_lms_zelinski")
+    del wC, one, YC
 
     # the one-kernel flagship chains: K4 against the split kernels K1 -> K2 ->
     # K3 (3e-4: K3 pairs its synthesis rows in its FFT otherwise than K4) and
@@ -1430,7 +1491,8 @@ def main() -> None:
         Yp5, plain_a_ms = timed(lambda: plain_analysis(x5))
         # the SRP stage (plain torch on either path): DOA grid index and
         # steering per utterance
-        (gidx5, steer5), plain_srp_ms = timed(lambda: enh5.steer(Yp5))
+        (gidx5, vs5), plain_srp_ms = timed(lambda: enh5.steer(Yp5))
+        steer5 = steering_weights(vs5)
         Yb_ref, plain_k6_ms = timed(lambda: plain_scan(Yp5, steer5 + scan_tail))
         y5_ref, plain_s_ms = timed(lambda: plain_synthesis(Yb_ref))
         plain_path5_ms = plain_a_ms + plain_srp_ms + plain_k6_ms + plain_s_ms
@@ -1457,9 +1519,9 @@ def main() -> None:
             "B=256": time_ms(lambda: gsc_rls_zelinski_steered(Yp5x4, *steer5x4, *scan_tail), 3)}
         del Yp5x4, steer5x4
         library["gsc_rls_zelinski_steered"] = None
-        srp_ms = time_ms(lambda: enh5.steer(Yp5), 3)
+        srp_ms = time_ms(lambda: steering_weights(enh5.steer(Yp5)[1]), 3)
         path5_ms = time_ms(lambda: enh5(x5), 3)
-        del Yp5, steer5
+        del Yp5, steer5, vs5
     audio5_s = B5 * secs
     log(f"  gsc_rls_zelinski_steered: kernel {times['gsc_rls_zelinski_steered'][0]:.3f} ms   "
         f"plain {plain_k6_ms:.3f} ms   library -   at B=256 (the batch four times): "
@@ -1472,7 +1534,7 @@ def main() -> None:
     log(f"  peak device memory of phase 9 {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     log("  torch.profiler over 3 back-to-back config-5 forwards")
     profile_path(lambda: enh5(x5))
-    del enh5, x5
+    del enh5  # x5 serves phase 15 too
 
     # -- 10. full-band filterbank round trip at real size ---------------------------
     log(f"== 10. full-band filterbank: analysis_polyphase -> synthesis_polyphase, B={B} x {C} ch "
@@ -2292,9 +2354,9 @@ def main() -> None:
         raise AssertionError(f"config5-m512-b8 launches {c_}, the path needs {want}")
     with torch.no_grad():
         Yr_ = analysis_half_real_tm(x5_, enh_.h, fb_, packed=True, A=enh_.A)
-        gidx_, steer_ = enh_.steer(Yr_)
+        gidx_, vs_ = enh_.steer(Yr_)
         ref_ = synthesis_half_real_tm(gsc_postfilter_fused(
-            Yr_, None, *steer_, "rls", cfg_.rls, cfg_.pf_alpha, cfg_.pf_type, cfg_.pf_min_frames,
+            Yr_, None, *steering_weights(vs_), "rls", cfg_.rls, cfg_.pf_alpha, cfg_.pf_type, cfg_.pf_min_frames,
             True), enh_.g, fb_, S=enh_.S)
         if not torch.equal(doa_, enh_.grid[gidx_]):
             raise AssertionError("config5-m512-b8 DOA differs from the plain chain's")
@@ -2310,6 +2372,113 @@ def main() -> None:
     for name_, cell_ in cells14.items():
         log(f"  phase 14 {name_}: {cell_['ms']:.3f} ms, {cell_['audio_s_per_s']:.1f} "
             f"audio-s/s/GPU, {cell_['max_abs_err']:.3g} max abs error against the plain chain")
+
+    # -- 15. the steered routes at config 5's shape ----------------------------------
+    # build_steered_pipeline with the default device on config 5's input (B=64
+    # x 4 ch x 10 s, one source per utterance at a grid direction plus sensor
+    # noise 20 dB down, the 72-point grid): each route's launches (exactly its
+    # kernels), its DOA against the plain chain's (equal; the plain DOA stage
+    # is torch on the card on either path, from the plain analysis), its first
+    # 16 utterances against the plain chain (3e-4), CUDA-event times of the
+    # path, the DOA stage and the beamformer stage (the steering weights and
+    # the route's kernel), audio-s/s/GPU and peak memory
+    B15 = 16
+
+    def plain_beamform(c_, Yp_, vs_):
+        """The plain version of `SteeredEnhancer.beamform` (K7's or the
+        scans' plain loops) at the manifolds ``vs_``."""
+        pf_ = (c_.pf_alpha, c_.pf_type,
+               c_.pf_min_frames if c_.postfilter == "zelinski" else NO_POSTFILTER)
+        if c_.beamformer == "ds":
+            return zelinski_apply_plain(Yp_, torch.conj(vs_).resolve_conj(), vs_, *pf_)
+        lms_ = c_.beamformer == "gsc_lms"
+        return gsc_postfilter_fused(Yp_, None, *steering_weights(vs_), "lms" if lms_ else "rls",
+                                    c_.lms if lms_ else c_.rls, *pf_, True)
+
+    paths15 = (
+        ("steered-ds-zelinski-b64", dict(beamformer="ds", postfilter="zelinski"), {},
+         {"zelinski_apply_steered": 1}),
+        ("steered-ds-none-b64", dict(beamformer="ds", postfilter="none"), {},
+         {"zelinski_apply_steered": 1}),
+        ("steered-lms-zelinski-b64", dict(beamformer="gsc_lms", postfilter="zelinski"), {},
+         {"lms_gates": 1, "gsc_lms_zelinski_steered": 1}),
+        ("steered-lms-none-b64", dict(beamformer="gsc_lms", postfilter="none"), {},
+         {"lms_gates": 1, "gsc_lms_zelinski_steered": 1}),
+        ("steered-rls-none-b64", dict(beamformer="gsc_rls", postfilter="none"), {},
+         {"gsc_rls_zelinski_steered": 1}),
+        ("steered-dsbla-b64", dict(beamformer="gsc_rls", postfilter="zelinski"),
+         dict(doa_protocol="dsbla"), {"gsc_rls_zelinski_steered": 1}),
+    )
+    cells15, counts15 = {}, {}
+    t15 = time.perf_counter()
+    for name15, kw15, skw15, extra in paths15:
+        cfg15 = dataclasses.replace(cfg, **kw15)
+        enh15 = build_steered_pipeline(cfg15, mpos5, h, g, [np.pi / 2], phis5, **skw15)
+        log(f"== 15. {name15}: build_steered_pipeline(beamformer={cfg15.beamformer!r}, "
+            f"postfilter={cfg15.postfilter!r}, doa_protocol="
+            f"{skw15.get('doa_protocol', 'srp_phat')!r}) on the card, B={B5} x {C} ch x {secs} s")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        with torch.no_grad():
+            y15, doa15 = enh15(x5)
+        torch.cuda.synchronize()
+        c15 = kernels.launch_counts()
+        peak15 = torch.cuda.max_memory_allocated() / 1e9
+        want15 = dict.fromkeys(c15, 0) | {"analysis_tm": 1, "synthesis_tm": 1} | extra
+        log(f"  {name15} launches {c15}")
+        if c15 != want15:
+            raise AssertionError(f"{name15} launches {c15}, the route needs {want15}")
+        if tuple(y15.shape) != (B5, T_out) or not torch.isfinite(y15).all():
+            raise AssertionError(f"{name15} output {tuple(y15.shape)} is not finite {(B5, T_out)}")
+        with torch.no_grad():
+            # the plain analysis, and K1's for the stages' times, after the
+            # forward's peak memory is read
+            Yr15 = plain_analysis(x5)
+            Yk15 = analysis_tm_fused(x5, enh.h, fb, A=enh.A, hr=enh.hr)
+            gidx15, vs15 = enh15.steer(Yr15)  # the plain chain's DOA stage
+            if not torch.equal(doa15, enh15.grid[gidx15]):
+                raise AssertionError(f"{name15} DOA differs from the plain chain's")
+            n15 = (doa15[:, 1].cpu() == torch.tensor(phis5[placed], dtype=torch.float32)).sum()
+            log(f"  DOA equal to the plain chain's; at the placed direction: {n15.item()} of {B5}")
+            Yb15, plain15_ms = timed(lambda: plain_beamform(cfg15, Yr15[:, :B15], vs15[:B15]))
+            err15 = compare(f"{name15} (build_steered_pipeline) vs plain chain, first {B15}",
+                            y15[:B15], plain_synthesis(Yb15), 3e-4)
+            del y15, Yb15
+            ms15 = time_ms(lambda: enh15(x5), 3)
+            doa_ms15 = time_ms(lambda: enh15.steer(Yk15), 3)
+            _, vsk15 = enh15.steer(Yk15)
+            bf_ms15 = time_ms(lambda: enh15.beamform(Yk15, vsk15), 3)
+        cells15[name15] = dict(ms=ms15, audio_s_per_s=B5 * secs / (ms15 / 1e3), peak_gb=peak15,
+                               max_abs_err=err15, doa_ms=doa_ms15, beamformer_ms=bf_ms15,
+                               plain_beamformer_ms_16=plain15_ms, launches=c15)
+        counts15[name15] = c15
+        log(f"  {name15}: {ms15:.3f} ms ({B5 * secs / (ms15 / 1e3):.1f} audio-s/s/GPU), DOA stage "
+            f"{doa_ms15:.3f} ms, beamformer stage {bf_ms15:.3f} ms (plain, first {B15}: "
+            f"{plain15_ms:.3f} ms), peak device memory of one forward {peak15:.2f} GB   "
+            f"({smi_line()})")
+        with torch.no_grad():  # the new kernels alone at this shape, beside the plain loops
+            if name15 == "steered-ds-zelinski-b64":
+                a15 = (torch.conj(vsk15).resolve_conj(), vsk15, cfg.pf_alpha, cfg.pf_type,
+                       cfg.pf_min_frames)
+                compare("zelinski_apply_steered at the config-5 shape",
+                        zelinski_apply_steered(Yr15, *a15), zelinski_apply_plain(Yr15, *a15),
+                        3e-5, "zelinski_apply_steered")
+                times["zelinski_apply_steered"] = (
+                    time_ms(lambda: zelinski_apply_steered(Yk15, *a15), 5), plain15_ms)
+            if name15 == "steered-lms-zelinski-b64":
+                a15 = (*steering_weights(vsk15), cfg15.lms, cfg.pf_alpha, cfg.pf_type,
+                       cfg.pf_min_frames)
+                times["gsc_lms_zelinski_steered"] = (
+                    time_ms(lambda: gsc_lms_zelinski_steered(Yk15, *a15), 5), plain15_ms)
+        del enh15, vs15, vsk15, Yk15, Yr15
+    del x5
+    library["zelinski_apply_steered"] = library["gsc_lms_zelinski_steered"] = None
+    for name_, cell_ in cells15.items():
+        log(f"  phase 15 {name_}: {cell_['ms']:.3f} ms, {cell_['audio_s_per_s']:.1f} "
+            f"audio-s/s/GPU, DOA {cell_['doa_ms']:.3f} ms, beamformer {cell_['beamformer_ms']:.3f} "
+            f"ms, {cell_['max_abs_err']:.3g} max abs error against the plain chain")
+    log(f"  phase 15 took {time.perf_counter() - t15:.1f} s")
 
     def k2_bound(Cx):  # Cx channels in, one out, the weights read once
         return bound(4 * (Tf * B * Cx * M + Tf * B * M) + 8 * F * Cx * (1 + Cx),
@@ -2373,12 +2542,20 @@ def main() -> None:
     # the gate pass: the reference channel's rows in, a flag per (frame,
     # utterance) out; a square and an add per lane
     bounds["lms_gates"] = bound(4 * (Tf * B * M + Tf * B), 2 * Tf * B * M)
+    # the steered LMS scan at config 5's shape (B5 utterances, C channels), its
+    # weights one set per utterance
+    lms_macs4 = Bc * C + C + 2 * C + C * (C - 1) // 2 + C + 5 * Bc
+    bounds["gsc_lms_zelinski_steered"] = bound(
+        4 * (rows5 * M + Tf * B5 * M) + 8 * B5 * F * C * (2 + Bc), 8 * lms_macs4 * Tf * B5 * F)
     bounds |= {
         "gsc_rls_zelinski_steered": bound(4 * (rows5 * M + Tf * B5 * M) + 8 * B5 * F * C * (2 + Bc),
                                           8 * scan_macs * Tf * B5 * F),
         # K7's complex multiply-adds per (frame, utterance, bin): wqH X,
         # conj(ta) X, the pair sum and the trace
         "zelinski_apply": bound(4 * (rows * M + Tf * B * M) + 16 * F * C, zel_flops * Tf * B * F),
+        # at config 5's B5 utterances, each with its own weights and manifold
+        "zelinski_apply_steered": bound(4 * (rows5 * M + Tf * B5 * M) + 16 * B5 * F * C,
+                                        zel_flops * Tf * B5 * F),
         # samples in and out; the spectra never leave the chip
         "fw_mono": bound(4 * (B * C * T + B * T_out + 2 * M * M + 2 * fb.N) + 16 * F * C,
                          (rows + Tf * B) * fft_flops + fir_in + fir_out
@@ -2428,6 +2605,16 @@ def main() -> None:
             "coherence_postfilter.cu",
             "distant_speech_recognition_tpu/models/postfilter.py:178/:223/:287 "
             "(XLA scans of mccowan / lefkimmiatis / apab_postfilter; no TPU kernel)"),
+        # the per-utterance forms of K7 and of the LMS scan (the steered D&S
+        # and GSC-LMS; the JAX package's steered chain runs both in XLA)
+        "zelinski_apply_steered": (
+            "zelinski_apply.cu",
+            "distant_speech_recognition_tpu/models/pallas_fused_scan.py:1571 "
+            "(zelinski_apply_pallas, with one set of weights per utterance)"),
+        "gsc_lms_zelinski_steered": (
+            "gsc_lms_zelinski.cu",
+            "distant_speech_recognition_tpu/models/adaptive_gsc.py:346 "
+            "(XLA scan, kind='lms', one steering per utterance; no TPU kernel)"),
     }
     times["coherence_postfilter"] = pf13["mccowan"][:2]  # McCowan REAL, Y given: gsc-rls-mccowan's
     log("  phase 14's paths: " + json.dumps({k: {k2: v2 for k2, v2 in v.items()
@@ -2438,7 +2625,7 @@ def main() -> None:
                "fixed_weight": counts_fw, "fixed_weight_split": counts_split,
                "config5": counts5, "filterbank": counts_fb, "config3": counts3,
                "config4_c8": counts12, "config4_c8_rls": counts12r} | {
-                   f"{bf}_none": c for bf, c in counts_none.items()} | counts13 | counts14
+                   f"{bf}_none": c for bf, c in counts_none.items()} | counts13 | counts14 | counts15
     # the RLS kernels at config 3's 8 channels (phase 11)
     c8 = {"gsc_rls_zelinski": (k2_8_ms, k2_bound(C3)), "gsc_mono": (k4_8_ms, k4_bound(C3))}
     for name, (ms_, (b_ms, b_by)) in c8.items():
@@ -2478,6 +2665,11 @@ def main() -> None:
         if name == "gsc_lms_zelinski":  # "ms" includes the gate pass it launches first
             row["launch"] = lms_shape
             row["none_ms"] = lms_none_ms
+        if name in ("zelinski_apply_steered", "gsc_lms_zelinski_steered"):
+            row["plain_ms_utterances"] = B15  # the plain loop timed on the first 16
+        if name == "gsc_lms_zelinski_steered":  # "ms" includes the gate pass it launches first
+            row["steered_paths"] = {k: {k2: v2 for k2, v2 in v.items() if k2 != "launches"}
+                                    for k, v in cells15.items()}
         if name == "wpe_stats":  # "ms" is the later EM iteration's, with filters
             row["first_iteration_ms"] = stats_first_ms
         if name in wide8:  # K9-K12 at config 4's 8 channels (C*P = 40; phase 12)

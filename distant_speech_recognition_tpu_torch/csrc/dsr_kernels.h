@@ -79,6 +79,17 @@ int dsr_gsc_lms_zelinski(const float* Yp, const float* gates, const float* wq, c
                          float spectral_floor, int real_mode, int pf_min_frames,
                          cudaStream_t stream);
 
+// dsr_gsc_lms_zelinski with one set of weights per utterance: wq, ta
+// interleaved complex64 [B, F, C], bm [B, F, Bc, C] (the steered GSC-LMS)
+int dsr_gsc_lms_zelinski_steered(const float* Yp, const float* gates, const float* wq,
+                                 const float* bm, const float* ta, float* out, int Tf, int B,
+                                 int C, int Bc, int M, float beta, float one_minus_beta,
+                                 float gamma, float delta, float reg_param, float energy_floor,
+                                 float max_wa_l2norm, int min_frames, int slowdown_after,
+                                 float pf_alpha, float one_minus_pf_alpha, float pf_gain,
+                                 float spectral_floor, int real_mode, int pf_min_frames,
+                                 cudaStream_t stream);
+
 // 0 where dsr_gsc_lms_zelinski takes these shapes and step-size countdown,
 // else DSR_ERR_ARGS (its wrapper asks before either kernel launches)
 int dsr_gsc_lms_zelinski_args_ok(int Tf, int B, int C, int Bc, int M, int slowdown_after);
@@ -108,6 +119,13 @@ int dsr_zelinski_apply(const float* Yp, const float* wq, const float* ta, float*
                        int B, int C, int M, float pf_alpha, float one_minus_pf_alpha,
                        float pf_gain, float spectral_floor, int real_mode, int pf_min_frames,
                        cudaStream_t stream);
+
+// dsr_zelinski_apply with one set per utterance: wq, ta interleaved
+// complex64 [B, F, C] (the steered D&S)
+int dsr_zelinski_apply_steered(const float* Yp, const float* wq, const float* ta, float* out,
+                               int Tf, int B, int C, int M, float pf_alpha,
+                               float one_minus_pf_alpha, float pf_gain, float spectral_floor,
+                               int real_mode, int pf_min_frames, cudaStream_t stream);
 
 // the McCowan (kind 0 real part, 1 modulus), Lefkimmiatis (2, 3) and APAB (4)
 // postfilters (no TPU kernel: the JAX package's XLA scans) on X [Tf, B, C, M]

@@ -11,8 +11,13 @@
 // update on the old weights, the norm cap, the gated commit, the output on
 // the committed weights).  Input and output keep the packed time-major lanes
 // [Re(0..M/2) | Im(1..M/2-1)].  With pf_min_frames at or past the last frame
-// the gain is computed and never applied (postfilter "none").  It replaces
-// no TPU kernel: the JAX package runs this recursion in XLA.
+// the gain is computed and never applied (postfilter "none").  The weights
+// and the manifold are one set [F, ...] for every utterance
+// (dsr_gsc_lms_zelinski) or one per utterance [B, F, ...]
+// (dsr_gsc_lms_zelinski_steered: the steered GSC-LMS, each utterance at its
+// own DOA estimate, as K6 is for the RLS); only the row a lane reads
+// differs.  It replaces no TPU kernel: the JAX package runs this recursion
+// in XLA.
 //
 // What bounds it on an H100: the recursion is serial over frames and
 // independent over (utterance, bin).  A frame of a bin reads C complex
@@ -167,7 +172,7 @@ __global__ void __launch_bounds__(LMS_THREADS, LMS_BLOCKS_SM)
     gsc_lms_zelinski_kernel(const float* __restrict__ Yp, const float* __restrict__ gates,
                             const float* __restrict__ wq, const float* __restrict__ bm,
                             const float* __restrict__ ta, float* __restrict__ out, int Tf, int B,
-                            int M, LmsParams p) {
+                            int M, bool per_utt, LmsParams p) {
   // rows of [wqH; BmH] a lane holds, and channels of its partial sums
   constexpr int R = (C + 1) / 2;
   constexpr int SLOT = slot_floats(C);
@@ -185,9 +190,10 @@ __global__ void __launch_bounds__(LMS_THREADS, LMS_BLOCKS_SM)
   const bool has_im = f >= 1 && f <= F - 2;
   const bool yc = h == 0;  // this lane's row 0 is Yc's
 
-  // this lane's rows of [wqH; BmH] (zero past row C - 1), one set of weights
-  // [F, ...] for every utterance
-  const size_t wf = f;
+  // this lane's rows of [wqH; BmH] (zero past row C - 1) from this
+  // utterance's row of bin f: one set of weights [F, ...] for every
+  // utterance, or one per utterance [B, F, ...]
+  const size_t wf = (per_utt ? (size_t)b * F : 0) + f;
   cf W[R][C];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
@@ -389,24 +395,46 @@ bool lms_args_ok(int Tf, int B, int C, int Bc, int M) {
 
 template <int C, int ZM>
 int lms_launch(const float* Yp, const float* gates, const float* wq, const float* bm,
-               const float* ta, float* out, int Tf, int B, int M, const LmsParams& p,
-               cudaStream_t stream) {
+               const float* ta, float* out, int Tf, int B, int M, bool per_utt,
+               const LmsParams& p, cudaStream_t stream) {
   const size_t bytes = lms_smem_bytes(C);
   cudaError_t err = cudaFuncSetAttribute(gsc_lms_zelinski_kernel<C, ZM>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   gsc_lms_zelinski_kernel<C, ZM><<<lms_blocks(B, M), LMS_THREADS, bytes, stream>>>(
-      Yp, gates, wq, bm, ta, out, Tf, B, M, p);
+      Yp, gates, wq, bm, ta, out, Tf, B, M, per_utt, p);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int C>
 int lms_launch_mode(int zm, const float* Yp, const float* gates, const float* wq,
                     const float* bm, const float* ta, float* out, int Tf, int B, int M,
-                    const LmsParams& p, cudaStream_t stream) {
+                    bool per_utt, const LmsParams& p, cudaStream_t stream) {
   return zm == ZEL_REAL
-             ? lms_launch<C, ZEL_REAL>(Yp, gates, wq, bm, ta, out, Tf, B, M, p, stream)
-             : lms_launch<C, ZEL_ABS>(Yp, gates, wq, bm, ta, out, Tf, B, M, p, stream);
+             ? lms_launch<C, ZEL_REAL>(Yp, gates, wq, bm, ta, out, Tf, B, M, per_utt, p, stream)
+             : lms_launch<C, ZEL_ABS>(Yp, gates, wq, bm, ta, out, Tf, B, M, per_utt, p, stream);
+}
+
+int lms_scan(const float* Yp, const float* gates, const float* wq, const float* bm,
+             const float* ta, float* out, int Tf, int B, int C, int Bc, int M, bool per_utt,
+             float beta, float one_minus_beta, float gamma, float delta, float reg_param,
+             float energy_floor, float max_wa_l2norm, int min_frames, int slowdown_after,
+             float pf_alpha, float one_minus_pf_alpha, float pf_gain, float spectral_floor,
+             int real_mode, int pf_min_frames, cudaStream_t stream) {
+  if (const int code = dsr_gsc_lms_zelinski_args_ok(Tf, B, C, Bc, M, slowdown_after))
+    return code;
+  const LmsParams p = {beta,           one_minus_beta, gamma,      delta,
+                       reg_param,      energy_floor,   max_wa_l2norm,
+                       min_frames,     slowdown_after, pf_alpha,   one_minus_pf_alpha,
+                       pf_gain,        spectral_floor, pf_min_frames};
+  const int zm = real_mode ? ZEL_REAL : ZEL_ABS;
+  switch (C) {
+#define DSR_CASE(c) \
+  case c: return lms_launch_mode<c>(zm, Yp, gates, wq, bm, ta, out, Tf, B, M, per_utt, p, stream);
+    DSR_CASE(2) DSR_CASE(3) DSR_CASE(4) DSR_CASE(5) DSR_CASE(6) DSR_CASE(7) DSR_CASE(8)
+#undef DSR_CASE
+    default: return DSR_ERR_ARGS;
+  }
 }
 
 // the kernel's registers and local memory (spills) in Zelinski mode ZM, and
@@ -459,20 +487,22 @@ extern "C" int dsr_gsc_lms_zelinski(const float* Yp, const float* gates, const f
                                     float one_minus_pf_alpha, float pf_gain,
                                     float spectral_floor, int real_mode, int pf_min_frames,
                                     cudaStream_t stream) {
-  if (const int code = dsr_gsc_lms_zelinski_args_ok(Tf, B, C, Bc, M, slowdown_after))
-    return code;
-  const LmsParams p = {beta,           one_minus_beta, gamma,      delta,
-                       reg_param,      energy_floor,   max_wa_l2norm,
-                       min_frames,     slowdown_after, pf_alpha,   one_minus_pf_alpha,
-                       pf_gain,        spectral_floor, pf_min_frames};
-  const int zm = real_mode ? ZEL_REAL : ZEL_ABS;
-  switch (C) {
-#define DSR_CASE(c) \
-  case c: return lms_launch_mode<c>(zm, Yp, gates, wq, bm, ta, out, Tf, B, M, p, stream);
-    DSR_CASE(2) DSR_CASE(3) DSR_CASE(4) DSR_CASE(5) DSR_CASE(6) DSR_CASE(7) DSR_CASE(8)
-#undef DSR_CASE
-    default: return DSR_ERR_ARGS;
-  }
+  return lms_scan(Yp, gates, wq, bm, ta, out, Tf, B, C, Bc, M, false, beta, one_minus_beta,
+                  gamma, delta, reg_param, energy_floor, max_wa_l2norm, min_frames,
+                  slowdown_after, pf_alpha, one_minus_pf_alpha, pf_gain, spectral_floor,
+                  real_mode, pf_min_frames, stream);
+}
+
+extern "C" int dsr_gsc_lms_zelinski_steered(
+    const float* Yp, const float* gates, const float* wq, const float* bm, const float* ta,
+    float* out, int Tf, int B, int C, int Bc, int M, float beta, float one_minus_beta,
+    float gamma, float delta, float reg_param, float energy_floor, float max_wa_l2norm,
+    int min_frames, int slowdown_after, float pf_alpha, float one_minus_pf_alpha, float pf_gain,
+    float spectral_floor, int real_mode, int pf_min_frames, cudaStream_t stream) {
+  return lms_scan(Yp, gates, wq, bm, ta, out, Tf, B, C, Bc, M, true, beta, one_minus_beta,
+                  gamma, delta, reg_param, energy_floor, max_wa_l2norm, min_frames,
+                  slowdown_after, pf_alpha, one_minus_pf_alpha, pf_gain, spectral_floor,
+                  real_mode, pf_min_frames, stream);
 }
 
 extern "C" int dsr_gsc_lms_zelinski_shape(int B, int C, int M, int zmode, int* lanes, int* blocks,

@@ -8,7 +8,11 @@
 //   time-aligned snapshot conj(ta) X (pair sum and trace smoothed from the
 //   third frame on), applied from frame pf_min_frames + 1 on.
 // Input [Tf, B, C, M] and output [Tf, B, M] keep the packed lanes
-// [Re(0..M/2) | Im(1..M/2-1)]; all M/2 + 1 bins run the same code.
+// [Re(0..M/2) | Im(1..M/2-1)]; all M/2 + 1 bins run the same code.  The
+// weights and the manifold are one set [F, C] for every utterance
+// (dsr_zelinski_apply) or one per utterance [B, F, C]
+// (dsr_zelinski_apply_steered: the steered D&S, whose utterances each look
+// at their own DOA estimate); only the row a thread reads differs.
 //
 // What bounds it on an H100: each (utterance, bin) reads C*8 bytes and
 // writes 8 per frame for ~12*C^2 flops, so it is bound by memory bytes
@@ -34,19 +38,20 @@ template <int C>
 __global__ void __launch_bounds__(THREADS)
 zelinski_apply_kernel(const float* __restrict__ Yp, const float* __restrict__ wq,
                       const float* __restrict__ ta, float* __restrict__ out, int Tf, int B, int M,
-                      ZelinskiParams p) {
+                      bool per_utt, ZelinskiParams p) {
   const int F = M / 2 + 1;
   const long long idx = (long long)blockIdx.x * THREADS + threadIdx.x;
   if (idx >= (long long)B * F) return;
   const int b = (int)(idx / F);
   const int f = (int)(idx - (long long)b * F);
   const bool has_im = f >= 1 && f <= F - 2;
+  const size_t wf = (per_utt ? (size_t)b * F : 0) + f;  // this utterance's row of bin f
 
   cf wqc[C], tac[C];
 #pragma unroll
   for (int c = 0; c < C; ++c) {
-    wqc[c] = {wq[(f * C + c) * 2], wq[(f * C + c) * 2 + 1]};
-    tac[c] = {ta[(f * C + c) * 2], -ta[(f * C + c) * 2 + 1]};  // conj(ta)
+    wqc[c] = {wq[(wf * C + c) * 2], wq[(wf * C + c) * 2 + 1]};
+    tac[c] = {ta[(wf * C + c) * 2], -ta[(wf * C + c) * 2 + 1]};  // conj(ta)
   }
   cf phi_pair = {0.f, 0.f};
   float phi_diag = 0.f;
@@ -82,11 +87,26 @@ zelinski_apply_kernel(const float* __restrict__ Yp, const float* __restrict__ wq
 
 template <int C>
 int launch(const float* Yp, const float* wq, const float* ta, float* out, int Tf, int B, int M,
-           const ZelinskiParams& p, cudaStream_t stream) {
+           bool per_utt, const ZelinskiParams& p, cudaStream_t stream) {
   const long long n = (long long)B * (M / 2 + 1);
   zelinski_apply_kernel<C><<<(unsigned)((n + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
-      Yp, wq, ta, out, Tf, B, M, p);
+      Yp, wq, ta, out, Tf, B, M, per_utt, p);
   return static_cast<int>(cudaGetLastError());
+}
+
+int dispatch(const float* Yp, const float* wq, const float* ta, float* out, int Tf, int B, int C,
+             int M, bool per_utt, const ZelinskiParams& p, cudaStream_t stream) {
+  if (Tf <= 0 || B <= 0 || M < 4 || M % 2 != 0) return DSR_ERR_ARGS;
+  switch (C) {
+    case 2: return launch<2>(Yp, wq, ta, out, Tf, B, M, per_utt, p, stream);
+    case 3: return launch<3>(Yp, wq, ta, out, Tf, B, M, per_utt, p, stream);
+    case 4: return launch<4>(Yp, wq, ta, out, Tf, B, M, per_utt, p, stream);
+    case 5: return launch<5>(Yp, wq, ta, out, Tf, B, M, per_utt, p, stream);
+    case 6: return launch<6>(Yp, wq, ta, out, Tf, B, M, per_utt, p, stream);
+    case 7: return launch<7>(Yp, wq, ta, out, Tf, B, M, per_utt, p, stream);
+    case 8: return launch<8>(Yp, wq, ta, out, Tf, B, M, per_utt, p, stream);
+    default: return DSR_ERR_ARGS;
+  }
 }
 
 }  // namespace
@@ -95,17 +115,17 @@ extern "C" int dsr_zelinski_apply(const float* Yp, const float* wq, const float*
                                   int Tf, int B, int C, int M, float pf_alpha,
                                   float one_minus_pf_alpha, float pf_gain, float spectral_floor,
                                   int real_mode, int pf_min_frames, cudaStream_t stream) {
-  if (Tf <= 0 || B <= 0 || M < 4 || M % 2 != 0) return DSR_ERR_ARGS;
   const ZelinskiParams p = {pf_alpha, one_minus_pf_alpha, pf_gain, spectral_floor, real_mode,
                             pf_min_frames};
-  switch (C) {
-    case 2: return launch<2>(Yp, wq, ta, out, Tf, B, M, p, stream);
-    case 3: return launch<3>(Yp, wq, ta, out, Tf, B, M, p, stream);
-    case 4: return launch<4>(Yp, wq, ta, out, Tf, B, M, p, stream);
-    case 5: return launch<5>(Yp, wq, ta, out, Tf, B, M, p, stream);
-    case 6: return launch<6>(Yp, wq, ta, out, Tf, B, M, p, stream);
-    case 7: return launch<7>(Yp, wq, ta, out, Tf, B, M, p, stream);
-    case 8: return launch<8>(Yp, wq, ta, out, Tf, B, M, p, stream);
-    default: return DSR_ERR_ARGS;
-  }
+  return dispatch(Yp, wq, ta, out, Tf, B, C, M, false, p, stream);
+}
+
+extern "C" int dsr_zelinski_apply_steered(const float* Yp, const float* wq, const float* ta,
+                                          float* out, int Tf, int B, int C, int M,
+                                          float pf_alpha, float one_minus_pf_alpha,
+                                          float pf_gain, float spectral_floor, int real_mode,
+                                          int pf_min_frames, cudaStream_t stream) {
+  const ZelinskiParams p = {pf_alpha, one_minus_pf_alpha, pf_gain, spectral_floor, real_mode,
+                            pf_min_frames};
+  return dispatch(Yp, wq, ta, out, Tf, B, C, M, true, p, stream);
 }

@@ -7,14 +7,16 @@ path went through the kernels:
 - K1 `ops.filterbank_kernels.analysis_tm_fused` (``csrc/analysis_tm.cu``);
 - K2 `models.fused_scan.gsc_rls_zelinski` and K6
   `models.fused_scan.gsc_rls_zelinski_steered` (``csrc/gsc_rls_zelinski.cu``);
-- the LMS scan `models.fused_scan.gsc_lms_zelinski` and its silence gates
-  `models.fused_scan.lms_gates`, which the scan's wrapper launches first
+- the LMS scan `models.fused_scan.gsc_lms_zelinski`, its per-utterance form
+  `models.fused_scan.gsc_lms_zelinski_steered`, and their silence gates
+  `models.fused_scan.lms_gates`, which the scan's wrappers launch first
   (``csrc/gsc_lms_zelinski.cu``; they replace no TPU kernel: the JAX package
   runs that recursion in XLA);
 - K3 `ops.filterbank_kernels.synthesis_tm_fused` (``csrc/synthesis_tm.cu``);
 - K4 `models.fused_scan.analysis_gsc_synthesis` and K5
   `models.fused_scan.analysis_gsc_rls_zelinski` (``csrc/gsc_mono.cu``);
-- K7 `models.fixed_weight.zelinski_apply` (``csrc/zelinski_apply.cu``);
+- K7 `models.fixed_weight.zelinski_apply` and its per-utterance form
+  `models.fixed_weight.zelinski_apply_steered` (``csrc/zelinski_apply.cu``);
 - the McCowan, Lefkimmiatis and APAB postfilters
   `models.coherence_postfilter.coherence_postfilter`
   (``csrc/coherence_postfilter.cu``; it replaces no TPU kernel: the JAX
@@ -38,11 +40,12 @@ __all__ = [
 
 def _wrappers():
     from ..models.coherence_postfilter import coherence_postfilter
-    from ..models.fixed_weight import analysis_fw_synthesis, zelinski_apply
+    from ..models.fixed_weight import analysis_fw_synthesis, zelinski_apply, zelinski_apply_steered
     from ..models.fused_scan import (
         analysis_gsc_rls_zelinski,
         analysis_gsc_synthesis,
         gsc_lms_zelinski,
+        gsc_lms_zelinski_steered,
         gsc_rls_zelinski,
         gsc_rls_zelinski_steered,
         lms_gates,
@@ -68,6 +71,8 @@ def _wrappers():
         "gsc_lms_zelinski": gsc_lms_zelinski,
         "lms_gates": lms_gates,
         "coherence_postfilter": coherence_postfilter,
+        "gsc_lms_zelinski_steered": gsc_lms_zelinski_steered,
+        "zelinski_apply_steered": zelinski_apply_steered,
     }
 
 

@@ -5,7 +5,9 @@ Counterpart of the fixed-weight half of the JAX package's
 weights, then the Zelinski postfilter):
 
 - `zelinski_apply` (K7) replaces ``zelinski_apply_pallas``: ``Y = wqH X``
-  and the Zelinski recursion over the packed time-major spectrum.
+  and the Zelinski recursion over the packed time-major spectrum;
+  `zelinski_apply_steered` is K7 with one set of weights per utterance (the
+  steered D&S of `models.steered`), its own entry and launch count.
 - `analysis_fw_synthesis` (K8) replaces ``analysis_fw_synthesis_pallas``:
   analysis bank, K7's per-bin step and synthesis bank in one launch, raw
   samples in, samples out, for the shapes `fw_mono_supported` accepts; the
@@ -37,7 +39,8 @@ from ..ops.filterbank_kernels import fft_twiddles_tensor, prototype_taps
 from .beamforming import apply_weights
 from .postfilter import PostFilterType, zelinski_args, zelinski_postfilter
 
-__all__ = ["zelinski_apply_plain", "zelinski_apply", "fw_mono_supported", "analysis_fw_synthesis"]
+__all__ = ["zelinski_apply_plain", "zelinski_apply", "zelinski_apply_steered", "fw_mono_supported",
+           "analysis_fw_synthesis"]
 
 # analysis rows per tile of the one-kernel chain: a tile holds 64 // C
 # frames, and the synthesis halo of m*R - 1 frames must fit.  Every launch
@@ -75,30 +78,60 @@ def zelinski_apply(
     time-major spectrum ``Yp [Tf, B, C, M]`` -> packed ``[Tf, B, M]``.
     ``wqH [F, C]`` are the conjugate apply weights, ``wq_manifold [F, C]``
     the alignment manifold (the C++ ``ta_``), complex64 on ``Yp``'s device."""
+    return _zelinski(zelinski_apply, "dsr_zelinski_apply", False, Yp, wqH, wq_manifold,
+                     pf_alpha, pf_type, pf_min_frames)
+
+
+zelinski_apply.launches = 0
+
+
+def zelinski_apply_steered(
+    Yp: torch.Tensor,
+    wq_b: torch.Tensor,
+    ta_b: torch.Tensor,
+    pf_alpha: float = 0.6,
+    pf_type: int = PostFilterType.ZELINSKI1_REAL,
+    pf_min_frames: int = 0,
+) -> torch.Tensor:
+    """`zelinski_apply` with one steering per utterance: complex64 ``wq_b
+    [B, F, C]`` and the alignment manifolds ``ta_b [B, F, C]`` on ``Yp``'s
+    device.  On a CPU tensor it runs `zelinski_apply_plain` with those
+    weights; given one set broadcast to every utterance it gives
+    `zelinski_apply`'s output bit for bit."""
+    return _zelinski(zelinski_apply_steered, "dsr_zelinski_apply_steered", True, Yp, wq_b, ta_b,
+                     pf_alpha, pf_type, pf_min_frames)
+
+
+zelinski_apply_steered.launches = 0
+
+
+def _zelinski(wrapper, entry: str, per_utt: bool, Yp, wqH, wq_manifold, pf_alpha, pf_type,
+              pf_min_frames) -> torch.Tensor:
+    """K7 on ``Yp [Tf, B, C, M]``: the plain version for a CPU tensor, else
+    the C entry point ``entry`` with weights ``[F, C]`` or, with
+    ``per_utt``, ``[B, F, C]``."""
     if Yp.device.type == "cpu":
         return zelinski_apply_plain(Yp, wqH, wq_manifold, pf_alpha, pf_type, pf_min_frames)
     if Yp.device.type != "cuda":
-        raise ValueError(f"zelinski_apply runs on cpu or cuda tensors, got {Yp.device}")
+        raise ValueError(f"{wrapper.__name__} runs on cpu or cuda tensors, got {Yp.device}")
     from ..kernels import _build, check_cuda_tensor, complex_view, stream_handle
 
     if Yp.dim() != 4:
         raise ValueError(f"Yp must be [Tf, B, C, M], got {tuple(Yp.shape)}")
     Tf, B, C, M = Yp.shape
-    wq = complex_view("wqH", wqH, (M // 2 + 1, C))
-    ta = complex_view("wq_manifold", wq_manifold, (M // 2 + 1, C))
+    shape = ((B,) if per_utt else ()) + (M // 2 + 1, C)
+    wq = complex_view("wqH", wqH, shape)
+    ta = complex_view("wq_manifold", wq_manifold, shape)
     Yp = Yp.contiguous()
     check_cuda_tensor("Yp", Yp)
     out = torch.empty((Tf, B, M), dtype=torch.float32, device=Yp.device)
-    code = _build.library().dsr_zelinski_apply(
+    code = getattr(_build.library(), entry)(
         Yp.data_ptr(), wq.data_ptr(), ta.data_ptr(), out.data_ptr(), Tf, B, C, M,
         *zelinski_args(C, pf_alpha, pf_type, pf_min_frames), stream_handle(Yp.device),
     )
-    _build.check(code, "zelinski_apply")
-    zelinski_apply.launches += 1
+    _build.check(code, wrapper.__name__)
+    wrapper.launches += 1
     return out
-
-
-zelinski_apply.launches = 0
 
 
 def fw_mono_supported(fb: FilterbankParams, C: int) -> bool:

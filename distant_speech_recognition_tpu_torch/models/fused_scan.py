@@ -17,7 +17,9 @@ kind="lms")``:
   (BASELINE config 3), ``csrc/gsc_lms_zelinski.cu``: `lms_gates` first, the
   silence gate once per (utterance, frame), then the scan, two lanes a bin;
   neither has a TPU counterpart (the JAX package runs this recursion in
-  XLA).  `lms_launch_shape` reads the scan's launch.
+  XLA).  `gsc_lms_zelinski_steered` is the same scan with one set of
+  weights per utterance (the steered GSC-LMS), its own entry and launch
+  count.  `lms_launch_shape` reads the scan's launch.
 - Passing ``pf_min_frames=NO_POSTFILTER`` to a scan gives the beamformer's
   output without the gain (``postfilter="none"``), to the bit.
 - `analysis_gsc_synthesis` (K4) replaces ``analysis_gsc_synthesis_pallas``
@@ -49,6 +51,7 @@ from .postfilter import PostFilterType, zelinski_args
 __all__ = [
     "NO_POSTFILTER",
     "gsc_lms_zelinski",
+    "gsc_lms_zelinski_steered",
     "lms_gates",
     "gsc_rls_zelinski",
     "gsc_rls_zelinski_steered",
@@ -189,6 +192,27 @@ def gsc_lms_zelinski(
 
 
 gsc_lms_zelinski.launches = 0
+
+
+def gsc_lms_zelinski_steered(
+    Yp: torch.Tensor,
+    wq_b: torch.Tensor,
+    bm_b: torch.Tensor,
+    ta_b: torch.Tensor,
+    cfg: GSCLMSConfig,
+    pf_alpha: float = 0.6,
+    pf_type: int = PostFilterType.ZELINSKI1_REAL,
+    pf_min_frames: int = 0,
+) -> torch.Tensor:
+    """`gsc_lms_zelinski` with one steering per utterance: complex64 ``wq_b
+    [B, F, C]``, ``bm_b [B, F, C-1, C]`` and ``ta_b [B, F, C]`` on ``Yp``'s
+    device.  On a CUDA tensor it launches `lms_gates` (which reads no
+    weights) and then the scan's per-utterance entry (counted here)."""
+    return _scan(gsc_lms_zelinski_steered, "dsr_gsc_lms_zelinski_steered", "lms", Yp, wq_b,
+                 bm_b, ta_b, cfg, pf_alpha, pf_type, pf_min_frames, (Yp.shape[1],))
+
+
+gsc_lms_zelinski_steered.launches = 0
 
 
 def lms_gates(Yp: torch.Tensor, cfg: GSCLMSConfig) -> torch.Tensor:

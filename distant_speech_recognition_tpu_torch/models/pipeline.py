@@ -75,8 +75,8 @@ from .fused_scan import (
 )
 from .postfilter import COHERENCE_POSTFILTERS, PostFilterType, coherence_constants
 
-__all__ = ["PipelineConfig", "Enhancer", "build_pipeline", "from_jax_params", "FIXED_WEIGHT",
-           "POSTFILTERS", "check_card_shapes"]
+__all__ = ["PipelineConfig", "Enhancer", "build_pipeline", "from_jax_params", "enhance",
+           "FIXED_WEIGHT", "POSTFILTERS", "check_card_shapes"]
 
 # beamformers whose weights are fixed at build time (BASELINE configs 1-2)
 FIXED_WEIGHT = ("ds", "sd_mvdr", "lcmv")
@@ -391,3 +391,18 @@ def from_jax_params(params: dict, cfg: PipelineConfig, device="cuda") -> Enhance
         cfg, params["h"], params["g"], params["wqH"], params.get("BmH"), params["wq_manifold"],
         params.get("Gamma") if cfg.postfilter in GAMMA_POSTFILTERS else None, device=device,
     )
+
+
+def enhance(cfg: PipelineConfig, mpos, delays, h, g, x, play=None, device="cuda") -> torch.Tensor:
+    """One-shot `build_pipeline` and forward: samples ``x [B, C, T]`` (and,
+    with an echo canceller, the far end ``play [B, T]``; numpy or tensors)
+    -> ``[B, T_out]`` on ``device``, which defaults to the card and raises
+    without one."""
+    enh = build_pipeline(cfg, mpos, delays, h, g, device=device)
+    dev = enh.h.device
+
+    def on_dev(a):
+        return None if a is None else torch.as_tensor(a, dtype=torch.float32).to(dev)
+
+    with torch.no_grad():
+        return enh(on_dev(x), on_dev(play))

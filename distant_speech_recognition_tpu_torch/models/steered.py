@@ -1,18 +1,29 @@
-"""SRP-PHAT-steered adaptive beamforming (BASELINE config 5).
+"""DOA-steered beamforming (BASELINE config 5 and its variants).
 
 Counterpart of the JAX package's ``models/steered.py``: per utterance, find
-the talker by SRP-PHAT over a steering grid, steer a GSC-RLS beamformer at
-that direction, and enhance with the Zelinski postfilter (the batched
-equivalent of chaining DOAEstimatorSRPDSBLA, beamformer.cc:2879-3211, into
-SubbandGSCRLS steering).  The forward pass follows the JAX package's
-batched path (``_build_steered_pallas``): the analysis bank (K1), SRP-PHAT
-on the complex snapshots unpacked from its output, the per-utterance
-manifold and blocking matrix, the scan with per-utterance weights (K6), the
-synthesis bank (K3).  On a CUDA device it launches those three kernels; on
-the CPU their plain versions run.
+the talker over a steering grid, steer the beamformer at that direction and
+enhance (the batched equivalent of chaining DOAEstimatorSRPDSBLA,
+beamformer.cc:2879-3211, into the beamformer's steering).  The forward pass
+follows the JAX package's batched path (``_build_steered_pallas``) for
+every configuration its ``build_steered_pipeline`` takes: the analysis bank
+(K1); the DOA on the complex snapshots unpacked from its output (SRP-PHAT,
+or the reference's DSBLA protocol, `localization.srp_dsbla`, over any bin
+range; plain torch, as XLA runs it in JAX); the per-utterance manifold (and
+blocking matrix); the beamformer with one steering per utterance; the
+synthesis bank (K3).  The beamformer's kernel follows from the
+configuration alone:
 
-Only ``beamformer="gsc_rls"``, ``postfilter="zelinski"``,
-``doa_protocol="srp_phat"`` with bins ``min_bin=1, max_bin=None`` is ported.
+- ``gsc_rls``: the steered RLS scan K6 (`fused_scan.gsc_rls_zelinski_steered`);
+- ``gsc_lms``: the LMS gate pass and the steered LMS scan
+  (`fused_scan.gsc_lms_zelinski_steered`);
+- ``ds``: the steered K7 (`fixed_weight.zelinski_apply_steered`), ``Y =
+  conj(vs)^T X``;
+
+each with the Zelinski gain aligned with the manifold ``vs`` (the C++
+``ta_``), or, for ``postfilter="none"``, with ``pf_min_frames=NO_POSTFILTER``
+(the gain computed and never applied).  On a CUDA device it launches those
+kernels; on the CPU their plain versions run.  The steered chain has no
+echo canceller or WPE (`NotImplementedError`).
 """
 
 from __future__ import annotations
@@ -31,49 +42,63 @@ from ..ops.filterbank import (
 from ..ops.filterbank_kernels import analysis_tm_fused, prototype_taps, synthesis_tm_fused
 from ..utils.geometry import SSPEED_MM_S, calc_ca_delays
 from . import beamforming as bf
-from .fused_scan import gsc_rls_zelinski_steered
-from .localization import srp_phat, srp_phat_steering_table
+from .fixed_weight import zelinski_apply_steered
+from .fused_scan import NO_POSTFILTER, gsc_lms_zelinski_steered, gsc_rls_zelinski_steered
+from .localization import srp_dsbla, srp_phat, srp_phat_steering_table
 from .pipeline import PipelineConfig, _device, check_card_shapes
 
 __all__ = ["SteeredEnhancer", "build_steered_pipeline", "steered_from_jax_params",
-           "steering_weights"]
+           "steering_weights", "STEERED_BEAMFORMERS", "DOA_PROTOCOLS"]
+
+STEERED_BEAMFORMERS = ("ds", "gsc_lms", "gsc_rls")
+DOA_PROTOCOLS = ("srp_phat", "dsbla")
 
 
-def _check_steered(cfg: PipelineConfig, min_bin: int = 1, max_bin=None,
-                   doa_protocol: str = "srp_phat") -> None:
-    """Raise `NotImplementedError`, on every device, for the steered
-    variants the port does not run."""
-    if (cfg.beamformer, cfg.postfilter, doa_protocol) != ("gsc_rls", "zelinski", "srp_phat"):
-        raise NotImplementedError(
-            f"steered beamformer={cfg.beamformer!r} postfilter={cfg.postfilter!r} "
-            f"doa_protocol={doa_protocol!r} is not ported; only gsc_rls + zelinski + srp_phat"
-        )
-    if (min_bin, max_bin) != (1, None):
-        raise NotImplementedError(
-            f"SRP bins min_bin={min_bin} max_bin={max_bin} are not ported; only 1, None")
+def _check_steered(cfg: PipelineConfig, doa_protocol: str) -> None:
+    """`ValueError` where the JAX package raises (a beamformer, postfilter or
+    DOA protocol the steered chain has not), `NotImplementedError` for an
+    echo canceller or WPE, which it has not either."""
+    if cfg.beamformer not in STEERED_BEAMFORMERS:
+        raise ValueError(f"steered pipeline supports beamformer ds|gsc_lms|gsc_rls, got "
+                         f"{cfg.beamformer}")
+    if cfg.postfilter not in ("none", "zelinski"):
+        raise ValueError(f"steered pipeline supports postfilter none|zelinski, got "
+                         f"{cfg.postfilter}")
+    if doa_protocol not in DOA_PROTOCOLS:
+        raise ValueError(f"unknown doa_protocol {doa_protocol!r}")
     if cfg.aec != "none" or cfg.wpe:
         raise NotImplementedError("the steered pipeline runs without AEC and WPE")
 
 
 class SteeredEnhancer(nn.Module):
     """``forward(x [B, C, T]) -> (y [B, T_out], doa [B, 2])``: each utterance
-    steered at its own SRP-PHAT estimate, ``doa`` its (theta, phi) grid
-    point.
+    steered at its own DOA estimate, ``doa`` its (theta, phi) grid point.
 
     Buffers: prototypes ``h``, ``g`` and the filterbank kernels' taps
-    ``hr``, ``gf``; packed DFT matrices ``A``, ``S``; the
-    SRP steering table ``steering [G, F, C]`` (complex64), its grid ``grid
-    [G, 2]`` and each grid point's steering delays ``delay_table [G, C]``
-    (float32 seconds).
+    ``hr``, ``gf``; packed DFT matrices ``A``, ``S``; the SRP steering table
+    ``steering [G, F, C]`` (complex64), its grid ``grid [G, 2]``, each grid
+    point's steering delays ``delay_table [G, C]`` (float32 seconds) and,
+    for ``doa_protocol="dsbla"``, DSBLA's table ``wq_table [G, F, C]``
+    (complex64, the manifolds in the wq convention).  The DOA sums bins
+    ``min_bin <= f < max_bin`` (SRP-PHAT) or ``min_bin <= f <= max_bin``
+    (DSBLA, default ``max_bin`` the Nyquist bin), each function's own
+    convention; DSBLA skips frames whose energy is under
+    ``energy_threshold``.
     """
 
-    def __init__(self, cfg: PipelineConfig, h, g, steering, grid, delay_table, device="cuda"):
+    def __init__(self, cfg: PipelineConfig, h, g, steering, grid, delay_table, min_bin: int = 1,
+                 max_bin: int | None = None, doa_protocol: str = "srp_phat",
+                 energy_threshold: float = 0.0, wq_table=None, device="cuda"):
         super().__init__()
-        _check_steered(cfg)
+        _check_steered(cfg, doa_protocol)
         check_card_shapes(cfg.fb, steering.shape[-1], torch.device(device).type)
+        if (doa_protocol == "dsbla") != (wq_table is not None):
+            raise ValueError("wq_table is required exactly when doa_protocol is 'dsbla'")
         dev = _device(device)
         fb = cfg.fb
         self.cfg = cfg
+        self.min_bin, self.max_bin = min_bin, max_bin
+        self.doa_protocol, self.energy_threshold = doa_protocol, energy_threshold
         self.register_buffer("h", torch.tensor(np.asarray(h, np.float32), device=dev))
         self.register_buffer("g", torch.tensor(np.asarray(g, np.float32), device=dev))
         self.register_buffer("A", analysis_matrix_tensor(fb.M, True, dev))
@@ -87,6 +112,8 @@ class SteeredEnhancer(nn.Module):
         self.register_buffer("steering", table(steering, torch.complex64))
         self.register_buffer("grid", table(grid, torch.float32))
         self.register_buffer("delay_table", table(delay_table, torch.float32))
+        self.register_buffer("wq_table",
+                             None if wq_table is None else table(wq_table, torch.complex64))
         if self.h.shape != (fb.N,) or self.g.shape != (fb.N,):
             raise ValueError(f"prototypes must have length N=M*m={fb.N}")
         # the filterbank kernels' taps, computed once
@@ -99,6 +126,8 @@ class SteeredEnhancer(nn.Module):
                 f"{tuple(self.steering.shape)}, {tuple(self.grid.shape)}, "
                 f"{tuple(self.delay_table.shape)}"
             )
+        if self.wq_table is not None and self.wq_table.shape != (G, F, C):
+            raise ValueError(f"need wq_table [{G}, {F}, {C}], got {tuple(self.wq_table.shape)}")
 
     def forward(self, x: torch.Tensor):
         if x.dim() != 3:
@@ -110,53 +139,86 @@ class SteeredEnhancer(nn.Module):
                              f"{self.steering.shape[2]}")
         c = self.cfg
         Yp = analysis_tm_fused(x.to(torch.float32), self.h, c.fb, A=self.A, hr=self.hr)
-        gidx, weights = self.steer(Yp)
-        Yb = gsc_rls_zelinski_steered(Yp, *weights, c.rls, c.pf_alpha, c.pf_type, c.pf_min_frames)
+        gidx, vs = self.steer(Yp)
+        Yb = self.beamform(Yp, vs)
         return synthesis_tm_fused(Yb, self.g, c.fb, S=self.S, gf=self.gf), self.grid[gidx]
 
     def steer(self, Yp: torch.Tensor):
         """The per-utterance steering decision from the packed spectrum ``Yp
-        [Tf, B, C, M]``: the SRP-PHAT grid index ``gidx [B]`` (argmax of the
-        sum over frames) and `steering_weights` at that grid point's delays."""
+        [Tf, B, C, M]``: the grid index ``gidx [B]`` (SRP-PHAT: the argmax of
+        the sum over frames; DSBLA: the best of the accumulated powers) and
+        the manifold ``vs [B, F, C]`` at that grid point's delays."""
         X = unpack_half(Yp).permute(1, 0, 3, 2)  # complex snapshots [B, Tf, F, C]
-        gidx = torch.argmax(srp_phat(X, self.steering, 1, None).sum(dim=1), dim=-1)
+        if self.doa_protocol == "dsbla":
+            gidx = srp_dsbla(X, self.wq_table, self.min_bin, self.max_bin,
+                             self.energy_threshold, 1)[0][:, 0]
+        else:
+            srp = srp_phat(X, self.steering, self.min_bin, self.max_bin)
+            gidx = torch.argmax(srp.sum(dim=1), dim=-1)
         del X
-        vs = bf.array_manifold(self.cfg.fb.M, self.cfg.samplerate, self.delay_table[gidx])
-        return gidx, steering_weights(vs)
+        return gidx, bf.array_manifold(self.cfg.fb.M, self.cfg.samplerate, self.delay_table[gidx])
+
+    def beamform(self, Yp: torch.Tensor, vs: torch.Tensor) -> torch.Tensor:
+        """The beamformer (and Zelinski gain) steered per utterance at the
+        manifolds ``vs [B, F, C]``: ``Yp [Tf, B, C, M]`` -> packed ``[Tf, B,
+        M]``, through the configuration's kernel."""
+        c = self.cfg
+        pf = (c.pf_alpha, c.pf_type, c.pf_min_frames if c.postfilter == "zelinski"
+              else NO_POSTFILTER)
+        if c.beamformer == "ds":
+            return zelinski_apply_steered(Yp, torch.conj(vs).resolve_conj(), vs, *pf)
+        if c.beamformer == "gsc_lms":
+            return gsc_lms_zelinski_steered(Yp, *steering_weights(vs), c.lms, *pf)
+        return gsc_rls_zelinski_steered(Yp, *steering_weights(vs), c.rls, *pf)
 
 
 def steering_weights(vs: torch.Tensor):
-    """The steered scan's weights from per-utterance manifolds ``vs [B, F,
+    """The steered scans' weights from per-utterance manifolds ``vs [B, F,
     C]``: ``(wq_b = conj(vs), bm_b = blocking_matrix(vs)^T [B, F, C-1, C],
-    vs)``, the argument triple of `fused_scan.gsc_rls_zelinski_steered`."""
+    vs)``, the argument triple of `fused_scan.gsc_rls_zelinski_steered` and
+    `fused_scan.gsc_lms_zelinski_steered`."""
     return (torch.conj(vs).resolve_conj(), bf.blocking_matrix(vs).transpose(-1, -2).contiguous(),
             vs)
 
 
 def build_steered_pipeline(cfg: PipelineConfig, mpos, h, g, thetas, phis,
                            sspeed: float = SSPEED_MM_S, min_bin: int = 1, max_bin=None,
-                           doa_protocol: str = "srp_phat", device="cuda") -> SteeredEnhancer:
+                           doa_protocol: str = "srp_phat", energy_threshold: float = 0.0,
+                           device="cuda") -> SteeredEnhancer:
     """Build the steered enhancer for a circular array ``mpos [C, 3]`` (mm)
-    and the polar/azimuth search grid ``thetas`` x ``phis`` (radians).  The
-    tables are computed once on the host as the JAX package computes them:
-    the steering delays of each grid point from its float32 angles.
-    ``device`` defaults to the card and raises without one."""
-    _check_steered(cfg, min_bin, max_bin, doa_protocol)
+    and the polar/azimuth search grid ``thetas`` x ``phis`` (radians), with
+    ``cfg.beamformer`` ds | gsc_lms | gsc_rls and ``cfg.postfilter`` none |
+    zelinski.  The tables are computed once on the host as the JAX package
+    computes them: the steering delays of each grid point from its angles in
+    float64, the SRP table from them, and for ``doa_protocol="dsbla"`` the
+    manifolds of those float64 delays (``wq_table``).  ``device`` defaults
+    to the card and raises without one."""
+    _check_steered(cfg, doa_protocol)
     mpos = np.asarray(mpos, np.float64)
     check_card_shapes(cfg.fb, mpos.shape[0], torch.device(device).type)
-    steering, grid = srp_phat_steering_table(mpos, cfg.fb.M, cfg.samplerate, thetas, phis,
-                                             sspeed)
+    M, fs = cfg.fb.M, cfg.samplerate
+    steering, grid = srp_phat_steering_table(mpos, M, fs, thetas, phis, sspeed)
     delay_table = np.stack([calc_ca_delays(mpos, p, t, sspeed) for t, p in grid.numpy()])
-    return SteeredEnhancer(cfg, h, g, steering, grid, delay_table.astype(np.float32),
-                           device=device)
+    wq_table = None
+    if doa_protocol == "dsbla":
+        wq_table = torch.stack([bf.array_manifold(M, fs, d) for d in delay_table])
+    return SteeredEnhancer(cfg, h, g, steering, grid, delay_table.astype(np.float32), min_bin,
+                           max_bin, doa_protocol, energy_threshold, wq_table, device=device)
 
 
-def steered_from_jax_params(params: dict, cfg: PipelineConfig, device="cuda") -> SteeredEnhancer:
+def steered_from_jax_params(params: dict, cfg: PipelineConfig, min_bin: int = 1, max_bin=None,
+                            doa_protocol: str = "srp_phat", energy_threshold: float = 0.0,
+                            device="cuda") -> SteeredEnhancer:
     """The same `SteeredEnhancer` from tables computed by the JAX package,
     given as numpy arrays: ``h``, ``g``, ``steering``, ``grid``,
-    ``delay_table``."""
-    missing = {"h", "g", "steering", "grid", "delay_table"} - set(params)
+    ``delay_table`` and, for ``doa_protocol="dsbla"``, ``wq_table``."""
+    need = {"h", "g", "steering", "grid", "delay_table"} | (
+        {"wq_table"} if doa_protocol == "dsbla" else set())
+    missing = need - set(params)
     if missing:
         raise KeyError(f"missing parameters: {sorted(missing)}")
     return SteeredEnhancer(cfg, params["h"], params["g"], params["steering"], params["grid"],
-                           params["delay_table"], device=device)
+                           params["delay_table"], min_bin, max_bin, doa_protocol,
+                           energy_threshold,
+                           params["wq_table"] if doa_protocol == "dsbla" else None,
+                           device=device)

@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from . import dft
+from .windows import get_window
 
 __all__ = [
     "FilterbankParams",
@@ -47,6 +48,9 @@ __all__ = [
     "synthesis",
     "synthesis_half",
     "hermitian_mirror",
+    "analysis_frames",
+    "analysis_snapshots_half",
+    "stft_analysis",
 ]
 
 
@@ -342,3 +346,48 @@ def hermitian_mirror(half: torch.Tensor, M: int) -> torch.Tensor:
     (beamformer.cc:1142-1152)."""
     mirror = torch.conj_physical(half[..., 1 : M // 2]).flip(-1)
     return torch.cat([half, mirror], dim=-1)
+
+
+# the largest M whose half-band analysis `analysis_snapshots_half` runs as
+# the DFT matrix product (the JAX package's ``dft.MATMUL_MAX_M``); above it,
+# as an FFT
+MATMUL_MAX_M = 2048
+
+
+def analysis_frames(x: torch.Tensor, params: FilterbankParams) -> torch.Tensor:
+    """The chronological length-``N`` sample window of every frame: ``x
+    [..., T]`` -> ``[..., n_frames, N]``, window ``t`` ending at sample ``(t
+    + laN + 1) D - 1`` of the stream with ``N - D`` zeros of history and a
+    zero tail (the ring buffer of modulated.cc:363-373)."""
+    p = params
+    D, N = p.D, p.N
+    T = x.shape[-1]
+    n_frames = num_analysis_frames(p, T)
+    end = (p.laN + n_frames - 1) * D + N  # the last window's end in the padded stream
+    xx = F.pad(x, (N - D, max(end - (N - D) - T, 0)))
+    return xx.unfold(-1, N, D)[..., p.laN : p.laN + n_frames, :]
+
+
+def analysis_snapshots_half(x: torch.Tensor, h, params: FilterbankParams) -> torch.Tensor:
+    """Analysis bank and snapshot transpose: float32 ``x [..., C, T]`` ->
+    complex64 snapshots ``X [..., n_frames, F, C]`` of bins ``0..M/2``
+    (``SnapShotArray::update``, beamformer.cc:62): the DFT matrix product
+    `analysis_half_real_tm` up to `MATMUL_MAX_M`, `analysis_half` (an FFT)
+    above it."""
+    F_ = params.M // 2 + 1
+    if params.M <= MATMUL_MAX_M:
+        # [Tf, ..., C, 2F] -> [..., Tf, 2F, C]
+        Yr = analysis_half_real_tm(x, h, params).movedim(0, -3).transpose(-1, -2)
+        return torch.complex(Yr[..., :F_, :], Yr[..., F_:, :])
+    return analysis_half(x, h, params).movedim(-3, -1)
+
+
+def stft_analysis(x: torch.Tensor, M: int, r: int = 1, window_type: int = 1) -> torch.Tensor:
+    """Plain windowed STFT as a stream (``NormalFFTAnalysisBank``,
+    modulated.cc:96-227): float ``x [..., T]`` -> complex ``[..., n_frames,
+    M]``, the unnormalized forward DFT of each frame's last ``M`` samples in
+    chronological order times the window (0 rectangular, 1 Hamming, 2 Hann;
+    `ops.windows.get_window`), frame shift ``M / 2**r``."""
+    params = FilterbankParams(M=M, m=1, r=r, delay_compensation_type=0)
+    win = torch.as_tensor(get_window(window_type, M), dtype=x.dtype, device=x.device)
+    return torch.fft.fft(analysis_frames(x, params) * win, dim=-1)

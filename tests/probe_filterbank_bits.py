@@ -9,9 +9,12 @@ both on the same inputs and prints, per case, whether this checkout's
 output equals the other's bit for bit: the stored cases below (hash-noise
 inputs, K1 at C = 4 and at C = 3 with r = 2, K3 at R = 2 and 4, K4 at C = 2
 and 4, K5 and K8 at C = 4) and the flagship shape (B = 256 x 4 ch x 10 s of
-numpy noise, seed 0) for K1, K3, K4, K5 and K8.  It also times those five
-kernels of both checkouts at that shape in turns (other, this, this, other;
-CUDA events, mean of 5 after a warm-up).  ``--write-case PATH`` stores the
+numpy noise, seed 0) for K1, K3, K4, K5 and K8, and there K7
+(``csrc/zelinski_apply.cu``, the fixed-weight Zelinski kernel, which uses no
+FFT) on K1's output in both Zelinski modes, the gain from frame 3 and
+never.  It also times K1, K3, K4, K5, K8 and K7 of both checkouts at that
+shape in turns (other, this, this, other; CUDA events, mean of 5 after a
+warm-up).  ``--write-case PATH`` stores the
 other checkout's outputs of the stored cases (with their prototypes and
 weights) for ``tests/test_torch_kernels.py::
 test_filterbank_kernels_equal_stored_outputs``.
@@ -44,7 +47,9 @@ from distant_speech_recognition_tpu_torch.models.adaptive_gsc import (  # noqa: 
 from distant_speech_recognition_tpu_torch.models.beamforming import array_manifold  # noqa: E402
 from distant_speech_recognition_tpu_torch.models.fixed_weight import (  # noqa: E402
     analysis_fw_synthesis,
+    zelinski_apply,
 )
+from distant_speech_recognition_tpu_torch.models.fused_scan import NO_POSTFILTER  # noqa: E402
 from distant_speech_recognition_tpu_torch.models.fused_scan import (  # noqa: E402
     analysis_gsc_rls_zelinski,
     analysis_gsc_synthesis,
@@ -150,6 +155,9 @@ def run(lib, kernel: str, inp: torch.Tensor, fb, h, g, w) -> torch.Tensor:
         if kernel == "K3":
             return synthesis_tm_fused(inp, g, fb)
         wqH, BmH, vs = w
+        if kernel.startswith("K7"):  # K7r: real mode, gain from frame 3; K7a: modulus, none
+            pf = PF if kernel == "K7r" else (0.6, 2, NO_POSTFILTER)
+            return zelinski_apply(inp, vs.conj().resolve_conj(), vs, *pf)
         if kernel == "K4":
             return analysis_gsc_synthesis(inp, h, g, fb, wqH, BmH, vs, GSCRLSConfig(min_frames=4),
                                           *PF)
@@ -218,8 +226,15 @@ def main() -> None:
               f"{same_all[-1]}")
         del a
     Yp = outs["K1"][..., 0, :].contiguous()
+    for kernel in ("K7r", "K7a"):
+        a, b = (run(lib, kernel, outs["K1"], fb, hd, gd, w4) for lib in (other, own))
+        same_all.append(torch.equal(a, b))
+        print(f"flagship shape {kernel}: this checkout equals the other bit for bit: "
+              f"{same_all[-1]}")
+        del a, b
+    Yr = outs["K1"]
     del outs
-    for kernel, inp in (("K1", x), ("K3", Yp), ("K4", x), ("K5", x), ("K8", x)):
+    for kernel, inp in (("K1", x), ("K3", Yp), ("K4", x), ("K5", x), ("K8", x), ("K7r", Yr)):
         t = [event_ms(lambda: run(lib, kernel, inp, fb, hd, gd, w4))
              for lib in (other, own, own, other)]
         print(f"{kernel} at B=256 x 4 ch x 10 s, ms in turns (other, this, this, other): "

@@ -75,6 +75,14 @@ Lefkimmiatis and APAB postfilter kernel (no TPU counterpart) is held to its
 plain version at 1e-4 (its pair sums divide by 1 - Rc, up to 100) at C = 2,
 4 and 8, both modes, given the beamformer's output or forming wqH X itself,
 with a silent utterance that gives NaN where the plain version does.
+K7 and the LMS scan with one steering per utterance (the steered D&S and
+GSC-LMS) are held to their plain versions with eight steerings at B = 8
+(3e-5 and 2e-4), both Zelinski modes, pf_min_frames 0, 2 and
+``NO_POSTFILTER``, C = 2, 4 and 8, and, given one steering broadcast to
+every utterance, to the shared-weight kernels bit for bit; the steered
+pipeline on the card runs every route (``ds``, ``gsc_lms``, ``gsc_rls`` with
+and without Zelinski, the DSBLA protocol, a bin range) with exactly its
+kernels and equals the same module on the CPU.
 """
 
 import numpy as np
@@ -103,12 +111,14 @@ from distant_speech_recognition_tpu_torch.models.beamforming import (
 from distant_speech_recognition_tpu_torch.models.fixed_weight import (
     analysis_fw_synthesis,
     zelinski_apply,
+    zelinski_apply_steered,
 )
 from distant_speech_recognition_tpu_torch.models.fused_scan import (
     NO_POSTFILTER,
     analysis_gsc_rls_zelinski,
     analysis_gsc_synthesis,
     gsc_lms_zelinski,
+    gsc_lms_zelinski_steered,
     gsc_rls_zelinski,
     gsc_rls_zelinski_steered,
     lms_gates,
@@ -922,6 +932,61 @@ def test_steered_scan_kernel_matches_plain(dev, C, B):
     assert torch.equal(gsc_rls_zelinski_steered(Yd, *rows, cfg, 0.6, 2, 0), k2)
 
 
+@pytest.mark.parametrize("C", [2, 4, 8])
+@pytest.mark.parametrize("pf_type", [1, 2])
+def test_steered_zelinski_apply_kernel_matches_plain(dev, C, pf_type):
+    """K7 with one steering per utterance (eight azimuths, B = 8, Tf = 43,
+    utterance 3 digitally silent) against its plain version, the gain from
+    frame 1, 3 or never; given one steering for all, against K7 bit for
+    bit."""
+    rng = np.random.default_rng(40 + 10 * C + pf_type)
+    Yp = _packed(rng, 43, 8, C, 256)
+    Yp[:, 3] = 0.0
+    wq_b, _, vs_b = _steerings(C, 8)
+    Yd = Yp.to(dev)
+    wqH, vs = _fixed_weights(C)
+    shared = [w.to(dev) for w in (wqH, vs)]
+    rows = [w.expand((8,) + w.shape) for w in shared]
+    for pf_min_frames in (0, 2, NO_POSTFILTER):
+        ref = zelinski_apply_steered(Yp, wq_b, vs_b, 0.6, pf_type, pf_min_frames)
+        before = zelinski_apply_steered.launches, zelinski_apply.launches
+        got = zelinski_apply_steered(Yd, wq_b.to(dev), vs_b.to(dev), 0.6, pf_type, pf_min_frames)
+        assert (zelinski_apply_steered.launches, zelinski_apply.launches) == (before[0] + 1,
+                                                                              before[1])
+        _close(got, ref, 3e-5)
+        assert not got[:, 3].any()
+        assert torch.equal(zelinski_apply_steered(Yd, *rows, 0.6, pf_type, pf_min_frames),
+                           zelinski_apply(Yd, *shared, 0.6, pf_type, pf_min_frames))
+
+
+@pytest.mark.parametrize("C", [2, 4, 8])
+@pytest.mark.parametrize("pf_type", [1, 2])
+def test_steered_lms_scan_kernel_matches_plain(dev, C, pf_type):
+    """The LMS scan with one steering per utterance (eight azimuths, B = 8,
+    silent opening frames, a silent stretch, a norm cap that fires) against
+    its plain loop, the gain from frame 1, 3 or never; each call launches
+    the gate pass and the per-utterance scan once; given one steering for
+    all, against the shared-weight scan bit for bit."""
+    Yp, wqH, BmH, vs = _lms_case(C, 256, 8, 40, seed=500 + C + pf_type)
+    cfg = GSCLMSConfig(max_wa_l2norm=5e-7, **LMS_CARD)
+    per_utt = _steerings(C, 8)
+    Yd = Yp.to(dev)
+    w_b = [w.to(dev) for w in per_utt]
+    shared = [w.to(dev) for w in (wqH, BmH, vs)]
+    rows = [w.expand((8,) + w.shape) for w in shared]
+    for pf_min_frames in (0, 2, NO_POSTFILTER):
+        ref = gsc_postfilter_fused(Yp, None, *per_utt, "lms", cfg, 0.6, pf_type, pf_min_frames,
+                                   True)
+        before = (gsc_lms_zelinski_steered.launches, lms_gates.launches,
+                  gsc_lms_zelinski.launches)
+        got = gsc_lms_zelinski_steered(Yd, *w_b, cfg, 0.6, pf_type, pf_min_frames)
+        assert (gsc_lms_zelinski_steered.launches, lms_gates.launches,
+                gsc_lms_zelinski.launches) == (before[0] + 1, before[1] + 1, before[2])
+        _close(got, ref, 2e-4)
+        assert torch.equal(gsc_lms_zelinski_steered(Yd, *rows, cfg, 0.6, pf_type, pf_min_frames),
+                           gsc_lms_zelinski(Yd, *shared, cfg, 0.6, pf_type, pf_min_frames))
+
+
 @pytest.mark.parametrize("bf", ["ds", "sd_mvdr", "lcmv"])
 def test_fixed_weight_pipeline_matches_plain(dev, bf):
     """The fixed-weight `Enhancer` on the card launches K8 once and nothing
@@ -999,6 +1064,56 @@ def test_steered_pipeline_matches_plain(dev):
         got, doa = gpu(x.to(dev))
     assert kernels.launch_counts() == _only(analysis_tm=1, gsc_rls_zelinski_steered=1,
                                             synthesis_tm=1)
+    assert torch.equal(doa.cpu(), doa_ref)
+    assert torch.equal(doa_ref[:, 1], torch.tensor(phis[placed], dtype=torch.float32))
+    _close(got, ref, 3e-4)
+
+
+# the steered routes: (beamformer, postfilter, build_steered_pipeline
+# keywords, the beamformer's launches)
+STEERED_ROUTES = (
+    ("ds", "zelinski", {}, dict(zelinski_apply_steered=1)),
+    ("ds", "none", {}, dict(zelinski_apply_steered=1)),
+    ("gsc_lms", "zelinski", {}, dict(lms_gates=1, gsc_lms_zelinski_steered=1)),
+    ("gsc_lms", "none", dict(min_bin=5, max_bin=100),
+     dict(lms_gates=1, gsc_lms_zelinski_steered=1)),
+    ("gsc_rls", "none", {}, dict(gsc_rls_zelinski_steered=1)),
+    ("gsc_rls", "zelinski", dict(doa_protocol="dsbla", energy_threshold=1e10),
+     dict(gsc_rls_zelinski_steered=1)),
+)
+
+
+@pytest.mark.parametrize("bf,pf,kw,launches", STEERED_ROUTES)
+def test_steered_routes_match_plain(dev, bf, pf, kw, launches):
+    """Every route of the `SteeredEnhancer` on the card (K1, the route's
+    beamformer kernel, K3 once each) against the same module on the CPU:
+    the DOA equal, the output within 3e-4."""
+    fb = FilterbankParams(M=256, m=4, r=1, delay_compensation_type=2)
+    cfg = PipelineConfig(fb=fb, samplerate=FS, beamformer=bf, postfilter=pf, pf_min_frames=2,
+                         rls=GSCRLSConfig(min_frames=4), lms=GSCLMSConfig(min_frames=4))
+    rng = np.random.default_rng(7)
+    h, g = load_pair(256, 4, 1)
+    ang = 2 * np.pi * np.arange(4) / 4
+    mpos = np.c_[100.0 * np.cos(ang), 100.0 * np.sin(ang), np.zeros(4)]
+    phis = np.deg2rad(np.arange(0.0, 360.0, 30.0))
+    placed = [2, 5, 8, 11]
+    T = 9000
+    src = rng.standard_normal((4, T + 64)).astype(np.float32) * 1500
+    x = rng.standard_normal((4, 4, T)).astype(np.float32) * 150
+    for b, gi in enumerate(placed):
+        d = geometry.calc_ca_delays(mpos, phis[gi], np.pi / 2)
+        for c in range(4):
+            off = 8 - int(round(float(d[c]) * FS))
+            x[b, c] += src[b, off:off + T]
+    x[1, :, 6000:] = 0.0  # a zero-padded utterance
+    x = torch.from_numpy(x)
+    cpu = build_steered_pipeline(cfg, mpos, h, g, [np.pi / 2], phis, device="cpu", **kw)
+    gpu = build_steered_pipeline(cfg, mpos, h, g, [np.pi / 2], phis, **kw)
+    with torch.no_grad():
+        ref, doa_ref = cpu(x)
+        kernels.reset_launch_counts()
+        got, doa = gpu(x.to(dev))
+    assert kernels.launch_counts() == _only(analysis_tm=1, synthesis_tm=1, **launches)
     assert torch.equal(doa.cpu(), doa_ref)
     assert torch.equal(doa_ref[:, 1], torch.tensor(phis[placed], dtype=torch.float32))
     _close(got, ref, 3e-4)
@@ -1435,6 +1550,29 @@ def test_lms_wrapper_raises_on_bad_cuda_input(dev):
         gsc_lms_zelinski(Yd, wqH.to(dev), BmH, vs.to(dev), GSCLMSConfig())
     with pytest.raises(RuntimeError, match="shape outside"):
         gsc_lms_zelinski(Yd, *(a.to(dev) for a in (wqH, BmH, vs)), GSCLMSConfig(slowdown_after=0))
+    assert set(kernels.launch_counts().values()) == {0}
+
+
+def test_steered_wrappers_raise_on_bad_cuda_input(dev):
+    """The per-utterance K7 and LMS scan on CUDA tensors launch or raise:
+    one set of weights where one per utterance is needed, a complex128 or a
+    CPU weight, and a refused step countdown (before the gate pass) raise,
+    and nothing launches."""
+    Yp, wqH, BmH, vs = _lms_case(4, 256, 2, 8, seed=1)
+    Yd = Yp.to(dev)
+    shared = [a.to(dev) for a in (wqH, BmH, vs)]
+    per_utt = [a.expand((2,) + a.shape) for a in shared]
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="shape"):
+        zelinski_apply_steered(Yd, shared[0], shared[2])
+    with pytest.raises(ValueError, match="complex64"):
+        zelinski_apply_steered(Yd, per_utt[0].to(torch.complex128), per_utt[2])
+    with pytest.raises(ValueError, match="shape"):
+        gsc_lms_zelinski_steered(Yd, *shared, GSCLMSConfig())
+    with pytest.raises(ValueError, match="CUDA"):
+        gsc_lms_zelinski_steered(Yd, per_utt[0], per_utt[1].cpu(), per_utt[2], GSCLMSConfig())
+    with pytest.raises(RuntimeError, match="shape outside"):
+        gsc_lms_zelinski_steered(Yd, *per_utt, GSCLMSConfig(slowdown_after=0))
     assert set(kernels.launch_counts().values()) == {0}
 
 

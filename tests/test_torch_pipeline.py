@@ -87,6 +87,18 @@ def test_from_jax_params_matches_jax(case):
     _check(got, case["ref"])
 
 
+def test_enhance_matches_jax(case):
+    """The one-shot `enhance` (JAX's is ``build_pipeline(...)(x)``) on numpy
+    input; its default device is the card and raises without one."""
+    args = (_port_cfg(), case["mpos"], case["delays"], case["h"], case["g"], case["x"])
+    got = t_pipe.enhance(*args, device="cpu")
+    assert got.device.type == "cpu"
+    _check(got.numpy(), case["ref"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            t_pipe.enhance(*args)
+
+
 def test_cpu_run_launches_no_kernel(case):
     enh = t_pipe.build_pipeline(_port_cfg(), case["mpos"], case["delays"], case["h"], case["g"],
                                 device="cpu")

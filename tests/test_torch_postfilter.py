@@ -273,11 +273,12 @@ def test_still_unported_configurations_raise(grid_inputs, kw):
 
 @pytest.mark.parametrize("postfilter", ["mccowan", "lefkimmiatis", "apab"])
 def test_steered_pipeline_refuses_the_coherence_postfilters(grid_inputs, postfilter):
-    """JAX's steered pipeline raises for them (its models/steered.py:60-61)."""
+    """JAX's steered pipeline raises `ValueError` for them (its
+    models/steered.py:60-61), and so does the port's."""
     i = grid_inputs
     cfg = t_pipe.PipelineConfig(fb=FilterbankParams(M=M, m=2, r=1), beamformer="gsc_rls",
                                 postfilter=postfilter)
-    with pytest.raises(NotImplementedError, match="postfilter"):
+    with pytest.raises(ValueError, match="postfilter"):
         t_steered.build_steered_pipeline(cfg, i["mpos"], i["h"], i["g"], [np.pi / 2],
                                          np.deg2rad(np.arange(0.0, 360.0, 30.0)), device="cpu")
 

@@ -167,19 +167,27 @@ def test_broadcast_weight_scan_is_bit_equal(rng):
     assert kernels.launch_counts()["gsc_rls_zelinski_steered"] == 0
 
 
-@pytest.mark.parametrize("cfg_kw,kw", [
-    (dict(beamformer="ds"), {}),
-    (dict(beamformer="gsc_lms"), {}),
-    (dict(postfilter="none"), {}),
-    (dict(aec="nlms"), {}),
-    ({}, dict(doa_protocol="dsbla")),
-    ({}, dict(min_bin=0)),
-    ({}, dict(max_bin=100)),
+@pytest.mark.parametrize("cfg_kw,kw,exc", [
+    (dict(aec="nlms"), {}, NotImplementedError),
+    (dict(aec="kalman"), {}, NotImplementedError),
+    (dict(wpe=True), {}, NotImplementedError),
+    (dict(beamformer="sd_mvdr"), {}, ValueError),
+    (dict(beamformer="lcmv"), {}, ValueError),
+    (dict(postfilter="mccowan"), {}, ValueError),
+    ({}, dict(doa_protocol="foo"), ValueError),
 ])
-def test_unported_steered_variants_raise(case, cfg_kw, kw):
-    with pytest.raises(NotImplementedError):
+def test_unported_steered_variants_raise(case, cfg_kw, kw, exc):
+    """`ValueError` where JAX's `build_steered_pipeline` raises (a
+    beamformer, postfilter or DOA protocol the steered chain has not),
+    `NotImplementedError` for an echo canceller or WPE (JAX's steered chain
+    has neither); `SteeredEnhancer` raises alike, on every device."""
+    with pytest.raises(exc):
         t_steered.build_steered_pipeline(_port_cfg(**cfg_kw), MPOS, case["h"], case["g"], THETAS,
                                          PHIS, device="cpu", **kw)
+    p = case["params"]
+    with pytest.raises(exc):
+        t_steered.SteeredEnhancer(_port_cfg(**cfg_kw), p["h"], p["g"], p["steering"], p["grid"],
+                                  p["delay_table"], device="cpu", **kw)
 
 
 def test_steered_default_device_is_the_card(case):
