@@ -53,12 +53,14 @@ Phases (each raises on failure; the script then exits non-zero):
      10 s, launch counts around one forward (exactly one fixed-weight
      one-kernel chain, no other kernel), the output and the fixed-weight
      Zelinski kernel against their plain versions at that shape, CUDA-event
-     times of the path, the one-kernel chain, the Zelinski kernel alone and
+     times of the path, the one-kernel chain, the Zelinski kernel alone
+     (also at B = 64 and 1, each beside its bound and launch) and
      the chain of split kernels, and a profile of three D&S forwards; then
      the split form of the path, where the one-kernel chain's frame tiles
      cannot hold the synthesis halo (8 channels, r=2, B=32): exactly one
      launch each of the analysis, fixed-weight Zelinski and synthesis
-     kernels, held against the plain chain;
+     kernels, held against the plain chain, the Zelinski kernel timed alone
+     at that shape beside its bound;
   9. the config-5 path (SRP-PHAT DOA -> per-utterance steered GSC-RLS +
      Zelinski): build_steered_pipeline() with the default device on B=64 x
      4 ch x 10 s from a circular array, one source per utterance placed at a
@@ -81,7 +83,9 @@ Phases (each raises on failure; the script then exits non-zero):
      (2e-4), K1 and K3 at 8 channels against their plain versions and the
      path against the plain chain (3e-4); the LMS scan's launch (lanes a bin,
      blocks, frames staged ahead, registers, spills, blocks per SM);
-     CUDA-event times of the path, of the gate pass, of the LMS scan (with
+     CUDA-event times of the path, of the gate pass (also alone at B = 64
+     and 1, flag for flag against the plain gates, each beside its bound),
+     of the LMS scan (with
      its gate pass) at B = 256, 64 and 1 and without the gain at B = 256,
      and of K1 -> K2 -> K3 and K4
      (the RLS flagship's kernels) on the same input, K2 and K4 beside their
@@ -150,7 +154,11 @@ Phases (each raises on failure; the script then exits non-zero):
      the plain chain's, its first 16 utterances against the plain chain
      (3e-4), CUDA-event times of the path, its DOA stage and its beamformer
      stage, audio-s/s/GPU and peak memory; the two per-utterance kernels
-     timed alone at that shape beside their bounds and plain loops.
+     timed alone at that shape beside their bounds and plain loops, K7 with
+     one steering per utterance also at the batch four times and at one
+     utterance, and the gate pass alone at that shape (its own line), four
+     times and one, flag for flag against the plain gates, each beside its
+     bound.
 Phase 3 also runs, at B=8 (phase 3z), K1 and K3 at M = 64, 128 and 512 on
 noise, on pure tones at bins 0, 1, M/4, M/2 - 1 and M/2 and on impulse
 trains, K11 at M = 64 and 512 at (4, 5) and (8, 5), and at M = 512 K2, K6,
@@ -181,7 +189,12 @@ its plain version with eight different steerings and, given one steering for
 all, against the flagship scan bit for bit, and likewise K7 and the LMS scan
 with one steering per utterance (C = 2, 4 and 8, both Zelinski modes, the
 gain from frame 1, 3 or never) against their plain versions (3e-5, 2e-4)
-and, given one steering for all, against K7 and the LMS scan bit for bit.
+and, given one steering for all, against K7 and the LMS scan bit for bit;
+K7 (both entries) at the edges of its launch, B = 1, 64 and 257, Tf = 1, 2
+and one frame either side of its ring of frames, M = 64 to 512, C = 2..8
+in turn, against its plain version (3e-5) and, given one steering for all,
+the per-utterance entry against the shared one bit for bit; the gate pass
+flag for flag at B = 1 and 64 across 1254 and 2100 frames.
 The line before the last two is a JSON object with one entry per kernel
 ("launches" counts the runs of all the paths, "launches_by_path" each
 path's, one forward each; K4, K5 and K8 also carry their error against the
@@ -199,7 +212,9 @@ kind, "by_kind", at 8 channels, "c8", and phase 13's paths, "paths"; K1,
 K3, K2, K6, the LMS scan and K11 their times, bounds, plain, torch.fft or
 library times and launches at M = 64, 128 and 512, "by_M"; the per-utterance
 K7 and LMS scan their plain loops' utterances, "plain_ms_utterances", and
-the LMS scan's row phase 15's paths, "steered_paths"); the
+the LMS scan's row phase 15's paths, "steered_paths"; K7 (both entries)
+and the gate pass their times alone at other batches and shapes, each
+beside its bound (K7 also its launch), "by_batch"); the
 line before the last is the card's name and
 power limit; the last line is {"ok": true, "device": {...}}.  Imports
 nothing of JAX.
@@ -316,6 +331,7 @@ def main() -> None:
         zelinski_apply,
         zelinski_apply_plain,
         zelinski_apply_steered,
+        zelinski_launch_shape,
     )
     from distant_speech_recognition_tpu_torch.models.fused_scan import (
         NO_POSTFILTER,
@@ -816,6 +832,59 @@ def main() -> None:
             f"bit-identical to zelinski_apply / gsc_lms_zelinski")
     del wC, one, YC
 
+    # K7 at the edges of its launch (a warp a block, 32 bins of one
+    # utterance, M/64 + 1 warps an utterance, frames staged a ring ahead in
+    # groups of 4): both entries against the plain version at B = 1, 64 and
+    # 257, Tf = 1, 2 and one frame either side of the ring, M = 64, 128, 256
+    # and 512, C = 2..8 in turn, both Zelinski modes, a silent utterance;
+    # given one steering for all, the per-utterance entry is the shared one
+    # bit for bit; the gate pass flag for flag at B = 1 and 64 across 1254
+    # and 2100 frames
+    rng_k7 = np.random.default_rng(SEED + 7)  # the later phases' inputs stay as they were
+    k7_edges = ((1, 1, 64), (64, "ring-1", 512), (257, "ring+1", 128), (64, 2, 64),
+                (257, "ring-1", 512), (1, "ring+1", 128), (64, "ring+1", 256))
+    for i_, (B_, Tf_, M_) in enumerate(k7_edges):
+        C_ = 2 + i_ % 7
+        ring_ = zelinski_launch_shape(B_, C_, M_)["frames"]
+        Tf_ = ring_ + int(Tf_[4:]) if isinstance(Tf_, str) else Tf_
+        Y_ = torch.from_numpy(rng_k7.standard_normal((Tf_, B_, C_, M_), dtype=np.float32)
+                              * np.float32(100.0)).to(dev)
+        if B_ > 1:
+            Y_[:, B_ // 2] = 0.0
+        d_ = geometry.calc_la_delays(np.c_[np.arange(C_) * 50.0][:, :1], azimuth=np.pi / 3)
+        vs_ = array_manifold(M_, float(FS), d_).to(dev)
+        angC = 2 * np.pi * np.arange(C_) / C_
+        mposC = np.c_[100.0 * np.cos(angC), 100.0 * np.sin(angC), np.zeros(C_)]
+        vsb_ = array_manifold(M_, float(FS), torch.tensor(np.stack([
+            geometry.calc_ca_delays(mposC, az, np.pi / 2) for az in np.linspace(0.3, 5.9, B_)]),
+            dtype=torch.float32, device=dev))
+        wq_, wqb_ = vs_.conj().resolve_conj(), vsb_.conj().resolve_conj()
+        for pf_type, pf_min in ((1 + i_ % 2, 2), (2 - i_ % 2, NO_POSTFILTER)):
+            a = (cfg.pf_alpha, pf_type, pf_min)
+            tag = (f"B={B_} Tf={Tf_} (ring {ring_}) M={M_} C={C_}, pf_type {pf_type}, "
+                   f"pf_min {pf_min}")
+            k7_ = zelinski_apply(Y_, wq_, vs_, *a)
+            compare(f"zelinski_apply edge {tag}", k7_, zelinski_apply_plain(Y_, wq_, vs_, *a), 3e-5,
+                    "zelinski_apply")
+            compare(f"zelinski_apply_steered edge {tag}",
+                    zelinski_apply_steered(Y_, wqb_, vsb_, *a),
+                    zelinski_apply_plain(Y_, wqb_, vsb_, *a), 3e-5, "zelinski_apply_steered")
+            rows_ = [t.expand((B_,) + t.shape) for t in (wq_, vs_)]
+            if not torch.equal(zelinski_apply_steered(Y_, *rows_, *a), k7_):
+                raise AssertionError(f"zelinski_apply_steered given one steering for all "
+                                     f"differs from zelinski_apply ({tag})")
+    for B_, Tf_, C_ in ((1, 1254, 4), (64, 1254, 8), (1, 2100, 2), (64, 2100, 2)):
+        Y_ = torch.from_numpy(signal(rng_k7, (Tf_, B_, C_, M)) / np.float32(15.0)).to(dev)
+        Y_[:3] *= 1e-6
+        Y_[500:540, B_ // 2] *= 1e-6
+        g_ = lms_gates(Y_, GSCLMSConfig())
+        if not torch.equal(g_, lms_silence_gates(Y_, GSCLMSConfig())):
+            raise AssertionError(f"lms_gates at B={B_} Tf={Tf_} C={C_} differs from the plain "
+                                 f"gates")
+        log(f"  lms_gates B={B_} Tf={Tf_} C={C_}: equal to the plain gates, flag for flag "
+            f"({int(g_.sum().item())} of {g_.numel()} open)")
+    del Y_, vs_, vsb_, wq_, wqb_, rows_, k7_, g_
+
     # the one-kernel flagship chains: K4 against the split kernels K1 -> K2 ->
     # K3 (3e-4: K3 pairs its synthesis rows in its FFT otherwise than K4) and
     # the plain chain (3e-4), K5 against K1 -> K2 (bit for bit: the same
@@ -1027,6 +1096,27 @@ def main() -> None:
         end.record()
         torch.cuda.synchronize()
         return out, start.elapsed_time(end)
+
+    # K7 and the LMS gate pass alone at several batches, each beside its
+    # least time (bytes: the rows in once, the output out once, the weights):
+    # {name: {tag: {"ms", "bound_ms", "bound_by"[, "launch"]}}}
+    alone = {"zelinski_apply": {}, "zelinski_apply_steered": {}, "lms_gates": {}}
+
+    def k7_cost(Tf_, B_, Cx, M_, per_utt):
+        F_ = M_ // 2 + 1
+        return (4 * (Tf_ * B_ * Cx * M_ + Tf_ * B_ * M_) + 16 * F_ * Cx * (B_ if per_utt else 1),
+                8 * (3 * Cx + Cx * (Cx - 1) // 2) * Tf_ * B_ * F_)
+
+    def gates_cost(Tf_, B_, M_):
+        return 4 * (Tf_ * B_ * M_ + Tf_ * B_), 2 * Tf_ * B_ * M_
+
+    def time_alone(name, tag, fn, cost, launch=None):
+        ms_ = time_ms(fn, 5)
+        b_ms, b_by = bound(*cost)
+        alone[name][tag] = {"ms": ms_, "bound_ms": b_ms, "bound_by": b_by} | (
+            {"launch": launch} if launch else {})
+        log(f"  {name} alone {tag}: {ms_:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+            f"{100 * b_ms / ms_:.1f}% of it" + (f", launch {launch}" if launch else ""))
 
     log(f"== 4b. kernels vs plain torch at the flagship shape (B={B}, {C} ch, {secs} s)")
     with torch.no_grad():
@@ -1382,6 +1472,12 @@ def main() -> None:
             if bf == "ds":
                 Yk = analysis_tm_fused(x, enh.h, fb, A=enh.A)
                 times["zelinski_apply"] = (time_ms(lambda: zelinski_apply(Yk, *w), 5), plain_k7_ms)
+                for b_ in (B, 64, 1):
+                    Yb_ = Yk if b_ == B else Yk[:, :b_].contiguous()
+                    time_alone("zelinski_apply", f"B={b_} C={C}",
+                               lambda: zelinski_apply(Yb_, *w), k7_cost(Tf, b_, C, M, False),
+                               zelinski_launch_shape(b_, C, M))
+                del Yb_
                 chain_fw_ms = time_ms(lambda: synthesis_tm_fused(
                     zelinski_apply(analysis_tm_fused(x, enh.h, fb, A=enh.A), *w), enh.g, fb,
                     S=enh.S), 3)
@@ -1440,6 +1536,9 @@ def main() -> None:
                 synthesis_half_real_tm(zelinski_apply_plain(Yr8, *w8), enh8.g, fb8, S=enh8.S),
                 3e-4)
         split_ms = time_ms(lambda: enh8(x8), 3)
+        time_alone("zelinski_apply", f"B={B8} C={C8} (split path, r={fb8.r})",
+                   lambda: zelinski_apply(Yr8, *w8), k7_cost(Yr8.shape[0], B8, C8, M, False),
+                   zelinski_launch_shape(B8, C8, M))
     log(f"  fixed-weight split path: kernels {split_ms:.3f} ms "
         f"({B8 * secs / (split_ms / 1e3):.1f} audio-s/s/GPU)")
     del enh8, x8, y8, Yr8
@@ -1670,6 +1769,13 @@ def main() -> None:
         library["gsc_lms_zelinski"] = None
         times["lms_gates"] = (time_ms(lambda: lms_gates(Yr3, cfg3.lms), 5), plain_gates_ms)
         library["lms_gates"] = None
+        for b_, Yb_ in ((B, Yr3), (64, Yr3_64), (1, Yr3_1)):
+            if b_ != B and not torch.equal(lms_gates(Yb_, cfg3.lms),
+                                           lms_silence_gates(Yb_, cfg3.lms)):
+                raise AssertionError(f"lms_gates at B={b_} x {C3} ch differs from the plain gates")
+            time_alone("lms_gates", f"B={b_} C={C3}", lambda: lms_gates(Yb_, cfg3.lms),
+                       gates_cost(Tf, b_, M))
+        del Yb_
         k1_8_ms = time_ms(lambda: analysis_tm_fused(x3, enh3.h, fb, A=enh3.A, hr=enh3.hr), 5)
         Yp3 = gsc_lms_zelinski(Yr3, *lms_args)
         k3_8_ms = time_ms(lambda: synthesis_tm_fused(Yp3, enh3.g, fb, S=enh3.S, gf=enh3.gf), 5)
@@ -2466,11 +2572,32 @@ def main() -> None:
                         3e-5, "zelinski_apply_steered")
                 times["zelinski_apply_steered"] = (
                     time_ms(lambda: zelinski_apply_steered(Yk15, *a15), 5), plain15_ms)
+                # alone at B5, 4 B5 (the batch four times, each utterance its
+                # own row of weights) and one utterance
+                for b_ in (B5, 4 * B5, 1):
+                    r_ = (b_ + B5 - 1) // B5
+                    Yb_ = Yk15.repeat(1, r_, 1, 1)[:, :b_].contiguous()
+                    ab_ = tuple(t.repeat(r_, 1, 1)[:b_].contiguous() for t in a15[:2]) + a15[2:]
+                    time_alone("zelinski_apply_steered", f"B={b_} C={C}",
+                               lambda: zelinski_apply_steered(Yb_, *ab_),
+                               k7_cost(Tf, b_, C, M, True), zelinski_launch_shape(b_, C, M))
+                del Yb_, ab_
             if name15 == "steered-lms-zelinski-b64":
                 a15 = (*steering_weights(vsk15), cfg15.lms, cfg.pf_alpha, cfg.pf_type,
                        cfg.pf_min_frames)
                 times["gsc_lms_zelinski_steered"] = (
                     time_ms(lambda: gsc_lms_zelinski_steered(Yk15, *a15), 5), plain15_ms)
+                # the gate pass alone at this shape (the steered LMS routes'),
+                # at the batch four times and at one utterance
+                for b_ in (B5, 4 * B5, 1):
+                    Yb_ = Yk15.repeat(1, (b_ + B5 - 1) // B5, 1, 1)[:, :b_].contiguous()
+                    if not torch.equal(lms_gates(Yb_, cfg15.lms),
+                                       lms_silence_gates(Yb_, cfg15.lms)):
+                        raise AssertionError(f"lms_gates at B={b_} x {C} ch differs from the "
+                                             f"plain gates")
+                    time_alone("lms_gates", f"B={b_} C={C}" + (" (config 5)" if b_ == B5 else ""),
+                               lambda: lms_gates(Yb_, cfg15.lms), gates_cost(Tf, b_, M))
+                del Yb_
         del enh15, vs15, vsk15, Yk15, Yr15
     del x5
     library["zelinski_apply_steered"] = library["gsc_lms_zelinski_steered"] = None
@@ -2665,6 +2792,8 @@ def main() -> None:
         if name == "gsc_lms_zelinski":  # "ms" includes the gate pass it launches first
             row["launch"] = lms_shape
             row["none_ms"] = lms_none_ms
+        if name in alone:  # alone at other batches and shapes, each beside its bound
+            row["by_batch"] = alone[name]
         if name in ("zelinski_apply_steered", "gsc_lms_zelinski_steered"):
             row["plain_ms_utterances"] = B15  # the plain loop timed on the first 16
         if name == "gsc_lms_zelinski_steered":  # "ms" includes the gate pass it launches first

@@ -62,7 +62,9 @@ int dsr_gsc_rls_zelinski_steered(const float* Yp, const float* wq, const float* 
 
 // the silence gates of the GSC-LMS, gates[t * B + b] = 1 or 0: the
 // reference channel's frame energy of utterance b against its smoothed
-// energy before frame t's update (from delta) divided by sil_thresh
+// energy before frame t's update (from delta) divided by sil_thresh; two
+// launches on the stream, the energies first (into gates), then the
+// recursion
 int dsr_lms_gates(const float* Yp, float* gates, int Tf, int B, int C, int M, float beta,
                   float one_minus_beta, float delta, float sil_thresh, cudaStream_t stream);
 
@@ -126,6 +128,12 @@ int dsr_zelinski_apply_steered(const float* Yp, const float* wq, const float* ta
                                int Tf, int B, int C, int M, float pf_alpha,
                                float one_minus_pf_alpha, float pf_gain, float spectral_floor,
                                int real_mode, int pf_min_frames, cudaStream_t stream);
+
+// K7's launch for B utterances of C channels and M lanes on the current card:
+// blocks, threads a block, frames of a warp's ring, dynamic shared memory,
+// the kernel's registers and local memory (bytes) a thread, blocks per SM
+int dsr_zelinski_apply_shape(int B, int C, int M, int* blocks, int* threads, int* frames,
+                             int* smem_bytes, int* regs, int* local_bytes, int* blocks_per_sm);
 
 // the McCowan (kind 0 real part, 1 modulus), Lefkimmiatis (2, 3) and APAB (4)
 // postfilters (no TPU kernel: the JAX package's XLA scans) on X [Tf, B, C, M]

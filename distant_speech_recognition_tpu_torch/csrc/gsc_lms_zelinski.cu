@@ -29,10 +29,13 @@
 //     first, once per (utterance, frame) (dsr_lms_gates), then the scan
 //     (dsr_gsc_lms_zelinski).  The gate compares the frame's
 //     reference-channel energy with the smoothed energy before its update,
-//     divided by sil_thresh (the JAX step's order, the IEEE division); a
-//     block an utterance sums its frames' energies (a warp a frame, a shuffle
-//     butterfly over the lanes' partial sums) and one thread runs the
-//     recursion from delta.  The scan reads one flag a bin-frame: neither the
+//     divided by sil_thresh (the JAX step's order, the IEEE division).  The
+//     gate pass is two launches: blocks of (utterance, tile of frames) sum
+//     the frames' energies into the gates' own buffer (a warp a frame, a
+//     shuffle butterfly over the lanes' partial sums), then blocks of 32
+//     utterances run the recursion from delta, a lane an utterance, and
+//     overwrite each energy with its flag, coalesced along the utterances.
+//     The scan reads one flag a bin-frame: neither the
 //     reference rows of the utterances a block touches nor the recursion and
 //     its division are in the scan;
 //   - two lanes a bin, adjacent lanes of a warp.  Lane h holds rows h R ..
@@ -73,8 +76,11 @@ constexpr int LMS_THREADS = 128;
 constexpr int LMS_LANES = 2;      // lanes a bin
 constexpr int LMS_BLOCKS_SM = 4;  // blocks an SM holds at 128 registers a lane
 constexpr int LMS_RING = 12;      // frames a warp stages ahead: its ring's slots
-constexpr int GATE_THREADS = 512;
-constexpr int GATE_TILE = 2048;  // frames of an utterance whose energies sit in shared memory
+constexpr int ENERGY_THREADS = 256;
+constexpr int ENERGY_FRAMES = 64;   // frames of an utterance a block sums
+constexpr int ENERGY_AHEAD = 4;     // frames a warp loads before it sums them
+constexpr int RECURSION_THREADS = 256;
+constexpr int RECURSION_TILE = 128;  // frames of 32 utterances a tile (a multiple of 16)
 
 // the Zelinski stage compiled in: the positive real part of the pair sum
 // (pf_type & 1), or its modulus
@@ -97,52 +103,151 @@ int lms_blocks(int B, int M) {
   return (int)(((long long)B * (M / 2 + 1) * LMS_LANES + LMS_THREADS - 1) / LMS_THREADS);
 }
 
-// The silence gates gate[t * B + b] of utterance b = blockIdx.x, a tile of
-// GATE_TILE frames at a time: warp w sums the energies of frames w, w + 16,
-// ... (lane l adds ew |X0|^2 of bins l, l + 32, ... in order, its loads all
-// issued at once; a shuffle butterfly adds the lanes, the sum over M is the
-// frame's energy); thread 0 runs the smoothed-energy recursion over the
-// tile alone (the energy before each frame's update, starting at delta),
-// and then every thread takes frames in turn: the gate compares the frame's
-// energy with that smoothed energy divided by sil_thresh
-__global__ void __launch_bounds__(GATE_THREADS)
-    lms_gates_kernel(const float* __restrict__ Yp, float* __restrict__ gates, int Tf, int B, int C,
-                     int M, float beta, float one_minus_beta, float delta, float sil_thresh) {
-  __shared__ float en[GATE_TILE], sm[GATE_TILE];  // energies, smoothed energies
-  const int b = blockIdx.x, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+// The gate pass, first launch: the reference channel's frame energies
+// en[t * B + b] (in the gates' buffer) of utterance b and frames t0 .. t0 +
+// ENERGY_FRAMES - 1 of block (b, tile): warp w takes frames t0 + w, t0 + w +
+// 8, ..., ENERGY_AHEAD at a time, their loads all issued before any is
+// summed; lane l adds ew |X0|^2 of bins l, l + 32, ... in order (NG groups of
+// 32 bins, F <= 32 NG), a shuffle butterfly adds the lanes (every lane ends
+// with the same sum) and the sum over M is the frame's energy
+template <int NG>
+__global__ void __launch_bounds__(ENERGY_THREADS)
+    lms_energy_kernel(const float* __restrict__ Yp, float* __restrict__ en, int Tf, int B, int C,
+                      int M) {
+  constexpr int WARPS = ENERGY_THREADS / 32;
+  const int tiles = (Tf + ENERGY_FRAMES - 1) / ENERGY_FRAMES;
+  const int b = blockIdx.x / tiles;
+  const int t0 = (blockIdx.x - b * tiles) * ENERGY_FRAMES;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int F = M / 2 + 1;
-  float st = delta;
-  for (int t0 = 0; t0 < Tf; t0 += GATE_TILE) {
-    const int nt = min(GATE_TILE, Tf - t0);
-#pragma unroll 2
-    for (int tt = warp; tt < nt; tt += GATE_THREADS / 32) {
+  const int nt = min(ENERGY_FRAMES, Tf - t0);
+  for (int k = warp; k < nt; k += WARPS * ENERGY_AHEAD) {
+    float re[ENERGY_AHEAD][NG], im[ENERGY_AHEAD][NG];
+#pragma unroll
+    for (int u = 0; u < ENERGY_AHEAD; ++u) {
+      const int tt = k + u * WARPS;
       const float* x = Yp + ((size_t)(t0 + tt) * B + b) * C * M;
+#pragma unroll
+      for (int g = 0; g < NG; ++g) {
+        const int bin = g * 32 + lane;
+        re[u][g] = tt < nt && bin < F ? __ldg(x + bin) : 0.f;
+        im[u][g] = tt < nt && bin >= 1 && bin <= F - 2 ? __ldg(x + F + bin - 1) : 0.f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < ENERGY_AHEAD; ++u) {
+      const int tt = k + u * WARPS;
       float s = 0.f;
 #pragma unroll
-      for (int g = 0; g < 9; ++g) {  // F <= 257
+      for (int g = 0; g < NG; ++g) {
         const int bin = g * 32 + lane;
-        if (bin < F) {
-          const float im = bin >= 1 && bin <= F - 2 ? __ldg(x + F + bin - 1) : 0.f;
-          s += energy_term(bin == 0 || bin == F - 1 ? 1.f : 2.f, {__ldg(x + bin), im});
-        }
+        if (bin < F) s += energy_term(bin == 0 || bin == F - 1 ? 1.f : 2.f, {re[u][g], im[u][g]});
       }
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-      if (lane == 0) en[tt] = s / (float)M;
+      if (lane == 0 && tt < nt) en[(size_t)(t0 + tt) * B + b] = s / (float)M;
     }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-#pragma unroll 8
-      for (int tt = 0; tt < nt; ++tt) {
-        sm[tt] = st;
-        st = __fadd_rn(__fmul_rn(st, beta), __fmul_rn(one_minus_beta, en[tt]));
-      }
-    }
-    __syncthreads();
-    for (int tt = threadIdx.x; tt < nt; tt += GATE_THREADS)
-      gates[(size_t)(t0 + tt) * B + b] = en[tt] > sm[tt] / sil_thresh ? 1.f : 0.f;
-    __syncthreads();
   }
+}
+
+// The gate pass, second launch: utterance b's smoothed-energy recursion over
+// its energies g[t * B + b] (the energy before each frame's update, starting
+// at delta), each energy overwritten with the frame's gate, the energy
+// against that smoothed energy divided by sil_thresh.  A block takes 32
+// utterances, a tile of RECURSION_TILE frames at a time in shared memory:
+// warp 0 runs the tile's recursion, a lane an utterance, while the other
+// warps load the next tile (cp.async); then every warp takes frames in turn
+// for the divisions (`fast_div<32>`, the IEEE operator where it cannot
+// vouch), the comparisons and the stores, each frame's 32 utterances one
+// coalesced row
+__global__ void __launch_bounds__(RECURSION_THREADS)
+    lms_gate_recursion_kernel(float* g, int Tf, int B, float beta, float one_minus_beta,
+                              float delta, float sil_thresh) {
+  constexpr int WARPS = RECURSION_THREADS / 32;
+  constexpr int TILE = RECURSION_TILE;
+  constexpr int ROWS = TILE / WARPS;  // rows of a tile a warp turns into gates
+  __shared__ float en[2][TILE][32], sm[TILE][32];  // energies (two tiles), smoothed energies
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * 32 + lane;
+  const bool valid = b < B;
+  float* col = g + b;
+  // a tile's rows tt = w - w0, w - w0 + nw, ... by warps w0 .. w0 + nw - 1, all
+  // in flight at once, in before the warp's next barrier
+  auto load = [&](int t0, float (*e)[32], int w0, int nw) {
+    const int nt = min(TILE, Tf - t0);
+    for (int tt = warp - w0; tt < nt; tt += nw)
+      cp_async4(&e[tt][lane], col + (size_t)(t0 + tt) * B, valid);
+    cp_commit();
+    cp_wait<0>();
+  };
+  load(0, en[0], 0, WARPS);
+  float st = delta;
+  for (int t0 = 0, k = 0; t0 < Tf; t0 += TILE, k ^= 1) {
+    const int nt = min(TILE, Tf - t0);
+    __syncthreads();  // this tile is in, and the last tile's gates are out
+    if (warp == 0) {
+      // 16 energies into registers before their 16 steps, so that the reads
+      // stay off the chain; the steps past the last frame (of a stale tile
+      // row) are never read
+      for (int tt0 = 0; tt0 < nt; tt0 += 16) {
+        float e[16];
+#pragma unroll
+        for (int u = 0; u < 16; ++u) e[u] = en[k][tt0 + u][lane];
+#pragma unroll
+        for (int u = 0; u < 16; ++u) {
+          sm[tt0 + u][lane] = st;
+          st = __fadd_rn(__fmul_rn(st, beta), __fmul_rn(one_minus_beta, e[u]));
+        }
+      }
+    } else if (t0 + TILE < Tf) {
+      load(t0 + TILE, en[k ^ 1], 1, WARPS - 1);
+    }
+    __syncthreads();  // the tile's smoothed energies, and the next tile
+    // warp w's frames w, w + 8, ...: the quotients without a branch, the
+    // IEEE operator for all of them where one cannot be vouched for
+    float q[ROWS];
+    bool ok = true;
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) {
+      bool ok_i;
+      q[i] = fast_div<32>(sm[warp + WARPS * i][lane], sil_thresh, ok_i);
+      ok &= ok_i;
+    }
+    if (!ok) {
+#pragma unroll
+      for (int i = 0; i < ROWS; ++i) q[i] = sm[warp + WARPS * i][lane] / sil_thresh;
+    }
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) {
+      const int tt = warp + WARPS * i;
+      if (valid && tt < nt) col[(size_t)(t0 + tt) * B] = en[k][tt][lane] > q[i] ? 1.f : 0.f;
+    }
+  }
+}
+
+template <int NG>
+cudaError_t lms_energy_launch(const float* Yp, float* en, int Tf, int B, int C, int M,
+                              cudaStream_t stream) {
+  const long long blocks = (long long)B * ((Tf + ENERGY_FRAMES - 1) / ENERGY_FRAMES);
+  lms_energy_kernel<NG><<<(unsigned)blocks, ENERGY_THREADS, 0, stream>>>(Yp, en, Tf, B, C, M);
+  return cudaGetLastError();
+}
+
+int lms_gate_pass(const float* Yp, float* gates, int Tf, int B, int C, int M, float beta,
+                  float one_minus_beta, float delta, float sil_thresh, cudaStream_t stream) {
+  cudaError_t err;
+  switch ((M / 2 + 32) / 32) {  // groups of 32 bins: F <= 257, at most 9
+#define DSR_CASE(ng) \
+  case ng: err = lms_energy_launch<ng>(Yp, gates, Tf, B, C, M, stream); break;
+    DSR_CASE(1) DSR_CASE(2) DSR_CASE(3) DSR_CASE(4) DSR_CASE(5) DSR_CASE(6) DSR_CASE(7)
+    DSR_CASE(8) DSR_CASE(9)
+#undef DSR_CASE
+    default: return DSR_ERR_ARGS;
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  lms_gate_recursion_kernel<<<(B + 31) / 32, RECURSION_THREADS, 0, stream>>>(
+      gates, Tf, B, beta, one_minus_beta, delta, sil_thresh);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // acc + a x
@@ -468,9 +573,7 @@ extern "C" int dsr_lms_gates(const float* Yp, float* gates, int Tf, int B, int C
                              float beta, float one_minus_beta, float delta, float sil_thresh,
                              cudaStream_t stream) {
   if (!lms_args_ok(Tf, B, C, C - 1, M)) return DSR_ERR_ARGS;
-  lms_gates_kernel<<<B, GATE_THREADS, 0, stream>>>(Yp, gates, Tf, B, C, M, beta, one_minus_beta,
-                                                   delta, sil_thresh);
-  return static_cast<int>(cudaGetLastError());
+  return lms_gate_pass(Yp, gates, Tf, B, C, M, beta, one_minus_beta, delta, sil_thresh, stream);
 }
 
 extern "C" int dsr_gsc_lms_zelinski_args_ok(int Tf, int B, int C, int Bc, int M,

@@ -72,6 +72,7 @@ _SIGNATURES = {
     "dsr_fastdiv_check": [_P, _P, _P, _P, _I, _I, _P],
     "dsr_zelinski_apply": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I, _P],
     "dsr_zelinski_apply_steered": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I, _P],
+    "dsr_zelinski_apply_shape": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     "dsr_coherence_postfilter": [
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P,
     ],

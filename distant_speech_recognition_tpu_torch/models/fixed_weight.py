@@ -39,8 +39,8 @@ from ..ops.filterbank_kernels import fft_twiddles_tensor, prototype_taps
 from .beamforming import apply_weights
 from .postfilter import PostFilterType, zelinski_args, zelinski_postfilter
 
-__all__ = ["zelinski_apply_plain", "zelinski_apply", "zelinski_apply_steered", "fw_mono_supported",
-           "analysis_fw_synthesis"]
+__all__ = ["zelinski_apply_plain", "zelinski_apply", "zelinski_apply_steered",
+           "zelinski_launch_shape", "fw_mono_supported", "analysis_fw_synthesis"]
 
 # analysis rows per tile of the one-kernel chain: a tile holds 64 // C
 # frames, and the synthesis halo of m*R - 1 frames must fit.  Every launch
@@ -77,7 +77,9 @@ def zelinski_apply(
     """Fixed-weight beamformer + Zelinski postfilter over the packed
     time-major spectrum ``Yp [Tf, B, C, M]`` -> packed ``[Tf, B, M]``.
     ``wqH [F, C]`` are the conjugate apply weights, ``wq_manifold [F, C]``
-    the alignment manifold (the C++ ``ta_``), complex64 on ``Yp``'s device."""
+    the alignment manifold (the C++ ``ta_``), complex64 on ``Yp``'s device.
+    The kernel takes M a multiple of 64 (every size the card pipelines run)
+    and raises `RuntimeError` for another."""
     return _zelinski(zelinski_apply, "dsr_zelinski_apply", False, Yp, wqH, wq_manifold,
                      pf_alpha, pf_type, pf_min_frames)
 
@@ -124,6 +126,8 @@ def _zelinski(wrapper, entry: str, per_utt: bool, Yp, wqH, wq_manifold, pf_alpha
     ta = complex_view("wq_manifold", wq_manifold, shape)
     Yp = Yp.contiguous()
     check_cuda_tensor("Yp", Yp)
+    if Yp.data_ptr() % 16:  # the kernel copies 16-byte pieces of the rows
+        Yp = Yp.clone()
     out = torch.empty((Tf, B, M), dtype=torch.float32, device=Yp.device)
     code = getattr(_build.library(), entry)(
         Yp.data_ptr(), wq.data_ptr(), ta.data_ptr(), out.data_ptr(), Tf, B, C, M,
@@ -132,6 +136,23 @@ def _zelinski(wrapper, entry: str, per_utt: bool, Yp, wqH, wq_manifold, pf_alpha
     _build.check(code, wrapper.__name__)
     wrapper.launches += 1
     return out
+
+
+def zelinski_launch_shape(B: int, C: int, M: int) -> dict[str, int]:
+    """The launch K7 takes (both entries) for ``B`` utterances of ``C``
+    channels and ``M`` lanes on the current card: blocks, threads a block,
+    frames of a warp's ring, dynamic shared memory (bytes), registers a
+    thread, local memory a thread (bytes; spills), blocks per SM."""
+    import ctypes
+
+    from ..kernels import _build
+
+    keys = ("blocks", "threads", "frames", "smem_bytes", "registers", "local_bytes",
+            "blocks_per_sm")
+    vals = [ctypes.c_int() for _ in keys]
+    code = _build.library().dsr_zelinski_apply_shape(B, C, M, *(ctypes.addressof(v) for v in vals))
+    _build.check(code, "zelinski_apply shape")
+    return {k: v.value for k, v in zip(keys, vals)}
 
 
 def fw_mono_supported(fb: FilterbankParams, C: int) -> bool:

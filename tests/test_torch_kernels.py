@@ -1578,11 +1578,16 @@ def test_steered_wrappers_raise_on_bad_cuda_input(dev):
 
 @pytest.mark.parametrize("C,M,B,Tf", [(4, 256, 3, 40), (8, 256, 257, 23), (2, 32, 2, 2100),
                                       (3, 32, 5, 4200), (8, 40, 1, 7), (8, 512, 3, 40),
-                                      (2, 64, 4, 40)])
+                                      (2, 64, 4, 40),
+                                      # config 5's and config 3's frame count, and past 2048
+                                      # frames, at one utterance and at B = 64
+                                      (4, 256, 1, 1254), (8, 256, 64, 1254), (2, 256, 1, 2100),
+                                      (2, 256, 64, 2100)])
 def test_lms_gates_kernel_matches_plain(dev, C, M, B, Tf):
     """The gate pass against `adaptive_gsc.lms_silence_gates`, flag for
-    flag, across its tiles of 2048 frames and with silent frames; one launch
-    a call."""
+    flag, with silent frames, at frame counts that leave a partial tile of
+    the energy launch and a partial group of the recursion's loads, and
+    past 2048 frames; one count a call."""
     Yp = _lms_case(C, M, B, Tf, seed=400 + C + B)[0]
     cfg = GSCLMSConfig()
     ref = lms_silence_gates(Yp, cfg)
@@ -2058,3 +2063,115 @@ def test_filterbank_kernels_equal_stored_outputs(dev, tag):
     inp = torch.from_numpy(probe.case_input(tag, kernel, B, n)).to(dev)
     got = probe.run(probe._build.library(), kernel, inp, fb, h, g, w)
     assert torch.equal(got.cpu(), torch.from_numpy(z[f"{tag}_out"]))
+
+
+# K7 at the edges of its launch: one (utterance, bin) lane, 32 a block, its
+# frames staged ahead in a ring of `frames` slots, two frames a group; the
+# shapes: (B, Tf, M), Tf given as an int or as an offset from the ring's
+# depth at that launch ("ring-1", "ring+1")
+K7_EDGES = ((1, 1, 64), (1, 1254, 512), (64, 2, 128), (64, "ring-1", 512), (64, "ring+1", 64),
+            (64, 1254, 64), (257, 1, 128), (257, "ring+1", 512), (257, "ring-1", 128),
+            (257, 2, 64))
+
+
+@pytest.mark.parametrize("C", range(2, 9))
+@pytest.mark.parametrize("per_utt", [False, True])
+def test_zelinski_apply_kernel_edges(dev, C, per_utt):
+    """K7 with one set of weights, or one steering per utterance, against
+    its plain version (3e-5 x max|ref|) at B = 1, 64 and 257 (a partial last
+    block), Tf = 1, 2, one frame fewer and one more than its ring, and 1254
+    (config 5's), M = 64, 128 and 512, both Zelinski modes with the gain
+    from frame 3 and never, an utterance digitally silent; given one
+    steering for all, the per-utterance entry equals the shared one bit for
+    bit."""
+    rng = np.random.default_rng(700 + C + 10 * per_utt)
+    fn = zelinski_apply_steered if per_utt else zelinski_apply
+    for k, (B, Tf, M) in enumerate(K7_EDGES):
+        ring = fixed_weight.zelinski_launch_shape(B, C, M)["frames"]
+        Tf = ring + int(Tf[4:]) if isinstance(Tf, str) else Tf
+        Yp = _packed(rng, Tf, B, C, M)
+        silent = B // 2 if B > 1 else None
+        if silent is not None:
+            Yp[:, silent] = 0.0
+        if per_utt:
+            mpos = np.c_[100.0 * np.cos(2 * np.pi * np.arange(C) / C),
+                         100.0 * np.sin(2 * np.pi * np.arange(C) / C), np.zeros(C)]
+            d = np.stack([geometry.calc_ca_delays(mpos, az, np.pi / 2)
+                          for az in np.linspace(0.3, 5.9, B)]).astype(np.float32)
+            ta = array_manifold(M, FS, torch.from_numpy(d))
+            wq = torch.conj(ta).resolve_conj()
+        else:
+            wq, ta = _fixed_weights(C, M)
+        pf_type = 1 + k % 2
+        Yd, w = Yp.to(dev), (wq.to(dev), ta.to(dev))
+        for pf_min in (2, NO_POSTFILTER):
+            ref = fn(Yp, wq, ta, 0.6, pf_type, pf_min)
+            before = fn.launches
+            got = fn(Yd, *w, 0.6, pf_type, pf_min)
+            assert fn.launches == before + 1
+            _close(got, ref, 3e-5)
+            assert silent is None or not got[:, silent].any()
+        if per_utt:
+            wqs, tas = _fixed_weights(C, M)
+            shared = [t.to(dev) for t in (wqs, tas)]
+            rows = [t.expand((B,) + t.shape) for t in shared]
+            assert torch.equal(zelinski_apply_steered(Yd, *rows, 0.6, pf_type, 2),
+                               zelinski_apply(Yd, *shared, 0.6, pf_type, 2)), (B, Tf, M)
+
+
+@pytest.mark.parametrize("C", range(2, 9))
+def test_zelinski_apply_launch_shape(dev, C):
+    """K7's launch against what the card reports: a block a warp of 32 bins
+    of one utterance (M/64 + 1 blocks an utterance, the last the Nyquist
+    bin alone), no spill, a ring of 8 to 32 frames that the blocks an SM
+    must hold fit beside each other; at config 5's B = 64 the grid covers
+    every SM with the deepest ring, and at B = 64 and 256 every block is
+    resident at once; an M that is no multiple of 64 is refused."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for B, M in ((64, 256), (256, 256), (1, 256), (64, 64), (257, 512), (1536, 256)):
+        sh = fixed_weight.zelinski_launch_shape(B, C, M)
+        assert sh["threads"] == 32 and sh["blocks"] == B * (M // 64 + 1), sh
+        assert sh["local_bytes"] == 0 and sh["registers"] <= 255, sh
+        assert sh["frames"] in (8, 16, 32) and sh["smem_bytes"] == 256 * C * sh["frames"], sh
+        assert sh["blocks_per_sm"] >= 1, sh
+        if B in (64, 256) and M == 256:
+            assert -(-sh["blocks"] // sms) <= sh["blocks_per_sm"], (B, sh)
+        if B == 64 and M == 256:
+            assert sh["blocks"] >= sms and sh["frames"] == 32, sh
+    Yp = torch.zeros((3, 2, C, 96), device=dev)
+    w = torch.zeros((49, C), dtype=torch.complex64, device=dev)
+    with pytest.raises(RuntimeError, match="zelinski_apply"):
+        zelinski_apply(Yp, w, w)
+
+
+K7_STORED = [(form, C, M) for form in ("shared", "steered") for C in (2, 4, 8) for M in (64, 256)]
+
+
+@pytest.mark.parametrize("form,C,M", K7_STORED)
+def test_zelinski_apply_equals_stored_outputs(dev, form, C, M):
+    """K7's two entries give, bit for bit, the outputs stored from the
+    first design's kernel by ``tests/probe_zelinski_apply_phases.py --root
+    <that checkout> --write-case`` (``tests/data/zelinski_apply_case.npz``):
+    the SHA-256 of each output's bytes in the real and the modulus mode with
+    the gain from frame 1, from frame 3 and never, and the whole output at M
+    = 64 in the real mode from frame 3; the probe makes the inputs (hash
+    noise, B = 3 with one utterance digitally silent, Tf = 37)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "probe_zelinski_apply_phases", Path(__file__).parent / "probe_zelinski_apply_phases.py")
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    z = np.load(Path(__file__).parent / "data" / "zelinski_apply_case.npz")
+    tag = probe.case_tag(form, C, M)
+    w = [torch.from_numpy(z[f"{tag}_{k}"]).to(dev) for k in ("wq", "ta")]
+    Yp = torch.from_numpy(probe.case_input(form, C, M)).to(dev)
+    fn = zelinski_apply if form == "shared" else zelinski_apply_steered
+    for pf_type, pf_min in probe.CASE_PF:
+        key = f"{tag}_p{pf_type}_{min(pf_min, probe.CASE_TF)}"
+        got = fn(Yp, *w, 0.6, pf_type, pf_min)
+        if f"{key}_out" in z:
+            ref = torch.from_numpy(z[f"{key}_out"])
+            assert torch.equal(got.cpu().view(torch.int32), ref.view(torch.int32)), (
+                key, (got.cpu() - ref).abs().max().item())
+        assert probe.digest(got) == str(z[f"{key}_sha256"]), key
