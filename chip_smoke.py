@@ -2,6 +2,8 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Run from the repository root:  python3 chip_smoke.py
+(``python3 chip_smoke.py --profile-flagship M`` profiles only the flagship
+at filterbank size M, as phase 16 does in a process of its own.)
 
 Phases (each raises on failure; the script then exits non-zero):
   1. environment: the card's name and power limit, torch/CUDA/nvcc versions;
@@ -121,7 +123,7 @@ Phases (each raises on failure; the script then exits non-zero):
      wqH X, K3), gsc-lms-mccowan-c8-b256 (8 channels: K1, the LMS gate pass
      and scan, the postfilter, K3) and ds-config4-b32 (D&S + Zelinski
      behind the NLMS canceller and WPE: K1 twice, K9, K10 and K12 twice,
-     K11, K7, K3), the first two also profiled;
+     K11, K7, K3);
  14. the filterbank sizes M = 64, 128 and 512 (the one-kernel chains K4/K8
      take M = 256 only, so the split routes run): config1-m64-b256
      (BASELINE config 1: 2-channel D&S without a postfilter at M = 64,
@@ -129,8 +131,8 @@ Phases (each raises on failure; the script then exits non-zero):
      flagship-m512-b256 (GSC-RLS + Zelinski, 4 ch: K1, K2, K3) through
      build_pipeline() with the default device, each with its launch counts
      (exactly the route's kernels), its first 32 utterances against the
-     plain chain (3e-4), its time, audio-s/s/GPU, peak memory and a profile
-     of three forwards, config 1 also with K1 and K3 timed beside their
+     plain chain (3e-4), its time, audio-s/s/GPU and peak memory, config 1
+     also with K1 and K3 timed beside their
      bounds, plain versions, torch.fft and GEMM over the same rows; at each
      of the three sizes every kernel of the paths timed at B=256 x 4 ch x 10
      s (the LMS scan at 8 ch) beside its bound: K1 and K3 (with plain,
@@ -158,12 +160,31 @@ Phases (each raises on failure; the script then exits non-zero):
      one steering per utterance also at the batch four times and at one
      utterance, and the gate pass alone at that shape (its own line), four
      times and one, flag for flag against the plain gates, each beside its
-     bound.
-Phase 3 also runs, at B=8 (phase 3z), K1 and K3 at M = 64, 128 and 512 on
-noise, on pure tones at bins 0, 1, M/4, M/2 - 1 and M/2 and on impulse
-trains, K11 at M = 64 and 512 at (4, 5) and (8, 5), and at M = 512 K2, K6,
-the LMS scan and its gate pass, K7, the postfilter kernel, K9 and K10
-against their plain versions.
+     bound;
+ 16. the filterbank sizes M = 1024 and 2048 (designed prototypes, stored in
+     tests/data/prototypes; the split routes): flagship-m1024-b256 and
+     flagship-m2048-b256 (K1, K2, K3), config4-m1024-b256 (NLMS AEC, WPE,
+     GSC-RLS + Zelinski), gsc-lms-c8-m2048-b256 (8 ch) and
+     ds-zelinski-m2048-b256 (K1, K7, K3) through build_pipeline() with the
+     default device at B=256 x 10 s, each with its launch counts (exactly the
+     route's kernels), its first 32 utterances against the plain chain
+     (3e-4), its time, audio-s/s/GPU and peak memory, the flagships also
+     profiled, each in a process of its own (`--profile-flagship M`: late in
+     this long process the profiler records few or none of a session's
+     kernels); at each of the two sizes every kernel of the paths timed at
+     B=256 x 4 ch x 10 s (the LMS scan and its gate pass at 8 ch) beside its
+     bound, its plain version (the scans, K10, K11 and K12 on the first 32
+     utterances) and torch.fft or one library call; then, at B=8 x 2 s and
+     checked only, config 4 at 8 channels (C*P = 40) at 1024, config 4 with
+     the block Kalman canceller and D&S + McCowan at 2048, GSC-RLS + Zelinski
+     at 1024 with r = 3 (m*R = 32), and config 5 (SRP-PHAT DOA -> K6) at
+     1024 and 2048 with the DOA equal to the plain chain's.
+Phase 3 also runs, at B=8 (phase 3z), K1 and K3 at M = 64, 128, 512, 1024
+and 2048 on noise, on pure tones at bins 0, 1, M/4, M/2 - 1 and M/2 and on
+impulse trains, K11 at M = 64, 512, 1024 and 2048 at (4, 5) and (8, 5),
+and at M = 512, 1024 and 2048 K2, K6, the LMS scan and its gate pass, K7,
+the postfilter kernel, K9 (above 512 in all three kinds), K10 and (above
+512) K12 against their plain versions.
 Phase 2 also prints K2/K6's launch (blocks, threads, frames a chunk, shared
 memory, registers, blocks per SM) at B = 256, 132, 64 and 1 (C = 4) and at
 B = 256, C = 8; phase 5 also times K2 on the first 64 utterances and on the
@@ -210,7 +231,9 @@ bound and library time at n = 24 and 40, "n24" and "n40"; K9-K12 their
 forms at config 4's 8 channels, "c8"; the postfilter kernel its times by
 kind, "by_kind", at 8 channels, "c8", and phase 13's paths, "paths"; K1,
 K3, K2, K6, the LMS scan and K11 their times, bounds, plain, torch.fft or
-library times and launches at M = 64, 128 and 512, "by_M"; the per-utterance
+library times and launches at M = 64, 128, 512, 1024 and 2048, and K7, the
+postfilter kernel, K9, K10, K12 and the gate pass at 1024 and 2048, "by_M";
+the per-utterance
 K7 and LMS scan their plain loops' utterances, "plain_ms_utterances", and
 the LMS scan's row phase 15's paths, "steered_paths"; K7 (both entries)
 and the gate pass their times alone at other batches and shapes, each
@@ -229,6 +252,8 @@ import re
 import subprocess
 import sys
 import time
+from collections import Counter
+from pathlib import Path
 
 import numpy as np
 
@@ -268,6 +293,25 @@ def signal(rng, shape) -> np.ndarray:
     return rng.standard_normal(shape, dtype=np.float32) * np.float32(1500.0)
 
 
+# the designed Nyquist(M) prototypes at M = 1024 and 2048 (`design_nyquist_pair`
+# of (1024, 4, 1 and 3) and (2048, 4, 1 and 2)), stored: designing one pair
+# takes half a minute at 1024 and minutes at 2048
+PROTO_DIR = Path(__file__).resolve().parent / "tests" / "data" / "prototypes"
+
+
+def prototypes_at(M: int, r: int = 1) -> tuple:
+    """The filterbank prototypes (h, g) at (M, m = 4, r): designed
+    (`load_pair`) up to 512, read from `PROTO_DIR` above."""
+    from distant_speech_recognition_tpu_torch.utils.prototypes import load_pair, prototype_path
+
+    if M <= 512:
+        return load_pair(M, 4, r)
+    if not Path(prototype_path("h", M, 4, r, str(PROTO_DIR))).is_file():
+        raise FileNotFoundError(f"no stored prototypes for (M, m, r) = ({M}, 4, {r}) in "
+                                f"{PROTO_DIR}")
+    return load_pair(M, 4, r, proto_dir=str(PROTO_DIR))
+
+
 def bound(nbytes: float, flops: float, flops64: float = 0.0) -> tuple[float, str]:
     """Least time on the card (ms) for moving ``nbytes`` and doing ``flops``
     FP32 and ``flops64`` FP64 operations, each at its own peak, and which of
@@ -284,6 +328,86 @@ def gj_bound(n: int, n_sys: int) -> tuple[float, str]:
     rows' complex multiply-adds on those columns (8 each): in all 4 n (n + 1)
     + 4 (n - 1) n (n + 1) = 4 n^2 (n + 1) flops a system."""
     return bound(8 * n_sys * (n * n + 2 * n), n_sys * 4 * n * n * (n + 1))
+
+
+def profile_path(fn, n: int = 3) -> dict:
+    """Device busy time and idle share over ``n`` back-to-back calls of
+    ``fn``, and device time per kernel (reported, not checked).  One call
+    runs first inside the session and is left out: a session has been seen
+    to miss the first call's kernels.  The measured calls' kernels are those
+    that start after a marker kernel (aten's ``spin_kernel``) launched
+    between the two: the device's clock alone decides, since a kernel has
+    been seen to start 0.28 ms before the host's record of the range that
+    launched it.  Raises if the session recorded none of the measured
+    calls' kernels; returns the busy time, the span and the idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with torch.no_grad():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+            torch.cuda._sleep(1000)
+            with record_function("dsr_measured"):
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+    cuda_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    marks = [e.time_range.start for e in cuda_events if "spin_kernel" in e.name]
+    # the device events of the measured calls (the range's own mark on the
+    # device timeline is no kernel)
+    device = [e for e in cuda_events if marks and e.time_range.start > max(marks)
+              and e.name != "dsr_measured"]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in device)
+    if not spans:
+        raise AssertionError(
+            f"the profiler recorded no device time for the measured calls: "
+            f"{len(cuda_events)} device events ({dict(Counter(e.name[:40] for e in cuda_events))}), "
+            f"{len(marks)} markers")
+    busy, (lo, hi) = 0.0, spans[0]
+    for s0, s1 in spans[1:]:  # union of the device intervals
+        if s0 > hi:
+            busy, lo = busy + hi - lo, s0
+        hi = max(hi, s1)
+    busy += hi - lo
+    span = spans[-1][1] - spans[0][0]
+    per_kernel, recorded = {}, {}
+    for e in device:
+        name = e.name.replace("(anonymous namespace)::", "").removeprefix("void ")
+        name = re.split(r"[<(]", name)[0].split("::")[-1][:40]
+        per_kernel[name] = per_kernel.get(name, 0.0) + e.time_range.elapsed_us()
+        recorded[name] = recorded.get(name, 0) + 1
+    idle = 100 * (1 - busy / span)
+    log(f"  device busy {busy / (1e3 * n):.3f} ms per forward of a {span / (1e3 * n):.3f} ms "
+        f"span: idle {idle:.2f}%")
+    for name, us in sorted(per_kernel.items(), key=lambda kv: -kv[1]):
+        log(f"  {name:40s} {us / (1e3 * n):9.3f} ms per forward  {100 * us / busy:5.1f}%  "
+            f"({recorded[name]} launches recorded)")
+    return dict(busy_ms=busy / (1e3 * n), span_ms=span / (1e3 * n), idle_pct=idle,
+                per_kernel_ms={k: v / (1e3 * n) for k, v in per_kernel.items()})
+
+
+def profile_flagship(M: int) -> None:
+    """``--profile-flagship M``: `profile_path` over the flagship (GSC-RLS +
+    Zelinski, m = 4, r = 1; `build_pipeline` with the default device) at
+    filterbank size M, at phase 16's shape (B=256 x 4 ch x 10 s), in a
+    process of its own: late in the smoke's long process the profiler's
+    sessions record few or none of their kernels (PERF.md §7).  Its last
+    line is the profile as JSON."""
+    import torch
+
+    from distant_speech_recognition_tpu_torch.models.pipeline import PipelineConfig, build_pipeline
+    from distant_speech_recognition_tpu_torch.ops.filterbank import FilterbankParams
+    from distant_speech_recognition_tpu_torch.utils import geometry
+
+    fb = FilterbankParams(M=M, m=4, r=1, delay_compensation_type=2)
+    cfg = PipelineConfig(fb=fb, samplerate=float(FS), beamformer="gsc_rls",
+                         postfilter="zelinski", pf_min_frames=2)
+    mpos = np.c_[np.arange(C) * 50.0, np.zeros((C, 2))]
+    delays = geometry.calc_la_delays(mpos[:, :1], azimuth=np.pi / 3)
+    enh = build_pipeline(cfg, mpos, delays, *prototypes_at(M))
+    x = torch.from_numpy(signal(np.random.default_rng(SEED), (256, C, 10 * FS))).cuda()
+    print(json.dumps(profile_path(lambda: enh(x))), flush=True)
 
 
 def main() -> None:
@@ -946,13 +1070,15 @@ def main() -> None:
 
     # the other filterbank sizes: K1 and K3 on noise, on pure tones at bins
     # 0, 1, M/4, M/2 - 1 and M/2 and on impulse trains (one impulse an
-    # M-sample block), at M = 64, 128 and 512; at M = 512 (F = 257) the
-    # scans K2, K6 (8 steerings) and LMS with its gate pass, K7 and the
-    # postfilter kernel, K9 and K10; K11 at M = 64 and 512, at (4, 5) and (8, 5)
-    log("== 3z. kernels at M = 64, 128 and 512 vs plain torch on the card (B=8, 2 s)")
-    for M_ in (64, 128, 512):
+    # M-sample block), at M = 64, 128, 512, 1024 and 2048; at M = 512, 1024
+    # and 2048 (F = 257, 513, 1025) the scans K2, K6 (8 steerings) and LMS
+    # with its gate pass, K7 and the postfilter kernel, K9 (NLMS; above 512
+    # all three kinds), K10 and (above 512) K12 on K10's systems; K11 at M =
+    # 64, 512, 1024 and 2048, at (4, 5) and (8, 5)
+    log("== 3z. kernels at M = 64, 128, 512, 1024 and 2048 vs plain torch on the card (B=8, 2 s)")
+    for M_ in (64, 128, 512, 1024, 2048):
         fb_ = FilterbankParams(M=M_, m=4, r=1, delay_compensation_type=2)
-        h_, g_ = (torch.as_tensor(a, dtype=torch.float32).to(dev) for a in load_pair(M_, 4, 1))
+        h_, g_ = (torch.as_tensor(a, dtype=torch.float32).to(dev) for a in prototypes_at(M_))
         F_ = M_ // 2 + 1
         Yr_ = analysis_half_real_tm(xs, h_, fb_, packed=True)
         compare(f"analysis_tm M={M_}", analysis_tm_fused(xs, h_, fb_), Yr_, 2e-5, "analysis_tm")
@@ -986,7 +1112,7 @@ def main() -> None:
                     analysis_half_real_tm(xt_, h_, fb_, packed=True), 2e-5, "analysis_tm")
             compare(f"synthesis_tm M={M_}, {tag_}", synthesis_tm_fused(Yt_, g_, fb_),
                     synthesis_half_real_tm(Yt_, g_, fb_), 2e-5, "synthesis_tm")
-        if M_ in (64, 512):  # K11 at (4, 5), narrow, and (8, 5), the wide kernel
+        if M_ != 128:  # K11 at (4, 5) and (8, 5): narrow and wide at 64 and 512, wide above
             for C_, P_ in ((4, 5), (8, 5)):
                 Yw_ = torch.from_numpy(signal(rng, (Tf_s, 8, C_, M_)) / np.float32(50.0)).to(dev)
                 Gw_ = torch.from_numpy((0.1 * (rng.standard_normal((8, C_, F_, C_ * P_))
@@ -996,53 +1122,60 @@ def main() -> None:
                         pack_half(resid_plain(frames(Yw_), Gw_, lower).permute(2, 0, 1, 3)),
                         1e-5, "wpe_resid")
             del Yw_, Gw_
-        if M_ != 512:
+        if M_ < 512:
             continue
         d_ = geometry.calc_la_delays(mpos[:, :1], azimuth=np.pi / 3)
         wq_, bm_ = gsc_weights(M_, float(FS), d_, 1)
         vs_ = array_manifold(M_, float(FS), d_)
         w_ = (wq_.to(dev), bm_.to(dev), vs_.to(dev))
         rls_ = GSCRLSConfig(min_frames=8)
-        compare("gsc_rls_zelinski M=512", gsc_rls_zelinski(Yr_, *w_, rls_, 0.6, 1, 2),
+        compare(f"gsc_rls_zelinski M={M_}", gsc_rls_zelinski(Yr_, *w_, rls_, 0.6, 1, 2),
                 gsc_postfilter_fused(Yr_, None, *w_, "rls", rls_, 0.6, 1, 2, True), 2e-4,
                 "gsc_rls_zelinski")
         vs8_ = array_manifold(M_, float(FS), torch.tensor(d8, dtype=torch.float32, device=dev))
         st8_ = steering_weights(vs8_)
-        compare("gsc_rls_zelinski_steered M=512, 8 steerings",
+        compare(f"gsc_rls_zelinski_steered M={M_}, 8 steerings",
                 gsc_rls_zelinski_steered(Yr_, *st8_, rls_, 0.6, 1, 2),
                 gsc_postfilter_fused(Yr_, None, *st8_, "rls", rls_, 0.6, 1, 2, True), 2e-4,
                 "gsc_rls_zelinski_steered")
         lms_ = GSCLMSConfig(min_frames=6, slowdown_after=7)
-        compare("gsc_lms_zelinski M=512", gsc_lms_zelinski(Yr_, *w_, lms_, 0.6, 2, 0),
+        compare(f"gsc_lms_zelinski M={M_}", gsc_lms_zelinski(Yr_, *w_, lms_, 0.6, 2, 0),
                 gsc_postfilter_fused(Yr_, None, *w_, "lms", lms_, 0.6, 2, 0, True), 2e-4,
                 "gsc_lms_zelinski")
         gates_ = lms_gates(Yr_, lms_)
         if not torch.equal(gates_, lms_silence_gates(Yr_, lms_)):
-            raise AssertionError("lms_gates at M=512 differs from the plain gates")
-        log(f"  lms_gates M=512: equal to the plain gates, flag for flag "
+            raise AssertionError(f"lms_gates at M={M_} differs from the plain gates")
+        log(f"  lms_gates M={M_}: equal to the plain gates, flag for flag "
             f"({int(gates_.sum().item())} of {gates_.numel()} open)")
         wf_ = (vs_.conj().resolve_conj().to(dev), vs_.to(dev))
-        compare("zelinski_apply M=512", zelinski_apply(Yr_, *wf_, 0.6, 1, 2),
+        compare(f"zelinski_apply M={M_}", zelinski_apply(Yr_, *wf_, 0.6, 1, 2),
                 zelinski_apply_plain(Yr_, *wf_, 0.6, 1, 2), 3e-5, "zelinski_apply")
         Gam_ = diffuse_noise_coherence(mpos, M_, float(FS))
         pc_ = coherence_constants("mccowan", Gam_, vs_, 1).to(dev)
         Yb_ = pack_half(apply_weights(wf_[0], unpack_half(Yr_).movedim(-2, -1)))
-        compare("coherence_postfilter mccowan M=512",
+        compare(f"coherence_postfilter mccowan M={M_}",
                 coherence_postfilter(Yr_, Yb_, *wf_, "mccowan", pc_, 0.6, 1, 2),
                 coherence_postfilter_plain(Yr_, Yb_, *wf_, "mccowan", pc_, 0.6, 1, 2), 1e-4,
                 "coherence_postfilter")
         Vs_ = analysis_half_real_tm(torch.from_numpy(signal(rng, (8, 1, 2 * FS))).to(dev), h_,
                                     fb_, packed=True)[:, :, 0, :]
-        compare("aec_scan nlms M=512", aec_scan(Yr_, Vs_, "nlms", cfg4.aec_delta,
-                                                cfg4.aec_epsilon, cfg4.aec_threshold),
-                plain_aec(Yr_, Vs_), 1e-4, "aec_scan")
+        for kind, p1, p2 in (("nlms", cfg4.aec_delta, cfg4.aec_epsilon), ("kalman", *KALMAN_P),
+                             ("block_kalman", *KALMAN_P))[:1 if M_ == 512 else 3]:
+            compare(f"aec_scan {kind} M={M_}", aec_scan(Yr_, Vs_, kind, p1, p2,
+                                                        cfg4.aec_threshold),
+                    plain_aec(Yr_, Vs_, kind, p1, p2), 1e-4, "aec_scan")
         Gn_ = torch.from_numpy((0.1 * (rng.standard_normal((8, C, F_, C * P))
                                        + 1j * rng.standard_normal((8, C, F_, C * P)))
                                 ).astype(np.complex64)).to(dev)
         Rs_, rs_ = stats_plain(frames(Yr_), Gn_, lower, P, True)
         Rk_, rk_ = wpe_stats(Yr_, Gn_, lower, P, has_g=True)
-        compare("wpe_stats R M=512", Rk_, Rs_, 2e-4, "wpe_stats", lead=3)
-        compare("wpe_stats r M=512", rk_, rs_, 2e-4, "wpe_stats", lead=3)
+        compare(f"wpe_stats R M={M_}", Rk_, Rs_, 2e-4, "wpe_stats", lead=3)
+        compare(f"wpe_stats r M={M_}", rk_, rs_, 2e-4, "wpe_stats", lead=3)
+        if M_ > 512:  # K12 on the statistics' 8 x C x F systems
+            Rl_ = wpe_load(Rs_)
+            compare(f"gj_solve M={M_}", gj_solve(Rl_, rs_), gj_solve_plain(Rl_, rs_), 1e-4,
+                    "gj_solve", lead=3, sys_budget=GJ_SYS_BUDGET)
+            del Rl_
         del Vs_, Gn_, Rs_, rs_, Rk_, rk_, Yb_, vs8_, st8_
     del xs, Yr_ref, Yr_, Yn_, Yt_, xt_, A_
 
@@ -1386,50 +1519,6 @@ def main() -> None:
         f"{block_kalman_ms[0]:.3f} ms beside nlms {times['aec_scan'][0]:.3f} ms and kalman "
         f"{kalman_ms[0]:.3f} ms")
     del enh4bk, y4bk
-
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    def profile_path(fn, n=3):
-        """Device busy time and idle share over ``n`` back-to-back calls of
-        ``fn``, and device time per kernel (reported, not checked).  One call
-        runs first inside the session and is left out: a session has been
-        seen to miss the first call's kernels (2 of 3 launches recorded)."""
-        with torch.no_grad():
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                fn()
-                torch.cuda.synchronize()
-                with record_function("dsr_measured"):
-                    for _ in range(n):
-                        fn()
-                    torch.cuda.synchronize()
-        t0 = min(e.time_range.start for e in prof.events() if e.name == "dsr_measured")
-        # the device events of the measured calls (the range's own mark on
-        # the device timeline is no kernel)
-        device = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA and e.time_range.start >= t0
-                  and e.name != "dsr_measured"]
-        spans = sorted((e.time_range.start, e.time_range.end) for e in device)
-        if not spans:
-            log("  the profiler recorded no device time")
-            return
-        busy, (lo, hi) = 0.0, spans[0]
-        for s0, s1 in spans[1:]:  # union of the device intervals
-            if s0 > hi:
-                busy, lo = busy + hi - lo, s0
-            hi = max(hi, s1)
-        busy += hi - lo
-        span = spans[-1][1] - spans[0][0]
-        per_kernel, recorded = {}, {}
-        for e in device:
-            name = e.name.replace("(anonymous namespace)::", "").removeprefix("void ")
-            name = re.split(r"[<(]", name)[0].split("::")[-1][:40]
-            per_kernel[name] = per_kernel.get(name, 0.0) + e.time_range.elapsed_us()
-            recorded[name] = recorded.get(name, 0) + 1
-        log(f"  device busy {busy / (1e3 * n):.3f} ms per forward of a {span / (1e3 * n):.3f} ms "
-            f"span: idle {100 * (1 - busy / span):.2f}%")
-        for name, us in sorted(per_kernel.items(), key=lambda kv: -kv[1]):
-            log(f"  {name:40s} {us / (1e3 * n):9.3f} ms per forward  {100 * us / busy:5.1f}%  "
-                f"({recorded[name]} launches recorded)")
 
     log("== 7. torch.profiler over 3 back-to-back flagship (gsc_mono) forwards")
     profile_path(lambda: enh(x))
@@ -1797,7 +1886,7 @@ def main() -> None:
     # K1's least time at 8 channels (as for the kernel table below: samples in,
     # packed rows out, FFT-cost DFT rows)
     rows3 = Tf * B * C3
-    k1_8_bound = bound(4 * (B * C3 * T + rows3 * M + M * M + fb.N),
+    k1_8_bound = bound(4 * (B * C3 * T + rows3 * M + 2 * M + fb.N),
                        rows3 * 2.5 * M * np.log2(M) + 2 * fb.m * M * rows3)
     log(f"  at 8 channels: analysis_tm {k1_8_ms:.3f} ms (bound {k1_8_bound[0]:.3f} ms, "
         f"{k1_8_bound[1]})   synthesis_tm {k3_8_ms:.3f} ms   gsc_rls_zelinski {k2_8_ms:.3f} ms")
@@ -2109,7 +2198,8 @@ def main() -> None:
         Yr_ = analysis_half_real_tm(x_, enh_.h, fb_, packed=True, A=enh_.A)
         if play_ is not None:
             Vp_ = analysis_half_real_tm(play_[:, None, :], enh_.h, fb_, packed=True, A=enh_.A)
-            Yr_ = plain_wpe(plain_aec(Yr_, Vp_[:, :, 0, :]))
+            Yr_ = plain_wpe(plain_aec(Yr_, Vp_[:, :, 0, :], c_.aec, c_.aec_delta, c_.aec_epsilon,
+                                      c_.aec_threshold))
         zel = c_.postfilter == "zelinski"
         w_ = (enh_.wqH, enh_.wq_manifold)
         if c_.beamformer in FIXED_WEIGHT:
@@ -2129,11 +2219,11 @@ def main() -> None:
                                              c_.pf_alpha, c_.pf_type, c_.pf_min_frames)
         return synthesis_half_real_tm(Yp_, enh_.g, fb_, S=enh_.S)
 
-    def check_path(name_, enh_, args_, want_, prof=False):
+    def check_path(name_, enh_, args_, want_):
         """One path through build_pipeline's module: its launches around one
         forward (exactly ``want_``, nothing else), its first 32 utterances
         against the plain chain (3e-4), its CUDA-event time, audio-s/s/GPU
-        and peak memory, and with ``prof`` a profile of three forwards."""
+        and peak memory."""
         B_, secs_ = args_[0].shape[0], args_[0].shape[-1] / FS
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2161,9 +2251,6 @@ def main() -> None:
             ms_ = time_ms(lambda: enh_(*args_), 3)
         log(f"  {name_}: {ms_:.3f} ms ({B_ * secs_ / (ms_ / 1e3):.1f} audio-s/s/GPU), peak device "
             f"memory of one forward {peak_:.2f} GB   ({smi_line()})")
-        if prof:
-            log(f"  torch.profiler over 3 back-to-back {name_} forwards")
-            profile_path(lambda: enh_(*args_))
         return dict(ms=ms_, audio_s_per_s=B_ * secs_ / (ms_ / 1e3), peak_gb=peak_,
                     max_abs_err=err_, launches=c_)
 
@@ -2192,8 +2279,7 @@ def main() -> None:
             f"B={B_} x {C_} ch x {secs} s")
         want13 = {"analysis_tm": 1, "synthesis_tm": 1} | extra | (
             {"coherence_postfilter": 1} if cfg13.postfilter != "zelinski" else {})
-        path13[name13] = check_path(name13, enh13, args13, want13,
-                                    prof=name13 in ("gsc-rls-mccowan-b256", "ds-lefkimmiatis-b256"))
+        path13[name13] = check_path(name13, enh13, args13, want13)
         counts13[name13] = path13[name13]["launches"]
         del enh13
     del x13, x13_8, play13
@@ -2212,12 +2298,12 @@ def main() -> None:
 
     def k1_bound_at(fb_, B_, C_, T_):
         rows_ = num_analysis_frames(fb_, T_) * B_ * C_
-        return bound(4 * (B_ * C_ * T_ + rows_ * fb_.M + fb_.M * fb_.M + fb_.N),
+        return bound(4 * (B_ * C_ * T_ + rows_ * fb_.M + 2 * fb_.M + fb_.N),
                      rows_ * fft_flops_at(fb_.M) + 2 * fb_.m * fb_.M * rows_)
 
     def k3_bound_at(fb_, B_, Tf_):
         T_out_ = (Tf_ - fb_.synthesis_delay) * fb_.D
-        return bound(4 * (Tf_ * B_ * fb_.M + B_ * T_out_ + fb_.M * fb_.M + fb_.N),
+        return bound(4 * (Tf_ * B_ * fb_.M + B_ * T_out_ + 2 * fb_.M + fb_.N),
                      Tf_ * B_ * fft_flops_at(fb_.M) + 2 * fb_.m * fb_.M * (T_out_ // fb_.D) * B_)
 
     def k2_bound_at(M_, Tf_, B_, Cx):
@@ -2268,7 +2354,7 @@ def main() -> None:
     log(f"== 14a. config1-m64-b256: {cfg1.beamformer} + {cfg1.postfilter}, M=64 m=4 r=1, "
         f"B={B} x 2 ch x {secs} s")
     cells14["config1-m64-b256"] = check_path("config1-m64-b256", enh1, (x1,),
-                                             {"analysis_tm": 1, "synthesis_tm": 1}, prof=True)
+                                             {"analysis_tm": 1, "synthesis_tm": 1})
     counts14["config1-m64-b256"] = cells14["config1-m64-b256"]["launches"]
     with torch.no_grad():
         Tf1 = num_analysis_frames(fb1, T)
@@ -2313,7 +2399,7 @@ def main() -> None:
             log(f"== 14b. {name_}: gsc_rls + zelinski, M={M_} m=4 r=1, B={B} x {C} ch x {secs} s")
             cells14[name_] = check_path(name_, enhM, (x14,),
                                         {"analysis_tm": 1, "gsc_rls_zelinski": 1,
-                                         "synthesis_tm": 1}, prof=True)
+                                         "synthesis_tm": 1})
             counts14[name_] = cells14[name_]["launches"]
         log(f"== 14c. the kernels at M={M_}, B={B} x {C} ch x {secs} s (LMS: {C3} ch; plain "
             f"scans timed on the first {n32} utterances at M = 512)")
@@ -2613,7 +2699,7 @@ def main() -> None:
 
     def k4_bound(Cx):  # samples in and out; the spectra never leave the chip
         rows_x = Tf * B * Cx
-        return bound(4 * (B * Cx * T + B * T_out + 2 * M * M + 2 * fb.N) + 8 * F * Cx * (1 + Cx),
+        return bound(4 * (B * Cx * T + B * T_out + 2 * M + 2 * fb.N) + 8 * F * Cx * (1 + Cx),
                      (rows_x + Tf * B) * fft_flops + 2 * fb.m * M * rows_x + fir_out
                      + 8 * rls_macs(Cx) * Tf * B * F)
 
@@ -2645,10 +2731,10 @@ def main() -> None:
     rls_flops = 8 * scan_macs * Tf * B * F  # the scan's per (frame, utterance, bin) work
     fir_rows = B * C * Tf  # the round trip's analysis FIR: rows out, and (m-1)*R more in
     bounds = {
-        "analysis_tm": bound(4 * (B * C * T + rows * M + M * M + fb.N),
+        "analysis_tm": bound(4 * (B * C * T + rows * M + 2 * M + fb.N),
                              rows * fft_flops + fir_in),
         "gsc_rls_zelinski": k2_bound(C),
-        "synthesis_tm": bound(4 * (Tf * B * M + B * T_out + M * M + fb.N),
+        "synthesis_tm": bound(4 * (Tf * B * M + B * T_out + 2 * M + fb.N),
                               Tf * B * fft_flops + fir_out),
         "aec_scan": bound(4 * (2 * rows * M + Tf * B * M), 30 * rows * F),
         # the timed call has filters: its weight residual runs in FP64
@@ -2684,12 +2770,12 @@ def main() -> None:
         "zelinski_apply_steered": bound(4 * (rows5 * M + Tf * B5 * M) + 16 * B5 * F * C,
                                         zel_flops * Tf * B5 * F),
         # samples in and out; the spectra never leave the chip
-        "fw_mono": bound(4 * (B * C * T + B * T_out + 2 * M * M + 2 * fb.N) + 16 * F * C,
+        "fw_mono": bound(4 * (B * C * T + B * T_out + 2 * M + 2 * fb.N) + 16 * F * C,
                          (rows + Tf * B) * fft_flops + fir_in + fir_out
                          + zel_flops * Tf * B * F),
         # samples in, samples (K4) or the beamformed spectrum (K5) out
         "gsc_mono": k4_bound(C),
-        "gsc_analysis": bound(4 * (B * C * T + Tf * B * M + M * M + fb.N) + 8 * F * C * (2 + Bc),
+        "gsc_analysis": bound(4 * (B * C * T + Tf * B * M + 2 * M + fb.N) + 8 * F * C * (2 + Bc),
                               rows * fft_flops + fir_in + rls_flops),
         # X and the beamformer output in, the output out (the constants and
         # weights are a few hundred KB); flops of one (frame, utterance,
@@ -2699,6 +2785,277 @@ def main() -> None:
         "polyphase_fir": bound(4 * ((2 * fir_rows + B * C * (fb.m - 1) * fb.R) * M + fb.N),
                                2 * fb.m * M * fir_rows),
     }
+    # -- 16. the filterbanks at M = 1024 and 2048 ------------------------------------
+    # designed prototypes (`prototypes_at`); every route is the split one (K4/K8
+    # take M = 256 only).  At B=256 x 10 s (4 ch unless named): each path's
+    # launches (exactly its kernels), its first 32 utterances against the
+    # plain chain (3e-4), its time, audio-s/s/GPU and peak memory; every
+    # kernel of the paths timed at each M beside its bound, its plain version
+    # (the scans' and K10/K11's on the first 32 utterances) and torch.fft or
+    # a library call; then the other paths at B=8 x 2 s, checked only
+    t16 = time.perf_counter()
+    log(f"== 16. the filterbank sizes M = 1024 and 2048 (B={B} x {secs} s; designed prototypes "
+        "from tests/data/prototypes; the split routes)")
+    cells16 = {}
+    x16 = torch.from_numpy(signal(rng, (B, C, T))).to(dev)
+    x16_8 = torch.from_numpy(signal(rng, (B, C3, T))).to(dev)
+    play16 = torch.from_numpy(signal(rng, (B, T))).to(dev)
+    for k_ in ("zelinski_apply", "coherence_postfilter", "aec_scan", "wpe_stats", "gj_solve",
+               "lms_gates"):
+        by_M.setdefault(k_, {})
+
+    def aec_bound_at(M_, Tf_, B_, Cx):
+        rows_ = Tf_ * B_ * Cx
+        return bound(4 * (2 * rows_ * M_ + Tf_ * B_ * M_), 30 * rows_ * (M_ // 2 + 1))
+
+    def stats_bound_at(M_, Tf_, B_, Cx, P_):
+        F_, CP_, valid_ = M_ // 2 + 1, Cx * P_, Tf_ - lower
+        return bound(4 * Tf_ * B_ * Cx * M_ + 8 * B_ * Cx * F_ * (CP_ * CP_ + 2 * CP_),
+                     B_ * Cx * F_ * valid_ * (8 * CP_ * (CP_ + 1) // 2 + 2 * CP_ + 8 * CP_),
+                     B_ * Cx * F_ * valid_ * 8 * CP_)
+
+    def pf_bound_at(M_, Tf_, B_, Cx):  # McCowan, the beamformer's output given
+        return bound(4 * Tf_ * B_ * M_ * (Cx + 2), pf_flops("mccowan", Cx) * Tf_ * B_ * (M_ // 2 + 1))
+
+    for M_ in (1024, 2048):
+        fb_ = FilterbankParams(M=M_, m=4, r=1, delay_compensation_type=2)
+        h_, g_ = prototypes_at(M_)
+        cfgM = dataclasses.replace(cfg, fb=fb_)
+        enhM = build_pipeline(cfgM, mpos, delays, h_, g_)
+        name_ = f"flagship-m{M_}-b256"
+        log(f"== 16a. {name_}: gsc_rls + zelinski, M={M_} m=4 r=1, B={B} x {C} ch x {secs} s")
+        cells16[name_] = check_path(name_, enhM, (x16,), {"analysis_tm": 1, "gsc_rls_zelinski": 1,
+                                                          "synthesis_tm": 1})
+        log(f"  torch.profiler over 3 back-to-back {name_} forwards, in a process of its own "
+            f"(`--profile-flagship {M_}`, its own noise)")
+        child = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                                "--profile-flagship", str(M_)], capture_output=True, text=True,
+                               timeout=600)
+        out_ = child.stdout.strip().splitlines()
+        for line_ in out_[:-1]:
+            log(line_)
+        if child.returncode != 0:
+            raise AssertionError(f"profiling {name_} in its own process failed "
+                                 f"(rc {child.returncode}): {child.stderr[-3000:]}")
+        cells16[name_]["profile"] = json.loads(out_[-1])
+        log(f"== 16b. the kernels at M={M_}, B={B} x {C} ch x {secs} s (LMS: {C3} ch; plain "
+            f"scans, K10 and K11 timed on the first {n32} utterances)")
+        TfM = num_analysis_frames(fb_, T)
+        F_ = M_ // 2 + 1
+        sargs = (enhM.wqH, enhM.BmH, enhM.wq_manifold, cfgM.rls, cfgM.pf_alpha, cfgM.pf_type,
+                 cfgM.pf_min_frames)
+        with torch.no_grad():
+            YrM = analysis_tm_fused(x16, enhM.h, fb_, hr=enhM.hr)
+            W_ = torch.randn((TfM * B * C, M_), device=dev)
+            by_M["analysis_tm"][M_] = kernel_row(
+                f"analysis_tm M={M_}",
+                time_ms(lambda: analysis_tm_fused(x16, enhM.h, fb_, hr=enhM.hr), 5),
+                k1_bound_at(fb_, B, C, T),
+                plain_ms=time_ms(lambda: analysis_half_real_tm(x16, enhM.h, fb_, packed=True,
+                                                               A=enhM.A), 1),
+                fft_ms=time_ms(lambda: torch.fft.rfft(W_, dim=-1), 5),
+                library_ms=time_ms(lambda: torch.matmul(W_, enhM.A), 3))
+            del W_
+            YpM = gsc_rls_zelinski(YrM, *sargs)
+            by_M["gsc_rls_zelinski"][M_] = kernel_row(
+                f"gsc_rls_zelinski M={M_}", time_ms(lambda: gsc_rls_zelinski(YrM, *sargs), 3),
+                k2_bound_at(M_, TfM, B, C),
+                plain_ms_b32=timed(lambda: gsc_postfilter_fused(
+                    YrM[:, :n32], None, *sargs[:3], "rls", *sargs[3:], True))[1],
+                library_ms=None)
+            by_M["synthesis_tm"][M_] = kernel_row(
+                f"synthesis_tm M={M_}",
+                time_ms(lambda: synthesis_tm_fused(YpM, enhM.g, fb_, gf=enhM.gf), 5),
+                k3_bound_at(fb_, B, TfM),
+                plain_ms=time_ms(lambda: synthesis_half_real_tm(YpM, enhM.g, fb_, S=enhM.S), 1),
+                fft_ms=time_ms(lambda: torch.fft.irfft(unpack_half(YpM.reshape(-1, M_)), n=M_,
+                                                       dim=-1), 5),
+                library_ms=time_ms(lambda: torch.matmul(YpM.reshape(-1, M_), enhM.S), 3))
+            del YpM
+            dM = np.stack([geometry.calc_ca_delays(mpos5, az, np.pi / 2) for az in ang_])
+            stM = steering_weights(array_manifold(M_, float(FS), torch.tensor(
+                dM, dtype=torch.float32, device=dev)))
+            by_M["gsc_rls_zelinski_steered"][M_] = kernel_row(
+                f"gsc_rls_zelinski_steered M={M_}",
+                time_ms(lambda: gsc_rls_zelinski_steered(YrM, *stM, *sargs[3:]), 3),
+                k6_bound_at(M_, TfM, B, C),
+                plain_ms_b32=timed(lambda: gsc_postfilter_fused(
+                    YrM[:, :n32], None, *(t[:n32] for t in stM), "rls", *sargs[3:], True))[1],
+                library_ms=None)
+            del stM
+            # K7 and the McCowan postfilter kernel (the beamformer's output
+            # given) at the D&S weights
+            wf_ = (torch.conj(enhM.wq_manifold).resolve_conj(), enhM.wq_manifold)
+            zargs = (*wf_, cfgM.pf_alpha, cfgM.pf_type, cfgM.pf_min_frames)
+            by_M["zelinski_apply"][M_] = kernel_row(
+                f"zelinski_apply M={M_}", time_ms(lambda: zelinski_apply(YrM, *zargs), 5),
+                bound(*k7_cost(TfM, B, C, M_, False)),
+                plain_ms=time_ms(lambda: zelinski_apply_plain(YrM, *zargs), 1), library_ms=None)
+            pcM = coherence_constants("mccowan", diffuse_noise_coherence(mpos, M_, float(FS)),
+                                      enhM.wq_manifold, 1).to(dev)
+            YbM = pack_half(apply_weights(wf_[0], unpack_half(YrM).movedim(-2, -1)))
+            pargs = (*wf_, "mccowan", pcM, cfgM.pf_alpha, cfgM.pf_type, cfgM.pf_min_frames)
+            by_M["coherence_postfilter"][M_] = kernel_row(
+                f"coherence_postfilter mccowan M={M_}",
+                time_ms(lambda: coherence_postfilter(YrM, YbM, *pargs), 5),
+                pf_bound_at(M_, TfM, B, C),
+                plain_ms=time_ms(lambda: coherence_postfilter_plain(YrM, YbM, *pargs), 1),
+                library_ms=None)
+            del YbM
+            # config 4's kernels: K9 (NLMS) on the far end, K10 with 0.1-scale
+            # noise filters, K12 on the first iteration's systems, K11
+            VpM = analysis_tm_fused(play16[:, None, :], enhM.h, fb_, hr=enhM.hr)[:, :, 0, :]
+            aargs = ("nlms", cfg4.aec_delta, cfg4.aec_epsilon, cfg4.aec_threshold)
+            by_M["aec_scan"][M_] = kernel_row(
+                f"aec_scan nlms M={M_}", time_ms(lambda: aec_scan(YrM, VpM, *aargs), 5),
+                aec_bound_at(M_, TfM, B, C),
+                plain_ms=time_ms(lambda: plain_aec(YrM, VpM), 1), library_ms=None)
+            log(f"  aec_scan nlms M={M_} launch {aec_launch_shape(B, C, M_, 'nlms')}")
+            del VpM
+            GM = torch.from_numpy((0.1 * (rng.standard_normal((B, C, F_, C * P))
+                                          + 1j * rng.standard_normal((B, C, F_, C * P)))
+                                   ).astype(np.complex64)).to(dev)
+            Xc = frames(YrM[:, :n32])
+            by_M["wpe_stats"][M_] = kernel_row(
+                f"wpe_stats M={M_} (C, P) = ({C}, {P}), filters",
+                time_ms(lambda: wpe_stats(YrM, GM, lower, P, has_g=True), 3),
+                stats_bound_at(M_, TfM, B, C, P),
+                plain_ms_b32=timed(lambda: stats_plain(Xc, GM[:n32], lower, P, True))[1],
+                library_ms=None)
+            R0M, r0M = wpe_stats(YrM, torch.zeros_like(GM), lower, P, has_g=False)
+            R0M = wpe_load(R0M)
+            by_M["gj_solve"][M_] = kernel_row(
+                f"gj_solve M={M_} n = {C * P}, {B * C * F_} systems",
+                time_ms(lambda: gj_solve(R0M, r0M), 5), gj_bound(C * P, B * C * F_),
+                plain_ms_b32=timed(lambda: gj_solve_plain(R0M[:n32], r0M[:n32]))[1],
+                library_ms=time_ms(lambda: torch.linalg.solve(R0M, r0M), 1))
+            del R0M, r0M
+            Lg = torch.stack([torch.nn.functional.pad(Xc[:16], (0, 0, lower + dp, 0))[:, :, :TfM]
+                              for dp in range(P)], dim=-1)  # [16, C, Tf, F, P]
+            Lg = Lg.permute(0, 3, 1, 4, 2).reshape(16, F_, C * P, TfM)
+            G16 = GM[:16].conj()[:, :, :, None, :].resolve_conj()
+            by_M["wpe_resid"][M_] = kernel_row(
+                f"wpe_resid M={M_} (C, P) = ({C}, {P})",
+                time_ms(lambda: wpe_resid(YrM, GM, lower), 5), k11_bound_at(M_, TfM, B, C, P),
+                plain_ms_b32=timed(lambda: resid_plain(Xc, GM[:n32], lower))[1],
+                library_ms=time_ms(lambda: torch.matmul(G16, Lg[:, None]), 3) * B / 16)
+            del GM, Xc, Lg, G16, YrM
+            # the LMS scan (with its gate pass) and the gate pass alone at 8 channels
+            wq8, bm8 = gsc_weights(M_, float(FS), delays3, 1)
+            w8 = (wq8.to(dev), bm8.to(dev), array_manifold(M_, float(FS), delays3).to(dev),
+                  cfg.lms, cfg.pf_alpha, cfg.pf_type, cfg.pf_min_frames)
+            Yr8 = analysis_tm_fused(x16_8, enhM.h, fb_, hr=enhM.hr)
+            by_M["gsc_lms_zelinski"][M_] = kernel_row(
+                f"gsc_lms_zelinski M={M_} C={C3} (gate pass included)",
+                time_ms(lambda: gsc_lms_zelinski(Yr8, *w8), 3), lms_bound_at(M_, TfM, B, C3),
+                plain_ms_b32=timed(lambda: gsc_postfilter_fused(
+                    Yr8[:, :n32], None, *w8[:3], "lms", *w8[3:], True))[1],
+                library_ms=None)
+            if not torch.equal(lms_gates(Yr8, cfg.lms), lms_silence_gates(Yr8, cfg.lms)):
+                raise AssertionError(f"lms_gates at M={M_} x {C3} ch differs from the plain gates")
+            by_M["lms_gates"][M_] = kernel_row(
+                f"lms_gates M={M_} C={C3} (flag for flag equal to the plain gates)",
+                time_ms(lambda: lms_gates(Yr8, cfg.lms), 5), bound(*gates_cost(TfM, B, M_)),
+                plain_ms=time_ms(lambda: lms_silence_gates(Yr8, cfg.lms), 1), library_ms=None)
+            del Yr8, w8
+        del enhM
+    # the other paths at B=256 x 10 s: (name, M, r, configuration fields,
+    # channels, launches of one forward)
+    k4 = {"analysis_tm": 2, "aec_scan": 1, "wpe_stats": 2, "gj_solve": 2, "wpe_resid": 1}
+    rls16 = {"gsc_rls_zelinski": 1, "synthesis_tm": 1}
+    lms16 = {"lms_gates": 1, "gsc_lms_zelinski": 1, "synthesis_tm": 1}
+    chain4 = dict(aec="nlms", wpe=True, wpe_iterations=2)
+    paths16 = (
+        ("config4-m1024-b256", 1024, 1, chain4, C, k4 | rls16),
+        ("gsc-lms-c8-m2048-b256", 2048, 1, dict(beamformer="gsc_lms"), C3,
+         {"analysis_tm": 1} | lms16),
+        ("ds-zelinski-m2048-b256", 2048, 1, dict(beamformer="ds"), C,
+         {"analysis_tm": 1, "zelinski_apply": 1, "synthesis_tm": 1}),
+        # then at B=8 x 2 s, checked only: config 4 at 8 channels (C*P = 40)
+        # and with the block Kalman canceller, D&S + McCowan, GSC-RLS +
+        # Zelinski at r = 3 (m*R = 32 in K3's tile of 48 rows)
+        ("config4-c8-m1024-b8", 1024, 1, dict(beamformer="gsc_lms", **chain4), C3, k4 | lms16),
+        ("config4-block-kalman-m2048-b8", 2048, 1,
+         chain4 | dict(aec="block_kalman", aec_delta=KALMAN_P[0], aec_epsilon=KALMAN_P[1]), C,
+         k4 | rls16),
+        ("ds-mccowan-m2048-b8", 2048, 1, dict(beamformer="ds", postfilter="mccowan"), C,
+         {"analysis_tm": 1, "coherence_postfilter": 1, "synthesis_tm": 1}),
+        ("flagship-r3-m1024-b8", 1024, 3, {}, C, {"analysis_tm": 1} | rls16),
+    )
+    T16 = min(2 * FS, T)
+    for name_, M_, r_, kw_, C_, want_ in paths16:
+        fb_ = FilterbankParams(M=M_, m=4, r=r_, delay_compensation_type=2)
+        cfg_ = dataclasses.replace(cfg, fb=fb_, **kw_)
+        enh_ = build_pipeline(cfg_, mpos3 if C_ == C3 else mpos, delays3 if C_ == C3 else delays,
+                              *prototypes_at(M_, r_))
+        n_ = 8 if name_.endswith("-b8") else B
+        xin = (x16_8 if C_ == C3 else x16)[:n_]
+        if n_ == 8:
+            xin = xin[..., :T16].contiguous()
+        args_ = (xin,) + ((play16[:n_, :xin.shape[-1]].contiguous(),)
+                          if cfg_.aec != "none" else ())
+        log(f"== 16c. {name_}: build_pipeline(beamformer={cfg_.beamformer!r}, "
+            f"postfilter={cfg_.postfilter!r}, aec={cfg_.aec!r}, wpe={cfg_.wpe}), M={M_} "
+            f"r={fb_.r}, {n_} x {C_} ch x {xin.shape[-1] / FS:g} s")
+        cells16[name_] = check_path(name_, enh_, args_, want_)
+        del enh_
+    # config 5 at M = 1024 and 2048: SRP-PHAT DOA -> steered GSC-RLS +
+    # Zelinski, one source per utterance at a grid direction plus sensor
+    # noise 20 dB down
+    src16 = signal(rng, (8, T16 + 64))
+    x516 = 0.1 * signal(rng, (8, C, T16))
+    for b, gi in enumerate(placed_):
+        d = geometry.calc_ca_delays(mpos5, phis5[gi], np.pi / 2)
+        for c in range(C):
+            off = 8 - int(round(float(d[c]) * FS))
+            x516[b, c] += src16[b, off:off + T16]
+    x516 = torch.from_numpy(x516).to(dev)
+    for M_ in (1024, 2048):
+        name_ = f"config5-m{M_}-b8"
+        fb_ = FilterbankParams(M=M_, m=4, r=1, delay_compensation_type=2)
+        cfg_ = dataclasses.replace(cfg, fb=fb_)
+        enh_ = build_steered_pipeline(cfg_, mpos5, *prototypes_at(M_), [np.pi / 2], phis5)
+        log(f"== 16d. {name_}: build_steered_pipeline(), M={M_}, 8 x {C} ch x 2 s")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        with torch.no_grad():
+            y_, doa_ = enh_(x516)
+        torch.cuda.synchronize()
+        c_ = kernels.launch_counts()
+        peak_ = torch.cuda.max_memory_allocated() / 1e9
+        log(f"  {name_} launches {c_}")
+        want = dict.fromkeys(c_, 0) | {"analysis_tm": 1, "gsc_rls_zelinski_steered": 1,
+                                       "synthesis_tm": 1}
+        if c_ != want:
+            raise AssertionError(f"{name_} launches {c_}, the path needs {want}")
+        with torch.no_grad():
+            Yr_ = analysis_half_real_tm(x516, enh_.h, fb_, packed=True, A=enh_.A)
+            gidx_, vs_ = enh_.steer(Yr_)
+            ref_ = synthesis_half_real_tm(gsc_postfilter_fused(
+                Yr_, None, *steering_weights(vs_), "rls", cfg_.rls, cfg_.pf_alpha,
+                cfg_.pf_type, cfg_.pf_min_frames, True), enh_.g, fb_, S=enh_.S)
+            if not torch.equal(doa_, enh_.grid[gidx_]):
+                raise AssertionError(f"{name_} DOA differs from the plain chain's")
+            n_placed = (doa_[:, 1].cpu() == torch.tensor(phis5[placed_],
+                                                         dtype=torch.float32)).sum()
+            log(f"  DOA equal to the plain chain's; at the placed direction: {n_placed.item()} "
+                f"of 8")
+            err_ = compare(f"{name_} (build_steered_pipeline) vs plain chain", y_, ref_, 3e-4)
+            ms_ = time_ms(lambda: enh_(x516), 3)
+        cells16[name_] = dict(ms=ms_, audio_s_per_s=8 * T16 / FS / (ms_ / 1e3), peak_gb=peak_,
+                              max_abs_err=err_, launches=c_)
+        log(f"  {name_}: {ms_:.3f} ms ({8 * T16 / FS / (ms_ / 1e3):.1f} audio-s/s/GPU)")
+        del enh_, y_, ref_, Yr_
+    del x16, x16_8, play16, x516, src16
+    counts16 = {k: v.pop("launches") for k, v in cells16.items()}
+    for name_, cell_ in cells16.items():
+        log(f"  phase 16 {name_}: {cell_['ms']:.3f} ms, {cell_['audio_s_per_s']:.1f} "
+            f"audio-s/s/GPU, peak {cell_['peak_gb']:.2f} GB, {cell_['max_abs_err']:.3g} max abs "
+            f"error against the plain chain")
+    log("  phase 16's paths: " + json.dumps(cells16))
+    log(f"  phase 16 took {time.perf_counter() - t16:.1f} s")
+
     sources = {
         "analysis_tm": ("analysis_tm.cu",
                         "distant_speech_recognition_tpu/ops/pallas_kernels.py:297"),
@@ -2752,7 +3109,8 @@ def main() -> None:
                "fixed_weight": counts_fw, "fixed_weight_split": counts_split,
                "config5": counts5, "filterbank": counts_fb, "config3": counts3,
                "config4_c8": counts12, "config4_c8_rls": counts12r} | {
-                   f"{bf}_none": c for bf, c in counts_none.items()} | counts13 | counts14 | counts15
+                   f"{bf}_none": c for bf, c in counts_none.items()} | counts13 | counts14 | counts15 | (
+                       counts16)
     # the RLS kernels at config 3's 8 channels (phase 11)
     c8 = {"gsc_rls_zelinski": (k2_8_ms, k2_bound(C3)), "gsc_mono": (k4_8_ms, k4_bound(C3))}
     for name, (ms_, (b_ms, b_by)) in c8.items():
@@ -2776,9 +3134,9 @@ def main() -> None:
             row["max_abs_err_vs_split"] = results[name + "_vs_split"]
         if name in fft_ms:
             row["fft_ms"] = fft_ms[name]
-        if name in by_M:  # phase 14: the kernel at M = 64, 128 and 512, B=256 x 10 s
+        if name in by_M:  # phases 14 and 16: the kernel at M = 64 .. 2048, B=256 x 10 s
             row["by_M"] = {str(M_): e | {"launches": sum(
-                c[name] for p_, c in counts14.items() if f"-m{M_}-" in p_)}
+                c[name] for p_, c in (counts14 | counts16).items() if f"-m{M_}-" in p_)}
                 for M_, e in by_M[name].items()}
         if name == "analysis_tm":
             row["dense_route_ms"] = dense_route_ms
@@ -2833,5 +3191,8 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--profile-flagship"]:
+        profile_flagship(int(sys.argv[2]))
+    else:
+        main()
     sys.exit(0)

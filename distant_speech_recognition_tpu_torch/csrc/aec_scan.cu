@@ -25,7 +25,15 @@
 //     the host takes the largest that fits a block of THREADS and still
 //     gives the card a block for each SM), one thread a (channel, bin) of the
 //     group, the filter (and the Kalman state) in registers for the whole
-//     utterance.
+//     utterance.  Where one channel's F bins do not fit a block (M = 2048:
+//     1,025 bins), the bins are cut into `parts` parts of H = M / (2 parts)
+//     bins, a block each: part p holds the Re lanes p H .. p H + H - 1 and
+//     the same run of lanes M/2 further (part 0's first of those is the
+//     Nyquist bin's Re lane, the others the Im lanes of its bins), so a
+//     slot row is two runs of H lanes and a part has H bins (H + 1 in part
+//     0).  The bins are independent, so the split leaves each bin's
+//     arithmetic as it is; with one part (M <= 1024) the slot is the whole
+//     row.
 //   - A frame's rows of the group (cg x M floats of A, contiguous) and its
 //     far-end row (M floats of V, read once for the group's channels) are
 //     staged into a shared-memory ring by 16-byte cp.async copies, DG steps
@@ -169,42 +177,53 @@ __device__ __forceinline__ void kalman_update(KalmanState& st, const Frame& x, f
   st.kk = __fmul_rn(kp, __fsub_rn(1.f, op.div(vk, rs)));
 }
 
-// One block: utterance b, channels c0 .. c0 + cg - 1; thread (cl, f) =
-// (tid / F, tid % F).  Ring slot t % RING holds frame t: the group's rows
-// [cg][M] (A in, E out) then the far-end row [M].
+// One block: utterance b, channels c0 .. c0 + cg - 1, lane part `part` of
+// `parts` (W = M / parts lanes a row, H = W / 2 bins, H + 1 in part 0);
+// thread (cl, fl) = (tid / (H + 1), tid % (H + 1)).  Ring slot t % RING
+// holds frame t: the group's rows of the part [cg][W] (A in, E out) then
+// the far-end row's [W].
 template <bool KALMAN>
 __global__ void __launch_bounds__(THREADS, 2)
 aec_scan_kernel(const float* __restrict__ A, const float* __restrict__ V, float* __restrict__ E,
-                int Tf, int B, int C, int M, int cg, float p1, float p2, float k0, float thr) {
+                int Tf, int B, int C, int M, int cg, int parts, float p1, float p2, float k0,
+                float thr) {
   extern __shared__ __align__(16) float ring[];
   // probe: kernel start
   const int F = M / 2 + 1;
   const int groups = C / cg;
-  const int b = blockIdx.x / groups;
-  const int c0 = (blockIdx.x - b * groups) * cg;
+  const int W = M / parts, H = W / 2;
+  const int b = blockIdx.x / (groups * parts);
+  const int gp = blockIdx.x - b * groups * parts;
+  const int c0 = gp / parts * cg;
+  const int part = gp - gp / parts * parts;
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
-  const int cl = tid / F;
-  const int f = tid - cl * F;
-  const bool active = cl < cg;
+  const int cl = tid / (H + 1);
+  const int fl = tid - cl * (H + 1);
+  const bool active = cl < cg && (part == 0 || fl < H);
+  const int f = part == 0 && fl == H ? M / 2 : part * H + fl;  // part 0's bin H: Nyquist's
   const bool has_im = f >= 1 && f <= F - 2;
-  const int slot_floats = (cg + 1) * M;
+  const int slot_floats = (cg + 1) * W;
   // this thread's lanes in a slot (a real bin reads its Re lane twice, and
   // takes 0 for the second)
-  const int ia = cl * M + f;
-  const int ia_im = has_im ? ia + F - 1 : ia;
-  const int iv = cg * M + f;
-  const int iv_im = has_im ? iv + F - 1 : iv;
+  const int ia = cl * W + fl;
+  const int ia_im = has_im ? ia + H : ia;
+  const int iv = cg * W + fl;
+  const int iv_im = has_im ? iv + H : iv;
   const size_t a_frame = (size_t)B * C * M, v_frame = (size_t)B * M;
   const float* Ab = A + ((size_t)b * C + c0) * M;
   const float* Vb = V + (size_t)b * M;
   float* Eb = E + ((size_t)b * C + c0) * M;
   const int nsteps = (Tf + S - 1) / S;
   // the copies: 16 bytes of a frame's slot a thread (a frame has no more
-  // 16-byte pieces, (cg + 1) M / 4, than the block has threads)
-  const int row16 = cg * M / 4;
-  const bool copier = tid < row16 + M / 4;
-  const float* src0 = tid < row16 ? Ab + 4 * tid : Vb + 4 * (tid - row16);
+  // 16-byte pieces, (cg + 1) W / 4, than the block has threads); piece q4 of
+  // a part's row is row lane q4 of the whole row with one part, else lane
+  // part H + q4 of its first run or M/2 + part H + q4 - H of its second
+  const int row16 = cg * W / 4;
+  const bool copier = tid < row16 + W / 4;
+  const int q4 = 4 * (tid < row16 ? tid % (W / 4) : tid - row16);
+  const int lane = parts == 1 ? q4 : q4 < H ? part * H + q4 : M / 2 + part * H + q4 - H;
+  const float* src0 = tid < row16 ? Ab + (size_t)(tid / (W / 4)) * M + lane : Vb + lane;
   const size_t src_frame = tid < row16 ? a_frame : v_frame;
 
   auto fetch = [&](int st) {  // the frames of step st into their slots
@@ -219,11 +238,19 @@ aec_scan_kernel(const float* __restrict__ A, const float* __restrict__ V, float*
   // the store warp, the block's last, computes nothing: its first thread
   // issues the bulk stores, off the recursion's warps
   const bool storer = tid == nthr - 32;
-  auto flush = [&](int st) {  // E of step st's frames, one bulk copy a frame
+  auto flush = [&](int st) {  // E of step st's frames, one bulk copy a frame (a run with parts)
     if (storer) {
-      for (int t = st * S; t < min(st * S + S, Tf); ++t)
-        bulk_store(Eb + t * a_frame, ring + (size_t)(t % RING) * slot_floats,
-                   cg * M * (int)sizeof(float));
+      for (int t = st * S; t < min(st * S + S, Tf); ++t) {
+        const float* sl = ring + (size_t)(t % RING) * slot_floats;
+        if (parts == 1) {
+          bulk_store(Eb + t * a_frame, sl, cg * M * (int)sizeof(float));
+        } else {
+          for (int c = 0; c < cg; ++c)
+            for (int run = 0; run < 2; ++run)
+              bulk_store(Eb + t * a_frame + (size_t)c * M + run * (M / 2) + part * H,
+                         sl + c * W + run * H, H * (int)sizeof(float));
+        }
+      }
       bulk_commit();
     }
   };
@@ -299,15 +326,23 @@ aec_scan_kernel(const float* __restrict__ A, const float* __restrict__ V, float*
   // probe: kernel end
 }
 
-// The launch: channels a block (a divisor cg of C whose block fits in
-// THREADS and the shared memory), threads and ring bytes.  Fewest waves of
-// blocks first; then, where some cg gives every SM a block, the largest
-// such cg (the far-end row is staged once for cg channels); else cg = 1,
-// the most blocks (a step's front then shares an SM with the fewest warps)
+// The launch: lane parts a row (the fewest, a power of two, whose H + 1
+// bins fit a block beside the store warp: one up to M = 1024), channels a
+// block (a divisor cg of C whose block fits in THREADS and the shared
+// memory), threads and ring bytes.  Fewest waves of blocks first; then,
+// where some cg gives every SM a block, the largest such cg (the far-end
+// row is staged once for cg channels); else cg = 1, the most blocks (a
+// step's front then shares an SM with the fewest warps)
 struct Plan {
-  int cg, threads, per_sm;
+  int cg, parts, threads, per_sm;
   size_t bytes;
 };
+
+int lane_parts(int M) {
+  int parts = 1;
+  while ((M / (2 * parts) + 1 + 31) / 32 * 32 + 32 > THREADS) parts *= 2;
+  return parts;
+}
 
 template <bool KALMAN>
 cudaError_t plan(int B, int C, int M, Plan* out) {
@@ -319,22 +354,23 @@ cudaError_t plan(int B, int C, int M, Plan* out) {
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)MAX_SMEM);
   if (err != cudaSuccess) return err;
-  const int F = M / 2 + 1;
-  *out = Plan{0, 0, 0, 0};
+  const int parts = lane_parts(M);
+  const int W = M / parts;
+  *out = Plan{0, 0, 0, 0, 0};
   long long best_waves = 0;
   for (int cg = 1; cg <= C; ++cg) {
     if (C % cg) continue;
-    const int threads = (cg * F + 31) / 32 * 32 + 32;  // and the store warp
-    const size_t bytes = sizeof(float) * RING * (size_t)(cg + 1) * M;
+    const int threads = (cg * (W / 2 + 1) + 31) / 32 * 32 + 32;  // and the store warp
+    const size_t bytes = sizeof(float) * RING * (size_t)(cg + 1) * W;
     if (threads > THREADS || bytes > MAX_SMEM) break;
     int per_sm = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads, bytes);
     if (err != cudaSuccess) return err;
     if (per_sm < 1) break;
-    const long long blocks = (long long)B * (C / cg);
+    const long long blocks = (long long)B * (C / cg) * parts;
     const long long waves = (blocks + (long long)per_sm * sms - 1) / ((long long)per_sm * sms);
     if (out->cg == 0 || waves < best_waves || (waves == best_waves && blocks >= sms)) {
-      *out = Plan{cg, threads, per_sm, bytes};
+      *out = Plan{cg, parts, threads, per_sm, bytes};
       best_waves = waves;
     }
   }
@@ -348,8 +384,8 @@ int launch(const float* A, const float* V, float* E, int Tf, int B, int C, int M
   const cudaError_t err = plan<KALMAN>(B, C, M, &p);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (p.cg == 0) return DSR_ERR_ARGS;
-  aec_scan_kernel<KALMAN><<<B * (C / p.cg), p.threads, p.bytes, stream>>>(
-      A, V, E, Tf, B, C, M, p.cg, p1, p2, k0, thr);
+  aec_scan_kernel<KALMAN><<<B * (C / p.cg) * p.parts, p.threads, p.bytes, stream>>>(
+      A, V, E, Tf, B, C, M, p.cg, p.parts, p1, p2, k0, thr);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -362,7 +398,7 @@ int shape(int B, int C, int M, int* blocks, int* threads, int* cg, int* smem_byt
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, aec_scan_kernel<KALMAN>);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (p.cg == 0) return DSR_ERR_ARGS;
-  *blocks = B * (C / p.cg);
+  *blocks = B * (C / p.cg) * p.parts;
   *threads = p.threads;
   *cg = p.cg;
   *smem_bytes = (int)p.bytes;
@@ -371,9 +407,12 @@ int shape(int B, int C, int M, int* blocks, int* threads, int* cg, int* smem_byt
   return 0;
 }
 
+// M a multiple of 4 up to 1024, where a row is one part, and of 8 a part
+// above (16-byte runs)
 bool args_ok(int Tf, int B, int C, int M) {
-  return Tf > 0 && B > 0 && C > 0 && M >= 4 && M <= 1024 && M % 4 == 0 &&
-         (long long)B * C <= 0x7fffffffLL;
+  return Tf > 0 && B > 0 && C > 0 && M >= 4 && M <= 2048 && M % 4 == 0 &&
+         (lane_parts(M) == 1 || (M / lane_parts(M)) % 8 == 0) &&
+         (long long)B * C * lane_parts(M) <= 0x7fffffffLL;
 }
 
 }  // namespace

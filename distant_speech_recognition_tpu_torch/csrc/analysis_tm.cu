@@ -16,10 +16,12 @@
 // spectra out at B=256 x 4 ch x 10 s (0.59 ms at 3.35 TB/s); done by FFT,
 // each 256-point row needs ~5k flops plus the FIR's 2*m*M, 9 GFLOP in all.
 //
-// M in {64, 128, 256, 512} (every pipeline on the card): the product with A
+// M in {64, 128, ..., 2048} (every pipeline on the card): the product with A
 // is an FFT in shared memory (csrc/dsr_fft.h, one plan for every such M).
 // A block of 256 threads owns a tile of ROWS = 64 * 256 / M rows (256, 128,
-// 64, 32: ~70 KB of rows at every M), K = ROWS / Cg frames of Cg consecutive
+// 64, 32, 16, 8: ~70 KB of rows at every M, beside 8 and 16 KB of
+// twiddles at 1024 and 2048; at 2048 eight channels fill one frame), K =
+// ROWS / Cg frames of Cg consecutive
 // signals (the channels of one utterance, Cg = the channel count); at M =
 // 256 laid out and paired in the FFT exactly as the one-kernel chains K4/K5
 // and K8 lay out theirs, so K1 -> K2 equals K5 to the bit.  It
@@ -31,7 +33,7 @@
 //   2. runs the FFT in place, two rows per complex FFT;
 //   3. splits each row's bins off its pair (dsr::fft::split_bin) and writes
 //      them as whole packed rows [Re(0..M/2) | Im(1..M/2-1)] of out (256 / M
-//      rows at a time below M = 256, a row in two halves at 512).
+//      rows at a time below M = 256, a row in M / 256 parts above).
 // Up to 128 registers: two blocks per SM, so one block's loads of x and
 // stores of out overlap the other's FFT (three blocks at 80 registers
 // spilled and were slower, M = 256).  Plain IEEE FP32.
@@ -53,7 +55,7 @@ namespace {
 
 constexpr int THREADS = 256;
 
-// ---- M in {64, 128, 256, 512}: FIR rows + shared-memory FFT -----------------
+// ---- M in {64, 128, ..., 2048}: FIR rows + shared-memory FFT ----------------
 
 // rows per tile: K = ROWS / Cg frames x Cg signals, ~70 KB at every M
 template <int M>
@@ -241,6 +243,8 @@ extern "C" int dsr_analysis_tm(const float* x, const float* hr, const float* tw,
     case 128: return launch_fft_c<128>(x, hr, tw, out, G, Cg, T, Tf, m, D, shift, stream);
     case 256: return launch_fft_c<256>(x, hr, tw, out, G, Cg, T, Tf, m, D, shift, stream);
     case 512: return launch_fft_c<512>(x, hr, tw, out, G, Cg, T, Tf, m, D, shift, stream);
+    case 1024: return launch_fft_c<1024>(x, hr, tw, out, G, Cg, T, Tf, m, D, shift, stream);
+    case 2048: return launch_fft_c<2048>(x, hr, tw, out, G, Cg, T, Tf, m, D, shift, stream);
     default: return DSR_ERR_ARGS;
   }
 }

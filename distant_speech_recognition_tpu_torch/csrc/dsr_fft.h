@@ -1,5 +1,5 @@
 // The N-point DFTs of the filterbank kernels as FFTs in shared memory, N in
-// {64, 128, 256, 512} (K1 analysis_tm.cu and K3 synthesis_tm.cu at every
+// {64, 128, ..., 2048} (K1 analysis_tm.cu and K3 synthesis_tm.cu at every
 // such N; K4/K5 gsc_mono.cu and K8 fw_mono.cu at N = 256), and the analysis
 // FIR rows that K1, K4/K5 and K8 transform (`analysis_fir_tile`: one
 // function, so all three form the same sums in the same order and pair the
@@ -26,17 +26,23 @@
 // in registers, times the twiddle W_N^(g k1), back into cells (g, k1).  Pass
 // 2: cell column k1 (TP = R threads a pair take the Q columns in turn), an
 // R-point DFT over the rows into cells (k2, k1): X[k1 + Q k2].  The 8- and
-// 16-point DFTs are radix 4 x 2 and 4 x 4 in registers.  N = 512 is two
-// 256-point sub-rows, SUB floats apart (the even elements in sub-row 0, the
-// odd ones in sub-row 1), each run through the 16 x 16 plan by one half warp,
-// and a radix-2 pass: X[k] = E[k] + W512^k O[k], X[k + 256] = E[k] - W512^k
-// O[k] in place (X[k] in sub-row k / 256, the 256-point natural cell of k %
-// 256).  A pair's TP threads (8, 8, 16, 32) share one warp, so the passes
-// synchronise with __syncwarp only.  Cells are XOR-swizzled (cell (r, c)
-// at Q r + (c ^ r), r < R <= Q) and rows are LD floats apart (N + 4; 264 at
-// 256; 528 at 512, SUB = 272), so that the four, four, two and one pairs of
-// a warp touch 32 distinct banks in every pass and twiddle read (the test
-// checks it).  Cell and element indices are shifts and masks: a signed
+// 16-point DFTs are radix 4 x 2 and 4 x 4 in registers.  N = 512, 1024 and
+// 2048 are S = N / 256 sub-rows of 256 points, SUB floats apart (element n
+// in sub-row n % S), each run through the 16 x 16 plan by one half warp, and
+// a radix-S pass over the sub-rows: X[k + 256 l] = sum_s W_S^(s l) W_N^(s k)
+// E_s[k] in place (X[k] in sub-row k / 256, the 256-point natural cell of k %
+// 256); at 512 that is the radix-2 butterfly X[k] = E[k] + W512^k O[k],
+// X[k + 256] = E[k] - W512^k O[k], at 1024 and 2048 a 4- and 8-point DFT
+// in registers after the twiddles.  A pair's TP threads (8, 8, 16, 32; 64
+// and 128 above 512) share one warp up to 512, and the passes synchronise
+// with __syncwarp; above 512 they are two and four warps, which synchronise
+// at a named barrier of their own (`pair_sync`: the kernel's NT threads are
+// its whole block, every thread reaching each barrier).  Cells are
+// XOR-swizzled (cell (r, c) at Q r + (c ^ r), r < R <= Q) and rows are LD
+// floats apart (N + 4; 264 at 256; (S - 1) SUB + 256 above, SUB = 272), so
+// that the four, four, two and one pairs of a warp, and the two sub-rows of
+// a warp above 256, touch 32 distinct banks in every pass and twiddle read
+// (the test checks it).  Cell and element indices are shifts and masks: a signed
 // division or remainder by a power of two costs a sign correction each
 // time, in the FFT's inner loops.  Twiddles come from the host's float64 table
 // of the same N rounded to float32 (dft.fft_twiddles), never from
@@ -57,16 +63,18 @@ __host__ __device__ constexpr int ilog2(int n) { return n <= 1 ? 0 : 1 + ilog2(n
 
 template <int N>
 struct Shape {
-  static_assert(N == 64 || N == 128 || N == 256 || N == 512, "FFT sizes 64..512");
-  static constexpr bool SPLIT2 = N == 512;         // two sub-rows and a radix-2 pass
-  static constexpr int NS = SPLIT2 ? N / 2 : N;    // points of a four-step (sub-)row
+  static_assert(N == 64 || N == 128 || N == 256 || N == 512 || N == 1024 || N == 2048,
+                "FFT sizes 64..2048");
+  static constexpr int S = N > 256 ? N / 256 : 1;  // sub-rows of 256 points (radix-S pass)
+  static constexpr bool SPLIT = S > 1;
+  static constexpr int NS = SPLIT ? 256 : N;       // points of a four-step (sub-)row
   static constexpr int R = NS == 256 ? 16 : 8;     // cell rows: pass 1's DFTs, threads
   static constexpr int Q = NS / R;                 // cell columns: pass 2's DFTs
-  static constexpr int TP = SPLIT2 ? 32 : R;       // threads a pair
-  static constexpr int SUB = SPLIT2 ? NS + 16 : 0; // floats from sub-row 0 to sub-row 1
-  static constexpr int LD = SPLIT2 ? SUB + NS : N == 256 ? 264 : N + 4;  // floats a row
+  static constexpr int TP = SPLIT ? 16 * S : R;    // threads a pair
+  static constexpr int SUB = SPLIT ? NS + 16 : 0;  // floats from a sub-row to the next
+  static constexpr int LD = SPLIT ? (S - 1) * SUB + NS : N == 256 ? 264 : N + 4;  // a row
   static constexpr int TWF = 2 * N;  // twiddle floats in shared memory (`stage_twiddles`)
-  static constexpr int LR = ilog2(R), LQ = ilog2(Q), LTP = ilog2(TP);
+  static constexpr int LR = ilog2(R), LQ = ilog2(Q), LTP = ilog2(TP), LS = ilog2(S);
 };
 
 template <int N>
@@ -84,13 +92,13 @@ __device__ __forceinline__ int cell(int r, int c) {
 template <int N>
 __device__ __forceinline__ int tpos(int n) {
   using S = Shape<N>;
-  if constexpr (S::SPLIT2) return (n & 1) * S::SUB + tpos<S::NS>(n >> 1);
+  if constexpr (S::SPLIT) return (n & (S::S - 1)) * S::SUB + tpos<S::NS>(n >> S::LS);
   else return cell<N>(n & (S::R - 1), n >> S::LR);
 }
 template <int N>
 __device__ __forceinline__ int npos(int n) {
   using S = Shape<N>;
-  if constexpr (S::SPLIT2) return (n >> ilog2(S::NS)) * S::SUB + npos<S::NS>(n & (S::NS - 1));
+  if constexpr (S::SPLIT) return (n >> ilog2(S::NS)) * S::SUB + npos<S::NS>(n & (S::NS - 1));
   else return cell<N>(n >> S::LQ, n & (S::Q - 1));
 }
 
@@ -120,9 +128,9 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // The twiddles from the table tw [2][N] (cos, -sin of 2 pi e / N) into the
 // TWF floats at sm: pass 1's W_NS^(g k1) in the order [2][k1][g], so that
 // the threads of a pair read consecutive floats (the table's own order puts
-// up to four of them in one bank); at N = 512 (NS = 256) read as W512^(2 g
-// k1), then the radix-2 pass's W512^k, k < 256, [2][k].  The caller
-// synchronises the block before the first pass.
+// up to four of them in one bank); above 256 (NS = 256) read as W_N^(S g
+// k1), then the radix-S pass's W_N^(s k), k < 256, [s - 1][2][k] for s = 1
+// .. S - 1.  The caller synchronises the block before the first pass.
 template <int N>
 __device__ __forceinline__ void stage_twiddles(float* sm, const float* __restrict__ tw) {
   using S = Shape<N>;
@@ -130,10 +138,23 @@ __device__ __forceinline__ void stage_twiddles(float* sm, const float* __restric
     const int e = (i & (S::R - 1)) * (i >> S::LR) * (N / S::NS);
     sm[i] = __ldg(tw + e);
     sm[S::NS + i] = __ldg(tw + N + e);
-    if constexpr (S::SPLIT2) {
-      sm[2 * S::NS + i] = __ldg(tw + i);
-      sm[3 * S::NS + i] = __ldg(tw + N + i);
+#pragma unroll
+    for (int s = 1; s < S::S; ++s) {
+      sm[2 * S::NS * s + i] = __ldg(tw + s * i);
+      sm[2 * S::NS * s + S::NS + i] = __ldg(tw + N + s * i);
     }
+  }
+}
+
+// The barrier of one pair's TP threads (thread tid of the fft_rows set):
+// the warp's up to 512, else named barrier 1 + tid / TP of TP threads
+template <int N>
+__device__ __forceinline__ void pair_sync(int tid) {
+  using S = Shape<N>;
+  if constexpr (S::TP <= 32) {
+    __syncwarp();
+  } else {
+    asm volatile("bar.sync %0, %1;" ::"r"(1 + (tid >> S::LTP)), "n"(S::TP) : "memory");
   }
 }
 
@@ -384,11 +405,11 @@ __device__ __forceinline__ void analysis_fir_tile(float* P, const float* __restr
 // Z[(g + R n1) * STEP + H] of the pair's packed lanes at (re, im)), a
 // Q-point DFT, the twiddles W_NS^(g k1) from tc/ts ([k1][g]), back into the
 // row's cells.  The pair's packed lanes are all read before any cell is
-// written (__syncwarp between).
+// written (`pair_sync` between).
 template <int NS, int N, bool FROM_PACKED, int STEP>
 __device__ __forceinline__ void pass1(float* sre, float* sim, const float* re, const float* im,
                                       int g, int H, const float* tc, const float* ts,
-                                      const Consts& kc, bool on) {
+                                      const Consts& kc, bool on, int tid) {
   using S = Shape<NS>;
   constexpr int R = S::R, Q = S::Q;
   float vr[Q], vi[Q];
@@ -403,7 +424,7 @@ __device__ __forceinline__ void pass1(float* sre, float* sim, const float* re, c
       }
     }
   }
-  if (FROM_PACKED) __syncwarp();  // the pair's packed lanes are read before any cell is written
+  if (FROM_PACKED) pair_sync<N>(tid);  // the pair's packed lanes are read before any cell is written
   if (on) {
     dft<Q>(vr, vi, kc);
     sre[cell<NS>(g, 0)] = vr[0];
@@ -439,9 +460,11 @@ __device__ __forceinline__ void pass2(float* sre, float* sim, int c, const Const
 
 // In-place forward N-point FFT of `pairs` row pairs, pair q = rows (2q,
 // 2q+1) of `rows` (re, im), by the NT threads tid = 0..NT-1 of a
-// warp-aligned set (TP per pair), with the twiddles `stage_twiddles` put at
-// `tws`.  Input in layout T, or, with FROM_PACKED, two packed half spectra
-// per pair in raw lanes (`packed_pair_z`); output in natural layout.
+// warp-aligned set (TP per pair; above N = 512 the NT threads must be the
+// whole block, for `pair_sync`'s named barriers), with the twiddles
+// `stage_twiddles` put at `tws`.  Input in layout T, or, with FROM_PACKED,
+// two packed half spectra per pair in raw lanes (`packed_pair_z`); output
+// in natural layout.
 template <int N, bool FROM_PACKED, int NT>
 __device__ __forceinline__ void fft_rows(float* rows, int pairs, const float* tws,
                                          const Consts& kc, int tid) {
@@ -455,8 +478,8 @@ __device__ __forceinline__ void fft_rows(float* rows, int pairs, const float* tw
     const bool on = q < pairs;
     float* re = rows + (size_t)(2 * q) * LD;
     float* im = re + LD;
-    if constexpr (!S::SPLIT2) {
-      pass1<N, N, FROM_PACKED, 1>(re, im, re, im, g, 0, tc, ts, kc, on);
+    if constexpr (!S::SPLIT) {
+      pass1<N, N, FROM_PACKED, 1>(re, im, re, im, g, 0, tc, ts, kc, on, tid);
       __syncwarp();
       if (on) {
         if constexpr (S::Q == TP) {
@@ -467,16 +490,48 @@ __device__ __forceinline__ void fft_rows(float* rows, int pairs, const float* tw
         }
       }
     } else {
-      // half warp h runs the 256-point plan on sub-row h (elements 2 j + h)
-      const int h = (tid >> 4) & 1;
+      // half warp h of the pair runs the 256-point plan on sub-row h
+      // (elements S j + h)
+      const int h = g >> 4;
       float* sre = re + h * S::SUB;
       float* sim = im + h * S::SUB;
-      pass1<NS, N, FROM_PACKED, 2>(sre, sim, re, im, g & 15, h, tc, ts, kc, on);
-      __syncwarp();
+      pass1<NS, N, FROM_PACKED, S::S>(sre, sim, re, im, g & 15, h, tc, ts, kc, on, tid);
+      pair_sync<N>(tid);
       if (on) pass2<NS>(sre, sim, g & 15, kc);
-      __syncwarp();
-      // radix 2: X[k] = E[k] + W^k O[k] into E's cell, X[k + NS] = E[k] - W^k O[k] into O's
-      if (on) {
+      pair_sync<N>(tid);
+      if constexpr (S::S > 2) {
+        // radix S: sub-row s's E_s[k] times W_N^(s k), an S-point DFT over
+        // s, X[k + NS l] into sub-row l's cell of k
+        if (on) {
+#pragma unroll 2
+          for (int k = g; k < NS; k += TP) {
+            const int p = npos<NS>(k);
+            float vr[S::S], vi[S::S];
+#pragma unroll
+            for (int s = 0; s < S::S; ++s) {
+              vr[s] = re[s * S::SUB + p];
+              vi[s] = im[s * S::SUB + p];
+              if (s > 0) twiddle(vr[s], vi[s], tws[2 * NS * s + k], tws[2 * NS * s + NS + k]);
+            }
+            if constexpr (S::S == 4) {
+              dft4(vr[0], vi[0], vr[1], vi[1], vr[2], vi[2], vr[3], vi[3]);
+#pragma unroll
+              for (int l = 0; l < 4; ++l) {
+                re[l * S::SUB + p] = vr[l];
+                im[l * S::SUB + p] = vi[l];
+              }
+            } else {
+              dft8(vr, vi, kc);
+#pragma unroll
+              for (int l = 0; l < 8; ++l) {
+                re[l * S::SUB + p] = vr[reg<8>(l)];
+                im[l * S::SUB + p] = vi[reg<8>(l)];
+              }
+            }
+          }
+        }
+      } else if (on) {
+        // radix 2: X[k] = E[k] + W^k O[k] into E's cell, X[k + NS] = E[k] - W^k O[k] into O's
         const float* cc = tws + 2 * NS;
         const float* cs = tws + 3 * NS;
 #pragma unroll 4

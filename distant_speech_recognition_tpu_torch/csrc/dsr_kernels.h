@@ -19,7 +19,7 @@ const char* dsr_error_string(int code);
 
 // x: G groups of Cg signals [G * Cg, T], 1 <= Cg <= 8; tw: the FFT
 // twiddle table [2, M] (cos, -sin of 2 pi e / M), ops/dft.fft_twiddles;
-// M in {64, 128, 256, 512} (the shared-memory FFT of dsr_fft.h)
+// M in {64, 128, ..., 2048} (the shared-memory FFT of dsr_fft.h)
 int dsr_analysis_tm(const float* x, const float* hr, const float* tw, float* out, int G, int Cg,
                     int T, int Tf, int M, int m, int D, int shift, cudaStream_t stream);
 
@@ -29,7 +29,7 @@ int dsr_analysis_tm_dense(const float* x, const float* hr, const float* A, float
                           int T, int Tf, int M, int m, int D, int shift, cudaStream_t stream);
 
 // tw: as for dsr_analysis_tm
-// M in {64, 128, 256, 512}; m*R - 1 halo rows within the tile of
+// M in {64, 128, ..., 2048}; m*R - 1 halo rows within the tile of
 // dsr_synthesis_tm_rows(M) rows
 int dsr_synthesis_tm(const float* Yp, const float* tw, const float* gf, float* out,
                      int T_in, int B, int M, int m, int R, int D, int pd, int T_out,
@@ -38,8 +38,14 @@ int dsr_synthesis_tm(const float* Yp, const float* tw, const float* gf, float* o
 // the rows of K3's tile at M (output frames + halo), 0 for an M it refuses
 int dsr_synthesis_tm_rows(int M);
 
+// the floats of K2/K6's energy buffer en at (Tf, B, M): Tf * B above 257
+// bins (M = 1024, 2048), where a pre-pass launched first puts the
+// reference channel's frame energies there, else 0 (en may be null)
+int dsr_gsc_rls_zelinski_energy_floats(int Tf, int B, int M);
+
+// K2: M/2 + 1 <= 1025 bins; en as `dsr_gsc_rls_zelinski_energy_floats` says
 int dsr_gsc_rls_zelinski(const float* Yp, const float* wq, const float* bm,
-                         const float* ta, float* out, int Tf, int B, int C, int Bc,
+                         const float* ta, float* out, float* en, int Tf, int B, int C, int Bc,
                          int M, float beta, float one_minus_beta, float gamma,
                          float mu, float delta, float inv_delta, float reg_param,
                          float sil_thresh, int constraint_option, float alpha2,
@@ -49,10 +55,11 @@ int dsr_gsc_rls_zelinski(const float* Yp, const float* wq, const float* bm,
                          cudaStream_t stream);
 
 // K6: gsc_rls_zelinski with one set of weights per utterance
-// (wq, ta [B, F, C], bm [B, F, Bc, C] instead of [F, ...])
+// (wq, ta [B, F, C], bm [B, F, Bc, C] instead of [F, ...]); out and en as
+// K2's
 int dsr_gsc_rls_zelinski_steered(const float* Yp, const float* wq, const float* bm,
-                                 const float* ta, float* out, int Tf, int B, int C, int Bc,
-                                 int M, float beta, float one_minus_beta, float gamma,
+                                 const float* ta, float* out, float* en, int Tf, int B, int C,
+                                 int Bc, int M, float beta, float one_minus_beta, float gamma,
                                  float mu, float delta, float inv_delta, float reg_param,
                                  float sil_thresh, int constraint_option, float alpha2,
                                  float max_wa_l2norm, int min_frames, float pf_alpha,

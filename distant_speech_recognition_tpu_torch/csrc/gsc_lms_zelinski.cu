@@ -106,11 +106,12 @@ int lms_blocks(int B, int M) {
 // The gate pass, first launch: the reference channel's frame energies
 // en[t * B + b] (in the gates' buffer) of utterance b and frames t0 .. t0 +
 // ENERGY_FRAMES - 1 of block (b, tile): warp w takes frames t0 + w, t0 + w +
-// 8, ..., ENERGY_AHEAD at a time, their loads all issued before any is
-// summed; lane l adds ew |X0|^2 of bins l, l + 32, ... in order (NG groups of
-// 32 bins, F <= 32 NG), a shuffle butterfly adds the lanes (every lane ends
-// with the same sum) and the sum over M is the frame's energy
-template <int NG>
+// 8, ..., ENERGY_AHEAD at a time, the loads of NGB groups of 32 bins of
+// them all issued before any is summed (all groups at F <= 32 NGB, else
+// batches of NGB in turn); lane l adds ew |X0|^2 of bins l, l + 32, ... in
+// order, a shuffle butterfly adds the lanes (every lane ends with the same
+// sum) and the sum over M is the frame's energy
+template <int NGB>
 __global__ void __launch_bounds__(ENERGY_THREADS)
     lms_energy_kernel(const float* __restrict__ Yp, float* __restrict__ en, int Tf, int B, int C,
                       int M) {
@@ -120,32 +121,41 @@ __global__ void __launch_bounds__(ENERGY_THREADS)
   const int t0 = (blockIdx.x - b * tiles) * ENERGY_FRAMES;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int F = M / 2 + 1;
+  const int ng = (F + 31) / 32;
   const int nt = min(ENERGY_FRAMES, Tf - t0);
   for (int k = warp; k < nt; k += WARPS * ENERGY_AHEAD) {
-    float re[ENERGY_AHEAD][NG], im[ENERGY_AHEAD][NG];
+    float s[ENERGY_AHEAD];
 #pragma unroll
-    for (int u = 0; u < ENERGY_AHEAD; ++u) {
-      const int tt = k + u * WARPS;
-      const float* x = Yp + ((size_t)(t0 + tt) * B + b) * C * M;
+    for (int u = 0; u < ENERGY_AHEAD; ++u) s[u] = 0.f;
+    for (int g0 = 0; g0 < ng; g0 += NGB) {
+      float re[ENERGY_AHEAD][NGB], im[ENERGY_AHEAD][NGB];
 #pragma unroll
-      for (int g = 0; g < NG; ++g) {
-        const int bin = g * 32 + lane;
-        re[u][g] = tt < nt && bin < F ? __ldg(x + bin) : 0.f;
-        im[u][g] = tt < nt && bin >= 1 && bin <= F - 2 ? __ldg(x + F + bin - 1) : 0.f;
+      for (int u = 0; u < ENERGY_AHEAD; ++u) {
+        const int tt = k + u * WARPS;
+        const float* x = Yp + ((size_t)(t0 + tt) * B + b) * C * M;
+#pragma unroll
+        for (int g = 0; g < NGB; ++g) {
+          const int bin = (g0 + g) * 32 + lane;
+          re[u][g] = tt < nt && bin < F ? __ldg(x + bin) : 0.f;
+          im[u][g] = tt < nt && bin >= 1 && bin <= F - 2 ? __ldg(x + F + bin - 1) : 0.f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < ENERGY_AHEAD; ++u) {
+#pragma unroll
+        for (int g = 0; g < NGB; ++g) {
+          const int bin = (g0 + g) * 32 + lane;
+          if (bin < F)
+            s[u] += energy_term(bin == 0 || bin == F - 1 ? 1.f : 2.f, {re[u][g], im[u][g]});
+        }
       }
     }
 #pragma unroll
     for (int u = 0; u < ENERGY_AHEAD; ++u) {
       const int tt = k + u * WARPS;
-      float s = 0.f;
 #pragma unroll
-      for (int g = 0; g < NG; ++g) {
-        const int bin = g * 32 + lane;
-        if (bin < F) s += energy_term(bin == 0 || bin == F - 1 ? 1.f : 2.f, {re[u][g], im[u][g]});
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-      if (lane == 0 && tt < nt) en[(size_t)(t0 + tt) * B + b] = s / (float)M;
+      for (int o = 16; o > 0; o >>= 1) s[u] += __shfl_xor_sync(0xffffffffu, s[u], o);
+      if (lane == 0 && tt < nt) en[(size_t)(t0 + tt) * B + b] = s[u] / (float)M;
     }
   }
 }
@@ -225,18 +235,19 @@ __global__ void __launch_bounds__(RECURSION_THREADS)
   }
 }
 
-template <int NG>
+template <int NGB>
 cudaError_t lms_energy_launch(const float* Yp, float* en, int Tf, int B, int C, int M,
                               cudaStream_t stream) {
   const long long blocks = (long long)B * ((Tf + ENERGY_FRAMES - 1) / ENERGY_FRAMES);
-  lms_energy_kernel<NG><<<(unsigned)blocks, ENERGY_THREADS, 0, stream>>>(Yp, en, Tf, B, C, M);
+  lms_energy_kernel<NGB><<<(unsigned)blocks, ENERGY_THREADS, 0, stream>>>(Yp, en, Tf, B, C, M);
   return cudaGetLastError();
 }
 
 int lms_gate_pass(const float* Yp, float* gates, int Tf, int B, int C, int M, float beta,
                   float one_minus_beta, float delta, float sil_thresh, cudaStream_t stream) {
   cudaError_t err;
-  switch ((M / 2 + 32) / 32) {  // groups of 32 bins: F <= 257, at most 9
+  const int ng = (M / 2 + 32) / 32;  // groups of 32 bins: all in one batch up to 9 (F <= 257)
+  switch (ng < 9 ? ng : 9) {
 #define DSR_CASE(ng) \
   case ng: err = lms_energy_launch<ng>(Yp, gates, Tf, B, C, M, stream); break;
     DSR_CASE(1) DSR_CASE(2) DSR_CASE(3) DSR_CASE(4) DSR_CASE(5) DSR_CASE(6) DSR_CASE(7)

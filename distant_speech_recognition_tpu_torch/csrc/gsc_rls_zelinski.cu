@@ -37,6 +37,13 @@
 //   - a ring of two chunks in shared memory, filled by cp.async one chunk
 //     ahead: the reference channel's whole rows of the utterances the block
 //     touches, and each thread's own bin of the other channels;
+//   - above 257 bins (M = 1024, 2048; PRE) an utterance spans up to nine
+//     blocks, so the energies come from a pre-pass on the stream, once per
+//     (frame, utterance) and in the blocks' order, into the caller's buffer
+//     of `dsr_gsc_rls_zelinski_energy_floats` floats
+//     (`energy_prepass_kernel`, csrc/gsc_scan.h), and a chunk
+//     stages each thread's bin of every channel and those energies instead
+//     of the reference rows;
 //   - the state-free front of frame t + 1 (Z, Yc, gate, Zelinski gain) is
 //     computed beside frame t's state update; the front has no branch and
 //     the divisions of both run branch-free (BranchFreeOps, dsr_device.h),
@@ -59,12 +66,12 @@ namespace {
 
 using namespace dsr;
 
-template <int C, int BC>
+template <int C, int BC, bool PRE>
 __global__ void __launch_bounds__(THREADS)
     gsc_rls_zelinski_kernel(const float* __restrict__ Yp, const float* __restrict__ wq,
                             const float* __restrict__ bm, const float* __restrict__ ta,
-                            float* __restrict__ out, int Tf, int B, int M, bool per_utt,
-                            GscParams p, Plan pl) {
+                            float* __restrict__ out, const float* __restrict__ en_pre, int Tf,
+                            int B, int M, bool per_utt, GscParams p, Plan pl) {
   extern __shared__ __align__(16) float smem[];
   // probe: kernel start
   const int F = M / 2 + 1;
@@ -73,6 +80,7 @@ __global__ void __launch_bounds__(THREADS)
   const long long i = i0 + threadIdx.x;
   Blk k;
   k.Yp = Yp;
+  k.en = en_pre;
   k.B = B;
   k.M = M;
   k.F = F;
@@ -105,22 +113,22 @@ __global__ void __launch_bounds__(THREADS)
   // probe: set-up done
 
   const int nchunks = (Tf + pl.TC - 1) / pl.TC;
-  stage_chunk<C>(k, pl, smem, 0, min(pl.TC, Tf));
+  stage_chunk<C, PRE>(k, pl, smem, 0, min(pl.TC, Tf));
   if (nchunks > 1) {
-    stage_chunk<C>(k, pl, smem + pl.stage, pl.TC, min(pl.TC, Tf - pl.TC));
+    stage_chunk<C, PRE>(k, pl, smem + pl.stage, pl.TC, min(pl.TC, Tf - pl.TC));
     cp_wait<1>();
   } else {
     cp_wait<0>();
   }
   __syncthreads();
-  chunk_energies(k, pl, smem, en, min(pl.TC, Tf));
+  chunk_energies<PRE>(k, pl, smem, en, min(pl.TC, Tf));
 
   // the front of frame 0
   GscFront<BC> fr;
   {
     cf X[C];
-    read_snapshot<C>(k, pl, smem, 0, X);
-    const float et = en[k.b - k.b_lo];
+    read_snapshot<C, PRE>(k, pl, smem, 0, X);
+    const float et = chunk_energy_rows<C, PRE>(pl, smem, en)[k.b - k.b_lo];
     BranchFreeOps op;
     GscFrontState s1 = fs;
     gsc_front<C, BC>(fr, s1, wqc, bmc, tac, X, et, 0, p, op);
@@ -141,17 +149,18 @@ __global__ void __launch_bounds__(THREADS)
       __syncthreads();
       // probe: chunk staged
       if (kc + 1 < nchunks)
-        stage_chunk<C>(k, pl, smem + ((kc + 1) & 1) * pl.stage, t1 + pl.TC,
-                       min(pl.TC, Tf - t1 - pl.TC));
-      chunk_energies(k, pl, smem + (kc & 1) * pl.stage, en, min(pl.TC, Tf - t1));
+        stage_chunk<C, PRE>(k, pl, smem + ((kc + 1) & 1) * pl.stage, t1 + pl.TC,
+                            min(pl.TC, Tf - t1 - pl.TC));
+      chunk_energies<PRE>(k, pl, smem + (kc & 1) * pl.stage, en, min(pl.TC, Tf - t1));
     }
     // frame t1's front (frame Tf - 1's inputs again after the last frame,
     // and dropped) beside frame t's update
     const int tr = t1 < Tf ? t1 : Tf - 1;
     const int tt = tr % pl.TC;
     cf X[C];
-    read_snapshot<C>(k, pl, smem + ((tr / pl.TC) & 1) * pl.stage, tt, X);
-    const float et = en[tt * pl.NU + k.b - k.b_lo];
+    const float* slot = smem + ((tr / pl.TC) & 1) * pl.stage;
+    read_snapshot<C, PRE>(k, pl, slot, tt, X);
+    const float et = chunk_energy_rows<C, PRE>(pl, slot, en)[tt * pl.NU + k.b - k.b_lo];
     BranchFreeOps op;
     GscFront<BC> fn;
     GscFrontState s1 = fs;
@@ -180,34 +189,55 @@ __global__ void __launch_bounds__(THREADS)
   // probe: kernel end
 }
 
+// the kernel of (C, M): PRE above 257 bins
 template <int C>
-int launch(const float* Yp, const float* wq, const float* bm, const float* ta, float* out,
-           int Tf, int B, int M, bool per_utt, const GscParams& p, const Plan& pl,
-           cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(gsc_rls_zelinski_kernel<C, C - 1>,
+const void* kernel_of(int M) {
+  return pre_pass(M) ? (const void*)gsc_rls_zelinski_kernel<C, C - 1, true>
+                     : (const void*)gsc_rls_zelinski_kernel<C, C - 1, false>;
+}
+
+template <int C, bool PRE>
+int launch_kernel(const float* Yp, const float* wq, const float* bm, const float* ta, float* out,
+                  float* en, int Tf, int B, int M, bool per_utt, const GscParams& p,
+                  const Plan& pl, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(gsc_rls_zelinski_kernel<C, C - 1, PRE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)pl.bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  gsc_rls_zelinski_kernel<C, C - 1><<<pl.blocks, THREADS, pl.bytes, stream>>>(
-      Yp, wq, bm, ta, out, Tf, B, M, per_utt, p, pl);
+  // PRE: the energies into en, first
+  if (PRE && (err = energy_prepass(Yp, en, Tf, B, C, M, stream)) != cudaSuccess)
+    return static_cast<int>(err);
+  gsc_rls_zelinski_kernel<C, C - 1, PRE><<<pl.blocks, THREADS, pl.bytes, stream>>>(
+      Yp, wq, bm, ta, out, en, Tf, B, M, per_utt, p, pl);
   return static_cast<int>(cudaGetLastError());
 }
 
-int scan(const float* Yp, const float* wq, const float* bm, const float* ta, float* out, int Tf,
-         int B, int C, int Bc, int M, bool per_utt, const GscParams& p, cudaStream_t stream) {
-  if (!args_ok(Tf, B, C, Bc, M)) return DSR_ERR_ARGS;
+template <int C>
+int launch(const float* Yp, const float* wq, const float* bm, const float* ta, float* out,
+           float* en, int Tf, int B, int M, bool per_utt, const GscParams& p, const Plan& pl,
+           cudaStream_t stream) {
+  return pre_pass(M) ? launch_kernel<C, true>(Yp, wq, bm, ta, out, en, Tf, B, M, per_utt, p, pl,
+                                               stream)
+                     : launch_kernel<C, false>(Yp, wq, bm, ta, out, en, Tf, B, M, per_utt, p, pl,
+                                                stream);
+}
+
+int scan(const float* Yp, const float* wq, const float* bm, const float* ta, float* out,
+         float* en, int Tf, int B, int C, int Bc, int M, bool per_utt, const GscParams& p,
+         cudaStream_t stream) {
+  if (!args_ok(Tf, B, C, Bc, M) || (pre_pass(M) && en == nullptr)) return DSR_ERR_ARGS;
   int sms = 0;
   const cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return static_cast<int>(err);
   const Plan pl = plan(B, C, M, sms);
   switch (C) {
-    case 2: return launch<2>(Yp, wq, bm, ta, out, Tf, B, M, per_utt, p, pl, stream);
-    case 3: return launch<3>(Yp, wq, bm, ta, out, Tf, B, M, per_utt, p, pl, stream);
-    case 4: return launch<4>(Yp, wq, bm, ta, out, Tf, B, M, per_utt, p, pl, stream);
-    case 5: return launch<5>(Yp, wq, bm, ta, out, Tf, B, M, per_utt, p, pl, stream);
-    case 6: return launch<6>(Yp, wq, bm, ta, out, Tf, B, M, per_utt, p, pl, stream);
-    case 7: return launch<7>(Yp, wq, bm, ta, out, Tf, B, M, per_utt, p, pl, stream);
-    case 8: return launch<8>(Yp, wq, bm, ta, out, Tf, B, M, per_utt, p, pl, stream);
+    case 2: return launch<2>(Yp, wq, bm, ta, out, en, Tf, B, M, per_utt, p, pl, stream);
+    case 3: return launch<3>(Yp, wq, bm, ta, out, en, Tf, B, M, per_utt, p, pl, stream);
+    case 4: return launch<4>(Yp, wq, bm, ta, out, en, Tf, B, M, per_utt, p, pl, stream);
+    case 5: return launch<5>(Yp, wq, bm, ta, out, en, Tf, B, M, per_utt, p, pl, stream);
+    case 6: return launch<6>(Yp, wq, bm, ta, out, en, Tf, B, M, per_utt, p, pl, stream);
+    case 7: return launch<7>(Yp, wq, bm, ta, out, en, Tf, B, M, per_utt, p, pl, stream);
+    case 8: return launch<8>(Yp, wq, bm, ta, out, en, Tf, B, M, per_utt, p, pl, stream);
     default: return DSR_ERR_ARGS;
   }
 }
@@ -226,25 +256,29 @@ int shape(int B, int M, int* blocks, int* threads, int* frames, int* smem_bytes,
   *frames = pl.TC;
   *smem_bytes = (int)pl.bytes;
   cudaFuncAttributes a;
-  err = cudaFuncGetAttributes(&a, gsc_rls_zelinski_kernel<C, C - 1>);
+  const void* kern = kernel_of<C>(M);
+  err = cudaFuncGetAttributes(&a, kern);
   if (err == cudaSuccess) {
     *regs = a.numRegs;
-    err = cudaFuncSetAttribute(gsc_rls_zelinski_kernel<C, C - 1>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.bytes);
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.bytes);
   }
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks_per_sm, gsc_rls_zelinski_kernel<C, C - 1>, THREADS, pl.bytes);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kern, THREADS, pl.bytes);
   return static_cast<int>(err);
 }
 
 }  // namespace
 
+extern "C" int dsr_gsc_rls_zelinski_energy_floats(int Tf, int B, int M) {
+  return pre_pass(M) ? Tf * B : 0;
+}
+
 extern "C" int dsr_gsc_rls_zelinski(const float* Yp, const float* wq, const float* bm,
-                                    const float* ta, float* out, int Tf, int B, int C, int Bc,
-                                    int M, float beta, float one_minus_beta, float gamma,
-                                    float mu, float delta, float inv_delta, float reg_param,
-                                    float sil_thresh, int constraint_option, float alpha2,
+                                    const float* ta, float* out, float* en, int Tf, int B,
+                                    int C, int Bc, int M, float beta, float one_minus_beta,
+                                    float gamma, float mu, float delta, float inv_delta,
+                                    float reg_param, float sil_thresh, int constraint_option,
+                                    float alpha2,
                                     float max_wa_l2norm, int min_frames, float pf_alpha,
                                     float one_minus_pf_alpha, float pf_gain,
                                     float spectral_floor, int real_mode, int pf_min_frames,
@@ -253,14 +287,15 @@ extern "C" int dsr_gsc_rls_zelinski(const float* Yp, const float* wq, const floa
                     constraint_option, alpha2, max_wa_l2norm, min_frames,
                     {pf_alpha, one_minus_pf_alpha, pf_gain, spectral_floor, real_mode,
                      pf_min_frames}};
-  return scan(Yp, wq, bm, ta, out, Tf, B, C, Bc, M, false, p, stream);
+  return scan(Yp, wq, bm, ta, out, en, Tf, B, C, Bc, M, false, p, stream);
 }
 
 extern "C" int dsr_gsc_rls_zelinski_steered(const float* Yp, const float* wq, const float* bm,
-                                            const float* ta, float* out, int Tf, int B, int C,
-                                            int Bc, int M, float beta, float one_minus_beta,
-                                            float gamma, float mu, float delta, float inv_delta,
-                                            float reg_param, float sil_thresh,
+                                            const float* ta, float* out, float* en, int Tf,
+                                            int B, int C, int Bc, int M, float beta,
+                                            float one_minus_beta, float gamma, float mu,
+                                            float delta, float inv_delta, float reg_param,
+                                            float sil_thresh,
                                             int constraint_option, float alpha2,
                                             float max_wa_l2norm, int min_frames, float pf_alpha,
                                             float one_minus_pf_alpha, float pf_gain,
@@ -270,7 +305,7 @@ extern "C" int dsr_gsc_rls_zelinski_steered(const float* Yp, const float* wq, co
                     constraint_option, alpha2, max_wa_l2norm, min_frames,
                     {pf_alpha, one_minus_pf_alpha, pf_gain, spectral_floor, real_mode,
                      pf_min_frames}};
-  return scan(Yp, wq, bm, ta, out, Tf, B, C, Bc, M, true, p, stream);
+  return scan(Yp, wq, bm, ta, out, en, Tf, B, C, Bc, M, true, p, stream);
 }
 
 extern "C" int dsr_gsc_rls_zelinski_shape(int B, int C, int M, int* blocks, int* threads,

@@ -4,9 +4,15 @@
 // chunk of frames ahead (the reference channel's rows of the utterances a
 // block touches and each thread's bin of the other channels), the chunk's
 // reference-channel frame energies (the silence gate's), and the read of a
-// frame's snapshot.  The design and what bounds it are described atop
-// csrc/gsc_rls_zelinski.cu.  The GSC-LMS scan (csrc/gsc_lms_zelinski.cu)
-// takes only the cp.async helpers and args_ok from here.
+// frame's snapshot.  Above 257 bins (M = 1024, 2048) an utterance spans up
+// to nine blocks, and each would re-read its reference rows only to sum
+// their energies: there (PRE) a pre-pass (`energy_prepass_kernel`) sums
+// each (frame, utterance) energy once, in the order the blocks sum them,
+// and a ring slot stages each thread's bin of every channel and the
+// chunk's energies [TC][NU] instead of the reference rows.  The design and
+// what bounds it are described atop csrc/gsc_rls_zelinski.cu.  The GSC-LMS
+// scan (csrc/gsc_lms_zelinski.cu) takes only the cp.async helpers and
+// args_ok from here.
 #pragma once
 
 #include "dsr_kernels.h"
@@ -25,6 +31,9 @@ constexpr int MAX_CHUNK = 16;
 constexpr size_t SMEM_SHARED_SM = 100 * 1024;
 constexpr size_t SMEM_OWN_SM = 200 * 1024;
 
+// PRE: the energies from the pre-pass, above 257 bins
+__host__ __device__ constexpr bool pre_pass(int M) { return M / 2 + 1 > 257; }
+
 // The launch shape, a function of (B, C, M) and the card's SM count only
 struct Plan {
   int TC;  // frames per chunk
@@ -36,8 +45,10 @@ struct Plan {
 };
 
 // a ring slot: reference rows [TC][NU][M], then own bins of channels 1..C-1
-// [TC][C-1][2][THREADS]; after both slots: the energies [TC][NU]
+// [TC][C-1][2][THREADS]; after both slots: the energies [TC][NU].  PRE: own
+// bins of channels 0..C-1 [TC][C][2][THREADS], then the energies [TC][NU]
 size_t stage_floats(int TC, int NU, int C, int M) {
+  if (pre_pass(M)) return (size_t)TC * (2 * (size_t)C * THREADS + NU);
   return (size_t)TC * ((size_t)NU * M + 2 * (size_t)(C - 1) * THREADS);
 }
 
@@ -51,7 +62,7 @@ Plan plan(int B, int C, int M, int sms) {
   const size_t budget = p.blocks > sms ? SMEM_SHARED_SM : SMEM_OWN_SM;
   for (p.TC = MAX_CHUNK;; p.TC /= 2) {
     p.stage = stage_floats(p.TC, p.NU, C, M);
-    p.bytes = 4 * (2 * p.stage + (size_t)p.TC * p.NU);
+    p.bytes = 4 * (2 * p.stage + (pre_pass(M) ? 0 : (size_t)p.TC * p.NU));
     if (p.bytes <= budget || p.TC == 1) break;
   }
   return p;
@@ -83,6 +94,7 @@ __device__ __forceinline__ void cp_wait() {
 // What a block needs to know of its bins and of the input
 struct Blk {
   const float* Yp;
+  const float* en;  // PRE: the pre-pass's energies [Tf][B]
   int B, M, F;
   int b_lo, nu;  // the utterances b_lo .. b_lo + nu - 1 the block touches
   int b, f;      // this thread's bin (a valid one for every thread)
@@ -90,11 +102,33 @@ struct Blk {
 };
 
 // Start the copies of chunk k (frames t0 .. t0 + nk - 1) into ring slot R
-template <int C>
+template <int C, bool PRE>
 __device__ __forceinline__ void stage_chunk(const Blk& k, const Plan& pl, float* R, int t0,
                                             int nk) {
   const int tid = threadIdx.x;
   const size_t frame = (size_t)k.B * C * k.M;
+  if constexpr (PRE) {
+    // this thread's bin of every channel, [tt][c][re|im][tid], then the
+    // energies of the touched utterances [tt][u]
+    const int im = k.has_im ? k.F - 1 : 0;
+    const float* src = k.Yp + ((size_t)t0 * k.B + k.b) * C * k.M + k.f;
+    float* dst = R + tid;
+    for (int tt = 0; tt < nk; ++tt, src += frame) {
+#pragma unroll
+      for (int c = 0; c < C; ++c, dst += 2 * THREADS) {
+        cp_async4(dst, src + c * k.M, k.valid);
+        cp_async4(dst + THREADS, src + c * k.M + im, k.valid && k.has_im);
+      }
+    }
+    float* en = R + (size_t)pl.TC * C * 2 * THREADS;
+    for (int e = tid; e < nk * k.nu; e += THREADS) {
+      const int tt = e / k.nu;
+      const int u = e - tt * k.nu;
+      cp_async4(en + tt * pl.NU + u, k.en + (size_t)(t0 + tt) * k.B + k.b_lo + u, true);
+    }
+    cp_commit();
+    return;
+  }
   // reference-channel rows of the touched utterances, [tt][u][M]: with
   // per_row vectors a row, THREADS / per_row rows at a time, else row by row
   const int vec = k.M % 4 == 0 ? 4 : 2;
@@ -169,8 +203,10 @@ __device__ __forceinline__ void chunk_energies_ng(const Blk& k, const Plan& pl, 
   }
 }
 
+template <bool PRE>
 __device__ __forceinline__ void chunk_energies(const Blk& k, const Plan& pl, const float* R,
                                                float* en, int nk) {
+  if constexpr (PRE) return;  // staged with the chunk
   switch (pl.NG) {  // F <= 257: at most 9 groups
     case 1: chunk_energies_ng<1>(k, pl, R, en, nk); break;
     case 2: chunk_energies_ng<2>(k, pl, R, en, nk); break;
@@ -186,9 +222,22 @@ __device__ __forceinline__ void chunk_energies(const Blk& k, const Plan& pl, con
   // probe: energies done
 }
 
-template <int C>
+// The energies of a chunk [TC][NU]: PRE's in its ring slot R, else `en`
+template <int C, bool PRE>
+__device__ __forceinline__ const float* chunk_energy_rows(const Plan& pl, const float* R,
+                                                          const float* en) {
+  return PRE ? R + (size_t)pl.TC * C * 2 * THREADS : en;
+}
+
+template <int C, bool PRE>
 __device__ __forceinline__ void read_snapshot(const Blk& k, const Plan& pl, const float* R, int tt,
                                               cf (&X)[C]) {
+  if constexpr (PRE) {
+    const float* g = R + (size_t)tt * C * 2 * THREADS + threadIdx.x;
+#pragma unroll
+    for (int c = 0; c < C; ++c) X[c] = {g[2 * c * THREADS], g[(2 * c + 1) * THREADS]};
+    return;
+  }
   const float* x = R + ((size_t)tt * pl.NU + (k.b - k.b_lo)) * k.M;
   X[0] = {x[k.f], k.has_im ? x[k.F + k.f - 1] : 0.f};
   const float* G = R + (size_t)pl.TC * pl.NU * k.M + threadIdx.x;
@@ -206,9 +255,45 @@ cudaError_t sm_count(int* sms) {
   return err;
 }
 
-// one thread per bin, at most 257 bins (M <= 512)
+// The pre-pass of PRE: en[t * B + b] = the reference channel's energy of
+// frame t of utterance b, a warp a (frame, utterance) row: lane l takes bin
+// g*32 + l of each group g of 32 bins (bins past F: 0), a shuffle tree a
+// group, the groups added in order from 0 and divided by M, so each sum
+// has the bits `chunk_energies_ng` gives it
+constexpr int PRE_THREADS = 256;
+
+__global__ void __launch_bounds__(PRE_THREADS)
+    energy_prepass_kernel(const float* __restrict__ Yp, float* __restrict__ en, int Tf, int B,
+                          int C, int M) {
+  const int lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * (PRE_THREADS / 32) + (threadIdx.x >> 5);
+  if (row >= (long long)Tf * B) return;
+  const int F = M / 2 + 1;
+  const float* x = Yp + row * C * M;  // row t * B + b: channel 0 of utterance b, frame t
+  float sum = 0.f;
+  for (int g = 0; g < (F + 31) / 32; ++g) {
+    const int bin = g * 32 + lane;
+    const float re = bin < F ? __ldg(x + bin) : 0.f;
+    const float im = bin >= 1 && bin <= F - 2 ? __ldg(x + F + bin - 1) : 0.f;
+    float v = bin < F ? energy_term(bin == 0 || bin == F - 1 ? 1.f : 2.f, {re, im}) : 0.f;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    sum += v;
+  }
+  if (lane == 0) en[row] = sum / (float)M;
+}
+
+cudaError_t energy_prepass(const float* Yp, float* en, int Tf, int B, int C, int M,
+                           cudaStream_t stream) {
+  const long long rows = (long long)Tf * B;
+  energy_prepass_kernel<<<(unsigned)((rows + PRE_THREADS / 32 - 1) / (PRE_THREADS / 32)),
+                          PRE_THREADS, 0, stream>>>(Yp, en, Tf, B, C, M);
+  return cudaGetLastError();
+}
+
+// one thread per bin, at most 1025 bins (M <= 2048)
 bool args_ok(int Tf, int B, int C, int Bc, int M) {
-  return Tf > 0 && B > 0 && M >= 4 && M % 2 == 0 && M / 2 + 1 <= 257 && C >= 2 && C <= 8 &&
+  return Tf > 0 && B > 0 && M >= 4 && M % 2 == 0 && M / 2 + 1 <= 1025 && C >= 2 && C <= 8 &&
          Bc == C - 1 && (long long)B * (M / 2 + 1) <= 0x7fffffffLL;
 }
 

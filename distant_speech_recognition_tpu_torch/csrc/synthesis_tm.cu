@@ -17,10 +17,12 @@
 // What bounds the function on an H100: its bytes, M*4 read and D*4 written
 // per spectrum row, 0.49 GB at B=256 x 10 s, M = 256 (0.15 ms at 3.35
 // TB/s); the FFT needs ~2.5 M log2 M flops per row, the FIR 2*m*D.  Design,
-// at every M in {64, 128, 256, 512} (one FFT plan, csrc/dsr_fft.h): a block
+// at every M in {64, 128, ..., 2048} (one FFT plan, csrc/dsr_fft.h): a block
 // owns one utterance and Tt = ROWS - (m*R - 1) output frames, ROWS = 256,
-// 128, 64, 40 rows (~70 KB at M <= 256, three blocks of 256 threads an SM;
-// 88 KB at 512, two); it stages the packed rows of its frames plus the m*R-1
+// 128, 64, 40, 48, 24 rows (~70 KB at M <= 256, three blocks of 256 threads
+// an SM; 88 KB at 512, two; 214 and 224 KB at 1024 and 2048, one: the tile
+// holds m*R = 32 rows at 1024 (m = 4, r = 3) and 16 at 2048 with frames
+// left over); it stages the packed rows of its frames plus the m*R-1
 // halo rows they reach back to (the halo is recomputed by the neighbouring
 // block, as the TPU kernel does) into shared memory with cp.async, all in
 // flight at once, runs the inverse FFT in place, two rows per complex FFT,
@@ -38,7 +40,8 @@ constexpr int THREADS = 256;
 
 // c rows per block at M: output frames + halo (even: row pairs)
 __host__ __device__ constexpr int tile_rows(int M) {
-  return M == 64 ? 256 : M == 128 ? 128 : M == 256 ? 64 : M == 512 ? 40 : 0;
+  return M == 64 ? 256 : M == 128 ? 128 : M == 256 ? 64 : M == 512 ? 40 : M == 1024 ? 48
+         : M == 2048 ? 24 : 0;
 }
 template <int M>
 constexpr size_t smem_bytes() {
@@ -46,7 +49,7 @@ constexpr size_t smem_bytes() {
 }
 
 template <int M>
-__global__ void __launch_bounds__(THREADS, M == 512 ? 2 : 3)
+__global__ void __launch_bounds__(THREADS, M > 512 ? 1 : M == 512 ? 2 : 3)
 synthesis_tm_kernel(const float* __restrict__ Yp, const float* __restrict__ tw,
                     const float* __restrict__ gf, float* __restrict__ out,
                     int T_in, int B, int m, int R, int D, int pd, int T_out, int Tt) {
@@ -113,6 +116,8 @@ extern "C" int dsr_synthesis_tm(const float* Yp, const float* tw, const float* g
     case 64: return launch<64>(Yp, tw, gf, out, T_in, B, m, R, D, pd, T_out, Tt, stream);
     case 128: return launch<128>(Yp, tw, gf, out, T_in, B, m, R, D, pd, T_out, Tt, stream);
     case 256: return launch<256>(Yp, tw, gf, out, T_in, B, m, R, D, pd, T_out, Tt, stream);
-    default: return launch<512>(Yp, tw, gf, out, T_in, B, m, R, D, pd, T_out, Tt, stream);
+    case 512: return launch<512>(Yp, tw, gf, out, T_in, B, m, R, D, pd, T_out, Tt, stream);
+    case 1024: return launch<1024>(Yp, tw, gf, out, T_in, B, m, R, D, pd, T_out, Tt, stream);
+    default: return launch<2048>(Yp, tw, gf, out, T_in, B, m, R, D, pd, T_out, Tt, stream);
   }
 }

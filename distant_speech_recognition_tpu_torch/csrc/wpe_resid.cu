@@ -65,10 +65,12 @@
 //     Nyquist bin M/2 (real) is computed after each step by lanes 0 .. 7 of
 //     each warp of group 0, a frame each, its coefficients from shared
 //     memory (a slot is C x 64 + 4 floats, so those lanes read distinct banks).
-// M is 64, 128, 256 or 512 (lane offsets compiled in).  At M = 512 a narrow
+// M is 64, 128, ..., 2048 (lane offsets compiled in).  At M = 512 a narrow
 // block of C >= 5 channels would take 800 threads (1,056 at C >= 7, more
 // than a block may have), and 80 registers a thread spill its filters: those
-// shapes run in the wide kernel.
+// shapes run in the wide kernel.  At M = 1024 and 2048 every shape runs in
+// the wide kernel, whose block takes 32 bins whatever M is (a narrow block
+// would take a thread a bin of half the channels).
 #include <algorithm>
 
 #include "dsr_kernels.h"
@@ -627,10 +629,10 @@ int narrow_threads(int C, int MH) {
 int narrow_slots(int C, int P) { return C == 4 && P <= 5 ? 5 : 24 / C; }
 // the wide kernel takes (C, P, lowerN) past 24 / C taps, and where a narrow
 // block would take more than 544 threads (the most at M <= 256; C >= 5 at
-// M = 512) or 227 KB
+// M = 512) or 227 KB; every shape above M = 512
 constexpr int NARROW_MAX_THREADS = 544;
 bool wide(int C, int P, int lowerN, int MH) {
-  if (P > 24 / C || narrow_threads(C, MH) > NARROW_MAX_THREADS) return true;
+  if (MH > 256 || P > 24 / C || narrow_threads(C, MH) > NARROW_MAX_THREADS) return true;
   return plan(C, 2 * MH, P, narrow_slots(C, P), lowerN, step_frames(C, MH), lead_steps(C, MH))
              .bytes > 227 * 1024;
 }
@@ -640,7 +642,7 @@ int slots(int C, int P, int lowerN, int MH) {
 
 bool args_ok(int Tf, int B, int C, int M, int P, int lowerN) {
   return Tf > 0 && B > 0 && B <= 65535 && C > 0 && C <= 8 && P > 0 && C * P <= 40 &&
-         lowerN >= 0 && (M == 64 || M == 128 || M == 256 || M == 512);
+         lowerN >= 0 && (M == 64 || M == 128 || M == 256 || M == 512 || M == 1024 || M == 2048);
 }
 
 // the launch of (C, P) at MH = M/2 lanes, or its occupancy (blocks, smem,
@@ -653,8 +655,8 @@ int dispatch(const float* Yp, const float* G, float* out, int Tf, int B, int C, 
   if (C == c && PM == pm)                                                           \
     return blocks ? L<c, MH, pm>::occupancy(P, lowerN, blocks, smem, threads)       \
                   : L<c, MH, pm>::run(Yp, G, out, Tf, B, P, lowerN, stream);
-#define DSR_NARROW(c, pm)                                   \
-  if constexpr (block_threads<c, MH>() <= NARROW_MAX_THREADS) { \
+#define DSR_NARROW(c, pm)                                                 \
+  if constexpr (MH <= 256 && block_threads<c, MH>() <= NARROW_MAX_THREADS) { \
     DSR_CASE(c, pm, Launch)                                 \
   }
 #define DSR_WIDE(c, pm) DSR_CASE(c, pm, WideLaunch)
@@ -676,8 +678,12 @@ int dispatch_m(const float* Yp, const float* G, float* out, int Tf, int B, int C
     case 128: return dispatch<64>(Yp, G, out, Tf, B, C, P, lowerN, stream, blocks, smem, threads);
     case 256:
       return dispatch<128>(Yp, G, out, Tf, B, C, P, lowerN, stream, blocks, smem, threads);
-    default:
+    case 512:
       return dispatch<256>(Yp, G, out, Tf, B, C, P, lowerN, stream, blocks, smem, threads);
+    case 1024:
+      return dispatch<512>(Yp, G, out, Tf, B, C, P, lowerN, stream, blocks, smem, threads);
+    default:
+      return dispatch<1024>(Yp, G, out, Tf, B, C, P, lowerN, stream, blocks, smem, threads);
   }
 }
 

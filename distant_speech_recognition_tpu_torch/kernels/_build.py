@@ -50,13 +50,14 @@ _SIGNATURES = {
     "dsr_synthesis_tm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "dsr_synthesis_tm_rows": [_I],
     "dsr_gsc_rls_zelinski": [
-        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
         _F, _F, _F, _F, _F, _F, _F, _F, _I, _F, _F, _I, _F, _F, _F, _F, _I, _I, _P,
     ],
     "dsr_gsc_rls_zelinski_steered": [
-        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
         _F, _F, _F, _F, _F, _F, _F, _F, _I, _F, _F, _I, _F, _F, _F, _F, _I, _I, _P,
     ],
+    "dsr_gsc_rls_zelinski_energy_floats": [_I, _I, _I],
     "dsr_gsc_rls_zelinski_shape": [_I, _I, _I, _P, _P, _P, _P, _P, _P],
     "dsr_lms_gates": [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P],
     "dsr_gsc_lms_zelinski": [

@@ -112,16 +112,21 @@ def _scan(wrapper, entry: str, kind: str, Yp, wqH, BmH, wq_manifold, cfg, pf_alp
     Yp = Yp.contiguous()
     check_cuda_tensor("Yp", Yp)
     lib = _build.library()
-    gates = ()  # the LMS scan's silence gates [Tf, B]
+    # the LMS scan's silence gates [Tf, B]; K2/K6's energy buffer, of the size
+    # their C side asks for (empty, a null pointer, where they need none)
+    gates = energies = ()
     if kind == "lms":
         # a shape the scan refuses raises before either kernel launches
         _build.check(lib.dsr_gsc_lms_zelinski_args_ok(Tf, B, C, Bc, M, cfg.slowdown_after),
                      wrapper.__name__)
         gates = (lms_gates(Yp, cfg),)
+    else:
+        n_en = lib.dsr_gsc_rls_zelinski_energy_floats(Tf, B, M)
+        energies = (torch.empty(n_en, dtype=torch.float32, device=Yp.device),)
     out = torch.empty((Tf, B, M), dtype=torch.float32, device=Yp.device)
     code = getattr(lib, entry)(
         Yp.data_ptr(), *(t.data_ptr() for t in gates), wq.data_ptr(), bm.data_ptr(),
-        ta.data_ptr(), out.data_ptr(),
+        ta.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in energies),
         Tf, B, C, Bc, M, *(_lms_args(cfg) if kind == "lms" else _rls_args(cfg)),
         *zelinski_args(C, pf_alpha, pf_type, pf_min_frames), stream_handle(Yp.device),
     )

@@ -155,8 +155,8 @@ def _check_supported(cfg: PipelineConfig, n_chan: int | None = None) -> None:
 
 # the shapes the card's kernels take: the filterbank kernels do their DFTs
 # with the shared-memory FFT of csrc/dsr_fft.h, built for M in FFT_SIZES
-# (64, 128, 256, 512); the synthesis kernel (K3) holds the m*R - 1 halo rows
-# in its tile of `synthesis_tile_rows(M)` rows (256, 128, 64, 40); the
+# (64, 128, ..., 2048); the synthesis kernel (K3) holds the m*R - 1 halo rows
+# in its tile of `synthesis_tile_rows(M)` rows (256, 128, 64, 40, 48, 24); the
 # beamformer kernels are built for 2 <= C <= 8
 CARD_M = FFT_SIZES
 CARD_CHANNELS = (2, 8)

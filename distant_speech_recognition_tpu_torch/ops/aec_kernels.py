@@ -8,9 +8,10 @@ is held to) and repacks.  The kernel runs the one-tap block Kalman as its
 Kalman recursion started from ``K = sigmak2``: with one tap the two
 recursions are the same, and the kernel keeps K real where the plain loop
 carries it complex (its imaginary part is rounding).  The
-kernel stages whole packed rows by 16-byte copies and takes a bin a thread,
-so it takes M a multiple of 4 up to `AEC_MAX_M` (the card pipelines run M =
-64 to 512); the plain loops take any even M.
+kernel stages packed rows by 16-byte copies and takes a bin a thread, so it
+takes M a multiple of 4 up to `AEC_MAX_M` (the card pipelines run M = 64 to
+2048; past 1024 a channel's bins are split between two blocks, and M must
+be a multiple of 16); the plain loops take any even M.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ __all__ = ["AEC_KINDS", "AEC_MAX_M", "aec_launch_shape", "aec_scan"]
 AEC_KINDS = ("nlms", "kalman", "block_kalman")
 # the block Kalman's initial state variance (JAX's default, which its pipeline keeps)
 SIGMAK2 = 5.0
-AEC_MAX_M = 1024
+AEC_MAX_M = 2048
 
 
 def aec_scan(
@@ -61,9 +62,9 @@ def aec_scan(
         return pack_half(E)
     if Ap.device.type != "cuda":
         raise ValueError(f"aec_scan runs on cpu or cuda tensors, got {Ap.device}")
-    if M % 4 or not 4 <= M <= AEC_MAX_M:
-        raise NotImplementedError(f"the aec_scan kernel takes M a multiple of 4 in "
-                                  f"[4, {AEC_MAX_M}], got M = {M}")
+    if M % 4 or not 4 <= M <= AEC_MAX_M or (M > 1024 and M % 16):
+        raise NotImplementedError(f"the aec_scan kernel takes M a multiple of 4 in [4, 1024] "
+                                  f"or of 16 up to {AEC_MAX_M}, got M = {M}")
     from ..kernels import _build, check_cuda_tensor, stream_handle
 
     Ap = Ap.contiguous()

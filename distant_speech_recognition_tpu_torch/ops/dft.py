@@ -37,7 +37,7 @@ __all__ = [
 
 
 # the transform sizes of the CUDA kernels' shared-memory FFT (csrc/dsr_fft.h)
-FFT_SIZES = (64, 128, 256, 512)
+FFT_SIZES = (64, 128, 256, 512, 1024, 2048)
 
 
 def _frozen(a: np.ndarray) -> np.ndarray:

@@ -74,8 +74,8 @@ def analysis_tm_fused(
     to `ops.filterbank.analysis_half_real_tm(packed=True)`.  ``A`` may hold
     the plain version's `filterbank.analysis_matrix_tensor(M, True, ...)`
     and ``hr`` the kernel's taps `filterbank.analysis_taps(h)` already on
-    ``x``'s device.  The kernel takes M in `dft.FFT_SIZES` (64, 128, 256,
-    512; other M raise `NotImplementedError` on a CUDA tensor), does its DFT
+    ``x``'s device.  The kernel takes M in `dft.FFT_SIZES` (64, 128, ...,
+    2048; other M raise `NotImplementedError` on a CUDA tensor), does its DFT
     as an FFT from `fft_twiddles_tensor` and never reads ``A``.  Its tiles
     hold ``x.shape[-2]`` signals (the channels of an utterance) when that is
     at most 8, as the one-kernel chains' tiles do, else one."""
@@ -119,8 +119,9 @@ def synthesis_tile_rows(M: int) -> int:
     """The rows of K3's tile at M in `dft.FFT_SIZES` (``csrc/synthesis_tm.cu``
     `tile_rows`, read back by the card test): output frames plus the m*R - 1
     halo rows, so K3 takes m*R <= this.  ~70 KB of shared memory at M <= 256,
-    88 KB at 512."""
-    return {64: 256, 128: 128, 256: 64, 512: 40}[M]
+    88 KB at 512, 214 and 224 KB at 1024 and 2048 (m*R = 32 at 1024, 16 at
+    2048 with output frames left over)."""
+    return {64: 256, 128: 128, 256: 64, 512: 40, 1024: 48, 2048: 24}[M]
 
 
 def synthesis_tm_fused(

@@ -56,7 +56,7 @@ SUBBAND_FLOOR = 1.0e-3  # dereverberation.cc:144
 # ten 4x4 tiles a side, K11's registers, K12's rows: BASELINE config 4's
 # default taps at 8 channels, P = 5), up to 8 channels (K10's threads per
 # block, K11's register rows), and lowerN + P - 1 frames of lag history in
-# shared memory.  K11 takes M = 64, 128, 256 and 512 (its lane offsets are
+# shared memory.  K11 takes M = 64, 128, ..., 2048 (its lane offsets are
 # compiled in), the filterbank sizes the card pipelines run.
 WPE_MAX_CP = 40
 WPE_MAX_CHANNELS = 8

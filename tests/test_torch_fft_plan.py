@@ -1,14 +1,15 @@
 """The index plan of the FFT kernels' DFT stages (``csrc/dsr_fft.h``), on the CPU.
 
 The CUDA kernels K1 (``analysis_tm.cu``) and K3 (``synthesis_tm.cu``) at
-N = M in {64, 128, 256, 512}, and K4/K5 (``gsc_mono.cu``) and K8
+N = M in {64, 128, ..., 2048}, and K4/K5 (``gsc_mono.cu``) and K8
 (``fw_mono.cu``) at N = 256, do their N-point DFTs as FFTs in shared memory;
 no CUDA runs here, so this file models their stage plan (`Shape<N>`) in
 torch, step for step, at every N: the swizzled R x Q cell layouts (8 x 8,
-8 x 16, 16 x 16; at 512 two 16 x 16 sub-rows and a radix-2 pass), the (n+1)
-phase as an input index shift, the radix-4 x 2 and 4 x 4 8- and 16-point
-DFTs with their register order, the pass-1 twiddles W_N^(g k1) and the
-radix-2 pass's W512^k from `dft.fft_twiddles`, two real rows per complex
+8 x 16, 16 x 16; above 256 N / 256 sub-rows of 16 x 16 and a radix-2, 4 or
+8 pass), the (n+1) phase as an input index shift, the radix-4 x 2 and 4 x 4
+8- and 16-point DFTs with their register order, the pass-1 twiddles
+W_N^(g k1) and the radix pass's W_N^(s k) from `dft.fft_twiddles`, two real
+rows per complex
 FFT and the split back, the packed lanes and the synthesis segment
 reversal.  Each plan is held to the dense matrices the plain versions
 multiply by (`dft.analysis_matrix_packed`, `dft.synthesis_half_matrix_packed`
@@ -34,24 +35,26 @@ from distant_speech_recognition_tpu_torch.ops.filterbank import (
     unpack_half,
 )
 
-SIZES = (64, 128, 256, 512)
+SIZES = (64, 128, 256, 512, 1024, 2048)
 
 
 class Shape:
     """`dsr::fft::Shape<N>`: R x Q cells of a four-step (sub-)row of NS
-    points, TP threads a pair, sub-row 1 SUB floats after sub-row 0 (N =
-    512), LD floats a row."""
+    points, TP threads a pair, S sub-rows SUB floats apart (N > 256), LD
+    floats a row."""
 
     def __init__(self, N):
         self.N = N
-        self.split2 = N == 512
-        self.NS = N // 2 if self.split2 else N
+        self.S = N // 256 if N > 256 else 1
+        self.split = self.S > 1
+        self.NS = 256 if self.split else N
         self.R = 16 if self.NS == 256 else 8
         self.Q = self.NS // self.R
-        self.TP = 32 if self.split2 else self.R
-        self.SUB = self.NS + 16 if self.split2 else 0
-        self.LD = self.SUB + self.NS if self.split2 else (264 if N == 256 else N + 4)
-        self.width = self.SUB + self.NS  # floats of a row the plan touches
+        self.TP = 16 * self.S if self.split else self.R
+        self.SUB = self.NS + 16 if self.split else 0
+        self.LD = (self.S - 1) * self.SUB + self.NS if self.split else (
+            264 if N == 256 else N + 4)
+        self.width = (self.S - 1) * self.SUB + self.NS  # floats of a row the plan touches
 
 
 def cell(N, r, c):
@@ -62,14 +65,14 @@ def cell(N, r, c):
 
 def tpos(N, n):
     s = Shape(N)
-    if s.split2:
-        return (n & 1) * s.SUB + tpos(s.NS, n >> 1)
+    if s.split:
+        return (n % s.S) * s.SUB + tpos(s.NS, n // s.S)
     return cell(N, n % s.R, n // s.R)
 
 
 def npos(N, n):
     s = Shape(N)
-    if s.split2:
+    if s.split:
         return (n // s.NS) * s.SUB + npos(s.NS, n % s.NS)
     return cell(N, n // s.Q, n % s.Q)
 
@@ -165,9 +168,9 @@ def fft_rows(N, buf, from_packed=False):
     s = Shape(N)
     src = (buf[0::2], buf[1::2])
     dst = (src[0].clone(), src[1].clone())
-    for h in range(2 if s.split2 else 1):
+    for h in range(s.S):
         four_step(N, src, dst, h * s.SUB, h, from_packed)
-    if s.split2:  # radix 2: X[k] = E[k] + W^k O[k], X[k + NS] = E[k] - W^k O[k]
+    if s.S == 2:  # radix 2: X[k] = E[k] + W^k O[k], X[k + NS] = E[k] - W^k O[k]
         _, W = twiddles(N)
         p = [npos(s.NS, k) for k in range(s.NS)]
         po = [s.SUB + q for q in p]
@@ -175,6 +178,19 @@ def fft_rows(N, buf, from_packed=False):
         O = torch.complex(dst[0][:, po], dst[1][:, po]) * W[:s.NS]
         dst[0][:, p], dst[1][:, p] = (E + O).real, (E + O).imag
         dst[0][:, po], dst[1][:, po] = (E - O).real, (E - O).imag
+    elif s.split:  # radix S: X[k + NS l] = sum_s W_S^(s l) W_N^(s k) E_s[k]
+        _, W = twiddles(N)
+        p = [npos(s.NS, k) for k in range(s.NS)]
+        k = torch.arange(s.NS)
+        v = []
+        for h in range(s.S):
+            po = [h * s.SUB + q for q in p]
+            e = torch.complex(dst[0][:, po], dst[1][:, po])
+            v.append(e if h == 0 else e * W[h * k])
+        V = dft4(*v) if s.S == 4 else [dft8(v, consts(N))[reg(8, l)] for l in range(8)]
+        for l in range(s.S):
+            po = [l * s.SUB + q for q in p]
+            dst[0][:, po], dst[1][:, po] = V[l].real, V[l].imag
     out = torch.empty_like(buf)
     out[0::2], out[1::2] = dst
     return out
@@ -358,10 +374,12 @@ def _warp_accesses(N):
     """Every shared-memory access of the plan's passes as the 32 lanes of a
     warp issue it: (name, [address of each lane]).  Lane l is thread l % TP
     of pair l // TP, whose rows start 2 LD (l // TP) floats in; twiddle
-    reads index the staged tables [k1][g] and, at N = 512, [k]."""
+    reads index the staged tables [k1][g] and, above 256, [s][k].  Above
+    512 a pair is TP / 32 warps: warp w's half warps take sub-rows 2w and
+    2w + 1, and its lanes k = 32 w + l, + TP, ... of the radix pass."""
     s = Shape(N)
     lanes = range(32)
-    if not s.split2:
+    if not s.split:
         R, Q, TP = s.R, s.Q, s.TP
         base = [2 * s.LD * (l // TP) for l in lanes]
         acc = [(f"pass 1 cells (g, {n1})", [b + cell(N, l % TP, n1) for b, l in zip(base, lanes)])
@@ -371,17 +389,23 @@ def _warp_accesses(N):
                  [b + cell(N, n2, l % TP + TP * b_) for b, l in zip(base, lanes)])
                 for b_ in range(Q // TP) for n2 in range(R)]
         return acc
-    half = [((l >> 4) & 1) * s.SUB for l in lanes]
-    acc = [(f"pass 1 cells (g, {n1})", [o + cell(256, l & 15, n1) for o, l in zip(half, lanes)])
-           for n1 in range(16)]
-    acc += [(f"pass 1 twiddle k1={k1}", [16 * k1 + (l & 15) for l in lanes]) for k1 in range(16)]
-    acc += [(f"pass 2 cells ({n2}, g)", [o + cell(256, n2, l & 15) for o, l in zip(half, lanes)])
-            for n2 in range(16)]
-    for i in range(8):
-        ks = [l + 32 * i for l in lanes]
-        acc += [(f"radix 2 E, k = l + {32 * i}", [npos(256, k) for k in ks]),
-                (f"radix 2 O, k = l + {32 * i}", [s.SUB + npos(256, k) for k in ks]),
-                (f"radix 2 twiddle, k = l + {32 * i}", [2 * 256 + k for k in ks])]
+    acc = []
+    for w in range(s.TP // 32):
+        half = [(2 * w + ((l >> 4) & 1)) * s.SUB for l in lanes]
+        acc += [(f"warp {w} pass 1 cells (g, {n1})",
+                 [o + cell(256, l & 15, n1) for o, l in zip(half, lanes)]) for n1 in range(16)]
+        acc += [(f"warp {w} pass 1 twiddle k1={k1}", [16 * k1 + (l & 15) for l in lanes])
+                for k1 in range(16)]
+        acc += [(f"warp {w} pass 2 cells ({n2}, g)",
+                 [o + cell(256, n2, l & 15) for o, l in zip(half, lanes)]) for n2 in range(16)]
+        for i in range(256 // s.TP):
+            ks = [32 * w + l + s.TP * i for l in lanes]
+            for h in range(s.S):
+                acc.append((f"warp {w} radix {s.S} sub-row {h}, k = {32 * w} + l + {s.TP * i}",
+                            [h * s.SUB + npos(256, k) for k in ks]))
+                if h > 0:
+                    acc.append((f"warp {w} radix {s.S} twiddle {h}, k = {32 * w} + l + {s.TP * i}",
+                                [2 * 256 * h + k for k in ks]))
     return acc
 
 

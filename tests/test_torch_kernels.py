@@ -35,16 +35,19 @@ modes, pf_min_frames 0 and 2, digitally silent utterances and frame counts
 that are no multiple of the kernels' frame groups and tiles.  K1 (at M =
 256), K3, K4/K5 and K8, whose DFTs are FFTs (``csrc/dsr_fft.h``), also take
 pure tones at bins 0, 1, 64, 127 and 128 and impulse trains, one case per
-bin; K1 also takes tiles of 1 to 8 signals.  At M = 64, 128 and 512 (the
-FFT plans of 8 x 8, 8 x 16 and 2 x 16 x 16 cells) K1 and K3 are held to
-their plain versions on noise, pure tones at bins 0, 1, M/4, M/2 - 1 and
-M/2 and impulse trains (2e-5), K3 at the largest halo its tile takes; K2,
-K6, the LMS scan and its gate pass at M = 512 (F = 257, nine groups of 32
-bins) to their plain loops (2e-4); K7, K9, K10, K11 (narrow, and (8, 5) and
-(8, 3) in the wide kernel) and the postfilter kernel at M = 64 and 512; and
-the card pipelines at those sizes (BASELINE config 1 at M = 64, the
-flagship at 128 and 512, configs 3-5, D&S + Zelinski and McCowan) to the
-same modules on the CPU with exactly their routes' launches.  K1, K3,
+bin; K1 also takes tiles of 1 to 8 signals.  At M = 64, 128, 512, 1024
+and 2048 (the FFT plans of 8 x 8, 8 x 16 and 2, 4, 8 x 16 x 16 cells) K1
+and K3 are held to their plain versions on noise, pure tones at bins 0, 1,
+M/4, M/2 - 1 and M/2 and impulse trains (2e-5), K3 at the largest halo its
+tile takes; K2, K6, the LMS scan and its gate pass at M = 512, 1024 and
+2048 (F = 257, 513, 1025; K2/K6's energies from their pre-pass above 257)
+to their plain loops (2e-4); K7, K9 (two blocks a channel at 2048), K10,
+K11 (narrow, and (8, 5) and (8, 3) in the wide kernel; only the wide one
+above 512), K12 at the systems of 1025 bins and the postfilter kernel at M
+= 64, 512, 1024 and 2048; and the card pipelines at those sizes (BASELINE
+config 1 at M = 64, the flagship at 128, 512 and 2048, configs 3-5, D&S +
+Zelinski and McCowan) to the same modules on the CPU with exactly their
+routes' launches.  K1, K3,
 K4/K5 and K8 at M = 256 give, bit for bit, the outputs stored from their
 kernels before the FFT plan took other sizes
 (``tests/data/filterbank_case_m256.npz``, ``tests/probe_filterbank_bits.py
@@ -160,6 +163,8 @@ from distant_speech_recognition_tpu_torch.utils.prototypes import load_pair
 pytestmark = pytest.mark.cuda
 
 FS = 16000.0
+# the designed prototypes above M = 512 (tests/data/prototypes)
+PROTO_DIR = str(Path(__file__).parent / "data" / "prototypes")
 
 
 @pytest.fixture(scope="module")
@@ -225,6 +230,14 @@ def _delays(C, azimuth=np.pi / 3):
         (512, 4, 1, 0, 5000, (2, 1)),
         (512, 3, 2, 1, 6000, (1, 3)),
         (512, 4, 1, 2, 3000, (2, 12)),
+        # M = 1024 and 2048: tiles of 16 and 8 rows (eight channels fill one
+        # frame's tile at 2048), 2, 4 and 8 signals, one and nine utterances
+        (1024, 4, 1, 2, 9000, (2, 8)),
+        (1024, 4, 3, 2, 6001, (9, 2)),
+        (1024, 4, 1, 0, 7000, (1, 4)),
+        (2048, 4, 1, 2, 15000, (2, 8)),
+        (2048, 4, 2, 1, 11001, (9, 4)),
+        (2048, 4, 1, 2, 9000, (1, 2)),
     ],
 )
 def test_analysis_kernel_matches_plain(dev, M, m, r, dct, T, lead):
@@ -383,6 +396,9 @@ def test_scan_kernels_around_a_chunk_of_frames(dev, C):
         (dict(), 1, 2, 64),  # F=33: a block with idle lanes
         (dict(), 1, 2, 512),  # F=257: nine groups of 32 bins, the last with one
         (dict(constraint_option=0), 2, 0, 512),
+        # F = 513 and 1025: the energies from the pre-pass
+        (dict(), 1, 2, 1024),
+        (dict(constraint_option=0), 2, 0, 2048),
     ],
 )
 def test_scan_kernel_matches_plain_options(dev, cfg_kw, pf_type, pf_min_frames, M):
@@ -445,6 +461,12 @@ def _packed(rng, Tf, B, C, M, scale=100.0):
         ("nlms", 100.0, 1e-4, 4, 512, 2),
         ("kalman", 0.95, 1e-3, 8, 512, 1),
         ("block_kalman", 0.95, 1e-3, 4, 512, 2),
+        # M = 1024 (one block a channel) and 2048 (two blocks a channel)
+        ("nlms", 100.0, 1e-4, 4, 1024, 9),
+        ("kalman", 0.95, 1e-3, 2, 1024, 1),
+        ("nlms", 100.0, 1e-4, 8, 2048, 1),
+        ("kalman", 0.95, 1e-3, 4, 2048, 9),
+        ("block_kalman", 0.95, 1e-3, 2, 2048, 2),
     ],
 )
 def test_aec_kernel_matches_plain(dev, kind, p1, p2, C, M, B):
@@ -514,11 +536,12 @@ def test_aec_kernel_frame_counts(dev, kind, p1, p2, Tf, B, C, M):
 
 
 def test_aec_kernel_refuses_what_it_does_not_take(dev):
-    """The kernel stages whole rows by 16-byte copies and takes a bin a
-    thread: M a multiple of 4 up to 1024.  The wrapper raises on the rest
+    """The kernel stages rows by 16-byte copies and takes a bin a thread:
+    M a multiple of 4 up to 1024, and of 16 up to 2048 (two blocks a
+    channel, each two runs of M/4 lanes).  The wrapper raises on the rest
     before any launch; the plain loops on the CPU still take them."""
     kernels.reset_launch_counts()
-    for M in (6, 130, 1028):
+    for M in (6, 130, 1028, 4096):
         A = torch.zeros((3, 1, 2, M), device=dev)
         with pytest.raises(NotImplementedError, match="multiple of 4"):
             aec_scan(A, torch.zeros((3, 1, M), device=dev))
@@ -574,6 +597,9 @@ def _old(*args):
         pytest.param(4, 5, 2, 64, 2, True, 90, id="M64"),
         pytest.param(4, 5, 2, 512, 2, True, 90, id="M512"),
         pytest.param(8, 5, 2, 512, 1, False, 90, id="C8-P5-M512-first-iteration"),
+        pytest.param(4, 5, 2, 1024, 2, True, 45, id="M1024"),
+        pytest.param(2, 5, 2, 2048, 9, True, 37, id="C2-B9-M2048"),
+        pytest.param(8, 5, 2, 2048, 1, False, 30, id="C8-P5-M2048-first-iteration"),
     ],
 )
 def test_wpe_stats_kernel_matches_plain(dev, C, P, lowerN, M, B, has_g, Tf):
@@ -666,6 +692,11 @@ def test_wpe_stats_kernel_repeats_to_the_bit(dev, has_g):
         pytest.param(8, 3, 2, 512, 2, 90, id="C8-P3-M512-in-the-wide-kernel"),
         pytest.param(7, 3, 2, 512, 1, 45, id="C7-P3-M512-in-the-wide-kernel"),
         pytest.param(8, 5, 2, 512, 2, 300, id="wide-C8-P5-M512"),
+        # M = 1024 and 2048: every shape in the wide kernel (32 and 64 groups)
+        pytest.param(4, 5, 2, 1024, 2, 90, id="M1024"),
+        pytest.param(2, 3, 1, 1024, 9, 45, id="C2-P3-B9-M1024"),
+        pytest.param(8, 5, 2, 2048, 1, 37, id="wide-C8-P5-M2048"),
+        pytest.param(4, 6, 32, 2048, 2, 70, id="C4-P6-lowerN32-M2048"),
     ],
 )
 def test_wpe_resid_kernel_matches_plain(dev, C, P, lowerN, M, B, Tf):
@@ -696,7 +727,10 @@ def test_wpe_resid_kernel_matches_plain(dev, C, P, lowerN, M, B, Tf):
                                  # partial, just below and above the 1584 warps the
                                  # card holds at 3 blocks an SM, odd n (8-byte copies)
                                  (40, 1), (37, 3), (34, 1583), (40, 1585), (35, 11),
-                                 (38, 3169)])
+                                 (38, 3169),
+                                 # the counts of M = 2048 (1025 bins): config 4 at 32
+                                 # utterances x 4 channels, 8 channels at 2 utterances
+                                 (20, 131200), (40, 16400)])
 def test_gj_solve_kernel_matches_plain(dev, n, N):
     """Diagonally loaded Hermitian positive-definite systems, as WPE builds them."""
     rng = np.random.default_rng(n * N)
@@ -779,9 +813,9 @@ def test_wrappers_raise_on_bad_cuda_input(dev):
         analysis_tm_fused(x.double(), h, p)
     with pytest.raises(ValueError, match="CUDA"):
         analysis_tm_fused(x, h, p, hr=torch.zeros((4, 256)))
-    with pytest.raises(NotImplementedError, match="M=1024"):  # no FFT plan, no other route
-        analysis_tm_fused(x, torch.zeros(4096, device=dev), FilterbankParams(M=1024),
-                          A=torch.zeros((1024, 1024)))
+    with pytest.raises(NotImplementedError, match="M=4096"):  # no FFT plan, no other route
+        analysis_tm_fused(x, torch.zeros(16384, device=dev), FilterbankParams(M=4096),
+                          A=torch.zeros((4096, 4096)))
     with pytest.raises(ValueError, match="float32"):
         synthesis_tm_fused(torch.zeros((10, 1, 256), device=dev, dtype=torch.float64), h, p)
     Yp, wqH, BmH, vs = _scan_case(4, 256, seed=0, Tf=4)
@@ -1442,7 +1476,9 @@ LMS_CARD = dict(min_frames=6, slowdown_after=7)
     # F = 21: blocks of 64 bins over three utterances and a part
     (4, 40, 3, 30, 5e-7),
     # F = 257 (M = 512) and F = 33 (M = 64)
-    (2, 512, 3, 40, 5e-7), (8, 512, 3, 40, 5e-7), (4, 512, 2, 30, 100.0), (3, 64, 5, 40, 5e-7)])
+    (2, 512, 3, 40, 5e-7), (8, 512, 3, 40, 5e-7), (4, 512, 2, 30, 100.0), (3, 64, 5, 40, 5e-7),
+    # F = 513 and 1025: the gate pass's energies in batches of nine groups
+    (2, 1024, 9, 37, 5e-7), (8, 2048, 1, 30, 5e-7), (4, 2048, 9, 23, 100.0)])
 def test_lms_scan_kernel_matches_plain(dev, C, M, B, Tf, cap):
     """The LMS scan against its plain loop, both Zelinski modes, and the
     gain applied from the first frames on, at the last frame only or never;
@@ -1578,7 +1614,8 @@ def test_steered_wrappers_raise_on_bad_cuda_input(dev):
 
 @pytest.mark.parametrize("C,M,B,Tf", [(4, 256, 3, 40), (8, 256, 257, 23), (2, 32, 2, 2100),
                                       (3, 32, 5, 4200), (8, 40, 1, 7), (8, 512, 3, 40),
-                                      (2, 64, 4, 40),
+                                      (2, 64, 4, 40), (4, 1024, 9, 70), (8, 2048, 1, 45),
+                                      (2, 2048, 9, 130),
                                       # config 5's and config 3's frame count, and past 2048
                                       # frames, at one utterance and at B = 64
                                       (4, 256, 1, 1254), (8, 256, 64, 1254), (2, 256, 1, 2100),
@@ -1793,7 +1830,7 @@ def test_coherence_postfilter_forms_fixed_weight_output(dev, kind, pf_type, C):
 
 # ---- the filterbank sizes M = 64, 128 and 512 ------------------------------
 
-SIZES = (64, 128, 512)
+SIZES = (64, 128, 512, 1024, 2048)
 SIZE_TONES = ("bin0", "bin1", "binM/4", "binM/2-1", "binM/2", "impulses")
 
 
@@ -1838,11 +1875,12 @@ def _signal_at(M, case, C, T, B=2):
 @pytest.mark.parametrize("M", SIZES)
 @pytest.mark.parametrize("case", SIZE_TONES)
 def test_filterbank_kernels_other_sizes_tones_and_impulses(dev, M, case):
-    """K1 and K3 at M = 64, 128 and 512 one bin at a time (and impulses):
-    a wrong twiddle, cell, split, packing or segment-reversal index of
-    their FFT plan fails on a named bin."""
+    """K1 and K3 at M = 64, 128, 512, 1024 and 2048 one bin at a time (and
+    impulses): a wrong twiddle, cell, split, packing or segment-reversal
+    index of their FFT plan fails on a named bin.  Above 512 the prototypes
+    are the stored ones (designing them takes minutes)."""
     p = FilterbankParams(M=M, m=4, r=1, delay_compensation_type=2)
-    h, g = load_pair(M, 4, 1)
+    h, g = load_pair(M, 4, 1, proto_dir=PROTO_DIR if M > 512 else None)
     x = _signal_at(M, case, 4, 20 * M)
     ref = analysis_half_real_tm(x, h, p, packed=True)
     _close(analysis_tm_fused(x.to(dev), torch.as_tensor(h).to(dev), p), ref, 2e-5)
@@ -1863,6 +1901,12 @@ def test_filterbank_kernels_other_sizes_tones_and_impulses(dev, M, case):
         (512, 4, 0, 2, 77, (2,)),
         (512, 5, 3, 2, 120, (1,)),  # m*R = 40: the largest halo the tile takes
         (512, 2, 2, 1, 41, (2,)),
+        (1024, 4, 1, 2, 150, (3,)),  # tiles of 48 rows
+        (1024, 4, 3, 2, 120, (9,)),  # m*R = 32, JAX's M = 1024 case
+        (1024, 6, 3, 0, 90, (1,)),  # m*R = 48: the largest halo the tile takes
+        (2048, 4, 1, 2, 60, (3,)),  # tiles of 24 rows
+        (2048, 4, 2, 1, 50, (9,)),  # m*R = 16
+        (2048, 6, 2, 2, 61, (2,)),  # m*R = 24: the largest halo the tile takes
     ],
 )
 def test_synthesis_kernel_other_sizes(dev, M, m, r, dct, T_in, lead):
@@ -1887,10 +1931,10 @@ def test_synthesis_tile_rows_are_the_kernels(dev):
     from distant_speech_recognition_tpu_torch.ops.filterbank_kernels import synthesis_tile_rows
 
     lib = _build.library()
-    for M in (32, 1024, 2048, 96):
+    for M in (32, 4096, 96, 1536):
         assert lib.dsr_synthesis_tm_rows(M) == 0
     tw = torch.zeros(1, device=dev)
-    for M in (64, 128, 256, 512):
+    for M in (64, 128, 256, 512, 1024, 2048):
         rows = synthesis_tile_rows(M)
         assert lib.dsr_synthesis_tm_rows(M) == rows
         out = torch.empty(M, device=dev)
@@ -1899,37 +1943,50 @@ def test_synthesis_tile_rows_are_the_kernels(dev):
         assert lib.dsr_synthesis_tm(*args(rows + 1, 1, 1)) != 0  # halo rows: the whole tile
     kernels.reset_launch_counts()
     x = torch.zeros((1, 2, 4096), device=dev)
-    with pytest.raises(NotImplementedError, match="M=1024"):
-        analysis_tm_fused(x, torch.zeros(4096, device=dev), FilterbankParams(M=1024, m=4, r=1))
+    with pytest.raises(NotImplementedError, match="M=4096"):
+        analysis_tm_fused(x, torch.zeros(16384, device=dev), FilterbankParams(M=4096, m=4, r=1))
     with pytest.raises(NotImplementedError, match="m\\*R=64"):
         synthesis_tm_fused(torch.zeros((40, 1, 512), device=dev), torch.zeros(2048, device=dev),
                            FilterbankParams(M=512, m=4, r=4))
     assert set(kernels.launch_counts().values()) == {0}
 
 
-@pytest.mark.parametrize("C", [2, 8])
-def test_steered_scan_at_257_bins(dev, C):
-    """K6 at M = 512 (F = 257) against its plain version, and with one
-    steering for all equal to K2 bit for bit."""
-    Yp, wqH, BmH, vs = _scan_case(C, 512, seed=60 + C, B=3)
+@pytest.mark.parametrize("C,M,B,Tf", [(2, 512, 3, 40), (8, 512, 3, 40), (2, 1024, 9, 37),
+                                      (4, 1024, 3, 40), (8, 2048, 3, 23), (4, 2048, 9, 30)])
+def test_steered_scan_at_257_bins(dev, C, M, B, Tf):
+    """K6 at M = 512, 1024 and 2048 (F = 257, 513, 1025: the last two take
+    their energies from the pre-pass) against its plain version, and with
+    one steering for all equal to K2 bit for bit."""
+    Yp, wqH, BmH, vs = _scan_case(C, M, seed=60 + C + M + B, B=B, Tf=Tf)
     cfg = GSCRLSConfig(min_frames=8)
     d = np.stack([geometry.calc_la_delays(np.c_[np.arange(C) * 50.0][:, :1], azimuth=az)
-                  for az in (0.4, 1.3, 2.5)]).astype(np.float32)
-    per_utt = steering_weights(array_manifold(512, FS, torch.from_numpy(d)))
+                  for az in np.linspace(0.4, 2.5, B)]).astype(np.float32)
+    per_utt = steering_weights(array_manifold(M, FS, torch.from_numpy(d)))
     ref = gsc_rls_zelinski_steered(Yp, *per_utt, cfg, 0.6, 1, 2)
     Yd = Yp.to(dev)
     _close(gsc_rls_zelinski_steered(Yd, *(w.to(dev) for w in per_utt), cfg, 0.6, 1, 2), ref, 2e-4)
     shared = [w.to(dev) for w in (wqH, BmH, vs)]
-    rows = [w.expand((3,) + w.shape) for w in shared]
+    rows = [w.expand((B,) + w.shape) for w in shared]
     assert torch.equal(gsc_rls_zelinski_steered(Yd, *rows, cfg, 0.6, 2, 0),
                        gsc_rls_zelinski(Yd, *shared, cfg, 0.6, 2, 0))
 
 
-@pytest.mark.parametrize("M", [64, 512])
+@pytest.mark.parametrize("C,B,Tf", [(2, 1, 45), (4, 9, 37), (8, 3, 30)])
+@pytest.mark.parametrize("M", [1024, 2048])
+def test_rls_scan_at_1024_and_2048(dev, C, B, Tf, M):
+    """K2 at F = 513 and 1025 against its plain version (2e-4), at one and
+    nine utterances and a frame count that is no multiple of a chunk: the
+    pre-pass's energies, each block's staged bins of every channel."""
+    Yp, wqH, BmH, vs = _scan_case(C, M, seed=80 + C + M + B, B=max(B, 3), Tf=Tf)
+    _scan_vs_plain(dev, Yp[:, :B].contiguous(), wqH, BmH, vs, GSCRLSConfig(min_frames=8),
+                   1 + C % 2, 2)
+
+
+@pytest.mark.parametrize("M", [64, 512, 1024, 2048])
 @pytest.mark.parametrize("C", [2, 8])
 def test_fixed_weight_and_postfilter_kernels_at_other_sizes(dev, M, C):
     """K7 (3e-5) and the McCowan postfilter kernel, given the beamformer's
-    output and forming wqH X (1e-4), at M = 64 and 512."""
+    output and forming wqH X (1e-4), at M = 64, 512, 1024 and 2048."""
     from distant_speech_recognition_tpu_torch.models.coherence_postfilter import (
         coherence_postfilter,
     )
@@ -1972,12 +2029,29 @@ SIZE_PIPES = {
                                   wpe=True, wpe_iterations=2),
                      dict(analysis_tm=2, aec_scan=1, wpe_stats=2, gj_solve=2, wpe_resid=1,
                           gsc_rls_zelinski=1, synthesis_tm=1)),
+    "flagship-m2048": (2048, 4, dict(beamformer="gsc_rls", postfilter="zelinski"),
+                       dict(analysis_tm=1, gsc_rls_zelinski=1, synthesis_tm=1)),
+    "config3-m2048": (2048, 8, dict(beamformer="gsc_lms", postfilter="zelinski"),
+                      dict(analysis_tm=1, lms_gates=1, gsc_lms_zelinski=1, synthesis_tm=1)),
+    "ds-zelinski-m1024": (1024, 2, dict(beamformer="ds", postfilter="zelinski"),
+                          dict(analysis_tm=1, zelinski_apply=1, synthesis_tm=1)),
+    "mccowan-m2048": (2048, 4, dict(beamformer="ds", postfilter="mccowan"),
+                      dict(analysis_tm=1, coherence_postfilter=1, synthesis_tm=1)),
+    "config4-m1024": (1024, 4, dict(beamformer="gsc_lms", postfilter="zelinski", aec="nlms",
+                                    wpe=True, wpe_iterations=2),
+                      dict(analysis_tm=2, aec_scan=1, wpe_stats=2, gj_solve=2, wpe_resid=1,
+                           lms_gates=1, gsc_lms_zelinski=1, synthesis_tm=1)),
+    "config4-m2048": (2048, 4, dict(beamformer="gsc_rls", postfilter="zelinski", aec="nlms",
+                                    wpe=True, wpe_iterations=2),
+                      dict(analysis_tm=2, aec_scan=1, wpe_stats=2, gj_solve=2, wpe_resid=1,
+                           gsc_rls_zelinski=1, synthesis_tm=1)),
 }
 
 
 @pytest.mark.parametrize("name", list(SIZE_PIPES))
 def test_pipelines_at_other_sizes_match_plain(dev, name):
-    """`build_pipeline` with the default device at M = 64, 128 and 512
+    """`build_pipeline` with the default device at M = 64, 128, 512, 1024
+    and 2048
     (the one-kernel chains K4/K8 take M = 256 only, so the split routes run)
     against the same module on the CPU (3e-4), with exactly the route's
     launches."""
@@ -2003,14 +2077,16 @@ def test_pipelines_at_other_sizes_match_plain(dev, name):
     _close(got, ref, 3e-4)
 
 
-def test_steered_pipeline_at_512_matches_plain(dev):
-    """Config 5 at M = 512: K1, K6, K3 once each, the DOA equal to the CPU
-    module's and the placed directions found."""
-    fb = FilterbankParams(M=512, m=4, r=1, delay_compensation_type=2)
+@pytest.mark.parametrize("M", [512, 1024, 2048])
+def test_steered_pipeline_at_512_matches_plain(dev, M):
+    """Config 5 at M = 512, 1024 and 2048: K1, K6, K3 once each, the DOA
+    equal to the CPU module's and at the placed directions (designed
+    prototypes; above 512 the stored ones)."""
+    fb = FilterbankParams(M=M, m=4, r=1, delay_compensation_type=2)
     cfg = PipelineConfig(fb=fb, samplerate=FS, beamformer="gsc_rls", postfilter="zelinski",
                          pf_min_frames=2, rls=GSCRLSConfig(min_frames=4))
-    rng = np.random.default_rng(512)
-    h, g = load_pair(512, 4, 1)
+    rng = np.random.default_rng(M)
+    h, g = load_pair(M, 4, 1, proto_dir=PROTO_DIR if M > 512 else None)
     ang = 2 * np.pi * np.arange(4) / 4
     mpos = np.c_[100.0 * np.cos(ang), 100.0 * np.sin(ang), np.zeros(4)]
     phis = np.deg2rad(np.arange(0.0, 360.0, 30.0))
@@ -2071,7 +2147,7 @@ def test_filterbank_kernels_equal_stored_outputs(dev, tag):
 # depth at that launch ("ring-1", "ring+1")
 K7_EDGES = ((1, 1, 64), (1, 1254, 512), (64, 2, 128), (64, "ring-1", 512), (64, "ring+1", 64),
             (64, 1254, 64), (257, 1, 128), (257, "ring+1", 512), (257, "ring-1", 128),
-            (257, 2, 64))
+            (257, 2, 64), (1, "ring+1", 2048), (9, 37, 1024), (9, "ring-1", 2048))
 
 
 @pytest.mark.parametrize("C", range(2, 9))

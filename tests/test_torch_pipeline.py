@@ -164,10 +164,10 @@ def test_input_on_another_device_or_shape_raises(case):
         enh(torch.zeros(1, C + 1, T))
 
 
-@pytest.mark.parametrize("M,C_", [(1024, C), (32, C), (96, C), (256, 9)])
+@pytest.mark.parametrize("M,C_", [(4096, C), (32, C), (96, C), (256, 9)])
 def test_card_refuses_other_filterbanks_at_build(M, C_):
-    """The card's filterbank kernels take M in {64, 128, 256, 512} and its
-    beamformer kernels 2 <= C <= 8: a pipeline for the card with M = 1024,
+    """The card's filterbank kernels take M in {64, 128, ..., 2048} and its
+    beamformer kernels 2 <= C <= 8: a pipeline for the card with M = 4096,
     32, a size that is no power of two, or 9 channels raises at
     construction (`check_card_shapes`, decided from the configuration, so
     no card is needed to see it), while the same pipeline builds and runs on
@@ -194,18 +194,21 @@ def test_card_refuses_other_filterbanks_at_build(M, C_):
 
 def test_card_shape_limits():
     """What `check_card_shapes` lets through to the card: M in {64, 128,
-    256, 512}, K3's tile (256, 128, 64, 40 rows) holding the m*R - 1 halo
-    rows, 2 <= C <= 8."""
+    ..., 2048}, K3's tile (256, 128, 64, 40, 48, 24 rows) holding the m*R - 1
+    halo rows (m*R = 32 at M = 1024, 16 at 2048), 2 <= C <= 8."""
     ok = [(FilterbankParams(M=256, m=4, r=1), c) for c in range(2, 9)]
     ok += [(FilterbankParams(M=256, m=4, r=4), 4), (FilterbankParams(M=256, m=2, r=5), 8)]
-    ok += [(FilterbankParams(M=M, m=4, r=1), c) for M in (64, 128, 512) for c in (2, 4, 8)]
+    ok += [(FilterbankParams(M=M, m=4, r=1), c) for M in (64, 128, 512, 1024, 2048)
+           for c in (2, 4, 8)]
     ok += [(FilterbankParams(M=64, m=4, r=5), 2), (FilterbankParams(M=512, m=5, r=3), 4)]
+    ok += [(FilterbankParams(M=1024, m=4, r=3), 4), (FilterbankParams(M=2048, m=4, r=2), 8)]
     for fb, c in ok:
         t_pipe.check_card_shapes(fb, c, "cuda")
-    bad = [(FilterbankParams(M=1024, m=4, r=1), 4), (FilterbankParams(M=2048, m=4, r=1), 4),
+    bad = [(FilterbankParams(M=4096, m=4, r=1), 4), (FilterbankParams(M=2048, m=4, r=3), 4),
            (FilterbankParams(M=32, m=4, r=1), 4), (FilterbankParams(M=256, m=8, r=4), 4),
            (FilterbankParams(M=512, m=4, r=4), 4), (FilterbankParams(M=256, m=4, r=1), 1),
-           (FilterbankParams(M=256, m=4, r=1), 9), (FilterbankParams(M=512, m=4, r=1), 9)]
+           (FilterbankParams(M=256, m=4, r=1), 9), (FilterbankParams(M=512, m=4, r=1), 9),
+           (FilterbankParams(M=1024, m=4, r=4), 4), (FilterbankParams(M=2048, m=4, r=1), 9)]
     for fb, c in bad:
         with pytest.raises(NotImplementedError):
             t_pipe.check_card_shapes(fb, c, "cuda")

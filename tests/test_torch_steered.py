@@ -200,13 +200,13 @@ def test_steered_default_device_is_the_card(case):
 
 
 def test_steered_card_refuses_other_filterbanks_at_build():
-    """`SteeredEnhancer` on the card raises at construction for M = 1024
+    """`SteeredEnhancer` on the card raises at construction for M = 4096
     (`pipeline.check_card_shapes`), before any launch and without a card."""
-    cfg = _port_cfg(fb=FilterbankParams(M=1024, m=4, r=1, delay_compensation_type=2))
+    cfg = _port_cfg(fb=FilterbankParams(M=4096, m=4, r=1, delay_compensation_type=2))
     h = np.zeros(cfg.fb.N, np.float32)
-    with pytest.raises(NotImplementedError, match="M=1024"):
+    with pytest.raises(NotImplementedError, match="M=4096"):
         t_steered.build_steered_pipeline(cfg, MPOS, h, h, THETAS, PHIS, device="cuda")
     cpu = t_steered.build_steered_pipeline(cfg, MPOS, h, h, THETAS, PHIS, device="cpu")
-    with pytest.raises(NotImplementedError, match="M=1024"):
+    with pytest.raises(NotImplementedError, match="M=4096"):
         t_steered.SteeredEnhancer(cfg, h, h, cpu.steering, cpu.grid, cpu.delay_table,
                                   device="cuda")
